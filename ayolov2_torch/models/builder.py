@@ -1,0 +1,304 @@
+"""Config -> torch model graph builder (the kindle re-creation).
+
+Consumes the model config schema of ``res/configs/model/*.yaml``:
+``depth_multiple`` / ``width_multiple`` scaling and ``backbone`` + ``head``
+lists of ``[from, repeat, module, args, {kwargs}]`` rows. A config is a dict
+(``models/configs.yolov5_cfg``) or a YAML path; PyYAML is imported only for
+a path.
+
+The result is one ``nn.Module`` whose layers sit in ``self.model`` under the
+kindle names (``model.{i}...``). Raw head maps are (bs, ny, nx, na, no), as
+in the JAX package; activations inside are NCHW tensors, and serving keeps
+them in ``torch.channels_last``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ayolov2_torch.models import layers as L
+from ayolov2_torch.models.yolo_head import YOLOHead
+from ayolov2_torch.utils.general import make_divisible, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One node of the model graph (one config row, after scaling)."""
+
+    index: int
+    from_idx: Tuple[int, ...]  # absolute or -1-relative source indices
+    module: str
+    args: Tuple[Any, ...]
+    kwargs: Tuple[Tuple[str, Any], ...]
+    repeat: int
+    out_channels: int
+
+    def kw(self) -> Dict[str, Any]:
+        return dict(self.kwargs)
+
+
+def _freeze(obj: Any) -> Any:
+    """Recursively convert lists to tuples so specs are hashable."""
+    if isinstance(obj, (list, tuple)):
+        return tuple(_freeze(o) for o in obj)
+    return obj
+
+
+# The modules this port builds (Focus, SPP, MV2Block, MobileViTBlock and the
+# classification tail of the JAX package are not ported yet).
+_KNOWN_MODULES = {"Conv", "Bottleneck", "C3", "SPPF", "UpSample", "Concat", "YOLOHead"}
+_WIDTH_SCALED = {"Conv", "C3", "SPP", "SPPF", "Focus", "MV2Block"}
+_DEPTH_SCALED = {"C3", "Bottleneck", "MV2Block", "MobileViTBlock"}
+
+
+def parse_model_config(cfg: Union[str, Dict[str, Any]]) -> Dict[str, Any]:
+    """A config dict, or the dict a YAML path holds."""
+    if isinstance(cfg, str):
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                "reading a model YAML needs PyYAML; pass a config dict "
+                "(ayolov2_torch.models.configs.yolov5_cfg) instead"
+            ) from e
+        with open(cfg, encoding="utf-8") as f:
+            cfg = yaml.safe_load(f)
+    return cfg
+
+
+def _build_specs(cfg: Dict[str, Any]) -> Tuple[List[LayerSpec], List[int], Optional[int]]:
+    """Parse config rows into LayerSpecs with channel bookkeeping.
+
+    Returns (specs, save_indices, head_index).
+    """
+    gd = float(cfg.get("depth_multiple", 1.0))
+    gw = float(cfg.get("width_multiple", 1.0))
+    in_ch = int(cfg.get("input_channel", 3))
+
+    rows = list(cfg["backbone"]) + list(cfg.get("head", []))
+    channels: List[int] = [in_ch]  # channels[i+1] = out channels of layer i
+    specs: List[LayerSpec] = []
+    save: set = set()
+    head_index: Optional[int] = None
+
+    for i, row in enumerate(rows):
+        frm, rep, mod = row[0], row[1], row[2]
+        args = list(row[3]) if len(row) > 3 else []
+        kwargs = dict(row[4]) if len(row) > 4 else {}
+        frm_list = frm if isinstance(frm, list) else [frm]
+        if mod not in _KNOWN_MODULES:
+            raise ValueError(f"Unknown module type in model config (row {i}): {mod!r}")
+
+        n = max(round(rep * gd), 1) if (rep > 1 and mod in _DEPTH_SCALED) else rep
+
+        def src_ch(f: int) -> int:
+            return channels[i + f + 1] if f < 0 else channels[f + 1]
+
+        if mod in _WIDTH_SCALED:
+            c_out = make_divisible(args[0] * gw, 8)
+            args[0] = c_out
+        elif mod == "Concat":
+            c_out = sum(src_ch(f) for f in frm_list)
+        elif mod == "YOLOHead":
+            head_index = i
+            c_out = 0
+        else:  # UpSample
+            c_out = src_ch(frm_list[0])
+
+        for f in frm_list:
+            if f != -1:
+                save.add(f if f >= 0 else i + f)
+
+        specs.append(LayerSpec(
+            index=i,
+            from_idx=tuple(frm_list),
+            module=mod,
+            args=_freeze(tuple(args)),
+            kwargs=tuple(sorted((k, _freeze(v)) for k, v in kwargs.items())),
+            repeat=n,
+            out_channels=c_out,
+        ))
+        channels.append(c_out)
+
+    return specs, sorted(save), head_index
+
+
+def _source(spec: LayerSpec, f: int) -> int:
+    """Absolute index of a spec's source (-1 = the previous layer)."""
+    return spec.index - 1 if f == -1 else (f if f >= 0 else spec.index + f)
+
+
+def _make_module(spec: LayerSpec, c_in: int, fused: bool) -> nn.Module:
+    """The torch module of one (non-head) layer spec, repeat not applied."""
+    a, kw = spec.args, spec.kw()
+    act = kw.get("activation", "SiLU" if spec.module in _WIDTH_SCALED else None)
+    m = spec.module
+    if m == "Conv":
+        k = a[1] if len(a) > 1 else 1
+        s = a[2] if len(a) > 2 else 1
+        p = a[3] if len(a) > 3 else None
+        return L.ConvBnAct(c_in, a[0], k, s, p, act=act, fused=fused)
+    if m == "Bottleneck":
+        return L.Bottleneck(c_in, a[0], a[1] if len(a) > 1 else True, act=act, fused=fused)
+    if m == "C3":
+        return L.C3(c_in, a[0], n=spec.repeat, shortcut=a[1] if len(a) > 1 else True,
+                    act=act, fused=fused)
+    if m == "SPPF":
+        return L.SPPF(c_in, a[0], a[1] if len(a) > 1 else 5, act=act, fused=fused)
+    if m == "UpSample":
+        return L.UpSample(int(a[1]) if len(a) > 1 and a[1] else 2)
+    if m == "Concat":
+        return L.Concat()
+    raise ValueError(f"Unknown module type: {m}")
+
+
+class YOLOModel(nn.Module):
+    """The full layer graph as one module.
+
+    ``forward(x, training, start_layer)``: ``training=True`` returns the nl
+    raw maps (bs, ny, nx, na, 5+nc); ``training=False`` returns (decoded,
+    raw maps). The flag picks the head's output only; BatchNorm follows
+    ``train()`` / ``eval()`` as usual, and ``build_model`` returns the model
+    in eval mode.
+    """
+
+    def __init__(self, specs: Tuple[LayerSpec, ...], save: Tuple[int, ...],
+                 head_index: Optional[int], nc: int,
+                 anchors: Tuple[Tuple[float, ...], ...], strides: Tuple[float, ...],
+                 in_ch: int = 3, fused: bool = False):
+        super().__init__()
+        self.specs = tuple(specs)
+        self.save = tuple(save)
+        self.head_index = head_index
+        self.nc = nc
+        self.anchors = anchors
+        self.strides = tuple(strides)
+        self.fused = fused
+        self.in_ch = in_ch
+        channels = {-1: in_ch}  # out channels by layer index; -1 = the image
+        mods = []
+        for spec in self.specs:
+            srcs = [_source(spec, f) for f in spec.from_idx]
+            if spec.module == "YOLOHead":
+                mods.append(YOLOHead([channels[s] for s in srcs], nc, anchors, strides))
+                continue
+            c_in = channels[srcs[0]]
+            if spec.module in ("C3", "Concat") or spec.repeat == 1:
+                mods.append(_make_module(spec, c_in, fused))
+            else:
+                mods.append(nn.Sequential(*(
+                    _make_module(spec, c_in if r == 0 else spec.out_channels, fused)
+                    for r in range(spec.repeat)
+                )))
+            channels[spec.index] = spec.out_channels
+        self.model = nn.ModuleList(mods)
+
+    @property
+    def head(self) -> Optional[YOLOHead]:
+        return None if self.head_index is None else self.model[self.head_index]
+
+    def forward(self, x: torch.Tensor, training: bool = False, start_layer: int = 0):
+        """``start_layer > 0``: ``x`` is the activation entering spec
+        ``start_layer``; the specs before it are skipped. The fused early
+        network (ops/early_pipeline.py) computes layers 0..3 this way; the
+        skipped layers must not feed skip connections."""
+        if start_layer > 0 and any(s < start_layer for s in self.save):
+            raise ValueError(f"start_layer={start_layer} skips saved layers {self.save}")
+        param = next(self.parameters())
+        y = x.to(param.dtype)
+        saved: Dict[int, torch.Tensor] = {}
+        for spec in self.specs[start_layer:]:
+            mod = self.model[spec.index]
+            if spec.module == "YOLOHead":
+                feats = [saved[f] if f >= 0 else y for f in spec.from_idx]
+                decoded, raw = mod(feats, training=training)
+                return raw if training else (decoded, raw)
+            if spec.module == "Concat":
+                y = mod([y if f == -1 else saved[_source(spec, f)] for f in spec.from_idx])
+            else:
+                f = spec.from_idx[0]
+                y = mod(y if f == -1 else saved[_source(spec, f)])
+            if spec.index in self.save:
+                saved[spec.index] = y
+        return y
+
+    def fuse(self) -> "YOLOModel":
+        """A new model with BatchNorm folded into the convs (eps 1e-3)."""
+        if self.fused:
+            return self
+        param = next(self.parameters())
+        with torch.device(param.device):
+            fused = YOLOModel(self.specs, self.save, self.head_index, self.nc,
+                              self.anchors, self.strides,
+                              in_ch=self.in_ch, fused=True)
+        sd = {k: v.float() for k, v in self.state_dict().items()}
+        fused.load_state_dict(fuse_params(sd), strict=True)
+        return fused.to(param.dtype).eval()
+
+
+def build_model(cfg: Union[str, Dict[str, Any]], nc: Optional[int] = None,
+                fused: bool = False, dtype: torch.dtype = torch.float32,
+                device: Optional[Union[str, torch.device]] = None) -> YOLOModel:
+    """Build a YOLOModel from a config dict or YAML path, in eval mode.
+
+    ``nc`` overrides the config's n_classes. ``device`` defaults to the card
+    and raises without CUDA; pass ``"cpu"`` (or ``"meta"`` for shapes and
+    parameter counts only) explicitly.
+    """
+    device = resolve_device(device)
+    cfg = parse_model_config(cfg)
+    specs, save, head_index = _build_specs(cfg)
+    anchors = _freeze(cfg.get("anchors", ()))
+    n_classes = int(nc if nc is not None else cfg.get("n_classes", 80))
+    in_ch = int(cfg.get("input_channel", 3))
+    strides: Tuple[float, ...] = ()
+    if head_index is not None:
+        strides = _infer_strides(specs, save, head_index, anchors, n_classes, in_ch)
+    with torch.device(device):
+        model = YOLOModel(tuple(specs), tuple(save), head_index, n_classes, anchors,
+                          strides, in_ch=in_ch, fused=fused)
+    return model.to(dtype).eval()
+
+
+def _infer_strides(specs, save, head_index, anchors, nc, in_ch) -> Tuple[float, ...]:
+    """Shape-only forward on the meta device to find each level's stride."""
+    with torch.device("meta"):
+        probe = YOLOModel(tuple(specs), tuple(save), head_index, nc, anchors,
+                          tuple(8.0 * 2 ** i for i in range(len(anchors))), in_ch=in_ch)
+        size = 256
+        raw = probe(torch.empty(1, in_ch, size, size), training=True)
+    return tuple(float(size / r.shape[1]) for r in raw)
+
+
+def count_params(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def fuse_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fold BatchNorm into the preceding convs of a state_dict.
+
+    W' = W * gamma / sqrt(var + eps); b' = beta - mean * gamma / sqrt(var + eps),
+    eps = 1e-3. Returns the state_dict of the same model built ``fused=True``.
+    """
+    eps = 1e-3
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in state_dict.items():
+        if ".bn." in k:
+            continue
+        out[k] = v
+    for k in state_dict:
+        if not k.endswith(".bn.weight"):
+            continue
+        base = k[: -len(".bn.weight")]
+        gamma = state_dict[f"{base}.bn.weight"]
+        beta = state_dict[f"{base}.bn.bias"]
+        mean = state_dict[f"{base}.bn.running_mean"]
+        var = state_dict[f"{base}.bn.running_var"]
+        scale = gamma / torch.sqrt(var + eps)
+        out[f"{base}.conv.weight"] = state_dict[f"{base}.conv.weight"] * scale.reshape(-1, 1, 1, 1)
+        out[f"{base}.conv.bias"] = beta - mean * scale
+    return out
