@@ -3,8 +3,10 @@
 Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all started
 together) into ``build/torch_kernels/<name>-<hash>.so`` at the repository
 root, with a plain C interface that ``ctypes`` loads. The hash covers the
-source and the flags, so an edited source builds anew. Nothing here runs at
-import time: importing the package needs neither nvcc nor CUDA.
+source and the flags, so an edited source builds anew. A source can also be
+built with ``-D`` switches into a second library (``load(name, defines=...)``).
+Nothing here runs at import time: importing the package needs neither nvcc
+nor CUDA.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -25,7 +27,13 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+# Sources that are built once per -D set and never bare: name -> the sets that
+# build_all() compiles by default (each its own nvcc process and library).
+VARIANTS: Dict[str, List[Tuple[str, ...]]] = {
+    "early_pipeline": [(f"EARLY_C0={c0}",) for c0 in (16, 32, 48, 64, 80)],
+}
+
+_LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}
 BUILD_LOG: Dict[str, str] = {}  # name -> nvcc's stderr (ptxas register/smem report)
 
 
@@ -40,27 +48,44 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _target(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+def _source(name: str) -> Path:
+    """``csrc/<name>.cu``, or ``name`` itself where it is a path to a ``.cu``
+    file (another version of a kernel, built to be timed beside this one)."""
+    return Path(name) if str(name).endswith(".cu") else CSRC / f"{name}.cu"
+
+
+def _flags(defines: Sequence[str]) -> List[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _target(src: Path, defines: Sequence[str] = ()) -> Path:
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{h}.so"
 
 
-def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
-    """Compile the named sources (default: all) in parallel; returns seconds
-    per source built (0.0 where a current library already existed)."""
-    srcs = [s for s in sorted(CSRC.glob("*.cu")) if names is None or s.stem in names]
+def build_all(names: Optional[List[str]] = None,
+              variants: Sequence[Tuple[str, Tuple[str, ...]]] = ()) -> Dict[str, float]:
+    """Compile the named sources (default: all) in parallel, each with every
+    -D set ``VARIANTS`` lists for it (bare where it lists none), plus each
+    (name, defines) of ``variants``; returns seconds per library built (0.0
+    where a current library already existed), keyed by the name, with the
+    defines appended where there are any."""
+    jobs = [(s, defines) for s in sorted(CSRC.glob("*.cu")) if names is None or s.stem in names
+            for defines in VARIANTS.get(s.stem, [()])]
+    jobs += [(_source(name), tuple(defines)) for name, defines in variants]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     times: Dict[str, float] = {}
-    for src in srcs:
-        out = _target(src)
+    for src, defines in jobs:
+        key = src.stem + "".join(f" -D{d}" for d in defines)
+        out = _target(src, defines)
         if out.exists():
-            times[src.stem] = 0.0
+            times[key] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        procs[src.stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                            text=True), tmp, out, time.perf_counter())
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(src)]
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True), tmp, out, time.perf_counter())
     errors = []
     for name, (proc, tmp, out, t0) in procs.items():
         stdout, stderr = proc.communicate()
@@ -75,13 +100,15 @@ def build_all(names: Optional[List[str]] = None) -> Dict[str, float]:
     return times
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built if needed."""
-    lib = _LIBS.get(name)
+def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (compiled with ``-D`` for
+    each of ``defines``), built alone if needed."""
+    key = (name, tuple(defines))
+    lib = _LIBS.get(key)
     if lib is None:
-        src = CSRC / f"{name}.cu"
-        if not _target(src).exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(_target(src)))
-        _LIBS[name] = lib
+        src = _source(name)
+        if not _target(src, defines).exists():
+            build_all([], [key])
+        lib = ctypes.CDLL(str(_target(src, defines)))
+        _LIBS[key] = lib
     return lib

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Dict, List, Tuple
 
 import torch
@@ -28,8 +29,6 @@ import torch.nn.functional as F
 from ayolov2_torch.ops import _build
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
-# /8-output tiles tried in order, largest first (see csrc/early_pipeline.cu)
-TILES = ((8, 8), (4, 8), (4, 4), (2, 2))  # s/n, m, l, x at their widths
 
 
 @dataclasses.dataclass
@@ -75,7 +74,8 @@ class EarlyParams:
         return len(self.w_m_cv1)
 
     def segments(self) -> List[torch.Tensor]:
-        """Weights in the kernel's packing order (see csrc/early_pipeline.cu)."""
+        """Every weight and bias tensor, layer by layer (their bytes are what
+        the kernel's bound counts; `pack_weights` builds the kernel's buffer)."""
         seg = [self.w_stem, self.b_stem, self.w_c1, self.b_c1, self.w_cv1, self.b_cv1]
         for i in range(self.n):
             seg += [self.w_m_cv1[i], self.b_m_cv1[i], self.w_m_cv2[i], self.b_m_cv2[i]]
@@ -212,42 +212,271 @@ def early_pipeline_ref(images: torch.Tensor, ep: EarlyParams) -> torch.Tensor:
     return y.permute(0, 2, 3, 1).contiguous()
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("early_pipeline")
+# ---- the tile and shared-memory plan of the kernel ---------------------------
+
+PAD = 8            # extra bf16 per pixel of a shared buffer (pitch = odd multiple of 16 bytes)
+S2D_BYTES = 32     # bytes of one space-to-depth pixel: two planes of 8 bf16
+STEM_K = 144       # the kernel's stem K: 9 taps x (12 planes padded to 16)
+# /8-output tiles tried, in the order of their halo factor with 64-row tiles
+# for each model (widths that divide the 80 columns of a 640-pixel image)
+TILES = ((8, 16), (8, 10), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2))
+PLAN_FIELDS = ("th", "tw", "rb", "stages", "stage_bytes", "off_ring", "off_c1", "off_raw",
+               "off_s2d", "off_stem", "off_mcat", "off_mt", "off_bias", "total")
+
+
+@dataclasses.dataclass(frozen=True)
+class EarlyPlan:
+    """Tile (th x tw of the /8 output), band height rb (conv1 rows per band
+    of the rolling stem), depth and stage size of the weight ring, byte
+    offset of every shared buffer and the dynamic shared memory to ask for
+    (``total`` includes 1024 bytes of slack for aligning the ring).
+    ``sizes`` maps each buffer to its bytes; ``halo`` is the tile's computed
+    MACs over the MACs of its own output."""
+
+    th: int
+    tw: int
+    rb: int
+    stages: int
+    stage_bytes: int
+    off_ring: int
+    off_c1: int
+    off_raw: int
+    off_s2d: int
+    off_stem: int
+    off_mcat: int
+    off_mt: int
+    off_bias: int
+    total: int
+    sizes: Dict[str, int] = dataclasses.field(compare=False, default_factory=dict)
+    halo: float = dataclasses.field(compare=False, default=0.0)
+
+    def as_ints(self) -> List[int]:
+        return [getattr(self, f) for f in PLAN_FIELDS]
+
+
+def tile_geometry(n: int, th: int, tw: int) -> Dict[str, int]:
+    """Rows and columns of each region a th x tw tile needs (see the kernel's
+    ``Geo``): C3 output r3 x c3, conv1 output r1 x c1, stem output r0 x c0,
+    space-to-depth columns cs, parity-plane widths, raw row pitch."""
+    r3, c3 = 2 * th + 1, 2 * tw + 1
+    r1, c1 = r3 + 2 * n, c3 + 2 * n
+    r0, c0 = 2 * r1 + 1, 2 * c1 + 1
+    cs = c0 + 2
+    return dict(r3=r3, c3=c3, r1=r1, c1=c1, r0=r0, c0=c0, cs=cs, half0=(c0 + 1) // 2,
+                half3=(c3 + 1) // 2, raw_pitch=(6 * cs + 14) // 8 * 8)
+
+
+def halo_factor(c0: int, n: int, th: int, tw: int, row_tile: int = 1) -> float:
+    """MACs a tile computes (its whole receptive field, true K) over the MACs
+    of its own th x tw output. With ``row_tile=64`` every product's pixels are
+    rounded up to whole 64-row tiles, as the kernel's wgmmas compute them:
+    the factor the tiles are ranked by."""
+    c1, ch, c2 = 2 * c0, c0, 4 * c0
+    g = tile_geometry(n, th, tw)
+
+    def up(pixels):
+        return -(-pixels // row_tile) * row_tile
+
+    def macs(p_stem, p_c1, p_m2, p_c3, p_out):
+        return (p_stem * c0 * 108 + p_c1 * c1 * 9 * c0 + p_c1 * 2 * ch * c1
+                + n * (p_c1 * ch * ch + p_m2 * ch * 9 * ch) + p_c3 * c1 * 2 * ch
+                + p_out * c2 * 9 * c1)
+
+    p8 = th * tw
+    own = macs(16 * p8, 4 * p8, 4 * p8, 4 * p8, p8)
+    done = macs(up(g["r0"] * g["c0"]), up(g["r1"] * g["c1"]),
+                up((g["r1"] - 2) * (g["c1"] - 2)), up(g["r3"] * g["c3"]), up(p8))
+    return done / own
+
+
+def _align(x: int, a: int = 128) -> int:
+    return -(-x // a) * a
+
+
+def _plan_for(c0: int, n: int, th: int, tw: int, stages: int, rb: int) -> EarlyPlan:
+    c1, ch, c2 = 2 * c0, c0, 4 * c0
+    g = tile_geometry(n, th, tw)
+    p0, p1, pc, ph = ((c + PAD) * 2 for c in (c0, c1, 2 * ch, ch))
+    s2d_rows = 2 * rb + 3
+    sizes = dict(
+        ring=stages * c2 * 128,
+        c1=max(g["r1"] * g["c1"], g["r3"] * 2 * g["half3"]) * p1,  # conv1 out, then C3 out
+        raw=2 * s2d_rows * g["raw_pitch"],
+        s2d=s2d_rows * g["cs"] * S2D_BYTES,
+        stem=(2 * rb + 1) * 2 * g["half0"] * p0,
+        mcat=g["r1"] * g["c1"] * pc,
+        mt=g["r1"] * g["c1"] * ph,
+        bias=c0 * (11 + 2 * n) * 2,
+    )
+    off, pos = {}, 0
+    for name in ("ring", "c1", "raw", "bias"):
+        off[name] = pos
+        pos += _align(sizes[name])
+    # the stem's buffers (dead once conv1 is done) share the space of the C3's
+    off["s2d"], off["stem"] = pos, pos + _align(sizes["s2d"])
+    off["mcat"], off["mt"] = pos, pos + _align(sizes["mcat"])
+    pos = max(off["stem"] + _align(sizes["stem"]), off["mt"] + _align(sizes["mt"]))
+    return EarlyPlan(th, tw, rb, stages, c2 * 128, off["ring"], off["c1"], off["raw"],
+                     off["s2d"], off["stem"], off["mcat"], off["mt"], off["bias"],
+                     pos + 1024, sizes, halo_factor(c0, n, th, tw))
+
+
+# Stages of the weight ring. Measured on an H100, a third stage bought yolov5s nothing
+# while shorter bands cost time (PERF.md, section 6): the space goes to the bands.
+RING_STAGES = 2
+STATIC_SMEM = 1024  # the kernel's barriers and tables (static shared memory), rounded up
+
+
+@functools.lru_cache(maxsize=None)  # on the launch path: the search runs once per width
+def plan_early(c0: int, n: int) -> EarlyPlan:
+    """The kernel's plan for widths c0 (c1 = 2 c0, ch = c0, c2 = 4 c0) and C3
+    depth n: the tile of least halo factor (counted in whole 64-row tiles:
+    measured, yolov5s is faster at 8x8, where conv2 is one full row tile, than
+    at 8x10) that fits a block's shared memory with bands of at least 4 conv1
+    rows (any band height for the smallest tile), in as few bands as fit, of
+    even height. Raises if no tile fits."""
+    if c0 not in (16, 32, 48, 64, 80) or not 1 <= n <= 4:
+        raise ValueError(f"no kernel for widths c0={c0} c1={2 * c0} ch={c0} c2={4 * c0} n={n}")
+    for th, tw in sorted(TILES, key=lambda t: halo_factor(c0, n, *t, row_tile=64)):
+        r1 = 2 * th + 1 + 2 * n
+        for rb in range(r1, 0, -1):
+            plan = _plan_for(c0, n, th, tw, RING_STAGES, rb)
+            if rb < min(4, r1) and (th, tw) != TILES[-1]:
+                break  # bands this short cost more than the next tile's halo
+            if plan.total + STATIC_SMEM <= SMEM_LIMIT:
+                # as few bands as fit, of even height: a short last band wastes row tiles
+                bands = -(-r1 // rb)
+                return _plan_for(c0, n, th, tw, RING_STAGES, -(-r1 // bands))
+    raise ValueError(f"no tile fits widths c0={c0} c1={2 * c0} ch={c0} c2={4 * c0} n={n}")
+
+
+def tile_for(ep: EarlyParams) -> Tuple[int, int]:
+    """The /8-output tile the kernel takes for these widths."""
+    plan = _kernel_plan(ep)
+    return plan.th, plan.tw
+
+
+# ---- weight packing ------------------------------------------------------------
+
+def stem_k144(w_stem: torch.Tensor) -> torch.Tensor:
+    """(c0, 112) stem matrix (108 true columns: 9 taps x 12 planes) ->
+    (c0, 144): each tap's 12 planes padded to 16 with zeros."""
+    c0 = w_stem.shape[0]
+    return F.pad(w_stem[:, :108].reshape(c0, 9, 12), (0, 4)).reshape(c0, STEM_K)
+
+
+def layer_matrices(ep: EarlyParams) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """(W (co, K), b (co,)) of every product the kernel runs, in its order:
+    stem (K = 144), conv1, cv1|cv2 as one (2 ch, c1), n x [m.cv1, m.cv2],
+    cv3, conv2."""
+    out = [(stem_k144(ep.w_stem), ep.b_stem), (ep.w_c1, ep.b_c1),
+           (torch.cat([ep.w_cv1, ep.w_cv2]), torch.cat([ep.b_cv1, ep.b_cv2]))]
+    for i in range(ep.n):
+        out += [(ep.w_m_cv1[i], ep.b_m_cv1[i]), (ep.w_m_cv2[i], ep.b_m_cv2[i])]
+    return out + [(ep.w_cv3, ep.b_cv3), (ep.w_c2, ep.b_c2)]
+
+
+def steps_per_chunk(k: int) -> int:
+    """k16 steps in one chunk of a layer with K = k: the largest of 4, 3, 2, 1
+    that divides k / 16, so that no chunk is ragged."""
+    ksteps = k // 16
+    return next(c for c in (4, 3, 2, 1) if ksteps % c == 0)
+
+
+def _swizzle_index(chunks: int, co: int, device) -> torch.Tensor:
+    unit = torch.arange(8).view(1, 8) ^ (torch.arange(co).view(co, 1) % 8)  # (co, 8)
+    return unit.view(1, co, 8, 1).expand(chunks, co, 8, 8).to(device)
+
+
+def pack_chunks(w: torch.Tensor) -> torch.Tensor:
+    """(co, K) bf16 -> (chunks, co, 64): chunks of ``steps_per_chunk(K)`` k16
+    steps along K (zeros up to 64), each a (co, 64) tile of 128-byte rows in
+    the 128-byte-swizzle order a wgmma descriptor reads: the 16-byte unit u
+    of row r sits at unit u ^ (r % 8)."""
+    co, k = w.shape
+    if k % 16:
+        raise ValueError(f"K={k} is not a multiple of 16")
+    per = 16 * steps_per_chunk(k)
+    chunks = k // per
+    t = F.pad(w.reshape(co, chunks, per), (0, 64 - per)).reshape(co, chunks, 8, 8)
+    t = t.permute(1, 0, 2, 3)
+    out = torch.empty_like(t).scatter_(2, _swizzle_index(chunks, co, w.device), t)
+    return out.reshape(chunks, co, 64).contiguous()
+
+
+def unpack_chunks(packed: torch.Tensor, k: int) -> torch.Tensor:
+    """The inverse of :func:`pack_chunks`: (chunks, co, 64) -> (co, k)."""
+    chunks, co, _ = packed.shape
+    per = 16 * steps_per_chunk(k)
+    t = packed.reshape(chunks, co, 8, 8).gather(2, _swizzle_index(chunks, co, packed.device))
+    return t.permute(1, 0, 2, 3).reshape(co, chunks, 64)[:, :, :per].reshape(co, k).contiguous()
+
+
+def pack_weights(ep: EarlyParams) -> torch.Tensor:
+    """All of the kernel's weights as one bf16 buffer: every layer's chunks
+    in the kernel's order, then every layer's bias."""
+    mats = layer_matrices(ep)
+    parts = [pack_chunks(w.to(torch.bfloat16)).reshape(-1) for w, _ in mats]
+    parts += [b.to(torch.bfloat16).reshape(-1) for _, b in mats]
+    return torch.cat(parts)
+
+
+def _packed(ep: EarlyParams, device: torch.device) -> torch.Tensor:
+    """The packed weights on ``device``, cached per device."""
+    key = str(device)
+    if key not in ep._packed:
+        ep._packed[key] = pack_weights(ep).to(device)
+    return ep._packed[key]
+
+
+# ---- the wrapper -----------------------------------------------------------------
+
+def _lib_with(c0: int, extra: Tuple[str, ...] = (), source: str = "early_pipeline") -> ctypes.CDLL:
+    """The kernel's library for stem width c0 (one build per width), built
+    with the ``extra`` -D switches; ``source`` may be the path of another
+    version of the kernel's source with the same C interface."""
+    lib = _build.load(source, defines=(f"EARLY_C0={c0}",) + tuple(extra))
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.early_pipeline_launch.argtypes = [vp, vp, vp, vp] + [i] * 10 + [vp]
+        lib.early_pipeline_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
+                                              ctypes.POINTER(ctypes.c_int), vp]
         lib.early_pipeline_launch.restype = i
-        lib.early_pipeline_smem_bytes.argtypes = [i] * 6
-        lib.early_pipeline_smem_bytes.restype = i
+        lib.early_pipeline_profile_slots.argtypes = []
+        lib.early_pipeline_profile_slots.restype = i
         lib._typed = True
     return lib
 
 
-def tile_for(ep: EarlyParams) -> Tuple[int, int]:
-    """The largest /8-output tile whose shared memory fits one block."""
-    lib = _lib()
-    for th, tw in TILES:
-        if lib.early_pipeline_smem_bytes(ep.c0, ep.c1, ep.ch, ep.n, th, tw) <= SMEM_LIMIT:
-            return th, tw
-    raise ValueError(f"no tile fits widths c0={ep.c0} c1={ep.c1} ch={ep.ch} n={ep.n}")
+def _lib(c0: int, profile: bool = False) -> ctypes.CDLL:
+    return _lib_with(c0, ("EARLY_PROFILE",) if profile else ())
 
 
-def _packed(ep: EarlyParams, device: torch.device):
-    """All weights in one bf16 buffer (segments 16-byte aligned) plus the
-    int32 offset of each segment, cached per device."""
-    key = str(device)
-    if key not in ep._packed:
-        flat, offs, pos = [], [], 0
-        for t in ep.segments():
-            t = t.reshape(-1).to(torch.bfloat16)
-            pad = (-t.numel()) % 8
-            offs.append(pos)
-            flat.append(F.pad(t, (0, pad)))
-            pos += t.numel() + pad
-        ep._packed[key] = (torch.cat(flat).to(device),
-                           torch.tensor(offs, dtype=torch.int32, device=device))
-    return ep._packed[key]
+def _kernel_plan(ep: EarlyParams) -> EarlyPlan:
+    """The plan for these weights; raises on widths the kernel does not take."""
+    if (ep.c1, ep.ch, ep.c2) != (2 * ep.c0, ep.c0, 4 * ep.c0):
+        raise ValueError(f"no kernel for widths c0={ep.c0} c1={ep.c1} ch={ep.ch} c2={ep.c2}")
+    return plan_early(ep.c0, ep.n)
+
+
+def _launch(lib: ctypes.CDLL, images: torch.Tensor, ep: EarlyParams,
+            prof: torch.Tensor = None) -> torch.Tensor:
+    plan = _kernel_plan(ep)
+    bs, h, w, _ = images.shape
+    wpack = _packed(ep, images.device)
+    out = torch.empty((bs, h // 8, w // 8, ep.c2), dtype=torch.bfloat16, device=images.device)
+    ints = (ctypes.c_int * len(PLAN_FIELDS))(*plan.as_ints())
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream(images.device).cuda_stream
+        err = lib.early_pipeline_launch(
+            images.data_ptr(), out.data_ptr(), wpack.data_ptr(),
+            prof.data_ptr() if prof is not None else None,
+            bs, h, w, ep.c0, ep.n, ints, stream)
+    if err != 0:
+        raise RuntimeError(f"early_pipeline kernel launch failed: error {err} (widths "
+                           f"c0={ep.c0} c1={ep.c1} ch={ep.ch} c2={ep.c2} n={ep.n}, tile "
+                           f"{plan.th}x{plan.tw})")
+    early_pipeline.launches += 1
+    return out
 
 
 def early_pipeline(images: torch.Tensor, ep: EarlyParams) -> torch.Tensor:
@@ -259,20 +488,39 @@ def early_pipeline(images: torch.Tensor, ep: EarlyParams) -> torch.Tensor:
         return early_pipeline_ref(images, ep)
     if images.device.type != "cuda":
         raise ValueError(f"early_pipeline runs on cpu or cuda, not {images.device}")
-    lib = _lib()
-    th, tw = tile_for(ep)
-    bs, h, w, _ = images.shape
-    wpack, offs = _packed(ep, images.device)
-    out = torch.empty((bs, h // 8, w // 8, ep.c2), dtype=torch.bfloat16, device=images.device)
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = lib.early_pipeline_launch(
-            images.data_ptr(), out.data_ptr(), wpack.data_ptr(), offs.data_ptr(),
-            bs, h, w, ep.c0, ep.c1, ep.ch, ep.c2, ep.n, th, tw, stream)
-    if err != 0:
-        raise RuntimeError(f"early_pipeline kernel launch failed: CUDA error {err}")
-    early_pipeline.launches += 1
-    return out
+    _kernel_plan(ep)  # raises before any build is tried
+    return _launch(_lib(ep.c0), images, ep)
 
 
 early_pipeline.launches = 0
+
+PROFILE_SLOTS = ("wait for raw rows", "convert to s2d", "stem", "conv1", "cv1|cv2",
+                 "bottlenecks", "cv3", "conv2")
+PROFILE_INNER = ("warpgroups: waiting for weights", "warpgroups: ldmatrix + wgmma",
+                 "warpgroups: epilogue", "warpgroups: no item this round",
+                 "warpgroups: at the block barrier")
+
+
+def early_pipeline_profile(images: torch.Tensor, ep: EarlyParams) -> Dict[str, float]:
+    """Where the kernel's time goes: one launch of a build of the same source
+    with clock stamps at each layer boundary (``-DEARLY_PROFILE``); returns
+    each phase's share of the stamped clocks, summed over all blocks."""
+    _check(images, ep)
+    _kernel_plan(ep)
+    lib = _lib(ep.c0, profile=True)
+    slots = lib.early_pipeline_profile_slots()
+    prof = torch.zeros((4096, slots), dtype=torch.int64, device=images.device)
+    _launch(lib, images, ep, prof)
+    torch.cuda.synchronize(images.device)
+    total = prof.sum(0).double()
+    layers, inner = total[:len(PROFILE_SLOTS)], total[len(PROFILE_SLOTS):].view(4, -1).sum(0)
+    per_group = total[len(PROFILE_SLOTS):].view(4, -1)
+    out = dict(zip(PROFILE_SLOTS, (layers / layers.sum()).tolist()))
+    out.update(zip(PROFILE_INNER, (inner / inner.sum()).tolist()))
+    blocks = int((prof[:, :len(PROFILE_SLOTS)].sum(1) > 0).sum())
+    groups = int((prof[:, len(PROFILE_SLOTS):].view(prof.shape[0], 4, -1).sum(2) > 0).sum())
+    out["barrier share by warpgroup"] = [round(float(x), 3) for x in
+                                         (per_group[:, 4] / per_group.sum(1).clamp(min=1))]
+    out["clocks per block"] = layers.sum().item() / max(blocks, 1)
+    out["clocks per warpgroup"] = inner.sum().item() / max(groups, 1)
+    return out

@@ -9,11 +9,14 @@ Phases, each printing its own lines; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, the card's name and power limit; TF32
    is switched off for every comparison;
-2. build: nvcc compiles every ``ayolov2_torch/csrc/*.cu`` (in parallel);
+2. build: nvcc compiles every ``ayolov2_torch/csrc/*.cu`` (in parallel; the
+   early-network kernel once per stem width);
 3. kernel: the fused early-network kernel against its plain torch version
    (``early_pipeline_ref``) on seeded full-width weights: yolov5s at bs 4,
-   640x640 and 384x640, yolov5m at bs 2, 640x640, plus smaller n/l/x and
-   ragged-edge shapes; gate max|d|/peak < 0.03 and p99.9 < 0.015;
+   640x640 and 384x640, yolov5m at bs 2, 640x640, l and x at bs 1, 640x640,
+   plus shapes that leave a ragged last tile in each direction at each
+   model's tile, an image smaller than one tile, and yolov5m (depth 2) at a
+   ragged size; gate max|d|/peak < 0.03 and p99.9 < 0.015;
 4. slice: yolov5s (nc=80, full width) served at bs 32, 640x640 through
    ``make_serving_fn``: detections (32, 100, 6) and counts (32,), finite,
    one kernel launch per call; raw maps of the kernel path against the
@@ -25,8 +28,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    against the plain version at bs 32 (max|d|/peak < 0.03); times (CUDA
    events, after warm-up): the kernel, its plain version and the cuDNN
    chain at bs 32 (the chain with cuDNN's default heuristics and with
-   ``cudnn.benchmark``, and each of its convs); the serve rate at bs 32
-   and bs 128.
+   ``cudnn.benchmark``, and each of its convs); the kernel for yolov5m, l
+   and x at bs 8, each beside its own bound and tile; the serve rate at
+   bs 32 and bs 128.
+
+``--profile`` adds where the serve call's device time goes (torch.profiler)
+and where the kernel's own time goes (clock stamps at its layer boundaries,
+from a second build of the same source with ``-DEARLY_PROFILE``).
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Weights are random, made
@@ -298,22 +306,31 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.build_all()
+    extra = [("early_pipeline", ("EARLY_C0=32", "EARLY_PROFILE"))] if args.profile else []
+    built = _build.build_all(variants=extra)
     log(f"[build] {', '.join(f'{k}: {v:.1f} s' for k, v in built.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
-                log(f"[build] {name}: {line.strip()}")
+            if ("registers" in line or "spill" in line or "error" in line.lower()
+                    or "Performance Loss" in line):
+                log(f"[build] {name}: {line.strip()[:240]}")
 
     # ---- 3. the kernel against its plain version -------------------------
+    # full-size shapes, then the risky ones: a ragged last tile in each direction
+    # at each model's tile (s 8x8, n 8x16, m 4x8, l 4x4, x 2x2), an image
+    # smaller than one tile, and yolov5m (depth 2) ragged. Every tile's conv1
+    # rows split into bands whose last one is shorter (19 = 10 + 9 for s).
     cases = [("s", 4, 640, 640), ("s", 4, 384, 640), ("m", 2, 640, 640),
-             ("s", 2, 72, 136), ("n", 2, 128, 192), ("l", 1, 256, 320), ("x", 1, 256, 256)]
-    models = {}
+             ("l", 1, 640, 640), ("x", 1, 640, 640),
+             ("s", 2, 72, 136), ("s", 3, 200, 104), ("s", 1, 40, 56), ("n", 2, 136, 200),
+             ("m", 2, 104, 184), ("l", 1, 264, 328), ("x", 1, 136, 264)]
+    models, eps = {}, {}
     for variant, bs, h, w in cases:
         if variant not in models:
             models[variant] = seeded_model(variant, args.seed)
-        ep = early.extract_early_params(models[variant].state_dict()).to("cuda")
+            eps[variant] = early.extract_early_params(models[variant].state_dict()).to("cuda")
+        ep = eps[variant]
         imgs = images_on_card((bs, h, w, 3), args.seed + h + w)
         before = early.early_pipeline.launches
         got = early.early_pipeline(imgs, ep)
@@ -323,7 +340,9 @@ def main() -> int:
         ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
               and peak < TOL_PEAK and p999 < TOL_P999
               and early.early_pipeline.launches == before + 1)
-        log(f"[kernel] yolov5{variant} bs{bs} {h}x{w} tile {early.tile_for(ep)}: "
+        plan = early.plan_early(ep.c0, ep.n)
+        log(f"[kernel] yolov5{variant} bs{bs} {h}x{w} tile {plan.th}x{plan.tw} bands of "
+            f"{plan.rb} ring {plan.stages}x{plan.stage_bytes} B smem {plan.total} B: "
             f"max|d|/peak {peak:.5f} p99.9 {p999:.5f} max|d| {mx:.4f} "
             f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
         if not ok:
@@ -432,15 +451,37 @@ def main() -> int:
     plain_ms = time_ms(lambda: early.early_pipeline_ref(imgs, ep), 5, warmup=1)
     default_chain_ms = time_ms(lambda: chains[3](imgs), 20)
     library_ms = min(time_chain(chain, imgs, card) for chain in chains.values())
-    flops, nbytes = early_work(ep, *imgs.shape[:3])
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"[time] {card}: early_pipeline bs32 640x640 kernel {kernel_ms:.4f} ms, "
+
+    def bound_of(ep_v, shape):
+        """(ms, "operations" or "bytes", flops, bytes): the larger of the tensor
+        cores' time and the memory's for the early network at this shape."""
+        flops_v, bytes_v = early_work(ep_v, *shape)
+        t_o, t_b = flops_v / PEAK_BF16_FLOPS * 1e3, bytes_v / PEAK_HBM_BYTES * 1e3
+        return max(t_o, t_b), "operations" if t_o >= t_b else "bytes", flops_v, bytes_v
+
+    bound_ms, bound_by, flops, nbytes = bound_of(ep, imgs.shape[:3])
+    plan = early.plan_early(ep.c0, ep.n)
+    log(f"[time] {card}: early_pipeline bs32 640x640 tile {plan.th}x{plan.tw} "
+        f"(halo factor {plan.halo:.3f}) kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, cuDNN chain {library_ms:.4f} ms (the faster stem width, "
         f"cudnn.benchmark; {default_chain_ms:.4f} ms with cin 3 and cuDNN's default "
         f"heuristics), bound {bound_ms:.4f} ms "
         f"({bound_by}: {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)")
+
+    kernel128_ms = time_ms(lambda: early.early_pipeline(batch128, ep), 10)
+    b128, by128, _, _ = bound_of(ep, (128, 640, 640))
+    log(f"[time] {card}: early_pipeline yolov5s bs128 640x640 kernel {kernel128_ms:.4f} ms, "
+        f"bound {b128:.4f} ms ({by128})")
+    batch8 = images_on_card((8, 640, 640, 3), args.seed + 3)
+    for variant in "mlx":
+        ep_v = eps[variant]
+        plan = early.plan_early(ep_v.c0, ep_v.n)
+        ms_v = time_ms(lambda: early.early_pipeline(batch8, ep_v), 10)
+        b_v, by_v, flops_v, bytes_v = bound_of(ep_v, (8, 640, 640))
+        log(f"[time] {card}: early_pipeline yolov5{variant} bs8 640x640 tile {plan.th}x{plan.tw} "
+            f"(halo factor {plan.halo:.3f}, bands of {plan.rb}, ring {plan.stages} stages): "
+            f"kernel {ms_v:.4f} ms, bound {b_v:.4f} ms ({by_v}: {flops_v / 1e9:.1f} GFLOP, "
+            f"{bytes_v / 1e6:.1f} MB), {ms_v / b_v:.1f}x")
 
     rates = {}
     for bs in (32, 128):
@@ -461,6 +502,11 @@ def main() -> int:
 
     if args.profile:
         profile_serve(serve_k, imgs, card)
+        shares = early.early_pipeline_profile(imgs, ep)
+        log(f"[profile] {card}: inside early_pipeline (yolov5s bs32, clock stamps of a "
+            f"-DEARLY_PROFILE build; shares of the stamped clocks): "
+            + "; ".join(f"{k} {v}" if isinstance(v, list) else f"{k} {v:.3f}" if v < 1.5
+                        else f"{k} {v:.0f}" for k, v in shares.items()))
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

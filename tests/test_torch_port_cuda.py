@@ -46,6 +46,10 @@ def _seeded_ep(variant, seed, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("variant,shape", [
     ("s", (2, 64, 64)), ("s", (3, 72, 136)), ("m", (1, 96, 64)), ("n", (2, 136, 72)),
+    # a ragged last tile in each direction at each model's tile (s 8x8, n 8x16,
+    # m 4x8, l 4x4, x 2x2), and an image smaller than one tile
+    ("s", (3, 200, 104)), ("s", (1, 8, 8)), ("n", (2, 136, 200)), ("m", (2, 104, 184)),
+    ("l", (1, 72, 88)), ("x", (1, 40, 72)),
 ])
 def test_kernel_matches_plain_version(cuda, variant, shape):
     from ayolov2_torch.ops import early_pipeline as early
