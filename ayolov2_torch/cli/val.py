@@ -1,0 +1,167 @@
+"""Validate a trained model: mAP over a labelled val set.
+
+The counterpart of ``cli/val.py``: checkpoint -> the model rebuilt from its
+embedded config -> BN folded -> rect val loader -> ``YoloValidator``.
+Runs on the card unless ``--device cpu`` is given.
+
+Usage:
+    python -m ayolov2_torch.cli.val --weights runs/train/xxx/best.ckpt \\
+        --data-cfg res/configs/data/coco.yaml [--device cpu] [--json-path out.json]
+
+Not ported yet, and refused with a message: ``--int8``, ``--tta``,
+``--plot``, ``--profile``/``--profile-step`` and exported artifacts.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import sys
+from pathlib import Path
+from typing import Optional, Sequence
+
+import torch
+
+from ayolov2_torch.data import DataLoader, DetectionDataset
+from ayolov2_torch.eval import YoloValidator
+from ayolov2_torch.models import build_model, count_params
+from ayolov2_torch.models.builder import parse_model_config
+from ayolov2_torch.utils.checkpoint import load_model
+from ayolov2_torch.utils.config import load_yaml
+from ayolov2_torch.utils.general import check_img_size, resolve_device
+
+LOGGER = logging.getLogger("val")
+
+
+def get_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="Validate a model (mAP over a val set).")
+    parser.add_argument("--weights", type=str, default="", help="checkpoint path (.ckpt)")
+    parser.add_argument("--model-cfg", type=str, default="", help="model config (else the ckpt's)")
+    parser.add_argument("--data-cfg", type=str, default="res/configs/data/coco.yaml")
+    parser.add_argument("-iw", "--img-width", type=int, default=640)
+    parser.add_argument("-ih", "--img-height", type=int, default=-1)
+    parser.add_argument("--batch-size", type=int, default=16)
+    parser.add_argument("-ct", "--conf-t", type=float, default=0.001)
+    parser.add_argument("-it", "--iou-t", type=float, default=0.65)
+    parser.add_argument("--device", type=str, default="",
+                        help="cuda, cuda:N, N (a card's index) or cpu; default the card")
+    parser.add_argument("--top-k", type=int, default=512, help="NMS confidence pre-filter top-k")
+    parser.add_argument("-ktk", "--keep-top-k", type=int, default=0,
+                        help="detections kept after NMS; 0 = --max-det")
+    parser.add_argument("--rect", action="store_true", dest="rect", default=True,
+                        help="rectangular val batches (default)")
+    parser.add_argument("--plot", action="store_true", help="(not ported yet)")
+    parser.add_argument("--profile", action="store_true", help="(not ported yet)")
+    parser.add_argument("--half", action="store_true", help="bf16 is already the default")
+    parser.add_argument("--nms-type", "--nms_type", type=str, default="nms",
+                        choices=["nms", "batched_nms", "fast_nms", "matrix_nms", "merge_nms"])
+    parser.add_argument("--max-det", type=int, default=300)
+    parser.add_argument("--single-cls", action="store_true")
+    parser.add_argument("--tta", action="store_true", help="(not ported yet)")
+    parser.add_argument("--hybrid-label", action="store_true", help="inject GT into NMS candidates")
+    parser.add_argument("--no-half", action="store_true", help="f32 compute instead of bf16")
+    parser.add_argument("--no-rect", action="store_false", dest="rect", help="square batches")
+    parser.add_argument("--no-fuse", action="store_true", help="skip conv+BN folding")
+    parser.add_argument("--int8", action="store_true", help="(not ported yet)")
+    parser.add_argument("--profile-step", type=int, default=0, help="(not ported yet)")
+    parser.add_argument("-v", "--verbose", type=int, nargs="?", const=1, default=1,
+                        help="verbosity (>= 2: per-class metrics)")
+    parser.add_argument("--n-skip", type=int, default=0, help="skip every n images")
+    parser.add_argument("--json-path", type=str, default="", help="write result metrics JSON here")
+    return parser
+
+
+def device_of(arg: str) -> torch.device:
+    """``--device``: '' = the card (raises without CUDA), 'N' = card N."""
+    if arg.isdigit():
+        arg = f"cuda:{arg}"
+    return resolve_device(arg or None)
+
+
+def refuse_unported(args: argparse.Namespace) -> None:
+    later = {
+        "int8": "int8 validation (compress/quantize.py)",
+        "tta": "test-time augmentation (ops/tta.py)",
+        "plot": "plots (utils/plots.py)",
+        "profile": "the forward profile (utils/profiling.py)",
+        "profile_step": "the forward profile (utils/profiling.py)",
+    }
+    for flag, what in later.items():
+        if getattr(args, flag, False):
+            raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not ported yet; it comes "
+                             "with a later slice of the port")
+    if args.weights.endswith(".jaxexp"):
+        raise SystemExit(f"{args.weights}: validating exported artifacts is not ported yet; "
+                         "it comes with the export slice of the port")
+
+
+def build_val_model(args: argparse.Namespace, nc: Optional[int], fuse: bool,
+                    device: torch.device):
+    """The model ``--weights`` holds (or ``--model-cfg``'s with its default
+    initialisation), BN folded when ``fuse``, on ``device``."""
+    if args.weights:
+        return load_model(args.weights, args.model_cfg or None, nc=nc, fuse=fuse, device=device)
+    if not args.model_cfg:
+        raise SystemExit("need --model-cfg or a checkpoint with an embedded model config")
+    LOGGER.warning("no weights given: validating a model with its default initialisation")
+    model = build_model(parse_model_config(args.model_cfg), nc=nc, device=device)
+    return model.fuse() if fuse else model
+
+
+def main(argv: Optional[Sequence[str]] = None) -> dict:
+    args = get_parser().parse_args(argv)
+    refuse_unported(args)
+    device = device_of(args.device)
+    if args.img_height < 0:
+        args.img_height = args.img_width
+
+    data_cfg = load_yaml(args.data_cfg)
+    nc = 1 if args.single_cls else int(data_cfg["nc"])
+    names = data_cfg.get("names") or [str(i) for i in range(nc)]
+
+    model = build_val_model(args, None if args.single_cls else nc, not args.no_fuse, device)
+    LOGGER.info("Model: %s params", f"{count_params(model):,}")
+
+    stride = int(max(model.strides))
+    h = check_img_size(args.img_height, stride)
+    w = check_img_size(args.img_width, stride)
+    dataset = DetectionDataset(
+        data_cfg["val_path"],
+        img_size=max(h, w),
+        batch_size=args.batch_size,
+        rect=args.rect,
+        pad=0.5,
+        stride=stride,
+        n_skip=args.n_skip,
+        label_type="segments" if str(data_cfg.get("dataset", "")).lower() == "coco" else "labels",
+        single_cls=args.single_cls,
+    )
+    loader = DataLoader(dataset, batch_size=args.batch_size)
+    validator = YoloValidator(
+        model,
+        loader,
+        class_names=names,
+        cfg={
+            "conf_t": args.conf_t,
+            "iou_t": args.iou_t,
+            "nms_type": args.nms_type,
+            "single_cls": args.single_cls,
+            "max_det": args.keep_top_k or args.max_det,
+            "pre_top_k": args.top_k,
+            "hybrid_label": args.hybrid_label,
+            "half": not args.no_half,
+            "verbose": args.verbose,
+        },
+        device=device,
+    )
+    result = validator.validation()
+    if args.json_path:
+        out = {k: v for k, v in result.items() if k != "maps"}
+        Path(args.json_path).write_text(json.dumps(out, indent=2))
+    return result
+
+
+if __name__ == "__main__":
+    logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
+    main()

@@ -1,0 +1,181 @@
+"""Batching loader: fixed-shape numpy batches built by worker threads.
+
+The counterpart of ``ayolov2_tpu/data/loader.py`` in thread mode:
+
+- images: (B, H, W, 3) uint8 NHWC (the division by 255 happens on the card);
+- labels: (B * max_labels, 6) [img, cls, x, y, w, h] rows + a valid mask;
+- ``shard=(index, count)``: each host iterates its slice, the order padded
+  by wrapping so every host yields as many batches;
+- a short final batch is padded by repeating its first item, and ``n_real``
+  says how many items are real, so the validator and the result writer
+  count none twice.
+
+``workers`` threads build batches concurrently (numpy releases the GIL in
+the heavy copies), at most ``2 * workers`` ahead of the consumer; batches
+come out in order. The process pool and the on-device augmentation plans of
+the JAX loader, and its shuffled (training) orders, are not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ayolov2_torch.loss.yolo_loss import pad_targets
+
+
+class Batch:
+    """One collated batch. ``n_real``: items before final-batch padding."""
+
+    __slots__ = ("images", "targets", "target_mask", "paths", "shapes", "n_labels", "n_real")
+
+    def __init__(self, images, targets, target_mask, paths, shapes, n_labels, n_real=None):
+        self.images = images
+        self.targets = targets
+        self.target_mask = target_mask
+        self.paths = paths
+        self.shapes = shapes
+        self.n_labels = n_labels
+        self.n_real = len(paths) if n_real is None else n_real
+
+
+def collate(items: Sequence, max_labels_per_image: int = 64, n_real: Optional[int] = None) -> Batch:
+    """Stack dataset items into one fixed-shape batch."""
+    imgs, labels, paths, shapes = zip(*items)
+    images = np.stack(imgs)
+    bs = len(items)
+    targets, mask = pad_targets(labels, bs, bs * max_labels_per_image)
+    n_labels = [len(lab) for lab in labels]
+    return Batch(images, targets, mask, list(paths), list(shapes), n_labels, n_real)
+
+
+class DataLoader:
+    """Prefetching batch iterator over an indexable dataset.
+
+    Args:
+        dataset: ``DetectionDataset`` (items (img, labels, path, shapes)), or
+            ``ImageFolderDataset`` (items (img, orig, ratio_pad)) with
+            ``detection=False``.
+        batch_size: the global batch; with ``shard=(i, n)`` this loader
+            yields ``batch_size // n`` items a step from its slice.
+        workers: batches built concurrently.
+        max_labels_per_image: label rows per image in ``pad_targets``.
+        pad_final_batch: pad a short final batch (``n_real`` counts the real
+            items).
+
+    Yields ``Batch`` (detection=True) or (images, metas, indices, n_real)
+    with metas and indices cut to the real items (detection=False).
+    """
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int = 16,
+        workers: int = 2,
+        max_labels_per_image: int = 64,
+        shard: Tuple[int, int] = (0, 1),
+        detection: bool = True,
+        pad_final_batch: bool = True,
+    ) -> None:
+        self.dataset = dataset
+        self.shard = shard
+        self.batch_size = batch_size // shard[1]
+        if self.batch_size < 1:
+            raise ValueError(f"batch_size {batch_size} is smaller than the host count {shard[1]}")
+        self.workers = max(1, workers)
+        self.max_labels = max_labels_per_image
+        self.detection = detection
+        self.pad_final_batch = pad_final_batch
+
+    def __len__(self) -> int:
+        return (len(self._host_indices()) + self.batch_size - 1) // self.batch_size
+
+    def _host_indices(self) -> np.ndarray:
+        order = np.arange(len(self.dataset))
+        idx, cnt = self.shard
+        if cnt > 1 and len(order):
+            # every host gets ceil(n / cnt) items (the order wraps), so all
+            # hosts run the same number of steps
+            per = -(-len(order) // cnt)
+            total = per * cnt
+            if total > len(order):
+                order = np.concatenate([order, order[: total - len(order)]])
+        return order[idx::cnt]
+
+    def _build(self, b: np.ndarray, n_real: int):
+        items = [self.dataset[int(i)] for i in b]
+        if self.detection:
+            return collate(items, self.max_labels, n_real=n_real)
+        imgs = np.stack([it[0] for it in items])
+        metas = [(it[1], it[2]) for it in items[:n_real]]
+        return (imgs, metas, [int(i) for i in b[:n_real]], n_real)
+
+    def __iter__(self) -> Iterator:
+        indices = self._host_indices()
+        batches: List[np.ndarray] = [
+            indices[i: i + self.batch_size] for i in range(0, len(indices), self.batch_size)
+        ]
+        n_real: List[int] = [len(b) for b in batches]
+        if self.pad_final_batch and batches and len(batches[-1]) < self.batch_size:
+            short = self.batch_size - len(batches[-1])
+            batches[-1] = np.concatenate([batches[-1], batches[-1][:1].repeat(short)])
+        yield from self._iter_threads(batches, n_real)
+
+    def _iter_threads(self, batches: List[np.ndarray], n_real: List[int]) -> Iterator:
+        n_batches = len(batches)
+        results: dict = {}
+        errors: List[BaseException] = []
+        cond = threading.Condition()
+        stop = threading.Event()
+        next_task = [0]
+        max_ahead = 2 * self.workers  # bounds the memory of built batches
+
+        def worker():
+            while not stop.is_set():
+                with cond:
+                    while not stop.is_set():
+                        i = next_task[0]
+                        if i >= n_batches:
+                            return
+                        if len(results) < max_ahead or not results:
+                            next_task[0] = i + 1
+                            break
+                        cond.wait(0.1)
+                    else:
+                        return
+                try:
+                    built = self._build(batches[i], n_real[i])
+                except Exception as e:  # raised again in the consumer
+                    with cond:
+                        errors.append(e)
+                        stop.set()
+                        cond.notify_all()
+                    return
+                with cond:
+                    results[i] = built
+                    cond.notify_all()
+
+        threads = [
+            threading.Thread(target=worker, daemon=True, name=f"loader-w{k}")
+            for k in range(min(self.workers, max(n_batches, 1)))
+        ]
+        for t in threads:
+            t.start()
+        try:
+            for i in range(n_batches):
+                with cond:
+                    while i not in results and not errors:
+                        cond.wait(0.1)
+                    if errors:
+                        raise errors[0]
+                    item = results.pop(i)
+                    cond.notify_all()
+                yield item
+        finally:
+            stop.set()
+            with cond:
+                cond.notify_all()
+            for t in threads:
+                t.join(timeout=60)

@@ -47,6 +47,9 @@ def make_serving_fn(
     image_dtype: torch.dtype = torch.bfloat16,
     fused_decode: bool = True,
     early_pipeline: bool = True,
+    multi_label: bool = False,
+    agnostic: bool = False,
+    nms_type: str = "nms",
     device: Optional[Union[str, torch.device]] = None,
 ) -> Callable:
     """Build ``serve(images) -> (detections, counts)`` for a YOLOModel.
@@ -61,6 +64,9 @@ def make_serving_fn(
     ``batched_nms``.
     ``early_pipeline``: run layers 0..3 through the fused kernel where the
     model allows it (``serve.early`` says whether it does).
+    ``multi_label``, ``agnostic``, ``nms_type``: as in ``ops/nms`` (the
+    validator takes every class of a box and, with one class, suppresses
+    across classes).
 
     ``serve.raw_maps(images)`` returns the head's raw maps of the same
     forward, for comparisons.
@@ -100,13 +106,15 @@ def make_serving_fn(
             return fused_decode_nms(
                 flatten_raw_maps(raw), grid_xy, anchor_wh, stride,
                 conf_thres=conf_thres, iou_thres=iou_thres, nms_box=nms_box,
-                pre_top_k=top_k, keep_top_k=keep_top_k, multi_label=False,
+                pre_top_k=top_k, keep_top_k=keep_top_k, multi_label=multi_label,
+                agnostic=agnostic, nms_type=nms_type,
             )
         decoded = head.decode(raw)
         return batched_nms(
             decoded, conf_thres=conf_thres, iou_thres=iou_thres,
             nms_box=min(nms_box, decoded.shape[1]), pre_top_k=top_k,
-            keep_top_k=keep_top_k, multi_label=False,
+            keep_top_k=keep_top_k, multi_label=multi_label, agnostic=agnostic,
+            nms_type=nms_type,
         )
 
     serve.raw_maps = raw_maps

@@ -3,8 +3,8 @@
 Consumes the model config schema of ``res/configs/model/*.yaml``:
 ``depth_multiple`` / ``width_multiple`` scaling and ``backbone`` + ``head``
 lists of ``[from, repeat, module, args, {kwargs}]`` rows. A config is a dict
-(``models/configs.yolov5_cfg``) or a YAML path; PyYAML is imported only for
-a path.
+(``models/configs.yolov5_cfg``) or a YAML path (``utils/config.load_yaml``:
+PyYAML is imported only for a file that is not JSON).
 
 The result is one ``nn.Module`` whose layers sit in ``self.model`` under the
 kindle names (``model.{i}...``). Raw head maps are (bs, ny, nx, na, no), as
@@ -22,6 +22,7 @@ from torch import nn
 
 from ayolov2_torch.models import layers as L
 from ayolov2_torch.models.yolo_head import YOLOHead
+from ayolov2_torch.utils.config import load_yaml
 from ayolov2_torch.utils.general import make_divisible, resolve_device
 
 
@@ -56,17 +57,9 @@ _DEPTH_SCALED = {"C3", "Bottleneck", "MV2Block", "MobileViTBlock"}
 
 
 def parse_model_config(cfg: Union[str, Dict[str, Any]]) -> Dict[str, Any]:
-    """A config dict, or the dict a YAML path holds."""
+    """A config dict, or the dict a YAML (or JSON) path holds."""
     if isinstance(cfg, str):
-        try:
-            import yaml
-        except ImportError as e:
-            raise ImportError(
-                "reading a model YAML needs PyYAML; pass a config dict "
-                "(ayolov2_torch.models.configs.yolov5_cfg) instead"
-            ) from e
-        with open(cfg, encoding="utf-8") as f:
-            cfg = yaml.safe_load(f)
+        cfg = load_yaml(cfg)
     return cfg
 
 

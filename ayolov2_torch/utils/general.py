@@ -1,11 +1,17 @@
-"""Sizing and device helpers."""
+"""Sizing, segment and device helpers."""
 
 from __future__ import annotations
 
+import logging
 import math
-from typing import Optional, Union
+from typing import List, Optional, Union
 
+import numpy as np
 import torch
+
+from ayolov2_torch.utils.boxes import xyxy2xywh
+
+LOGGER = logging.getLogger(__name__)
 
 
 def make_divisible(x: float, divisor: int, minimum_check_number: int = 0) -> int:
@@ -13,6 +19,21 @@ def make_divisible(x: float, divisor: int, minimum_check_number: int = 0) -> int
     if x <= minimum_check_number:
         return math.floor(x)
     return math.ceil(x / divisor) * divisor
+
+
+def check_img_size(img_size: int, s: int = 32) -> int:
+    """Snap an image size up to a multiple of the stride ``s``, warning on change."""
+    new_size = make_divisible(img_size, int(s))
+    if new_size != img_size:
+        LOGGER.warning("WARNING --img-size %g must be multiple of max stride %g, updating to %g",
+                       img_size, s, new_size)
+    return new_size
+
+
+def segments2boxes(segments: List[np.ndarray]) -> np.ndarray:
+    """Polygons (each (n, 2)) -> (len, 4) xywh boxes around them."""
+    boxes = [[s[:, 0].min(), s[:, 1].min(), s[:, 0].max(), s[:, 1].max()] for s in segments]
+    return xyxy2xywh(np.array(boxes), check_validity=False)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:

@@ -30,7 +30,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    chain at bs 32 (the chain with cuDNN's default heuristics and with
    ``cudnn.benchmark``, and each of its convs); the kernel for yolov5m, l
    and x at bs 8, each beside its own bound and tile; the serve rate at
-   bs 32 and bs 128.
+   bs 32 and bs 128;
+7. validation: 128 synthetic BMPs (32 at each native size 640x640,
+   480x640, 640x480, 360x640) written under ``build/chip_smoke_val/``; the
+   kernel against its plain version at bs 32 at the four rect shapes the
+   validator gives them (pad 0.5: 672x672, 512x672, 672x512, 384x672; same
+   gate), timed beside each shape's bound; the golden checkpoint (yolov5s,
+   nc 20) read by the port's own reader; each image labelled with its top
+   50 detections of the f32 plain path above one score cut for all images
+   (what each image's top 50 alone would score is printed beside it, not
+   gated); the validator at bs 32, rect, in f32 and
+   bf16 on cuDNN and in bf16 with the kernel (the default), gated (128 seen,
+   equal label counts, f32 mAP50 >= 0.99, the kernel's mAP50 and mAP50-95
+   within 0.02 of bf16 cuDNN's and mAP50 >= 0.9, one launch per batch);
+   ``python -m ayolov2_torch.cli.val`` (equal to the kernel run) and
+   ``cli.val2`` (an answersheet its evaluator scores) as subprocesses; the
+   val loop's images/s over a warm pass, the validator's pre/inference/NMS
+   ms per image and the loader's ms per batch.
 
 ``--profile`` adds where the serve call's device time goes (torch.profiler)
 and where the kernel's own time goes (clock stamps at its layer boundaries,
@@ -38,7 +54,8 @@ from a second build of the same source with ``-DEARLY_PROFILE``).
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Weights are random, made
-from ``--seed``.
+from ``--seed``, except phase 7's, which are the committed golden
+checkpoint's; its images are made from ``--seed`` too.
 """
 
 from __future__ import annotations
@@ -46,14 +63,21 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
+import struct
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+ROOT = Path(__file__).resolve().parent
+GOLDEN = ROOT / "runs/golden_r4_mem/train/2026_0818_runs/weights/best.ckpt"
+VAL_DIR = ROOT / "build/chip_smoke_val"
+VAL_SIZES = ((640, 640), (480, 640), (640, 480), (360, 640))  # native (h, w), 32 images each
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 rate
 TOL_PEAK, TOL_P999 = 0.03, 0.015
@@ -157,6 +181,14 @@ def early_work(ep, bs, h, w):
             + p8 * c2 * 9 * c1)
     weights = sum(t.numel() * 2 for t in ep.segments())
     return 2.0 * bs * macs, bs * h * w * 3 + bs * p8 * c2 * 2 + weights
+
+
+def bound_of(ep, shape):
+    """(ms, "operations" or "bytes", flops, bytes): the larger of the tensor
+    cores' time and the memory's for the early network at this shape."""
+    flops, nbytes = early_work(ep, *shape)
+    t_o, t_b = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_o, t_b), "operations" if t_o >= t_b else "bytes", flops, nbytes
 
 
 def cudnn_chain(fused_state, stem_channels: int = 3):
@@ -267,6 +299,256 @@ def profile_serve(serve, imgs, card: str) -> None:
     for ms, count, key in rows[:15]:
         log(f"[profile]   {ms / 3:8.3f} ms/call {100 * ms / busy:5.1f}%  x{count // 3:<4d} {key[:90]}")
 
+def synthetic_image(rng, h: int, w: int) -> np.ndarray:
+    """A smooth colour gradient with 2-5 filled rectangles and ellipses, BGR
+    uint8: edges and flat regions a detector responds to (noise gives it no
+    peaks)."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = rng.uniform(40, 200, 3)
+    slope = rng.uniform(-0.3, 0.3, (2, 3)) * 160 / max(h, w)
+    img = base + yy[..., None] * slope[0] + xx[..., None] * slope[1]
+    for _ in range(int(rng.integers(2, 6))):
+        color = rng.uniform(0, 255, 3)
+        cy, cx = rng.uniform(0.1, 0.9) * h, rng.uniform(0.1, 0.9) * w
+        ry, rx = rng.uniform(0.05, 0.3) * h, rng.uniform(0.05, 0.3) * w
+        if rng.random() < 0.5:
+            inside = (np.abs(yy - cy) < ry) & (np.abs(xx - cx) < rx)
+        else:
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        img[inside] = color
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_bmp(path: Path, img: np.ndarray) -> None:
+    """(h, w, 3) BGR uint8 as a 24-bit bottom-up BMP (rows padded to 4 bytes)."""
+    h, w, _ = img.shape
+    pitch = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, pitch), np.uint8)
+    rows[:, : w * 3] = img[::-1].reshape(h, w * 3)
+    head = struct.pack("<2sIHHI", b"BM", 54 + pitch * h, 0, 0, 54)
+    head += struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, pitch * h, 2835, 2835, 0, 0)
+    path.write_bytes(head + rows.tobytes())
+
+
+def write_val_set(root: Path, seed: int, sizes=VAL_SIZES, per_size: int = 32) -> Path:
+    """``root/images`` (the sizes in a seeded order, numeric stems, so the
+    rect sort has work to do), an empty ``root/labels`` and ``root/data.json``."""
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir()
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(np.repeat(np.arange(len(sizes)), per_size))
+    for i, k in enumerate(order):
+        write_bmp(root / "images" / f"{i + 1:06d}.bmp", synthetic_image(rng, *sizes[k]))
+    cfg = root / "data.json"
+    cfg.write_text(json.dumps({"val_path": str(root / "images"), "nc": 20, "dataset": "VOC",
+                               "names": [f"class{i}" for i in range(20)]}))
+    return cfg
+
+
+def native_detections(validator, loader, dataset):
+    """[(image path, native (h, w), its detections in native pixels, best
+    first)] of every image, from the validator's device path."""
+    from ayolov2_torch.utils.boxes import scale_coords
+
+    found = []
+    for imgs, metas, indices, n_real in loader:
+        det, n = validator.detect(imgs)
+        det, n = det.cpu().numpy(), n.cpu().numpy()
+        for j in range(n_real):
+            (h0, w0), ratio_pad = metas[j]
+            d = det[j, : int(n[j])].astype(np.float64)
+            d[:, :4] = scale_coords(imgs.shape[1:3], d[:, :4], (h0, w0), ratio_pad)
+            found.append((Path(dataset.img_files[indices[j]]), (h0, w0), d))
+    return found
+
+
+def label_cut(found, score_cut: float = 0.05) -> float:
+    """One score cut for all images, so that no unlabelled detection
+    outranks a label anywhere (a per-image top-k alone lets one image's
+    unlabelled detections outrank another's labels). A detection clipped to
+    under 0.1 pixel (it lies in the letterbox's padding) can never match a
+    label, so the cut rises above the best of those."""
+    cut = score_cut
+    for _, _, d in found:
+        thin = (d[:, 2] - d[:, 0] < 0.1) | (d[:, 3] - d[:, 1] < 0.1)
+        cut = max([cut, *d[thin, 4]])
+    return cut
+
+
+def write_labels(found, cut: float, top: int = 50):
+    """Each image's label file: its top ``top`` detections that score above
+    ``cut``, in native normalised xywh. Returns (labels written, the most on
+    one image)."""
+    written, most = 0, 0
+    for path, (h0, w0), d in found:
+        d = d[np.argsort(-d[:, 4], kind="stable")]
+        d = d[d[:, 4] > cut][:top]
+        (path.parent.parent / "labels" / f"{path.stem}.txt").write_text("".join(
+            f"{int(c)} {(x1 + x2) / 2 / w0:.6f} {(y1 + y2) / 2 / h0:.6f} "
+            f"{(x2 - x1) / w0:.6f} {(y2 - y1) / h0:.6f}\n" for x1, y1, x2, y2, _, c in d))
+        written += len(d)
+        most = max(most, len(d))
+    return written, most
+
+
+def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int = 640,
+                     sizes=VAL_SIZES, per_size: int = 32, bs: int = 32):
+    """Phase 7 (see the module docstring). Returns (early_pipeline launches
+    in the kernel's validation run, max |kernel - plain| at the rect shapes),
+    or None when a gate failed."""
+    import torch
+
+    from ayolov2_torch.data import DataLoader, DetectionDataset, ImageFolderDataset
+    from ayolov2_torch.eval import YoloValidator
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    t0 = time.perf_counter()
+    data_cfg = write_val_set(VAL_DIR, seed, sizes, per_size)
+    log(f"[val] wrote {len(sizes) * per_size} BMPs ({per_size} at each of {list(sizes)}) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model = load_model(GOLDEN, nc=20, device=device)
+    log(f"[val] golden checkpoint read by the port's reader, loaded strict, BN folded: "
+        f"yolov5s nc {model.nc}, {sum(p.numel() for p in model.parameters()):,} params, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the kernel at the rect shapes the validator feeds it, bs 32
+    ep = early.extract_early_params(model.state_dict()).to(device)
+    images_dir = str(VAL_DIR / "images")
+    folder = ImageFolderDataset(images_dir, img_size=img_size, batch_size=bs, rect=True, pad=0.5)
+    shapes = sorted({tuple(int(v) for v in s) for s in folder.batch_shapes}, reverse=True)
+    max_abs = 0.0
+    for h, w in shapes:
+        imgs = torch.from_numpy(np.random.default_rng(seed + h + w).integers(
+            0, 256, (bs, h, w, 3), dtype=np.uint8)).to(device)
+        got = early.early_pipeline(imgs, ep)
+        want = early.early_pipeline_ref(imgs, ep)
+        peak, p999, mx = rel_err(got, want)
+        max_abs = max(max_abs, mx)
+        ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+              and peak < TOL_PEAK and p999 < TOL_P999)
+        ms = time_ms(lambda: early.early_pipeline(imgs, ep), 20)
+        bound, by, _, _ = bound_of(ep, (bs, h, w))
+        plan = early.plan_early(ep.c0, ep.n)
+        log(f"[val] {card}: early_pipeline yolov5s bs{bs} {h}x{w} (/8: {h // 8}x{w // 8}, tile "
+            f"{plan.th}x{plan.tw}) vs plain: max|d|/peak {peak:.5f} p99.9 {p999:.5f} max|d| "
+            f"{mx:.4f} (gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}), {ms / bound:.1f}x")
+        if not ok:
+            return None
+
+    def run(cfg):
+        ds = DetectionDataset(images_dir, img_size=img_size, batch_size=bs, rect=True, pad=0.5)
+        v = YoloValidator(model, DataLoader(ds, batch_size=bs), class_names=None, cfg=cfg,
+                          device=device)
+        return v, ds
+
+    # labels: the f32 plain path's own detections
+    f32_cfg = dict(half=False, early_pipeline=False)
+    torch.backends.cudnn.deterministic = True
+    labeller = YoloValidator(model, None, cfg=dict(f32_cfg, fused=False), device=device)
+    t0 = time.perf_counter()
+    found = native_detections(labeller, DataLoader(folder, batch_size=bs, detection=False),
+                              folder)
+    torch.backends.cudnn.deterministic = False
+    del labeller
+    # for the record, not a gate: each image's top 50 alone as its labels
+    n_top, _ = write_labels(found, cut=-1.0)
+    r = run(f32_cfg)[0].validation()
+    log(f"[val] labels = each image's top 50 alone ({n_top} labels): f32 cuDNN scores its own "
+        f"labels at mAP50 {r['map50']:.5f} mAP50-95 {r['map50_95']:.5f} (not gated: "
+        f"other images' unlabelled detections outrank labels)")
+    cut = label_cut(found)
+    n_written, most = write_labels(found, cut)
+    # the label cache's key covers the images only: read the new labels anew
+    folder._cache_path().with_suffix(".labels").unlink(missing_ok=True)
+    log(f"[val] labelled {len(folder)} images with the {n_written} detections of the f32 plain "
+        f"path that score above {cut:.5f}, at most 50 an image (at most {most} on an image; "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    results = {}
+    runs = {"f32 cuDNN": f32_cfg, "bf16 cuDNN": dict(early_pipeline=False), "bf16 kernel": {}}
+    for name, cfg in runs.items():
+        v, ds = run(cfg)
+        early.early_pipeline.launches = 0  # main path (the kernel's run): counts from here
+        t0 = time.perf_counter()
+        r = v.validation()
+        wall = time.perf_counter() - t0
+        r["launches"] = early.early_pipeline.launches
+        r["batches"] = len(ds.batch_shapes)
+        results[name] = r
+        log(f"[val] {name}: seen {r['seen']} labels {r['n_labels']} P {r['mp']:.5f} "
+            f"R {r['mr']:.5f} mAP50 {r['map50']:.5f} mAP50-95 {r['map50_95']:.5f} "
+            f"({wall:.2f} s with the first call's set-up; early_pipeline launches "
+            f"{r['launches']} in {r['batches']} batches of shapes "
+            f"{sorted({tuple(int(x) for x in b) for b in ds.batch_shapes})})")
+    f32, cud, ker = results["f32 cuDNN"], results["bf16 cuDNN"], results["bf16 kernel"]
+    gates = {
+        "128 seen, equal label counts": all(r["seen"] == len(sizes) * per_size and
+                                            r["n_labels"] == f32["n_labels"] > 0
+                                            for r in results.values()),
+        "f32 mAP50 >= 0.99": f32["map50"] >= 0.99,
+        "kernel within 0.02 of bf16 cuDNN": all(abs(ker[k] - cud[k]) <= 0.02
+                                                for k in ("map50", "map50_95")),
+        "kernel mAP50 >= 0.9": ker["map50"] >= 0.9,
+        "one launch per batch at each shape": (ker["launches"] == ker["batches"] == len(shapes)
+                                               and cud["launches"] == 0),
+    }
+    log("[val] gates: " + "; ".join(f"{k} {'ok' if v else 'FAIL'}" for k, v in gates.items()))
+    if not all(gates.values()):
+        return None
+    launches = ker["launches"]
+
+    # the entry points, as a user runs them
+    out = VAL_DIR / "val.json"
+    sheet = VAL_DIR / "answersheet.json"
+    common = ["--weights", str(GOLDEN), "--data-cfg", str(data_cfg), "-iw", str(img_size),
+              "--batch-size", str(bs)] + (["--device", device] if device != "cuda" else [])
+    for module, extra in (("val", ["--json-path", str(out)]),
+                          ("val2", ["--json-path", str(sheet), "--check-map", "0.5"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", f"ayolov2_torch.cli.{module}", *common, *extra],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        tail = [ln for ln in (proc.stdout + proc.stderr).splitlines() if ln.strip()][-3:]
+        log(f"[val] python -m ayolov2_torch.cli.{module}: exit {proc.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ln.strip()[:160] for ln in tail))
+        if proc.returncode != 0:
+            return None
+    cli = json.loads(out.read_text())
+    same = (cli["seen"] == ker["seen"] and cli["n_labels"] == ker["n_labels"]
+            and all(abs(cli[k] - ker[k]) <= 1e-9 for k in ("mp", "mr", "map50", "map50_95")))
+    log(f"[val] cli.val result vs the kernel run: mAP50 {cli['map50']:.6f} vs {ker['map50']:.6f}, "
+        f"mAP50-95 {cli['map50_95']:.6f} vs {ker['map50_95']:.6f} {'equal' if same else 'FAIL'}")
+    from ayolov2_torch.utils.metrics import COCOmAPEvaluator
+    from ayolov2_torch.utils.result_writer import yolo_labels_to_coco_json
+
+    preds = json.loads(sheet.read_text())
+    coco = COCOmAPEvaluator(yolo_labels_to_coco_json(DetectionDataset(
+        images_dir, img_size=img_size))).evaluate(preds)
+    log(f"[val] cli.val2 answersheet: {len(preds)} predictions, COCO eval "
+        + ", ".join(f"{k} {v:.5f}" for k, v in coco.items()))
+    if not same or not preds or not np.isfinite(list(coco.values())).all():
+        return None
+
+    # times: a second, warm pass of the kernel's run; the loader alone
+    v, ds = run({})
+    v.validation()
+    t0 = time.perf_counter()
+    r = v.validation()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in DataLoader(ds, batch_size=bs))
+    loader_ms = (time.perf_counter() - t0) / n_batches * 1e3
+    log(f"[time] {card}: validation yolov5s bs{bs} rect, kernel path, warm pass: "
+        f"{r['seen'] / wall:.1f} img/s ({wall:.3f} s for {r['seen']} images); validator "
+        f"pre/inference/NMS {r['t'][0]:.3f}/{r['t'][1]:.3f}/{r['t'][2]:.3f} ms per image; "
+        f"f32 cuDNN run (its first pass) {f32['t'][0]:.3f}/{f32['t'][1]:.3f}/{f32['t'][2]:.3f}; "
+        f"loader alone "
+        f"{loader_ms:.2f} ms per batch of {bs} ({n_batches} batches, 2 threads)")
+    return launches, max_abs
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -352,6 +634,7 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return 0
+    wide_states = {v: models[v].state_dict() for v in "mlx"}  # phase 6's cuDNN chains
     del models
 
     # ---- 4. the slice: serve yolov5s at bs 32, 640x640 -------------------
@@ -452,13 +735,6 @@ def main() -> int:
     default_chain_ms = time_ms(lambda: chains[3](imgs), 20)
     library_ms = min(time_chain(chain, imgs, card) for chain in chains.values())
 
-    def bound_of(ep_v, shape):
-        """(ms, "operations" or "bytes", flops, bytes): the larger of the tensor
-        cores' time and the memory's for the early network at this shape."""
-        flops_v, bytes_v = early_work(ep_v, *shape)
-        t_o, t_b = flops_v / PEAK_BF16_FLOPS * 1e3, bytes_v / PEAK_HBM_BYTES * 1e3
-        return max(t_o, t_b), "operations" if t_o >= t_b else "bytes", flops_v, bytes_v
-
     bound_ms, bound_by, flops, nbytes = bound_of(ep, imgs.shape[:3])
     plan = early.plan_early(ep.c0, ep.n)
     log(f"[time] {card}: early_pipeline bs32 640x640 tile {plan.th}x{plan.tw} "
@@ -478,10 +754,18 @@ def main() -> int:
         plan = early.plan_early(ep_v.c0, ep_v.n)
         ms_v = time_ms(lambda: early.early_pipeline(batch8, ep_v), 10)
         b_v, by_v, flops_v, bytes_v = bound_of(ep_v, (8, 640, 640))
+        torch.backends.cudnn.benchmark = True
+        try:
+            chain_v = min(time_ms(lambda: chain(batch8), 10) for chain in
+                          (cudnn_chain(wide_states[variant], c) for c in (3, 8)))
+        finally:
+            torch.backends.cudnn.benchmark = False
         log(f"[time] {card}: early_pipeline yolov5{variant} bs8 640x640 tile {plan.th}x{plan.tw} "
             f"(halo factor {plan.halo:.3f}, bands of {plan.rb}, ring {plan.stages} stages): "
             f"kernel {ms_v:.4f} ms, bound {b_v:.4f} ms ({by_v}: {flops_v / 1e9:.1f} GFLOP, "
-            f"{bytes_v / 1e6:.1f} MB), {ms_v / b_v:.1f}x")
+            f"{bytes_v / 1e6:.1f} MB), {ms_v / b_v:.1f}x; cuDNN chain {chain_v:.4f} ms "
+            f"(the faster stem width, cudnn.benchmark)")
+    del wide_states
 
     rates = {}
     for bs in (32, 128):
@@ -507,6 +791,16 @@ def main() -> int:
             f"-DEARLY_PROFILE build; shares of the stamped clocks): "
             + "; ".join(f"{k} {v}" if isinstance(v, list) else f"{k} {v:.3f}" if v < 1.5
                         else f"{k} {v:.0f}" for k, v in shares.items()))
+
+    # ---- 7. validation on the golden checkpoint --------------------------
+    del batch128, batch8, model, serve_k, serve_c, chains, fused_state
+    torch.cuda.empty_cache()
+    val = validation_phase(args.seed, card)
+    if val is None:
+        log("[val] FAIL")
+        return 1
+    launches += val[0]
+    max_abs = max(max_abs, val[1])
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

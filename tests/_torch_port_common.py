@@ -120,3 +120,110 @@ def as_np(t) -> np.ndarray:
     if isinstance(t, torch.Tensor):
         return t.detach().float().cpu().numpy()
     return np.asarray(t, np.float32)
+
+
+def synthetic_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """A smooth colour gradient with a few filled rectangles and ellipses,
+    BGR uint8: content with edges a detector responds to."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = rng.uniform(40, 200, 3)
+    slope = rng.uniform(-0.3, 0.3, (2, 3)) * 160 / max(h, w)
+    img = base + yy[..., None] * slope[0] + xx[..., None] * slope[1]
+    for _ in range(int(rng.integers(2, 6))):
+        color = rng.uniform(0, 255, 3)
+        cy, cx = rng.uniform(0.1, 0.9) * h, rng.uniform(0.1, 0.9) * w
+        ry, rx = rng.uniform(0.05, 0.3) * h, rng.uniform(0.05, 0.3) * w
+        if rng.random() < 0.5:
+            inside = (np.abs(yy - cy) < ry) & (np.abs(xx - cx) < rx)
+        else:
+            inside = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1
+        img[inside] = color
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_image_set(root: Path, sizes, seed: int) -> list:
+    """``images/`` under ``root`` with one BMP per (h, w) in ``sizes``
+    (cv2.imwrite, numeric stems), drawn from ``seed``; returns the paths."""
+    import cv2
+
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, (h, w) in enumerate(sizes):
+        path = img_dir / f"{i + 1:06d}.bmp"
+        assert cv2.imwrite(str(path), synthetic_image(rng, h, w))
+        paths.append(path)
+    return paths
+
+
+def self_label(validator, dataset, loader, per_image: int) -> int:
+    """Write YOLO label files from the validator's own detections: for each
+    image its top ``per_image`` detections that score above every detection
+    left unlabelled anywhere (so no unlabelled one outranks a label), in
+    native normalised xywh. Returns the number of labels written."""
+    from ayolov2_torch.utils.boxes import scale_coords
+
+    found = []
+    for imgs, metas, indices, n_real in loader:
+        det, n = validator.detect(imgs)
+        det, n = det.cpu().numpy(), n.cpu().numpy()
+        for j in range(n_real):
+            (h0, w0), ratio_pad = metas[j]
+            d = det[j, : int(n[j])].astype(np.float64)
+            d[:, :4] = scale_coords(imgs.shape[1:3], d[:, :4], (h0, w0), ratio_pad)
+            found.append((Path(dataset.img_files[indices[j]]), (h0, w0), d))
+    cut = max([d[per_image, 4] for _, _, d in found if len(d) > per_image] + [0.0])
+    written = 0
+    for path, (h0, w0), d in found:
+        keep = d[(d[:, 4] > cut)][:per_image]
+        rows = [f"{int(c)} {(x1 + x2) / 2 / w0:.6f} {(y1 + y2) / 2 / h0:.6f} "
+                f"{(x2 - x1) / w0:.6f} {(y2 - y1) / h0:.6f}"
+                for x1, y1, x2, y2, _, c in keep]
+        label = path.parent.parent / "labels" / (path.stem + ".txt")
+        label.parent.mkdir(exist_ok=True)
+        label.write_text("\n".join(rows) + "\n" if rows else "")
+        written += len(rows)
+    return written
+
+
+# (h, w) of the shared labelled set at img_size 160: four aspect ratios, one
+# image shrunk (INTER_AREA) and two enlarged (INTER_LINEAR) by load_image,
+# widths whose BMP rows are padded
+LABELLED_SIZES = [(160, 160), (120, 160), (160, 120), (96, 160), (200, 150), (76, 100),
+                  (160, 96), (130, 157), (160, 160)]
+LABELLED_IMG = 160
+
+
+def labelled_set(root: Path, seed: int = 0) -> Path:
+    """The shared synthetic val set under ``root``: ``images/`` (BMPs from
+    :func:`write_image_set`) and ``labels/`` self-labelled by the port's f32
+    plain path on the golden checkpoint (at most 10 a image, rect batches of
+    4 as the tests validate them). The labels of the image with the most are
+    rewritten as segment polygons (8 points around each box), and the image
+    with the fewest has no label file. Returns the images dir."""
+    from ayolov2_torch.data import DataLoader, ImageFolderDataset
+    from ayolov2_torch.eval import YoloValidator
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    write_image_set(root, LABELLED_SIZES, seed)
+    model = load_model(GOLDEN / "weights/best.ckpt", nc=20, device="cpu")
+    validator = YoloValidator(model, None, cfg={"half": False, "fused": False,
+                                                "early_pipeline": False}, device="cpu")
+    ds = ImageFolderDataset(str(root / "images"), img_size=LABELLED_IMG, batch_size=4,
+                            rect=True, pad=0.5, stride=32)
+    assert self_label(validator, ds, DataLoader(ds, batch_size=4, detection=False), 10) > 10
+    labels = sorted((root / "labels").glob("*.txt"), key=lambda f: len(f.read_text().split()))
+    labels[0].unlink()
+    first = labels[-1]
+    rows = []
+    for line in first.read_text().split("\n"):
+        if line:
+            c, x, y, w, h = line.split()
+            x, y, w, h = (float(v) for v in (x, y, w, h))
+            pts = [(x - w / 2, y - h / 2), (x, y - h / 2), (x + w / 2, y - h / 2), (x + w / 2, y),
+                   (x + w / 2, y + h / 2), (x, y + h / 2), (x - w / 2, y + h / 2), (x - w / 2, y)]
+            rows.append(c + " " + " ".join(f"{v:.6f}" for p in pts for v in p))
+    assert rows
+    first.write_text("\n".join(rows) + "\n")
+    return root / "images"

@@ -1,0 +1,85 @@
+"""The port's validation entry points end to end on the CPU, on the golden
+checkpoint and the synthetic labelled set: ``python -m ayolov2_torch.cli.val``
+gives what the validator gives in-process, and ``cli.val2`` writes a COCO
+answersheet that its evaluator scores."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from _torch_port_common import GOLDEN, LABELLED_IMG, ROOT, labelled_set
+
+torch.set_num_threads(1)
+WEIGHTS = str(GOLDEN / "weights/best.ckpt")
+
+
+@pytest.fixture(scope="module")
+def data_cfg(tmp_path_factory):
+    root = tmp_path_factory.mktemp("labelled")
+    img_dir = labelled_set(root)
+    cfg = root / "data.json"
+    cfg.write_text(json.dumps({"val_path": str(img_dir), "nc": 20, "dataset": "VOC",
+                               "names": [f"class{i}" for i in range(20)]}))
+    return cfg
+
+
+def test_val_cli_equals_the_validator(data_cfg, tmp_path):
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.eval import YoloValidator
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    out = tmp_path / "val.json"
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "ayolov2_torch.cli.val", "--weights", WEIGHTS, "--data-cfg",
+         str(data_cfg), "-iw", str(LABELLED_IMG), "--batch-size", "4", "--device", "cpu",
+         "--json-path", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
+    assert "mAP@.5" in r.stdout and "Speed:" in r.stdout
+    got = json.loads(out.read_text())
+
+    model = load_model(WEIGHTS, nc=20, device="cpu")
+    ds = DetectionDataset(json.loads(data_cfg.read_text())["val_path"], img_size=LABELLED_IMG,
+                          batch_size=4, rect=True, pad=0.5)
+    want = YoloValidator(model, DataLoader(ds, batch_size=4), device="cpu").validation()
+    assert got["seen"] == want["seen"] == 9 and got["n_labels"] == want["n_labels"]
+    for key in ("mp", "mr", "map50", "map50_95"):
+        assert got[key] == pytest.approx(want[key], abs=1e-9), key
+    assert got["map50"] >= 0.9
+
+
+def test_val2_cli_writes_an_answersheet_its_evaluator_scores(data_cfg, tmp_path):
+    from ayolov2_torch.cli import val2
+    from ayolov2_torch.data import DetectionDataset
+    from ayolov2_torch.utils.metrics import COCOmAPEvaluator
+    from ayolov2_torch.utils.result_writer import yolo_labels_to_coco_json
+
+    sheet = tmp_path / "answersheet.json"
+    metrics = val2.main(["--weights", WEIGHTS, "--data-cfg", str(data_cfg), "-iw",
+                         str(LABELLED_IMG), "--batch-size", "4", "--device", "cpu",
+                         "--json-path", str(sheet), "--check-map", "0.5", "--verbose", "2"])
+    preds = json.loads(sheet.read_text())
+    assert preds and {p["image_id"] for p in preds} <= set(range(1, 10))
+    assert all(p["category_id"] in range(1, 25) and len(p["bbox"]) == 4 for p in preds)
+    ds = DetectionDataset(json.loads(data_cfg.read_text())["val_path"], img_size=LABELLED_IMG)
+    gt = yolo_labels_to_coco_json(ds)
+    assert COCOmAPEvaluator(gt).evaluate(preds) == metrics
+    assert metrics["map50"] >= 0.5
+
+
+@pytest.mark.parametrize("module,flags,match", [
+    ("val", ["--int8"], "int8"), ("val", ["--tta"], "test-time"), ("val", ["--plot"], "plots"),
+    ("val", ["--profile"], "profile"), ("val", ["--weights", "m.jaxexp"], "exported"),
+    ("val2", ["--tta"], "test-time"), ("val2", ["--export", "out"], "renders"),
+])
+def test_unported_flags_exit_with_a_message(module, flags, match):
+    import importlib
+
+    main = importlib.import_module(f"ayolov2_torch.cli.{module}").main
+    with pytest.raises(SystemExit, match=match):
+        main(flags + ["--device", "cpu"])

@@ -29,6 +29,23 @@ def test_import_pulls_in_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for name in ('jax', 'flax', 'ayolov2_tpu', 'cv2', 'PIL', 'yaml', 'msgpack'):\n"
+        "    sys.modules[name] = None\n"
+        "import ayolov2_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(ayolov2_torch.__path__, 'ayolov2_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert int(r.stdout.split()[-1]) >= 25
+
+
 def test_no_file_names_jax():
     files = sorted((ROOT / "ayolov2_torch").rglob("*.py"))
     files += sorted((ROOT / "ayolov2_torch").rglob("*.cu")) + [ROOT / "chip_smoke.py"]
@@ -72,3 +89,18 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
         make_serving_fn(model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         next(serve_stream(lambda x: x, [torch.zeros(1)]))
+
+
+def test_validation_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path):
+    from ayolov2_torch.cli import val, val2
+    from ayolov2_torch.eval import YoloValidator
+    from ayolov2_torch.models import build_model, yolov5_cfg
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = build_model(yolov5_cfg("n"), device="cpu").fuse()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        YoloValidator(model, None)
+    assert YoloValidator(model, None, device="cpu").device.type == "cpu"
+    for main in (val.main, val2.main):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(["--weights", "runs/golden_r4_mem/train/2026_0818_runs/weights/best.ckpt"])
