@@ -1,15 +1,19 @@
-"""Validation datasets: image folders, and images with YOLO labels.
+"""Datasets: image folders, and images with YOLO labels.
 
-The counterpart of the validation half of ``ayolov2_tpu/data/datasets.py``:
+The counterpart of ``ayolov2_tpu/data/datasets.py`` without augmentation:
 recursive glob over ``IMG_EXTS``, the shape scan cached beside the images,
 rect batches (aspect-ratio buckets rounded up to stride multiples),
 ``letterbox`` with the same padding split and fill, label files (boxes or
 segment polygons) and the ``mem`` image cache. Items are HWC BGR uint8 and
 (n, 5) [cls, xywh-normalised] labels, as in the JAX package.
 
-Images are read and resized by ``data/image_io.py`` (no OpenCV for .bmp);
-training-time augmentation (mosaic, mixup, copy-paste, perspective, policies,
-HSV, on-device plans) is not ported yet and raises.
+Images are read and resized by ``data/image_io.py`` (no OpenCV for .bmp).
+Training without augmentation (``yolo_augmentation.augment: false``, mosaic
+0, no policies, as the memorisation configs train) uses the same items:
+``get_item(index, salt)`` is the loader's entry, ``labels`` / ``segments``
+feed auto-anchor and the class weights. Training-time augmentation (mosaic,
+mixup, copy-paste, perspective, policies, HSV, on-device plans) is not
+ported yet and raises, naming the later slice.
 """
 
 from __future__ import annotations
@@ -151,6 +155,7 @@ class ImageFolderDataset:
             raise FileNotFoundError(f"No images found in {path}")
 
         self.shapes = self._scan_shapes()  # (n, 2) wh
+        self.indices = np.arange(len(self.img_files))
         self.batch_idx = np.floor(np.arange(len(self.img_files)) / batch_size).astype(int)
         if rect:
             self._setup_rect_batches()
@@ -276,7 +281,8 @@ _AUGMENTATIONS = ("augment", "mosaic", "mixup", "copy_paste")
 
 
 class DetectionDataset(ImageFolderDataset):
-    """Images + YOLO labels, letterboxed without augmentation (validation)."""
+    """Images + YOLO labels, letterboxed without augmentation (validation,
+    and training with augmentation off)."""
 
     def __init__(
         self,
@@ -292,13 +298,18 @@ class DetectionDataset(ImageFolderDataset):
         yolo_augmentation: Optional[Dict[str, Any]] = None,
         augmentation: Optional[List[Dict]] = None,
         single_cls: bool = False,
+        seed: int = 0,
     ) -> None:
         ya = yolo_augmentation or {}
         used = [k for k in _AUGMENTATIONS if ya.get(k)]
         if used or (ya.get("copy_paste2") or {}).get("p") or augmentation:
             raise NotImplementedError(
                 f"training-time augmentation ({used or 'policies / copy_paste2'}) is not "
-                "ported yet (a later slice of the port); the validation dataset takes none")
+                "ported yet (data/augment.py and data/device_augment.py come with later "
+                "slices of the port); train with yolo_augmentation.augment false, mosaic, "
+                "mixup and copy_paste 0 and no augmentation policies")
+        self.seed = seed
+        self.epoch = 0  # published by the DataLoader each epoch
         super().__init__(path, img_size, batch_size, rect, pad, stride, n_skip, cache_images)
         self.label_type = label_type
         self.single_cls = single_cls
@@ -332,6 +343,13 @@ class DetectionDataset(ImageFolderDataset):
 
     def __getitem__(self, index: int):
         """(img HWC BGR uint8, (n, 5) [cls, xywh-norm], path, shapes)."""
+        return self.get_item(index, 0)
+
+    def get_item(self, index: int, salt: int = 0):
+        """``__getitem__`` with the loader's epoch-position salt. Without
+        augmentation an item draws nothing, so the salt (which keeps
+        repeated indices of weighted sampling apart) changes nothing."""
+        index = int(self.indices[index])
         img, (h0, w0), (h1, w1) = self.load_image(index)
         img, ratio, pad = letterbox(img, self.target_shape(index), stride=self.stride,
                                     auto=False, scale_up=False)

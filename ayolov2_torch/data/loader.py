@@ -8,12 +8,17 @@ The counterpart of ``ayolov2_tpu/data/loader.py`` in thread mode:
   by wrapping so every host yields as many batches;
 - a short final batch is padded by repeating its first item, and ``n_real``
   says how many items are real, so the validator and the result writer
-  count none twice.
+  count none twice; ``drop_last`` (training) drops it instead;
+- ``shuffle``: each epoch's order is ``default_rng(seed + epoch)``'s
+  permutation, or with ``sample_weights`` its weighted draw with
+  replacement (image weights); the ``epoch`` counter advances after each
+  pass and is published to the dataset, and each item gets its position in
+  the epoch as a salt (``get_item``). The orders equal the JAX loader's.
 
 ``workers`` threads build batches concurrently (numpy releases the GIL in
 the heavy copies), at most ``2 * workers`` ahead of the consumer; batches
 come out in order. The process pool and the on-device augmentation plans of
-the JAX loader, and its shuffled (training) orders, are not ported yet.
+the JAX loader are not ported yet.
 """
 
 from __future__ import annotations
@@ -64,6 +69,7 @@ class DataLoader:
         max_labels_per_image: label rows per image in ``pad_targets``.
         pad_final_batch: pad a short final batch (``n_real`` counts the real
             items).
+        shuffle, drop_last, seed: the training order (see above).
 
     Yields ``Batch`` (detection=True) or (images, metas, indices, n_real)
     with metas and indices cut to the real items (detection=False).
@@ -78,6 +84,9 @@ class DataLoader:
         shard: Tuple[int, int] = (0, 1),
         detection: bool = True,
         pad_final_batch: bool = True,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        seed: int = 0,
     ) -> None:
         self.dataset = dataset
         self.shard = shard
@@ -88,12 +97,28 @@ class DataLoader:
         self.max_labels = max_labels_per_image
         self.detection = detection
         self.pad_final_batch = pad_final_batch
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+        self.sample_weights: Optional[np.ndarray] = None  # image-weighted resampling
 
     def __len__(self) -> int:
-        return (len(self._host_indices()) + self.batch_size - 1) // self.batch_size
+        n = len(self._host_indices())
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
 
     def _host_indices(self) -> np.ndarray:
-        order = np.arange(len(self.dataset))
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            if self.sample_weights is not None:
+                p = self.sample_weights / self.sample_weights.sum()
+                order = rng.choice(n, size=n, replace=True, p=p)
+            else:
+                order = rng.permutation(n)
         idx, cnt = self.shard
         if cnt > 1 and len(order):
             # every host gets ceil(n / cnt) items (the order wraps), so all
@@ -104,8 +129,13 @@ class DataLoader:
                 order = np.concatenate([order, order[: total - len(order)]])
         return order[idx::cnt]
 
-    def _build(self, b: np.ndarray, n_real: int):
-        items = [self.dataset[int(i)] for i in b]
+    def _build(self, b: np.ndarray, n_real: int, pos0: int = 0):
+        get = getattr(self.dataset, "get_item", None)
+        if get is not None:
+            # the item's position in the epoch (unique across hosts) salts it
+            items = [get(int(i), pos0 + self.shard[1] * j) for j, i in enumerate(b)]
+        else:
+            items = [self.dataset[int(i)] for i in b]
         if self.detection:
             return collate(items, self.max_labels, n_real=n_real)
         imgs = np.stack([it[0] for it in items])
@@ -114,14 +144,25 @@ class DataLoader:
 
     def __iter__(self) -> Iterator:
         indices = self._host_indices()
+        if hasattr(self.dataset, "epoch"):
+            self.dataset.epoch = self.epoch
         batches: List[np.ndarray] = [
             indices[i: i + self.batch_size] for i in range(0, len(indices), self.batch_size)
         ]
         n_real: List[int] = [len(b) for b in batches]
-        if self.pad_final_batch and batches and len(batches[-1]) < self.batch_size:
-            short = self.batch_size - len(batches[-1])
-            batches[-1] = np.concatenate([batches[-1], batches[-1][:1].repeat(short)])
+        if batches and len(batches[-1]) < self.batch_size:
+            if self.drop_last:
+                batches.pop()
+                n_real.pop()
+            elif self.pad_final_batch:
+                short = self.batch_size - len(batches[-1])
+                batches[-1] = np.concatenate([batches[-1], batches[-1][:1].repeat(short)])
         yield from self._iter_threads(batches, n_real)
+        self.epoch += 1
+
+    def _pos0(self, i: int) -> int:
+        sidx, scnt = self.shard
+        return sidx + scnt * (i * self.batch_size)
 
     def _iter_threads(self, batches: List[np.ndarray], n_real: List[int]) -> Iterator:
         n_batches = len(batches)
@@ -146,7 +187,7 @@ class DataLoader:
                     else:
                         return
                 try:
-                    built = self._build(batches[i], n_real[i])
+                    built = self._build(batches[i], n_real[i], self._pos0(i))
                 except Exception as e:  # raised again in the consumer
                     with cond:
                         errors.append(e)

@@ -18,7 +18,12 @@ Two device paths, both through ``make_serving_fn``'s forward:
   hybrid-label NMS (the ground truth injected as perfect candidates) runs
   on this path.
 
-Validation loss and test-time augmentation are not ported yet and raise.
+With ``compute_loss`` (the trainer's validation) the loop also returns the
+validation loss (lbox, lobj, lcls averaged over batches) of the raw maps in
+f32, on the plain path with the forward from the image (no kernel): a
+padded final batch weights its padding images 0 and masks their target
+rows, as the JAX validator does. Test-time augmentation is not ported yet
+and raises.
 """
 
 from __future__ import annotations
@@ -77,6 +82,8 @@ class YoloValidator:
             fused (the fused path where the model allows it), early_pipeline
             (the early-network kernel where the model allows it), verbose,
             nc (without a model).
+        compute_loss: a ``ComputeLoss``: also compute the validation loss
+            (the plain path then, without the kernel).
         detection_fn: images -> (detections, counts), used instead of the
             model (e.g. another serving function).
         device: where the model runs; default the card, raising without
@@ -94,9 +101,10 @@ class YoloValidator:
         device: Optional[Union[str, torch.device]] = None,
     ) -> None:
         cfg = dict(cfg or {})
-        if compute_loss is not None:
-            raise NotImplementedError("the validation loss comes with the training slice of "
-                                      "the port (ComputeLoss is not ported yet)")
+        if compute_loss is not None:  # the loss needs the raw maps: the plain path
+            cfg["fused"] = False
+            cfg["early_pipeline"] = False
+        self.compute_loss = compute_loss
         if cfg.get("tta"):
             raise NotImplementedError("test-time augmentation is not ported yet (ops/tta.py)")
         if cfg.get("plot_dir"):
@@ -135,6 +143,13 @@ class YoloValidator:
                 multi_label=self.nc > 1, agnostic=self.single_cls, device=self.device,
             )
 
+    def update_weights(self, model) -> None:
+        """Take ``model``'s weights (same graph; e.g. this epoch's EMA) into
+        the validator's copy, cast to its compute dtype."""
+        if self.serve.early:
+            raise ValueError("the kernel path holds packed weights; build a new validator")
+        self.serve.model.load_state_dict(model.state_dict())
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -160,6 +175,8 @@ class YoloValidator:
             det, n_valid = self.serve(images)
             return det, n_valid, None
         raw = self.serve.raw_maps(images)
+        if self.compute_loss is not None and batch is not None:
+            self._loss(raw, batch)
         pred = self.serve.model.head.decode(raw)
         self._sync()
         t_forward = time.perf_counter()
@@ -169,6 +186,18 @@ class YoloValidator:
                                  torch.from_numpy(batch.target_mask).to(self.device), (w, h))
         det, n_valid = self._run_nms(pred)
         return det, n_valid, t_forward
+
+    def _loss(self, raw, batch) -> None:
+        """Add this batch's loss items; a padded final batch's padding
+        images weigh 0 and their target rows are masked."""
+        bs = raw[0].shape[0]
+        nr = getattr(batch, "n_real", bs)
+        mask = batch.target_mask & (batch.targets[:, 0] < nr)
+        weight = (np.arange(bs) < nr).astype(np.float32)
+        _, items = self.compute_loss(
+            [r.float() for r in raw], torch.from_numpy(batch.targets).to(self.device),
+            torch.from_numpy(mask).to(self.device), torch.from_numpy(weight).to(self.device))
+        self._loss_sum += items[:3].double().cpu().numpy()
 
     def detect(self, images: np.ndarray, batch=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Fixed (bs, max_det, 6) letterbox-space detections and (bs,) counts
@@ -212,13 +241,16 @@ class YoloValidator:
             stats.append((correct, det[:, 4], det[:, 5], tcls))
 
     def validation(self, verbose: Optional[bool] = None) -> Dict[str, Any]:
-        """Run the loop; returns mp, mr, map50, map50_95, loss (zeros: no
-        loss yet), maps (per-class mAP50-95), t (pre, inference, NMS ms per
-        image), seen and n_labels (the labels of the images seen)."""
+        """Run the loop; returns mp, mr, map50, map50_95, loss (lbox, lobj,
+        lcls averaged over batches; zeros without ``compute_loss``), maps
+        (per-class mAP50-95), t (pre, inference, NMS ms per image), seen and
+        n_labels (the labels of the images seen)."""
         verbose = self.verbose if verbose is None else verbose
         stats: List = []
         dt = np.zeros(3, np.float64)
         seen = 0
+        n_batches = 0
+        self._loss_sum = np.zeros(3, np.float64)
         for batch in self.loader:
             bs, h, w = batch.images.shape[:3]
             t0 = time.perf_counter()
@@ -232,9 +264,12 @@ class YoloValidator:
             # only the real items of a padded final batch count
             n_real = getattr(batch, "n_real", bs)
             seen += n_real
+            n_batches += 1
             dets = detections_to_list(det, n_valid)[:n_real]
             self.statistics_per_image(dets, batch, (h, w), stats)
-        return self.compute_statistics(stats, dt, seen, verbose)
+        result = self.compute_statistics(stats, dt, seen, verbose)
+        result["loss"] = (self._loss_sum / max(n_batches, 1)).tolist()
+        return result
 
     def compute_statistics(self, stats: List, dt, seen: int, verbose: bool) -> Dict[str, Any]:
         """The ap_per_class rollup and the report."""

@@ -5,7 +5,9 @@ from ayolov2_torch.models.builder import (
     build_model,
     count_params,
     fuse_params,
+    init_model,
 )
 from ayolov2_torch.models.configs import yolov5_cfg
 
-__all__ = ["YOLOModel", "build_model", "count_params", "fuse_params", "yolov5_cfg"]
+__all__ = ["YOLOModel", "build_model", "count_params", "fuse_params", "init_model",
+           "yolov5_cfg"]

@@ -17,6 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -219,6 +220,20 @@ class YOLOModel(nn.Module):
                 saved[spec.index] = y
         return y
 
+    @property
+    def nl(self) -> int:
+        return len(self.anchors)
+
+    def replace_anchors(self, anchors) -> "YOLOModel":
+        """Set pixel-space anchors (nl, na, 2) in the model and its head, in
+        place (auto-anchor); returns the model."""
+        a = tuple(tuple(float(v) for v in np.asarray(level).reshape(-1))
+                  for level in np.asarray(anchors, np.float32).reshape(self.nl, -1, 2))
+        self.anchors = a
+        if self.head is not None:
+            self.head.anchors = a
+        return self
+
     def fuse(self) -> "YOLOModel":
         """A new model with BatchNorm folded into the convs (eps 1e-3)."""
         if self.fused:
@@ -265,6 +280,26 @@ def _infer_strides(specs, save, head_index, anchors, nc, in_ch) -> Tuple[float, 
         size = 256
         raw = probe(torch.empty(1, in_ch, size, size), training=True)
     return tuple(float(size / r.shape[1]) for r in raw)
+
+
+def init_model(model: YOLOModel, seed: int = 0) -> YOLOModel:
+    """Initialise ``model`` in place as flax initialises the JAX package's:
+    every conv kernel ``lecun_normal`` (drawn from ``torch.Generator`` seeded
+    with ``seed``, on the CPU, in module order), BatchNorm scale 1, bias 0,
+    mean 0, variance 1, and the head's prior bias. The draws differ from
+    JAX's; the distribution is the same. Returns the model."""
+    gen = torch.Generator(device="cpu").manual_seed(int(seed))
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Conv2d):
+                L.lecun_normal_(mod.weight, gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm2d):
+                mod.reset_parameters()
+    if model.head is not None:
+        model.head.reset_bias()
+    return model
 
 
 def count_params(model: nn.Module) -> int:

@@ -5,12 +5,15 @@ graph uses: Conv (``ConvBnAct``), Bottleneck, C3, SPPF, UpSample. Attribute
 names follow the kindle/torch convention (``conv``, ``bn``, ``cv1``, ``m.0``)
 so a state_dict bridged from the JAX package loads with ``strict=True``.
 
-BatchNorm carries eps=1e-3 and momentum=0.03 (flax's decay of 0.97).
-``fused=True`` builds the BN-folded form: a conv with bias and no BN.
+BatchNorm carries eps=1e-3 and follows flax's ``nn.BatchNorm`` in training
+(:class:`BatchNorm2d`). Conv kernels start from flax's default,
+``lecun_normal`` (:func:`lecun_normal_`). ``fused=True`` builds the
+BN-folded form: a conv with bias and no BN.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -38,6 +41,51 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
     return ACTIVATIONS[name]
 
 
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``: a normal truncated at two standard deviations,
+    variance 1 / fan_in (fan_in = input channels x kernel area), drawn on
+    the CPU from ``generator`` and copied in, so every device gets the same
+    values."""
+    fan_in = weight.shape[1] * weight[0, 0].numel()
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978  # the truncation's std
+    draw = torch.empty(weight.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(draw, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        weight.copy_(draw * std)
+    return weight
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's semantics (eps 1e-3, decay 0.97).
+
+    In ``train()`` mode the batch is normalised by its mean and *biased*
+    variance, and the running statistics move as ``0.97 * old + 0.03 *
+    batch`` with the biased variance, in f32 (torch's own update uses the
+    unbiased one). Under bf16 autocast the input stays bf16 and the
+    statistics are reduced in f32. ``eval()`` uses the running statistics.
+    ``num_batches_tracked`` is not counted: the momentum is fixed.
+    """
+
+    def __init__(self, num_features: int) -> None:
+        super().__init__(num_features, eps=1e-3, momentum=0.03)
+        # this batch's mean and unbiased variance, overwritten in every
+        # training forward (momentum 1), not saved
+        self.register_buffer("batch_mean", torch.zeros(num_features), persistent=False)
+        self.register_buffer("batch_var", torch.ones(num_features), persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        out = F.batch_norm(x, self.batch_mean, self.batch_var, self.weight, self.bias, True, 1.0,
+                           self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():  # the biased variance averaged in, as flax does
+            self.running_mean.lerp_(self.batch_mean, self.momentum)
+            self.running_var.lerp_(self.batch_var * ((n - 1) / n), self.momentum)
+        return out
+
+
 def autopad(k: int, p: Optional[int] = None) -> int:
     """'same'-style padding for odd kernels (YOLOv5 autopad convention)."""
     return k // 2 if p is None else p
@@ -51,7 +99,7 @@ class ConvBnAct(nn.Module):
                  fused: bool = False):
         super().__init__()
         self.conv = nn.Conv2d(c_in, c_out, k, s, autopad(k, p), bias=fused)
-        self.bn = None if fused else nn.BatchNorm2d(c_out, eps=1e-3, momentum=0.03)
+        self.bn = None if fused else BatchNorm2d(c_out)
         self.act = get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

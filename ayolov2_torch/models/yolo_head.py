@@ -46,10 +46,8 @@ class YOLOHead(nn.Module):
         self.anchors = anchors
         self.strides = tuple(strides)
         self.m = nn.ModuleList(nn.Conv2d(c, self.na * self.no, 1) for c in ch)
-        with torch.no_grad():
-            for i, conv in enumerate(self.m):
-                if conv.bias.device.type != "meta":
-                    conv.bias.copy_(torch.from_numpy(self._bias_init_for_level(i)))
+        if self.m[0].bias.device.type != "meta":
+            self.reset_bias()
 
     @property
     def nl(self) -> int:
@@ -67,6 +65,16 @@ class YOLOHead(nn.Module):
         """Pixel-space anchors (nl, na, 2), stride-order corrected."""
         a = np.asarray(self.anchors, dtype=np.float32).reshape(self.nl, self.na, 2)
         return check_anchor_order(a, self.strides)
+
+    def stride_anchors(self) -> np.ndarray:
+        """Stride-normalised anchors (nl, na, 2): the loss's anchors."""
+        return self.anchor_grid() / np.asarray(self.strides, dtype=np.float32).reshape(-1, 1, 1)
+
+    def reset_bias(self) -> None:
+        """The prior bias of every level's conv (the head's initialisation)."""
+        with torch.no_grad():
+            for i, conv in enumerate(self.m):
+                conv.bias.copy_(torch.from_numpy(self._bias_init_for_level(i)))
 
     def _bias_init_for_level(self, i: int, img_size: float = 640.0) -> np.ndarray:
         """YOLOv5 prior bias: obj ~ 8 objects/640px image, cls ~ 0.6/(nc-1)."""

@@ -152,3 +152,48 @@ def bbox_ioa(box1: Array, box2: Array, eps: float = 1e-7) -> Array:
     inter = wh[..., 0] * wh[..., 1]
     out = inter / (box_area(box2)[None, :] + eps)
     return out[0] if box1.ndim == 1 else out
+
+
+def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, x1y1x2y2: bool = True,
+             g_iou: bool = False, d_iou: bool = False, c_iou: bool = False,
+             eps: float = 1e-7) -> torch.Tensor:
+    """Elementwise IoU / GIoU / DIoU / CIoU of aligned boxes (..., 4), as
+    torch tensors and differentiable (CIoU's alpha is held constant, as the
+    JAX package's ``stop_gradient`` holds it)."""
+    if x1y1x2y2:
+        b1_x1, b1_y1, b1_x2, b1_y2 = box1.unbind(-1)
+        b2_x1, b2_y1, b2_x2, b2_y2 = box2.unbind(-1)
+    else:  # xywh -> xyxy
+        b1_x1, b1_x2 = box1[..., 0] - box1[..., 2] / 2, box1[..., 0] + box1[..., 2] / 2
+        b1_y1, b1_y2 = box1[..., 1] - box1[..., 3] / 2, box1[..., 1] + box1[..., 3] / 2
+        b2_x1, b2_x2 = box2[..., 0] - box2[..., 2] / 2, box2[..., 0] + box2[..., 2] / 2
+        b2_y1, b2_y2 = box2[..., 1] - box2[..., 3] / 2, box2[..., 1] + box2[..., 3] / 2
+
+    inter = (torch.clamp(torch.minimum(b1_x2, b2_x2) - torch.maximum(b1_x1, b2_x1), min=0)
+             * torch.clamp(torch.minimum(b1_y2, b2_y2) - torch.maximum(b1_y1, b2_y1), min=0))
+    w1, h1 = b1_x2 - b1_x1, b1_y2 - b1_y1 + eps
+    w2, h2 = b2_x2 - b2_x1, b2_y2 - b2_y1 + eps
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if not (g_iou or d_iou or c_iou):
+        return iou
+
+    cw = torch.maximum(b1_x2, b2_x2) - torch.minimum(b1_x1, b2_x1)  # convex width
+    ch = torch.maximum(b1_y2, b2_y2) - torch.minimum(b1_y1, b2_y1)  # convex height
+    if c_iou or d_iou:
+        c2 = cw ** 2 + ch ** 2 + eps  # convex diagonal squared
+        rho2 = ((b2_x1 + b2_x2 - b1_x1 - b1_x2) ** 2 + (b2_y1 + b2_y2 - b1_y1 - b1_y2) ** 2) / 4
+        if d_iou:
+            return iou - rho2 / c2
+        v = (4 / np.pi ** 2) * (torch.atan(w2 / h2) - torch.atan(w1 / h1)) ** 2
+        with torch.no_grad():
+            alpha = v / (v - iou + (1 + eps))
+        return iou - (rho2 / c2 + v * alpha)
+    c_area = cw * ch + eps
+    return iou - (c_area - union) / c_area
+
+
+def wh_iou(wh1: Array, wh2: Array, eps: float = 1e-7) -> Array:
+    """IoU of co-centred width-height pairs: (N, 2), (M, 2) -> (N, M)."""
+    inter = _min(wh1[:, None, :], wh2[None, :, :]).prod(-1)
+    return inter / (wh1[:, None, :].prod(-1) + wh2[None, :, :].prod(-1) - inter + eps)

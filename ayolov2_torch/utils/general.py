@@ -1,4 +1,4 @@
-"""Sizing, segment and device helpers."""
+"""Sizing, segment, label-weight, seeding and device helpers."""
 
 from __future__ import annotations
 
@@ -49,3 +49,34 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def labels_to_class_weights(labels: List[np.ndarray], nc: int = 80) -> np.ndarray:
+    """Inverse-frequency class weights from a list of (n_i, 5) label arrays."""
+    if len(labels) == 0 or labels[0] is None:
+        return np.array([])
+    classes = np.concatenate(labels, 0)[:, 0].astype(int)
+    weights = np.bincount(classes, minlength=nc).astype(np.float64)
+    weights[weights == 0] = 1
+    weights = 1 / weights
+    return weights / weights.sum()
+
+
+def labels_to_image_weights(labels: List[np.ndarray], nc: int = 80,
+                            class_weights: Optional[np.ndarray] = None) -> np.ndarray:
+    """Per-image sampling weights: the sum over classes of class weight x count."""
+    cw = np.ones(nc) if class_weights is None else class_weights
+    counts = np.array([np.bincount(lab[:, 0].astype(int), minlength=nc) for lab in labels])
+    return (cw.reshape(1, nc) * counts).sum(1)
+
+
+def init_seeds(seed: int = 0) -> np.random.Generator:
+    """Seed Python's, numpy's and torch's global generators; returns a fresh
+    numpy Generator. The port's own draws (weights, data order) take
+    explicit generators; this covers anything that reads the global ones."""
+    import random
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return np.random.default_rng(seed)

@@ -48,6 +48,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    val loop's images/s over a warm pass, the validator's pre/inference/NMS
    ms per image and the loader's ms per batch.
 
+8. training: yolov5s (full width, nc 20, ``init_model`` weights from
+   ``--seed``) at bs 8, 320x320 on drawn images (filled rectangles coloured
+   by class): 4 micro-steps at accumulate 2 in f32 (TF32 off) on the card
+   and on the CPU, gated on equal loss items (1e-4) and equal step-4 deltas
+   of the params, BN statistics and EMA (max|card - cpu| / max|delta| <
+   1e-2); the first micro-step in bf16 against f32 (2%); the train step
+   timed (CUDA events: forward + loss, backward, optimizer + EMA; peak
+   memory; the convs' MACs x 3 at the bf16 peak as its bound) for nc 80 at
+   640, bs 64 and nc 20 at 320, bs 16, accumulate 4; 300 micro-steps from
+   scratch on 16 drawn images at 320 (the memorisation recipe), gated on the
+   last 20 steps' mean loss <= 0.7 x the first 20's; and the entry point:
+   ``python -m ayolov2_torch.cli.train`` from the golden checkpoint on
+   phase 7's set (train = val, YAML configs read by the port's reader, 3
+   epochs, under ``build/chip_smoke_train/``), ``cli.val`` on its
+   ``best.ckpt`` through K1 within 0.02 mAP50 of the trainer's own
+   validation of that epoch, and ``--resume`` to 4 epochs, which must run
+   one epoch and advance ``step`` and ``ema_updates`` by its micro-steps.
+
 ``--profile`` adds where the serve call's device time goes (torch.profiler)
 and where the kernel's own time goes (clock stamps at its layer boundaries,
 from a second build of the same source with ``-DEARLY_PROFILE``).
@@ -55,7 +73,8 @@ from a second build of the same source with ``-DEARLY_PROFILE``).
 The line before the last is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Weights are random, made
 from ``--seed``, except phase 7's, which are the committed golden
-checkpoint's; its images are made from ``--seed`` too.
+checkpoint's (phase 7, and phase 8's entry point run); its images are made
+from ``--seed`` too.
 """
 
 from __future__ import annotations
@@ -550,11 +569,407 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
     return launches, max_abs
 
 
+
+# ---- phase 8: training ------------------------------------------------------
+
+PALETTE_SEED = 1234
+MEMORIZE_CFG = ROOT / "res/configs/cfg/train_golden_memorize.yaml"
+TRAIN_DIR = ROOT / "build/chip_smoke_train"
+
+
+def drawn_batch(rng, n: int, size: int, nc: int, per_image: int = 4, max_labels: int = 64):
+    """n synthetic (size, size) BGR images: a grey background with a little
+    noise and ``per_image`` filled rectangles whose colour is their class's
+    (nothing unlabelled looks like an object), and their label rows:
+    (images uint8 (n, size, size, 3), targets (n * max_labels, 6), mask)."""
+    from ayolov2_torch.loss.yolo_loss import pad_targets
+
+    palette = np.random.default_rng(PALETTE_SEED).uniform(0, 255, (nc, 3))
+    imgs = np.empty((n, size, size, 3), np.uint8)
+    labels = []
+    for i in range(n):
+        img = rng.normal(114, 8, (size, size, 3))
+        rows = []
+        for _ in range(per_image):
+            c = int(rng.integers(0, nc))
+            w, h = rng.uniform(0.12, 0.45, 2)
+            cx, cy = rng.uniform(w / 2, 1 - w / 2), rng.uniform(h / 2, 1 - h / 2)
+            x1, x2 = int((cx - w / 2) * size), int((cx + w / 2) * size)
+            y1, y2 = int((cy - h / 2) * size), int((cy + h / 2) * size)
+            img[y1:y2, x1:x2] = palette[c]
+            rows.append([c, (x1 + x2) / 2 / size, (y1 + y2) / 2 / size, (x2 - x1) / size,
+                         (y2 - y1) / size])
+        imgs[i] = np.clip(img, 0, 255).astype(np.uint8)
+        labels.append(np.asarray(rows, np.float32))
+    targets, mask = pad_targets(labels, n, n * max_labels)
+    return imgs, targets, mask
+
+
+def memorize_hyp(nc: int, img_size: int):
+    """The memorisation recipe's hyper-parameters (read by the port's YAML
+    reader) with the loss gains scaled for yolov5s at ``img_size``."""
+    from ayolov2_torch.train.trainer import scale_hyp_gains
+    from ayolov2_torch.utils.config import load_yaml
+
+    cfg = load_yaml(MEMORIZE_CFG)
+    return cfg, scale_hyp_gains(dict(cfg["hyper_params"], label_smoothing=0.0), 3, nc, img_size)
+
+
+def train_setup(model, hyp, nc: int, bs: int, accumulate: int, epochs: int,
+                steps_per_epoch: int):
+    """(TrainState, ComputeLoss) for ``model`` as the trainer builds them."""
+    from ayolov2_torch.loss.yolo_loss import ComputeLoss
+    from ayolov2_torch.train.optimizer import build_optimizer
+    from ayolov2_torch.train.train_state import create_train_state
+
+    opt = build_optimizer(model, hyp, epochs=epochs, steps_per_epoch=steps_per_epoch,
+                          batch_size=bs, accumulate=accumulate)
+    return create_train_state(model, opt), ComputeLoss.from_hyp(model.head.stride_anchors(),
+                                                                 nc, hyp)
+
+
+def tree_delta_err(a, b, start) -> float:
+    """max |(a - start) - (b - start)| / max |b - start| over tensors."""
+    num = max((x.detach().double().cpu() - y.detach().double().cpu()).abs().max().item()
+              for x, y in zip(a, b))
+    den = max((y.detach().double().cpu() - s.double()).abs().max().item()
+              for y, s in zip(b, start))
+    return num / max(den, 1e-30)
+
+
+def conv_macs(model, shape) -> int:
+    """MACs of every conv of one forward at ``shape`` (NCHW), from hooks."""
+    import torch
+
+    total = [0]
+
+    def hook(mod, inp, out):
+        total[0] += out.numel() * mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    was = model.training
+    model.eval()  # leaves the BatchNorm statistics as they are
+    with torch.no_grad():
+        model(torch.zeros(shape, device=next(model.parameters()).device), training=True)
+    model.train(was)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def time_train_step(card: str, nc: int, img: int, bs: int, accumulate: int, seed: int,
+                    iters: int = 12, device: str = "cuda") -> dict:
+    """The train step (forward + loss, backward, optimizer + EMA) in bf16
+    autocast, channels_last, timed with CUDA events per part after warm-up;
+    peak memory; the step's FLOP bound from the convs' MACs x 3."""
+    import torch
+
+    from ayolov2_torch.models import build_model, init_model, yolov5_cfg
+    from ayolov2_torch.train.train_state import EMA, finish_step, train_forward
+
+    _, hyp = memorize_hyp(nc, img)
+    model = init_model(build_model(yolov5_cfg("s", nc=nc), device="cpu"), seed).to(device)
+    model = model.to(memory_format=torch.channels_last)
+    state, loss = train_setup(model, hyp, nc, bs, accumulate, epochs=300, steps_per_epoch=100)
+    rng = np.random.default_rng(seed)
+    imgs, targets, mask = (torch.from_numpy(a).to(device)
+                           for a in drawn_batch(rng, bs, img, nc))
+    ema = EMA()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(iters)]
+    for k in range(3 + iters):
+        e = ev[k - 3] if k >= 3 else None
+        if k == 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if e:
+            e[0].record()
+        total, items = train_forward(state.model, loss, imgs, targets, mask, torch.bfloat16)
+        if e:
+            e[1].record()
+        total.backward()
+        if e:
+            e[2].record()
+        finish_step(state, ema)
+        if e:
+            e[3].record()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) / iters * 1e3
+    parts = np.array([[e[i].elapsed_time(e[i + 1]) for i in range(3)] for e in ev]).mean(0)
+    peak = torch.cuda.max_memory_allocated()
+    macs = conv_macs(state.model, (1, 3, img, img)) * bs
+    bound_ms = 3 * 2 * macs / PEAK_BF16_FLOPS * 1e3
+    step_ms = float(parts.sum())
+    r = dict(step_ms=step_ms, host_ms=host_ms, parts=parts.tolist(), img_s=bs / step_ms * 1e3,
+             peak_gb=peak / 1e9, macs=macs, bound_ms=bound_ms, share=bound_ms / step_ms,
+             finite=bool(np.isfinite(items.cpu().numpy()).all()))
+    # a checkpoint write of this state (host clock): device copies, bf16
+    # cast, msgpack encoding, the file
+    from ayolov2_torch.utils.checkpoint import save_checkpoint
+
+    path = TRAIN_DIR / "timing.ckpt"
+    t0 = time.perf_counter()
+    save_checkpoint(path, state, epoch=0, model_cfg=yolov5_cfg("s", nc=nc))
+    ckpt_ms = (time.perf_counter() - t0) * 1e3
+    ckpt_mb = path.stat().st_size / 1e6
+    path.unlink()
+    log(f"[train] {card}: train step yolov5s nc {nc} {img}x{img} bs {bs} accumulate {accumulate} "
+        f"bf16 autocast channels_last: {step_ms:.3f} ms per micro-step on the device "
+        f"(forward+loss {parts[0]:.3f}, backward {parts[1]:.3f}, optimizer+EMA {parts[2]:.3f}); "
+        f"host clock {host_ms:.3f} ms; {r['img_s']:.1f} img/s; peak memory {r['peak_gb']:.2f} GB; "
+        f"bound {bound_ms:.3f} ms (conv MACs {macs / 1e9:.1f} G x 3 x 2 FLOP at 989 TFLOP/s "
+        f"bf16), {100 * r['share']:.1f}% of it; a checkpoint write {ckpt_ms:.1f} ms "
+        f"({ckpt_mb:.1f} MB)")
+    del state, model, imgs
+    torch.cuda.empty_cache()
+    return r
+
+
+def falling_loss(card: str, seed: int, steps: int = 300, img: int = 320, n: int = 16,
+                 variant: str = "s", device: str = "cuda", image_dtype=None,
+                 per_image: int = 4) -> dict:
+    """yolov5s nc 20 from scratch (init_model) on ``n`` drawn images at
+    ``img``, bs ``n``, the memorisation recipe (accumulate 64/bs), ``steps``
+    micro-steps: the mean total loss of the last 20 against the first 20."""
+    import torch
+
+    from ayolov2_torch.models import build_model, init_model, yolov5_cfg
+    from ayolov2_torch.train.optimizer import NBS_NOMINAL
+    from ayolov2_torch.train.train_state import make_train_step
+
+    nc = 20
+    image_dtype = torch.bfloat16 if image_dtype is None else image_dtype
+    _, hyp = memorize_hyp(nc, img)
+    accumulate = max(round(NBS_NOMINAL / n), 1)
+    model = init_model(build_model(yolov5_cfg(variant, nc=nc), device="cpu"), seed).to(device)
+    if device == "cuda":
+        model = model.to(memory_format=torch.channels_last)
+    # one batch is the whole set: an epoch is one micro-step
+    state, loss = train_setup(model, hyp, nc, n, accumulate, epochs=steps, steps_per_epoch=1)
+    step = make_train_step(loss, image_dtype=image_dtype)
+    imgs, targets, mask = (torch.from_numpy(a).to(device)
+                           for a in drawn_batch(np.random.default_rng(seed + 5), n, img, nc,
+                                                per_image))
+    t0 = time.perf_counter()
+    items = torch.stack([step(state, imgs, targets, mask) for _ in range(steps)]).cpu().numpy()
+    wall = time.perf_counter() - t0
+    first, last = items[:20, 3].mean(), items[-20:, 3].mean()
+    ratio = last / first
+    ok = bool(np.isfinite(items).all()) and ratio <= 0.7
+    log(f"[train] {card}: from scratch, yolov5{variant} nc {nc}, {n} drawn images at {img}, bs {n} "
+        f"accumulate {accumulate}, {steps} micro-steps ({state.optimizer.updates} updates) in "
+        f"{wall:.1f} s: mean total loss of the first 20 {first:.5f} (box {items[:20, 0].mean():.5f} "
+        f"obj {items[:20, 1].mean():.5f} cls {items[:20, 2].mean():.5f}), of the last 20 "
+        f"{last:.5f} (box {items[-20:, 0].mean():.5f} obj {items[-20:, 1].mean():.5f} "
+        f"cls {items[-20:, 2].mean():.5f}), ratio {ratio:.4f} (gate <= 0.7) "
+        f"{'ok' if ok else 'FAIL'}")
+    return dict(ok=ok, ratio=float(ratio), first=float(first), last=float(last))
+
+
+def card_vs_cpu(card: str, seed: int, card_device: str = "cuda") -> bool:
+    """8.1 and 8.2: 4 micro-steps at accumulate 2 in f32 (TF32 off) on the
+    card and on the CPU from the same weights and batch; then the first
+    micro-step in bf16 against f32 on the card (``card_device`` "cpu" for a
+    rehearsal)."""
+    import copy
+
+    import torch
+
+    from ayolov2_torch.models import build_model, init_model, yolov5_cfg
+    from ayolov2_torch.train.train_state import make_train_step
+
+    def parts(model):
+        """(params, BN running statistics) as lists, in state-dict order."""
+        sd = model.state_dict(keep_vars=True)
+        stats = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+        return ([t for k, t in sd.items() if t.is_floating_point() and k not in stats],
+                [sd[k] for k in stats])
+
+    nc, img, bs = 20, 320, 8
+    _, hyp = memorize_hyp(nc, img)
+    base = init_model(build_model(yolov5_cfg("s", nc=nc), device="cpu"), seed)
+    start = [[t.detach().clone() for t in group] for group in parts(base)]
+    batch = drawn_batch(np.random.default_rng(seed + 3), bs, img, nc)
+    runs = {}
+    for dev in (card_device, "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        if dev == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        state, loss = train_setup(model, hyp, nc, bs, 2, epochs=300, steps_per_epoch=100)
+        step = make_train_step(loss, image_dtype=torch.float32)
+        data = [torch.from_numpy(a).to(dev) for a in batch]
+        t0 = time.perf_counter()
+        items = [step(state, *data).cpu().numpy() for _ in range(4)]
+        runs[dev] = (state, items, time.perf_counter() - t0)
+    (sg, ig, tg), (sc, ic, tc) = runs[card_device], runs["cpu"]
+    item_err = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(ig, ic))
+    (pg, bg), (pc, bc) = parts(sg.model), parts(sc.model)
+    (eg, ebg), (ec, ebc) = parts(sg.ema_model), parts(sc.ema_model)
+    errs = {
+        "params": tree_delta_err(pg, pc, start[0]),
+        "BN statistics": tree_delta_err(bg, bc, start[1]),
+        "EMA": tree_delta_err(eg + ebg, ec + ebc, start[0] + start[1]),
+    }
+    ok = (item_err < 1e-4 and all(e < 1e-2 for e in errs.values())
+          and sg.optimizer.updates == sc.optimizer.updates == 2 and sg.step == 4)
+    log(f"[train] yolov5s nc {nc} full width, bs {bs} at {img}, f32 (TF32 off), 4 micro-steps at "
+        f"accumulate 2 (2 updates, in warmup), card vs CPU from the same init_model({seed}) "
+        f"weights: loss items max rel {item_err:.2e} (gate 1e-4); step-4 deltas max|card - cpu| / "
+        f"max|delta|: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (gate 1e-2); card {tg:.1f} s, CPU {tc:.1f} s {'ok' if ok else 'FAIL'}")
+    log(f"[train] loss items per micro-step, card: "
+        + "; ".join(" ".join(f"{v:.6f}" for v in it) for it in ig))
+    del runs, sg, sc
+    # 8.2: bf16 against f32 on the card, the first micro-step from the same start
+    first = {}
+    for dt in (torch.float32, torch.bfloat16):
+        model = copy.deepcopy(base).to(card_device).to(memory_format=torch.channels_last)
+        state, loss = train_setup(model, hyp, nc, bs, 2, epochs=300, steps_per_epoch=100)
+        first[dt] = make_train_step(loss, image_dtype=dt)(
+            state, *(torch.from_numpy(a).to(card_device) for a in batch)).cpu().numpy()
+    rel = np.abs(first[torch.bfloat16] - first[torch.float32]) / np.abs(first[torch.float32])
+    ok2 = bool((rel < 0.02).all())
+    log(f"[train] first micro-step bf16 vs f32 on the card: items "
+        f"{' '.join(f'{v:.6f}' for v in first[torch.bfloat16])} vs "
+        f"{' '.join(f'{v:.6f}' for v in first[torch.float32])}, rel {' '.join(f'{v:.4f}' for v in rel)} "
+        f"(gate 0.02) {'ok' if ok2 else 'FAIL'}")
+    if card_device == "cuda":
+        torch.cuda.empty_cache()
+    return ok and ok2
+
+
+def write_train_files(root: Path, images: Path, epochs: int, img: int = 320,
+                      bs: int = 16) -> tuple:
+    """A YAML data config (train and val = ``images``) and a YAML train cfg
+    with the memorisation recipe's values (320 px, bs 16 unless given),
+    ``epochs`` and validate_period 1."""
+    root.mkdir(parents=True, exist_ok=True)
+    names = ", ".join(f"class{i}" for i in range(20))
+    data = root / "data.yaml"
+    data.write_text(f"# phase 7's self-labelled set, as train and val path\n"
+                    f"train_path: {images}\nval_path: {images}\nnc: 20\nnames: [{names}]\n")
+    text = MEMORIZE_CFG.read_text()
+    for a, b in (("epochs: 1500", f"epochs: {epochs}"), ("validate_period: 100",
+                                                         "validate_period: 1"),
+                 ("image_size: 320", f"image_size: {img}"), ("batch_size: 16",
+                                                            f"batch_size: {bs}")):
+        if a not in text:
+            raise ValueError(f"{MEMORIZE_CFG} has no {a!r}")
+        text = text.replace(a, b)
+    cfg = root / f"cfg_{epochs}.yaml"
+    cfg.write_text(text)
+    return data, cfg
+
+
+def run_logged(args, timeout: int = 900):
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc, time.perf_counter() - t0
+
+
+def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 16) -> tuple:
+    """8.5: ``cli.train`` from the golden checkpoint on phase 7's set for 3
+    epochs, ``cli.val`` on its best.ckpt (K1), then ``--resume`` to 4
+    epochs. Returns (ok, early_pipeline launches of the in-process cli.val).
+    ``device``, ``img`` and ``bs`` shrink it for a rehearsal on the CPU."""
+    import re
+
+    from ayolov2_torch.cli import val
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_checkpoint
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    data, cfg3 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 3, img, bs)
+    _, cfg4 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 4, img, bs)
+    dev = [] if device == "cuda" else ["--device", device]
+    common = ["-m", "ayolov2_torch.cli.train", "--data", str(data), "--log-dir",
+              str(TRAIN_DIR / "runs"), *dev]
+    proc, wall = run_logged([*common, "--model", str(GOLDEN), "--cfg", str(cfg3)])
+    out = proc.stdout + proc.stderr
+    (TRAIN_DIR / "train.log").write_text(out)
+    epochs = re.findall(r"epoch +(\d+) done in ([\d.]+)s \(([\d.]+) img/s\): \d+ steps, mean loss "
+                        r"box ([\d.]+) obj ([\d.]+) cls ([\d.]+) total ([\d.]+)", out)
+    vals = re.findall(r"epoch +(\d+) validation: mAP50 ([\d.]+) mAP50-95 ([\d.]+)", out)
+    run_dir = re.search(r"Run dir: (\S+)", out)
+    log(f"[train] python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
+        f"{cfg3.name} (memorisation recipe, 3 epochs): exit {proc.returncode} in {wall:.1f} s")
+    for e, v in zip(epochs, vals):
+        log(f"[train]   epoch {e[0]}: {e[2]} img/s, mean loss box {e[3]} obj {e[4]} cls {e[5]} "
+            f"total {e[6]}; validation mAP50 {v[1]} mAP50-95 {v[2]}")
+    if proc.returncode != 0 or not run_dir:
+        log("[train] " + " | ".join(out.strip().splitlines()[-8:]))
+        return False, 0
+    wdir = Path(run_dir.group(1)) / "weights"
+    best, last = wdir / "best.ckpt", wdir / "last.ckpt"
+    ok = best.exists() and last.exists() and len(epochs) == 3 and len(vals) == 3
+    meta_best, meta_last = load_checkpoint(best)["meta"], load_checkpoint(last)["meta"]
+
+    val_json = TRAIN_DIR / "val.json"
+    vargs = ["--weights", str(best), "--data-cfg", str(data), "-iw", str(img), "--batch-size",
+             str(bs), "--no-rect", *dev, "--json-path", str(val_json)]
+    proc, wall = run_logged(["-m", "ayolov2_torch.cli.val", *vargs])
+    if proc.returncode != 0:
+        log("[train] cli.val: " + " | ".join((proc.stdout + proc.stderr).strip().splitlines()[-5:]))
+        return False, 0
+    cli = json.loads(val_json.read_text())
+    early.early_pipeline.launches = 0  # main path (cli.val in this process): counts from here
+    inproc = val.main(vargs[:-2])
+    launches = early.early_pipeline.launches
+    d = abs(cli["map50"] - meta_best["map50"])
+    ok = ok and d <= 0.02 and launches > 0 and abs(inproc["map50"] - cli["map50"]) <= 1e-9
+    log(f"[train] python -m ayolov2_torch.cli.val on best.ckpt (epoch {meta_best['epoch']}, K1 path, "
+        f"bf16, square {img}): mAP50 {cli['map50']:.5f} mAP50-95 {cli['map50_95']:.5f} in "
+        f"{wall:.1f} s vs the trainer's validation of that epoch (plain path, bf16 compute, f32 EMA "
+        f"weights) mAP50 {meta_best['map50']:.5f}: |d| {d:.5f} (gate 0.02); in-process cli.val "
+        f"mAP50 {inproc['map50']:.5f}, early_pipeline launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+
+    proc, wall = run_logged([*common, "--model", str(GOLDEN), "--cfg", str(cfg4), "--resume",
+                             str(last)])
+    out2 = proc.stdout + proc.stderr
+    (TRAIN_DIR / "resume.log").write_text(out2)
+    epochs2 = re.findall(r"epoch +(\d+) done in .*?: (\d+) steps", out2)
+    run2 = re.search(r"Run dir: (\S+)", out2)
+    if proc.returncode != 0 or not run2:
+        log("[train] resume: " + " | ".join(out2.strip().splitlines()[-8:]))
+        return False, launches
+    meta2 = load_checkpoint(Path(run2.group(1)) / "weights/last.ckpt")["meta"]
+    n_steps = int(epochs2[0][1]) if len(epochs2) == 1 else -1
+    ok_resume = (len(epochs2) == 1 and epochs2[0][0] == "3"
+                 and meta2["step"] == meta_last["step"] + n_steps
+                 and meta2["ema_updates"] == meta_last["ema_updates"] + n_steps)
+    log(f"[train] --resume last.ckpt (epoch {meta_last['epoch']}, step {meta_last['step']}, "
+        f"ema_updates {meta_last['ema_updates']}) to 4 epochs: exit {proc.returncode} in "
+        f"{wall:.1f} s, ran epochs {[e[0] for e in epochs2]} of {n_steps} micro-steps; the new "
+        f"last.ckpt: epoch {meta2['epoch']}, step {meta2['step']}, ema_updates "
+        f"{meta2['ema_updates']} {'ok' if ok_resume else 'FAIL'}")
+    return ok and ok_resume, launches
+
+
+def train_phase(card: str, seed: int) -> tuple:
+    """Phase 8 (see the module docstring). Returns (ok, K1 launches)."""
+    import torch
+
+    ok = card_vs_cpu(card, seed)
+    times = [time_train_step(card, 80, 640, 64, 1, seed),
+             time_train_step(card, 20, 320, 16, 4, seed)]
+    ok = ok and all(t["finite"] for t in times)
+    torch.backends.cudnn.benchmark = False
+    fall = falling_loss(card, seed)
+    ok = ok and fall["ok"]
+    ok_entry, launches = entry_point_run(card)
+    return ok and ok_entry, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check-only", action="store_true",
                     help="phases 1-3 only: build the kernels and check them")
+    ap.add_argument("--train-only", action="store_true",
+                    help="phases 1, 2, 7 and 8 only (phase 8 trains on phase 7's set)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call down by stage and by kernel "
                          "(torch.profiler)")
@@ -629,6 +1044,16 @@ def main() -> int:
             f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
         if not ok:
             return 1
+    if args.train_only:
+        val = validation_phase(args.seed, card)
+        ok8 = val is not None and train_phase(card, args.seed)[0]
+        log(card)
+        if not ok8:
+            log("[train] FAIL")
+            return 1
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if args.check_only:
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -801,6 +1226,14 @@ def main() -> int:
         return 1
     launches += val[0]
     max_abs = max(max_abs, val[1])
+
+    # ---- 8. training ------------------------------------------------------
+    torch.cuda.empty_cache()
+    ok8, train_launches = train_phase(card, args.seed)
+    if not ok8:
+        log("[train] FAIL")
+        return 1
+    launches += train_launches
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

@@ -105,8 +105,46 @@ def test_unported_options_raise(setup):
     from ayolov2_torch.eval import YoloValidator
 
     _, port_model, _, _ = setup
-    for kw, match in ((dict(compute_loss=object()), "validation loss"),
-                      (dict(cfg={"tta": True}), "test-time augmentation"),
+    for kw, match in ((dict(cfg={"tta": True}), "test-time augmentation"),
                       (dict(cfg={"plot_dir": "x"}), "plots")):
         with pytest.raises(NotImplementedError, match=match):
             YoloValidator(port_model, None, device="cpu", **kw)
+
+
+def test_validation_loss_matches_jax(setup):
+    """``compute_loss``: the unfused golden model on the plain path, the
+    validation loss (a padded final batch of 1 real image in 4) and the
+    metrics against the JAX validator's."""
+    from ayolov2_tpu.data import DataLoader as JaxLoader, DetectionDataset as JaxDataset
+    from ayolov2_tpu.eval import YoloValidator as JaxValidator
+    from ayolov2_tpu.loss.yolo_loss import ComputeLoss as JaxLoss
+    from ayolov2_tpu.models.yolo_head import YOLOHead
+
+    from _torch_port_common import port_model
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.eval import YoloValidator
+    from ayolov2_torch.loss.yolo_loss import ComputeLoss
+    from ayolov2_torch.train.trainer import scale_hyp_gains
+
+    img_dir = setup[0]
+    hyp = scale_hyp_gains({"box": 0.05, "cls": 0.5, "obj": 1.0, "anchor_t": 4.0}, 3, 20,
+                          LABELLED_IMG)
+    variables = golden_variables()
+    jmodel = jax_model("s", nc=20)
+    head = YOLOHead(nc=20, anchors=jmodel.anchors, strides=jmodel.strides)
+    ds = JaxDataset(str(img_dir), img_size=LABELLED_IMG, batch_size=4, rect=True, pad=0.5)
+    want = JaxValidator(jmodel, variables, JaxLoader(ds, batch_size=4), cfg=dict(half=False),
+                        compute_loss=JaxLoss.from_hyp(head.stride_anchors(), 20, hyp)).validation()
+
+    model = port_model("s", variables, nc=20)
+    loss = ComputeLoss.from_hyp(model.head.stride_anchors(), 20, hyp)
+    pds = DetectionDataset(str(img_dir), img_size=LABELLED_IMG, batch_size=4, rect=True, pad=0.5)
+    v = YoloValidator(model, DataLoader(pds, batch_size=4), cfg=dict(half=False),
+                      compute_loss=loss, device="cpu")
+    assert not v.use_fused and not v.serve.early
+    got = v.validation()
+    assert len(pds) % 4 == 1  # the final batch is padded
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-5)
+    assert min(got["loss"]) > 0
+    for key in ("mp", "mr", "map50", "map50_95"):
+        assert abs(got[key] - want[key]) < TOL, key
