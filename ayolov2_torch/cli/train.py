@@ -7,7 +7,10 @@ the shuffled train loader and the validation loaders of
 ``train.val_geometry`` (``rect``, ``train`` or ``both``), weights from
 ``init_model`` (seed 0), ``YoloTrainer``, and ``metrics.json`` in the run
 dir. Runs on the card unless ``--device cpu`` is given. Configs are read by
-the port's own YAML reader (or as JSON).
+the port's own YAML reader (or as JSON). With ``train.device_aug: true``
+the training augmentation is planned on the host and rendered on the
+device (``train.device_aug_resident``: true, false or auto, resident up to
+2 GiB of frames; ``train.device_aug_dtype``: bfloat16 or float32).
 
 Usage:
     python -m ayolov2_torch.cli.train --model res/configs/model/yolov5s.yaml \\
@@ -125,6 +128,16 @@ def main(argv: Optional[Sequence[str]] = None) -> YoloTrainer:
         data_cfg["train_path"], rect=bool(tcfg.get("rect", False)),
         yolo_augmentation=cfg.get("yolo_augmentation"), augmentation=cfg.get("augmentation"),
         **common)
+    if tcfg.get("device_aug", False):
+        # the loader's threads plan geometry and labels; mosaic, warp, mixup,
+        # HSV and flips are rendered on the trainer's device. "auto" keeps
+        # the source frames there when they take at most 2 GiB
+        resident = tcfg.get("device_aug_resident", "auto")
+        if resident == "auto":
+            resident = len(train_dataset) * img_size * img_size * 3 <= 2 * 1024**3
+        train_dataset.enable_device_aug(resident=bool(resident))
+        LOGGER.info("device augmentation on (%s source frames)",
+                    "resident" if resident else "streamed")
     max_labels = int(tcfg.get("max_labels_per_image", 64))
     train_loader = DataLoader(train_dataset, batch_size=int(tcfg["batch_size"]),
                               shuffle=not tcfg.get("rect", False), drop_last=True,

@@ -1,19 +1,22 @@
 """Datasets: image folders, and images with YOLO labels.
 
-The counterpart of ``ayolov2_tpu/data/datasets.py`` without augmentation:
-recursive glob over ``IMG_EXTS``, the shape scan cached beside the images,
-rect batches (aspect-ratio buckets rounded up to stride multiples),
-``letterbox`` with the same padding split and fill, label files (boxes or
-segment polygons) and the ``mem`` image cache. Items are HWC BGR uint8 and
-(n, 5) [cls, xywh-normalised] labels, as in the JAX package.
+The counterpart of ``ayolov2_tpu/data/datasets.py``: recursive glob over
+``IMG_EXTS``, the shape scan cached beside the images, rect batches
+(aspect-ratio buckets rounded up to stride multiples), ``letterbox`` with
+the same padding split and fill, label files (boxes or segment polygons)
+and the ``mem`` image cache. Items are HWC BGR uint8 and (n, 5) [cls,
+xywh-normalised] labels, as in the JAX package.
 
 Images are read and resized by ``data/image_io.py`` (no OpenCV for .bmp).
-Training without augmentation (``yolo_augmentation.augment: false``, mosaic
-0, no policies, as the memorisation configs train) uses the same items:
 ``get_item(index, salt)`` is the loader's entry, ``labels`` / ``segments``
-feed auto-anchor and the class weights. Training-time augmentation (mosaic,
-mixup, copy-paste, perspective, policies, HSV, on-device plans) is not
-ported yet and raises, naming the later slice.
+feed auto-anchor and the class weights. Training without augmentation
+(the memorisation configs) letterboxes on the host. With augmentation the
+dataset runs in plan mode (``enable_device_aug``): ``plan_item`` draws
+mosaic, mixup, the perspective warp, the flips and the HSV gains from the
+JAX package's seeded stream, computes the labels on the host and leaves
+the pixels to ``data/device_augment.py`` on the card. The host pixel path
+(cv2's warps, HSV, copy-paste, pixel policies) is not ported yet and
+raises, naming the later slice.
 """
 
 from __future__ import annotations
@@ -26,8 +29,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from ayolov2_torch.data.augment import (
+    MultiAugmentationPolicies,
+    hsv_gains,
+    perspective_matrix,
+    perspective_targets,
+)
 from ayolov2_torch.data.image_io import image_size, imread, resize_area, resize_linear
-from ayolov2_torch.utils.boxes import xywh2xyxy, xyxy2xywh
+from ayolov2_torch.utils.boxes import xyn2xy, xywh2xyxy, xyxy2xywh
 from ayolov2_torch.utils.constants import IMG_EXTS
 from ayolov2_torch.utils.general import segments2boxes
 
@@ -138,6 +147,7 @@ class ImageFolderDataset:
         stride: int = 32,
         n_skip: int = 0,
         cache_images: Optional[str] = None,
+        scale_up: bool = False,
     ) -> None:
         if cache_images not in (None, "mem"):
             raise NotImplementedError(
@@ -147,6 +157,7 @@ class ImageFolderDataset:
         self.rect = rect
         self.pad = pad
         self.batch_size = batch_size
+        self.scale_up = scale_up
 
         self.img_files = _glob_images(path)
         if n_skip > 0:
@@ -214,14 +225,16 @@ class ImageFolderDataset:
         r = self.img_size / max(h0, w0)
         if r != 1:
             size = (int(w0 * r), int(h0 * r))
-            im = resize_area(im, size) if r < 1 else resize_linear(im, size)
+            im = resize_area(im, size) if (r < 1 and not self.scale_up) else resize_linear(im, size)
         return im, (h0, w0), im.shape[:2]
 
-    def load_image(self, index: int):
-        """(image, (h0, w0) native, (h1, w1) after the resize to img_size)."""
+    def load_image(self, index: int, copy: bool = True):
+        """(image, (h0, w0) native, (h1, w1) after the resize to img_size).
+        ``copy=False`` hands out the cached array itself: only for readers
+        that never write to it."""
         if index in self._img_cache:
             im, orig, resized = self._img_cache[index]
-            return im.copy(), orig, resized
+            return (im.copy() if copy else im), orig, resized
         return self._load_image_nocache(index)
 
     def __len__(self) -> int:
@@ -243,7 +256,8 @@ class ImageFolderDataset:
         """
         im, (h0, w0), (h1, w1) = self.load_image(index)
         shape = self.target_shape(index)
-        im, _, pad_wh = letterbox(im, shape, stride=self.stride, auto=False, scale_up=False)
+        im, _, pad_wh = letterbox(im, shape, stride=self.stride, auto=False,
+                                  scale_up=self.scale_up)
         return im, (h0, w0), ((h1 / h0, w1 / w0), pad_wh)
 
 
@@ -277,12 +291,10 @@ def _img2label_path(img_path: str, label_type: str) -> Path:
     return Path(*parts).with_suffix(".txt")
 
 
-_AUGMENTATIONS = ("augment", "mosaic", "mixup", "copy_paste")
-
-
 class DetectionDataset(ImageFolderDataset):
-    """Images + YOLO labels, letterboxed without augmentation (validation,
-    and training with augmentation off)."""
+    """Images + YOLO labels: letterboxed on the host without augmentation
+    (validation, and training with augmentation off), or planned for the
+    card's renderer with it (``enable_device_aug``)."""
 
     def __init__(
         self,
@@ -300,23 +312,32 @@ class DetectionDataset(ImageFolderDataset):
         single_cls: bool = False,
         seed: int = 0,
     ) -> None:
-        ya = yolo_augmentation or {}
-        used = [k for k in _AUGMENTATIONS if ya.get(k)]
-        if used or (ya.get("copy_paste2") or {}).get("p") or augmentation:
-            raise NotImplementedError(
-                f"training-time augmentation ({used or 'policies / copy_paste2'}) is not "
-                "ported yet (data/augment.py and data/device_augment.py come with later "
-                "slices of the port); train with yolo_augmentation.augment false, mosaic, "
-                "mixup and copy_paste 0 and no augmentation policies")
-        self.seed = seed
-        self.epoch = 0  # published by the DataLoader each epoch
-        super().__init__(path, img_size, batch_size, rect, pad, stride, n_skip, cache_images)
+        self.yolo_augmentation = yolo_augmentation or {}
+        self.augment = bool(self.yolo_augmentation.get("augment", False))
+        super().__init__(path, img_size, batch_size, rect, pad, stride, n_skip, cache_images,
+                         scale_up=self.augment)
         self.label_type = label_type
         self.single_cls = single_cls
+        self.policies = MultiAugmentationPolicies(augmentation) if augmentation else None
+        self.seed = seed
+        self.epoch = 0  # published by the DataLoader each epoch
+        # plan mode (enable_device_aug)
+        self.device_aug = False
+        self.device_aug_resident = True
+        self.resident_frames: Optional[np.ndarray] = None
+        self.frame_hw: Optional[np.ndarray] = None
+
         self.labels, self.segments = self._load_labels()
         if single_cls:
             for lab in self.labels:
                 lab[:, 0] = 0
+
+    def _item_rng(self, index: int, salt: int = 0) -> np.random.Generator:
+        """The generator of one item's draws, from (seed, epoch, index,
+        salt): the same whatever thread builds it, new each epoch, and new
+        for each position (``salt``) at which weighted sampling repeats an
+        index. The JAX package's stream."""
+        return np.random.default_rng(np.random.SeedSequence([self.seed, self.epoch, index, salt]))
 
     def _load_labels(self) -> Tuple[List[np.ndarray], List[List[np.ndarray]]]:
         cache_file = self._cache_path().with_suffix(".labels")
@@ -337,18 +358,264 @@ class DetectionDataset(ImageFolderDataset):
         _write_cache(cache_file, {"key": key, "labels": labels, "segments": segments})
         return labels, segments
 
+    def _augments_on_host(self) -> bool:
+        ya = self.yolo_augmentation
+        return bool(self.augment or ya.get("mosaic") or ya.get("mixup") or ya.get("copy_paste")
+                    or (ya.get("copy_paste2") or {}).get("p") or self.policies is not None)
+
+    # -- plan mode: geometry and labels on the host, pixels on the card -------
+    #
+    # plan_item / plan_mosaic draw in the order of the JAX package's host path
+    # (get_item / load_mosaic) and compute the same labels, but leave every
+    # pixel to the renderer. Features whose draws interleave with pixel reads
+    # (copy_paste, copy_paste2) and pixel-only policies cannot be planned.
+
+    def device_aug_ineligible(self) -> Optional[str]:
+        """None when this config can be rendered on the card, else why not."""
+        ya = self.yolo_augmentation
+        if self.rect:
+            return "rect batching (device aug is square-letterbox only)"
+        if ya.get("copy_paste", 0.0):
+            return "copy_paste > 0 (interleaves RNG with pixel reads; host-only)"
+        if (ya.get("copy_paste2") or {}).get("p", 0.0):
+            return "copy_paste2 > 0 (interleaves RNG with pixel reads; host-only)"
+        if self.policies is not None:
+            for pol in self.policies.policies:
+                for name in pol.get("policy", {}):
+                    if name not in ("HorizontalFlip", "VerticalFlip"):
+                        return f"pixel policy {name} (host-only)"
+        return None
+
     def enable_device_aug(self, resident: bool = True) -> None:
-        raise NotImplementedError("on-device augmentation is not ported yet (a later slice "
-                                  "of the port)")
+        """Switch ``get_item`` to plan mode: items become (plan, labels, path,
+        shapes), which the DataLoader collates into ``PlanBatch``es for the
+        card's renderer. ``resident=True`` also assembles every source frame
+        into one (N, s, s, 3) uint8 array, moved to the card once; otherwise
+        each plan carries its own frames."""
+        reason = self.device_aug_ineligible()
+        if reason:
+            raise ValueError(f"device augmentation unsupported: {reason}")
+        self.device_aug = True
+        self.device_aug_resident = resident
+        if resident and self.resident_frames is None:
+            self._build_resident_frames()
+
+    def _build_resident_frames(self) -> None:
+        s = self.img_size
+        n = len(self.img_files)
+        LOGGER.info("building resident frame store: %d frames, %.1f MB", n, n * s * s * 3 / 1e6)
+        self.resident_frames = np.full((n, s, s, 3), 114, np.uint8)
+        self.frame_hw = np.zeros((n, 2), np.int32)
+        for i in range(n):
+            im, _, (h, w) = self.load_image(i, copy=False)
+            self.resident_frames[i, :h, :w] = im
+            self.frame_hw[i] = (h, w)
+
+    def _src_hw(self, idx: int) -> Tuple[int, int]:
+        """(h1, w1) of a source frame after the resize, without its pixels
+        where the resident store knows it."""
+        if self.frame_hw is not None:
+            return int(self.frame_hw[idx, 0]), int(self.frame_hw[idx, 1])
+        return self.load_image(idx, copy=False)[2]
+
+    def plan_mosaic(self, index: int, rng: np.random.Generator, plan: Dict[str, np.ndarray],
+                    pair: int) -> np.ndarray:
+        """The 4-image mosaic and its warp, planned: fills ``plan``'s slots of
+        ``pair`` and returns the warped labels. Draws the centre, the three
+        other images, their order, then the perspective warp."""
+        s = self.img_size
+        half = s // 2
+        mc_h, mc_w = (int(rng.uniform(half, 2 * s - half)) for _ in range(2))
+        indices = [index] + list(rng.choice(self.indices, 3))
+        rng.shuffle(indices)
+
+        mosaic_labels, mosaic_segments = [], []
+        for i, idx in enumerate(indices):
+            idx = int(idx)
+            h, w = self._src_hw(idx)
+            if i == 0:  # top left
+                x1a, y1a, x2a, y2a = max(mc_w - w, 0), max(mc_h - h, 0), mc_w, mc_h
+                x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+            elif i == 1:  # top right
+                x1a, y1a, x2a, y2a = mc_w, max(mc_h - h, 0), min(mc_w + w, s * 2), mc_h
+                x1b, y1b = 0, h - (y2a - y1a)
+            elif i == 2:  # bottom left
+                x1a, y1a, x2a, y2a = max(mc_w - w, 0), mc_h, mc_w, min(s * 2, mc_h + h)
+                x1b, y1b = w - (x2a - x1a), 0
+            else:  # bottom right
+                x1a, y1a, x2a, y2a = mc_w, mc_h, min(mc_w + w, s * 2), min(s * 2, mc_h + h)
+                x1b, y1b = 0, 0
+            plan["src_idx"][pair, i] = idx
+            plan["rects"][pair, i] = (x1a, y1a, x2a, y2a)
+            plan["offs"][pair, i] = (x1a - x1b, y1a - y1b)
+            pad_w, pad_h = x1a - x1b, y1a - y1b
+
+            labels = self.labels[idx].copy() if self.labels[idx].size else np.zeros((0, 5), np.float32)
+            segs = [seg.copy() for seg in self.segments[idx]]
+            if labels.size:
+                labels[:, 1:] = xywh2xyxy(labels[:, 1:], wh=(w, h), pad=(pad_w, pad_h))
+                segs = [xyn2xy(x, wh=(w, h), pad=(pad_w, pad_h)) for x in segs]
+            mosaic_labels.append(labels)
+            mosaic_segments.extend(segs)
+
+        labels4 = np.concatenate(mosaic_labels, 0)
+        for x in (labels4[:, 1:], *mosaic_segments):
+            np.clip(x, 1e-3, 2 * s, out=x)
+        # copy_paste and copy_paste2 are 0 here (device_aug_ineligible): at 0
+        # the host path draws nothing for them
+
+        ya = self.yolo_augmentation
+        persp = ya.get("perspective", 0.0)
+        M, sc, width, height = perspective_matrix(
+            (s * 2, s * 2), rng,
+            degrees=ya.get("degrees", 0.0),
+            translate=ya.get("translate", 0.1),
+            scale=ya.get("scale", 0.5),
+            shear=ya.get("shear", 0.0),
+            perspective=persp,
+            border=(-half, -half),
+        )
+        labels4 = perspective_targets(labels4, mosaic_segments, M, sc, width, height, persp)
+        plan["minv"][pair] = np.linalg.inv(M).astype(np.float32)
+        return labels4
+
+    def plan_item(self, index: int, salt: int = 0):
+        """``get_item`` with the pixels left to the card: (plan, labels, path,
+        shapes). The plan holds, for P pairs (2 when mixup is configured):
+        ``src_idx`` (P, 4), ``rects`` (P, 4, 4) and ``offs`` (P, 4, 2) of the
+        four paste slots, ``minv`` (P, 3, 3) from output to canvas
+        coordinates, ``blend``, ``hsv`` (3,), ``flips`` (2,) and, when the
+        frames are not resident, ``src`` (P, 4, s, s, 3) uint8."""
+        index = int(self.indices[index])
+        rng = self._item_rng(index, salt)
+        s = self.img_size
+        ya = self.yolo_augmentation
+        pairs = 2 if ya.get("mixup", 0.0) > 0 else 1
+        plan: Dict[str, np.ndarray] = {
+            "src_idx": np.zeros((pairs, 4), np.int32),
+            "rects": np.zeros((pairs, 4, 4), np.int32),
+            "offs": np.zeros((pairs, 4, 2), np.int32),
+            "minv": np.tile(np.eye(3, dtype=np.float32)[None], (pairs, 1, 1)),
+            "blend": np.float32(1.0),
+            "hsv": np.ones(3, np.float32),
+            "flips": np.zeros(2, np.int32),
+        }
+
+        if rng.random() < ya.get("mosaic", 0.0):
+            labels = self.plan_mosaic(index, rng, plan, 0)
+            shapes = ((0, 0), ((0.0, 0.0), (0.0, 0.0)))
+            if rng.random() < ya.get("mixup", 0.0):
+                j = int(rng.integers(0, len(self.img_files)))
+                labels2 = self.plan_mosaic(j, rng, plan, 1)
+                plan["blend"] = np.float32(rng.beta(32.0, 32.0))
+                labels = np.concatenate((labels, labels2), 0)
+            elif pairs == 2:
+                # mixup configured but not drawn: pair 1 repeats pair 0 at
+                # blend 1, so every batch has the same shapes
+                for k in ("src_idx", "rects", "offs", "minv"):
+                    plan[k][1] = plan[k][0]
+        else:
+            h1, w1 = self._src_hw(index)
+            w0, h0 = (int(v) for v in self.shapes[index])
+            # letterbox() with auto=False to the square, scale_up=augment
+            r = min(s / h1, s / w1)
+            if not self.augment:
+                r = min(r, 1.0)
+            new_w, new_h = int(round(w1 * r)), int(round(h1 * r))
+            dw, dh = (s - new_w) / 2, (s - new_h) / 2
+            top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
+            shapes = ((h0, w0), ((h1 / h0, w1 / w0), (dw, dh)))
+
+            labels = self.labels[index].copy() if self.labels[index].size else np.zeros((0, 5), np.float32)
+            segments = [seg.copy() for seg in self.segments[index]]
+            if labels.size:
+                labels[:, 1:] = xywh2xyxy(labels[:, 1:], ratio=(r, r), wh=(w1, h1), pad=(dw, dh))
+                segments = [xyn2xy(x, ratio=(r, r), wh=(w1, h1), pad=(dw, dh)) for x in segments]
+
+            # source -> letterboxed frame, cv2.resize's half-pixel convention:
+            # x_dst = (x_src + 0.5) * (new_w / w1) - 0.5 + left
+            L = np.eye(3)
+            sx, sy = new_w / w1, new_h / h1
+            L[0, 0], L[0, 2] = sx, 0.5 * sx - 0.5 + left
+            L[1, 1], L[1, 2] = sy, 0.5 * sy - 0.5 + top
+
+            if self.augment:
+                persp = ya.get("perspective", 0.0)
+                M2, sc, w_, h_ = perspective_matrix(
+                    (s, s), rng,
+                    degrees=ya.get("degrees", 0.0),
+                    translate=ya.get("translate", 0.1),
+                    scale=ya.get("scale", 0.5),
+                    shear=ya.get("shear", 0.0),
+                    perspective=persp,
+                )
+                labels = perspective_targets(labels, segments, M2, sc, w_, h_, persp)
+                F = M2 @ L
+            else:
+                F = L
+            plan["minv"][0] = np.linalg.inv(F).astype(np.float32)
+            plan["src_idx"][0, 0] = index
+            plan["rects"][0, 0] = (0, 0, w1, h1)
+            if pairs == 2:
+                for k in ("src_idx", "rects", "offs", "minv"):
+                    plan[k][1] = plan[k][0]
+
+        if labels.size:
+            labels[:, 1:] = xyxy2xywh(labels[:, 1:], wh=(s, s), clip_eps=1e-3)
+
+        if self.policies is not None:  # flips only (device_aug_ineligible)
+            for pol in self.policies.policies:
+                if rng.random() >= pol.get("prob", 1.0):
+                    continue
+                for name, params in pol.get("policy", {}).items():
+                    params = dict(params or {})
+                    p = params.pop("p", 0.5)
+                    if rng.random() >= p:
+                        continue
+                    if name == "HorizontalFlip":
+                        plan["flips"][0] ^= 1
+                        if len(labels):
+                            labels[:, 1] = 1.0 - labels[:, 1]
+                    else:  # VerticalFlip
+                        plan["flips"][1] ^= 1
+                        if len(labels):
+                            labels[:, 2] = 1.0 - labels[:, 2]
+        if self.augment:
+            g = hsv_gains(rng, ya.get("hsv_h", 0.015), ya.get("hsv_s", 0.7), ya.get("hsv_v", 0.4))
+            if g is not None:
+                plan["hsv"] = g.astype(np.float32)
+
+        if not self.device_aug_resident:
+            # streaming: the plan carries its (padded) source frames
+            src = np.full((pairs, 4, s, s, 3), 114, np.uint8)
+            for pair in range(pairs):
+                for slot in range(4):
+                    x1a, y1a, x2a, y2a = plan["rects"][pair, slot]
+                    if x2a > x1a and y2a > y1a:
+                        im, _, (h, w) = self.load_image(int(plan["src_idx"][pair, slot]), copy=False)
+                        src[pair, slot, :h, :w] = im
+            plan["src"] = src
+
+        return plan, labels.astype(np.float32), self.img_files[index], shapes
 
     def __getitem__(self, index: int):
         """(img HWC BGR uint8, (n, 5) [cls, xywh-norm], path, shapes)."""
         return self.get_item(index, 0)
 
     def get_item(self, index: int, salt: int = 0):
-        """``__getitem__`` with the loader's epoch-position salt. Without
-        augmentation an item draws nothing, so the salt (which keeps
-        repeated indices of weighted sampling apart) changes nothing."""
+        """``__getitem__`` with the loader's epoch-position salt; in plan mode
+        ``plan_item``. Without augmentation an item draws nothing, so the salt
+        (which keeps repeated indices of weighted sampling apart) changes
+        nothing."""
+        if self.device_aug:
+            return self.plan_item(index, salt)
+        if self._augments_on_host():
+            raise NotImplementedError(
+                "training-time augmentation on the host (cv2's warps, HSV, mixup, copy-paste, "
+                "pixel policies) is not ported yet; it comes with the host-augmentation slice "
+                "of the port. Render it on the card with train.device_aug: true "
+                "(DetectionDataset.enable_device_aug), or train with augment false, mosaic, "
+                "mixup and copy_paste 0 and no augmentation policies")
         index = int(self.indices[index])
         img, (h0, w0), (h1, w1) = self.load_image(index)
         img, ratio, pad = letterbox(img, self.target_shape(index), stride=self.stride,
@@ -360,4 +627,3 @@ class DetectionDataset(ImageFolderDataset):
             labels[:, 1:] = xywh2xyxy(labels[:, 1:], ratio=ratio, wh=(w1, h1), pad=pad)
             labels[:, 1:] = xyxy2xywh(labels[:, 1:], wh=img.shape[:2][::-1], clip_eps=1e-3)
         return np.ascontiguousarray(img), labels.astype(np.float32), self.img_files[index], shapes
-

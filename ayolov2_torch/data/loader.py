@@ -17,8 +17,9 @@ The counterpart of ``ayolov2_tpu/data/loader.py`` in thread mode:
 
 ``workers`` threads build batches concurrently (numpy releases the GIL in
 the heavy copies), at most ``2 * workers`` ahead of the consumer; batches
-come out in order. The process pool and the on-device augmentation plans of
-the JAX loader are not ported yet.
+come out in order. A dataset in plan mode (``enable_device_aug``) yields
+plans, collated into ``PlanBatch``es for the card's renderer. The process
+pool of the JAX loader is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ayolov2_torch.data.device_augment import collate_plans
 from ayolov2_torch.loss.yolo_loss import pad_targets
 
 
@@ -137,6 +139,8 @@ class DataLoader:
         else:
             items = [self.dataset[int(i)] for i in b]
         if self.detection:
+            if getattr(self.dataset, "device_aug", False):  # plan mode
+                return collate_plans(items, len(b), self.max_labels, n_real=n_real)
             return collate(items, self.max_labels, n_real=n_real)
         imgs = np.stack([it[0] for it in items])
         metas = [(it[1], it[2]) for it in items[:n_real]]

@@ -14,12 +14,15 @@ The counterpart of ``ayolov2_tpu/train/trainer.py`` on one device:
   JAX package's format, early stopping on mAP50, resume with a backup of
   the previous run's weights, ``async_ckpt``, and SIGTERM preemption: the
   loop stops at the next batch and ``last.ckpt`` is stamped with the
-  previous epoch, so a resume re-runs the interrupted one.
+  previous epoch, so a resume re-runs the interrupted one;
+- ``device_aug``: the loader yields plans (``PlanBatch``) and
+  ``training_step`` renders them on the trainer's device
+  (``data/device_augment.py``, operands in ``device_aug_dtype``); the
+  rendered batch goes to the step without leaving the device.
 
 Not ported yet, and refused with a message naming the later slice: ``tp``,
-``fsdp``, ``device_aug``, ``remat``, ``plot: true`` (the JAX default; set
-``plot: false``), the trace window (``AYOLO_TRACE_DIR``) and more than one
-device or process.
+``fsdp``, ``remat``, ``plot: true`` (the JAX default; set ``plot: false``),
+the trace window (``AYOLO_TRACE_DIR``) and more than one device or process.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from ayolov2_torch.data.device_augment import DeviceAugmenter
 from ayolov2_torch.data.image_io import resize_linear
 from ayolov2_torch.loss.yolo_loss import ComputeLoss
 from ayolov2_torch.models.builder import count_params
@@ -48,6 +52,7 @@ from ayolov2_torch.utils.checkpoint import (
 )
 from ayolov2_torch.utils.general import (
     check_img_size,
+    host_to_device,
     labels_to_class_weights,
     labels_to_image_weights,
     resolve_device,
@@ -186,8 +191,6 @@ def refuse_unported(tcfg: Dict[str, Any]) -> None:
     later = [
         (int(tcfg.get("tp", 0) or 0) > 1, "train.tp (tensor parallelism)", "parallelism"),
         (bool(tcfg.get("fsdp", False)), "train.fsdp (ZeRO sharding)", "parallelism"),
-        (bool(tcfg.get("device_aug", False)), "train.device_aug (data/device_augment.py)",
-         "device augmentation"),
         (bool(tcfg.get("remat", False)), "train.remat (activation rematerialisation)",
          "model options"),
         (bool(tcfg.get("plot", True)), "train.plot (utils/plots.py; the default is true, set "
@@ -274,6 +277,7 @@ class YoloTrainer(AbstractTrainer):
         self._t_epoch = 0.0
         self._validator = self._validator_aux = None
         self._ckpt_writer = AsyncCheckpointWriter() if tcfg.get("async_ckpt", False) else None
+        self._augmenter = None
 
         self.image_weights = bool(tcfg.get("image_weights", False))
         self.class_weights = labels_to_class_weights(train_loader.dataset.labels, model.nc)
@@ -334,14 +338,31 @@ class YoloTrainer(AbstractTrainer):
             self.train_loader.sample_weights = labels_to_image_weights(
                 self.train_loader.dataset.labels, self.model.nc, cw)
 
+    def _render_batch(self, batch) -> torch.Tensor:
+        """Device augmentation: the ``PlanBatch`` rendered into the uint8
+        training images on the trainer's device; resident source frames
+        move there once, with the first batch."""
+        if self._augmenter is None:
+            ds = self.train_loader.dataset
+            self._augmenter = DeviceAugmenter(
+                img_size=self.img_size, frame_size=ds.img_size, pairs=int(batch.minv.shape[1]),
+                resident_frames=ds.resident_frames if ds.device_aug_resident else None,
+                dtype=str(self.tcfg.get("device_aug_dtype", "bfloat16")), device=self.device)
+        return self._augmenter(batch)
+
     def training_step(self, batch, batch_idx: int) -> Dict[str, float]:
-        images = batch.images
-        if self.multi_scale:
-            images = self._random_resize(images, batch_idx)
         dev = self.device
-        items = self._train_step(
-            self.state, torch.from_numpy(images).to(dev, non_blocking=True),
-            torch.from_numpy(batch.targets).to(dev), torch.from_numpy(batch.target_mask).to(dev))
+        if batch.images is None and hasattr(batch, "minv"):
+            if self.multi_scale:
+                raise ValueError("train.device_aug and train.multi_scale are mutually exclusive")
+            images = self._render_batch(batch)  # already on the device
+        else:
+            images = batch.images
+            if self.multi_scale:
+                images = self._random_resize(images, batch_idx)
+            images = torch.from_numpy(images).to(dev, non_blocking=True)
+        items = self._train_step(self.state, images, host_to_device(batch.targets, dev),
+                                 host_to_device(batch.target_mask, dev))
         self._loss_sum += items
         self.n_steps += 1
         if batch_idx % 50 == 0:  # sync only on logging steps

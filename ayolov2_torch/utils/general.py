@@ -30,10 +30,41 @@ def check_img_size(img_size: int, s: int = 32) -> int:
     return new_size
 
 
+def segment2box(segment: np.ndarray, width: int = 640, height: int = 640) -> np.ndarray:
+    """One (n, 2) polygon -> the xyxy box around its points inside the image."""
+    x, y = segment.T
+    inside = (x >= 0) & (y >= 0) & (x <= width) & (y <= height)
+    x, y = x[inside], y[inside]
+    if x.size and x.any():
+        return np.array([x.min(), y.min(), x.max(), y.max()])
+    return np.zeros((1, 4))
+
+
 def segments2boxes(segments: List[np.ndarray]) -> np.ndarray:
     """Polygons (each (n, 2)) -> (len, 4) xywh boxes around them."""
     boxes = [[s[:, 0].min(), s[:, 1].min(), s[:, 0].max(), s[:, 1].max()] for s in segments]
     return xyxy2xywh(np.array(boxes), check_validity=False)
+
+
+def resample_segments(segments: List[np.ndarray], n: int = 1000) -> List[np.ndarray]:
+    """Each polygon resampled to exactly ``n`` points by linear interpolation."""
+    out = []
+    for s in segments:
+        x = np.linspace(0, len(s) - 1, n)
+        xp = np.arange(len(s))
+        out.append(np.stack([np.interp(x, xp, s[:, i]) for i in range(2)], axis=-1))
+    return out
+
+
+def box_candidates(box1: np.ndarray, box2: np.ndarray, wh_thr: float = 2, ar_thr: float = 20,
+                   area_thr: float = 0.1, eps: float = 1e-16) -> np.ndarray:
+    """Which warped boxes to keep (box1 before, box2 after the warp; both
+    (4, n) xyxy): wider and taller than ``wh_thr`` pixels, keeping more than
+    ``area_thr`` of the area, aspect ratio under ``ar_thr``."""
+    w1, h1 = box1[2] - box1[0], box1[3] - box1[1]
+    w2, h2 = box2[2] - box2[0], box2[3] - box2[1]
+    ar = np.maximum(w2 / (h2 + eps), h2 / (w2 + eps))
+    return (w2 > wh_thr) & (h2 > wh_thr) & (w2 * h2 / (w1 * h1 + eps) > area_thr) & (ar < ar_thr)
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.device:
@@ -49,6 +80,15 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``. To the card through pinned memory without
+    blocking the host: the copy queues behind the work already issued."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def labels_to_class_weights(labels: List[np.ndarray], nc: int = 80) -> np.ndarray:

@@ -66,9 +66,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    validation of that epoch, and ``--resume`` to 4 epochs, which must run
    one epoch and advance ``step`` and ``ema_updates`` by its micro-steps.
 
-``--profile`` adds where the serve call's device time goes (torch.profiler)
-and where the kernel's own time goes (clock stamps at its layer boundaries,
-from a second build of the same source with ``-DEARLY_PROFILE``).
+9. device augmentation: phase 7's 128 BMPs at 640 as a resident store,
+   planned under two recipes cut to what the renderer takes (copy_paste 0,
+   flip policies only): (a) ``train_config.yaml``'s (mosaic, HSV,
+   translate, scale; axis-aligned) and (b) ``finetune.yaml``'s (rotation,
+   shear, mixup, both flips). Gates on a batch of 16: 9.1 the card's
+   gather renderer in f32 against the port's CPU renderer on the same plans
+   (max|d| <= 1, at most 1e-4 of the pixels differ), both recipes; 9.2 the
+   separable renderer in f32 against gather (max|d| <= 2 before the HSV
+   jitter, under 1e-3 of the output's pixels differ); 9.3 separable bf16
+   against f32 (max|d| <= 8 before the HSV jitter, at most 2e-3 of the
+   output's pixels by more than 3); 9.4 ``auto`` picks separable for (a) and
+   gather for (b); 9.5 streamed frames render the resident store's pixels
+   bit for bit. Times at 640, bs 64: render ms a batch and peak memory of
+   each mode and dtype (CUDA events, warm), the host's plan ms a batch and
+   the share of phase 8's step. The entry point: ``cli.train`` with
+   ``device_aug: true`` (recipe (a)) from the golden checkpoint on phase
+   7's set at 640, bs 32, 2 epochs (under ``build/chip_smoke_aug/``), gated
+   on finite losses, ``step`` and ``ema_updates`` of 8, both checkpoints
+   and resident frames, then ``cli.val`` (K1) on its ``best.ckpt``.
+
+``--profile`` adds where the serve call's and the augmentation render's
+device time goes (torch.profiler) and where the kernel's own time goes
+(clock stamps at its layer boundaries, from a second build of the same
+source with ``-DEARLY_PROFILE``).
 
 The line before the last is one JSON object with the kernels' numbers; the
 last line is ``{"ok": true, "device": {...}}``. Weights are random, made
@@ -949,7 +970,8 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
 
 
 def train_phase(card: str, seed: int) -> tuple:
-    """Phase 8 (see the module docstring). Returns (ok, K1 launches)."""
+    """Phase 8 (see the module docstring). Returns (ok, K1 launches, the
+    640 bs 64 step's ms and img/s)."""
     import torch
 
     ok = card_vs_cpu(card, seed)
@@ -960,6 +982,293 @@ def train_phase(card: str, seed: int) -> tuple:
     fall = falling_loss(card, seed)
     ok = ok and fall["ok"]
     ok_entry, launches = entry_point_run(card)
+    return ok and ok_entry, launches, times[0]["step_ms"], times[0]["img_s"]
+
+
+# ---- phase 9: device augmentation ---------------------------------------------
+
+AUG_DIR = ROOT / "build/chip_smoke_aug"
+RECIPES = {"a": ROOT / "res/configs/cfg/train_config.yaml",
+           "b": ROOT / "res/configs/cfg/finetune.yaml"}
+
+
+def eligible_recipe(cfg_path: Path) -> tuple:
+    """(yolo_augmentation, policies) of a train config cut to what the
+    device renderer takes: copy_paste 0 and the flip policies only (the cut
+    ``cli/heldout_sweep.py`` makes for ``--device-aug``)."""
+    from ayolov2_torch.utils.config import load_yaml
+
+    cfg = load_yaml(cfg_path)
+    policies = []
+    for pol in cfg.get("augmentation") or []:
+        flips = {k: v for k, v in pol.get("policy", {}).items()
+                 if k in ("HorizontalFlip", "VerticalFlip")}
+        if flips:
+            policies.append(dict(pol, policy=flips))
+    return dict(cfg["yolo_augmentation"], copy_paste=0.0), policies
+
+
+def aug_dataset(recipe: str, img: int, resident: bool = True):
+    """Phase 7's images in plan mode under a recipe, cached in memory."""
+    from ayolov2_torch.data import DetectionDataset
+
+    ya, policies = eligible_recipe(RECIPES[recipe])
+    ds = DetectionDataset(str(VAL_DIR / "images"), img_size=img, cache_images="mem",
+                          yolo_augmentation=ya, augmentation=policies)
+    ds.enable_device_aug(resident=resident)
+    return ds
+
+
+def plan_batch(ds, n: int, salt: int = 0):
+    """(PlanBatch of items 0..n-1, host ms to plan and collate them)."""
+    from ayolov2_torch.data.device_augment import collate_plans
+
+    t0 = time.perf_counter()
+    batch = collate_plans([ds.plan_item(i % len(ds), salt + i // len(ds)) for i in range(n)], n,
+                          64)
+    return batch, (time.perf_counter() - t0) * 1e3
+
+
+def pixel_diff(a, b) -> tuple:
+    """(max |d|, share of pixels with d > 0, share with d > 3) of two uint8
+    batches."""
+    d = (a.int() - b.int()).abs()
+    return d.max().item(), (d > 0).float().mean().item(), (d > 3).float().mean().item()
+
+
+def unit_hsv(batch):
+    """The batch with HSV gains 1: its render is the renderer's rounded
+    pixels (after mixup and the flips) before the HSV jitter."""
+    from ayolov2_torch.data.device_augment import PlanBatch
+
+    kw = {k: getattr(batch, k) for k in PlanBatch.__slots__}
+    kw["hsv"] = np.ones_like(batch.hsv)
+    return PlanBatch(**kw)
+
+
+def render_checks(card: str, img: int, bs: int, device: str = "cuda") -> bool:
+    """9.1-9.5 on a batch of ``bs`` of each recipe (see the module
+    docstring)."""
+    import torch
+
+    from ayolov2_torch.data.device_augment import DeviceAugmenter
+
+    ok = True
+
+    def gate(name, passed, detail):
+        nonlocal ok
+        ok = ok and passed
+        log(f"[aug] {name}: {detail} {'ok' if passed else 'FAIL'}")
+
+    outs = {}
+    for recipe in "ab":
+        ds = aug_dataset(recipe, img)
+        batch, _ = plan_batch(ds, bs)
+        pairs = int(batch.minv.shape[1])
+
+        def aug(mode, dtype="float32", dev=device, frames=ds.resident_frames):
+            return DeviceAugmenter(img, img, pairs, frames, mode=mode, dtype=dtype, device=dev)
+
+        t0 = time.perf_counter()
+        cpu = aug("gather", dev="cpu")(batch)
+        cpu_s = time.perf_counter() - t0
+        card_g = aug("gather")(batch)
+        mx, share, _ = pixel_diff(card_g.cpu(), cpu)
+        gate(f"9.1 recipe ({recipe}) {RECIPES[recipe].name} P={pairs}: card gather f32 vs CPU "
+             f"gather f32, bs {bs} at {img}", tuple(card_g.shape) == (bs, img, img, 3)
+             and card_g.dtype == torch.uint8 and mx <= 1 and share <= 1e-4,
+             f"max|d| {mx} share(d>0) {share:.2e} (gate 1 / 1e-4; CPU {cpu_s:.1f} s)")
+        auto = aug("auto")
+        auto(batch)
+        outs[recipe] = (ds, batch, card_g, set(auto._render_fns))
+        if recipe == "a":
+            # the max is bounded on the pixels before the HSV jitter: cv2's
+            # hue scale (h * gain mod 180) jumps where a hue near 180
+            # wraps, so one level of input moves a saturated pixel by up to
+            # ~20 levels after it; the shares are bounded on the output
+            flat = unit_hsv(batch)
+            g1 = aug("gather")(flat)
+            sep32, sep32_1 = aug("separable")(batch), aug("separable")(flat)
+            mx1, _, _ = pixel_diff(sep32_1, g1)
+            mx, share, _ = pixel_diff(sep32, card_g)
+            gate("9.2 recipe (a): card separable f32 vs card gather f32",
+                 mx1 <= 2 and share < 1e-3,
+                 f"before HSV max|d| {mx1}; output share(d>0) {share:.2e}, max|d| {mx} "
+                 f"(gate 2 before HSV / 1e-3)")
+            sep16, sep16_1 = aug("separable", "bfloat16")(batch), aug("separable", "bfloat16")(flat)
+            mx1, _, _ = pixel_diff(sep16_1, sep32_1)
+            mx, _, share3 = pixel_diff(sep16, sep32)
+            gate("9.3 recipe (a): card separable bf16 vs separable f32", mx1 <= 8 and share3 <= 2e-3,
+                 f"before HSV max|d| {mx1}; output share(d>3) {share3:.2e}, max|d| {mx} "
+                 f"(gate 8 before HSV / 2e-3)")
+    picks = {r: outs[r][3] for r in "ab"}
+    gate("9.4 auto", picks == {"a": {"separable"}, "b": {"gather"}},
+         f"recipe (a) {sorted(picks['a'])}, recipe (b) {sorted(picks['b'])} "
+         "(want separable, gather)")
+    ds_b, batch_b, card_b, _ = outs["b"]
+    stream = aug_dataset("b", img, resident=False)
+    batch_s, _ = plan_batch(stream, bs)
+    same_labels = (np.array_equal(batch_s.targets, batch_b.targets)
+                   and np.array_equal(batch_s.minv, batch_b.minv))
+    out_s = DeviceAugmenter(img, img, int(batch_s.minv.shape[1]), mode="gather", dtype="float32",
+                            device=device)(batch_s)
+    gate("9.5 recipe (b): streaming vs resident", same_labels and torch.equal(out_s, card_b),
+         f"plans equal {same_labels}, images equal {torch.equal(out_s, card_b)} "
+         f"(streamed frames {tuple(batch_s.src.shape)})")
+    return ok
+
+
+def time_renders(card: str, img: int, bs: int, step_ms: float) -> None:
+    """Render ms a batch (CUDA events, warm, plan arrays' copies included)
+    and peak memory for each mode and dtype of both recipes, beside the
+    host's plan time of the batch and phase 8's step."""
+    import torch
+
+    from ayolov2_torch.data.device_augment import DeviceAugmenter
+
+    S = img
+    sep_macs = 4 * (img * S * S * 3 + img * img * S * 3) * bs
+    log(f"[aug] {card}: the separable products need {sep_macs / 1e9:.1f} GMAC a batch of {bs} at "
+        f"{img} (4 slots x (h S S 3 + h w S 3)): {2 * sep_macs / PEAK_BF16_FLOPS * 1e3:.3f} ms at "
+        f"989 TFLOP/s bf16")
+    for recipe, runs in (("a", (("gather", "float32"), ("separable", "float32"),
+                                ("separable", "bfloat16"))),
+                         ("b", (("gather", "float32"),))):
+        ds = aug_dataset(recipe, img)
+        batch, _ = plan_batch(ds, bs, salt=1)
+        _, plan_ms = plan_batch(ds, bs, salt=2)  # warm: the image cache and the labels
+        pairs = int(batch.minv.shape[1])
+        for mode, dtype in runs:
+            aug = DeviceAugmenter(img, img, pairs, ds.resident_frames, mode=mode, dtype=dtype)
+            aug(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = time_ms(lambda: aug(batch), 10, warmup=2)
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            log(f"[aug] {card}: render recipe ({recipe}) P={pairs} {mode} {dtype} bs {bs} at "
+                f"{img}: {ms:.3f} ms a batch, {ms / step_ms * 100:.1f}% of phase 8's "
+                f"{step_ms:.3f} ms step; peak memory above the frames {peak:.2f} GB; host plan "
+                f"{plan_ms:.1f} ms a batch ({plan_ms / bs:.2f} ms an item, one thread)")
+            del aug
+        del ds
+        torch.cuda.empty_cache()
+
+
+def aug_entry_point(card: str, step_img_s: float, device: str = "cuda", img: int = 640,
+                    bs: int = 32, epochs: int = 2) -> tuple:
+    """``cli.train`` with ``device_aug: true`` (recipe (a)) from the golden
+    checkpoint on phase 7's set, then ``cli.val`` (K1) on its best.ckpt.
+    Returns (ok, early_pipeline launches of cli.val)."""
+    import re
+
+    from ayolov2_torch.cli import val
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_checkpoint
+    from ayolov2_torch.utils.config import load_yaml
+
+    shutil.rmtree(AUG_DIR, ignore_errors=True)
+    AUG_DIR.mkdir(parents=True)
+    cfg = load_yaml(MEMORIZE_CFG)
+    cfg["train"].update(epochs=epochs, batch_size=bs, image_size=img, validate_period=1,
+                        device_aug=True, plot=False)
+    cfg["yolo_augmentation"], cfg["augmentation"] = eligible_recipe(RECIPES["a"])
+    cfg_path, data = AUG_DIR / "cfg.json", AUG_DIR / "data.json"
+    cfg_path.write_text(json.dumps(cfg))
+    images = str(VAL_DIR / "images")
+    data.write_text(json.dumps({"train_path": images, "val_path": images, "nc": 20,
+                                "names": [f"class{i}" for i in range(20)]}))
+    dev = [] if device == "cuda" else ["--device", device]
+    proc, wall = run_logged(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
+                             str(data), "--cfg", str(cfg_path), "--log-dir", str(AUG_DIR / "runs"),
+                             *dev])
+    out = proc.stdout + proc.stderr
+    (AUG_DIR / "train.log").write_text(out)
+    rows = re.findall(r"epoch +(\d+) done in ([\d.]+)s \((\S+) img/s\): (\d+) steps, mean loss "
+                      r"box (\S+) obj (\S+) cls (\S+) total (\S+)", out)
+    run_dir = re.search(r"Run dir: (\S+)", out)
+    log(f"[aug] python -m ayolov2_torch.cli.train --model best.ckpt (golden) device_aug (recipe "
+        f"(a), {img} px, bs {bs}, {epochs} epochs): exit {proc.returncode} in {wall:.1f} s; "
+        f"{'resident' if 'resident source frames' in out else 'NOT resident'}")
+    for r in rows:
+        log(f"[aug]   epoch {r[0]}: {r[1]} s, {r[2]} img/s (phase 8's step alone at 640 bs 64: "
+            f"{step_img_s:.1f} img/s), {r[3]} steps, mean loss box {r[4]} obj {r[5]} cls {r[6]} "
+            f"total {r[7]}")
+    if proc.returncode != 0 or not run_dir:
+        log("[aug] " + " | ".join(out.strip().splitlines()[-8:]))
+        return False, 0
+    wdir = Path(run_dir.group(1)) / "weights"
+    n_images = len(list((VAL_DIR / "images").glob("*.bmp")))
+    n_steps = n_images // bs
+    meta = load_checkpoint(wdir / "last.ckpt")["meta"]
+    finite = all(np.isfinite(float(v)) for r in rows for v in r[4:])
+    ok = (len(rows) == epochs and finite and (wdir / "best.ckpt").exists()
+          and meta["step"] == meta["ema_updates"] == epochs * n_steps
+          and "resident source frames" in out)
+    if not ok:
+        log(f"[aug] FAIL: epochs {len(rows)}, finite {finite}, best.ckpt "
+            f"{(wdir / 'best.ckpt').exists()}, step {meta['step']}, ema_updates "
+            f"{meta['ema_updates']} (want {epochs * n_steps})")
+        return False, 0
+    vargs = ["--weights", str(wdir / "best.ckpt"), "--data-cfg", str(data), "-iw", str(img),
+             "--batch-size", str(bs), *dev]
+    early.early_pipeline.launches = 0  # main path (cli.val in this process): counts from here
+    t0 = time.perf_counter()
+    result = val.main(vargs)
+    launches = early.early_pipeline.launches
+    ok = (ok and launches > 0 and result["seen"] == n_images
+          and np.isfinite(result["map50"]))
+    log(f"[aug] last.ckpt: epoch {meta['epoch']}, step {meta['step']}, ema_updates "
+        f"{meta['ema_updates']} (want {epochs * n_steps}); python -m ayolov2_torch.cli.val on "
+        f"best.ckpt (K1, rect): seen {result['seen']} mAP50 {result['map50']:.5f} mAP50-95 "
+        f"{result['map50_95']:.5f} in {time.perf_counter() - t0:.1f} s, early_pipeline launches "
+        f"{launches} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def profile_render(card: str, img: int = 640, bs: int = 64) -> None:
+    """Device time of one render by kernel name (torch.profiler) for each
+    mode, recipe (a)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from ayolov2_torch.data.device_augment import DeviceAugmenter
+
+    ds = aug_dataset("a", img)
+    batch, _ = plan_batch(ds, bs)
+    for mode, dtype in (("separable", "bfloat16"), ("separable", "float32"),
+                        ("gather", "float32")):
+        aug = DeviceAugmenter(img, img, 1, ds.resident_frames, mode=mode, dtype=dtype)
+        aug(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            aug(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = []
+        for e in prof.key_averages():
+            dev = getattr(e, "self_device_time_total", 0.0)
+            if e.device_type == DeviceType.CUDA and dev > 0:
+                rows.append((dev / 1e3, e.count, e.key))
+        rows.sort(reverse=True)
+        busy = sum(r[0] for r in rows)
+        log(f"[profile] {card}: render recipe (a) {mode} {dtype} bs {bs} at {img}: wall {wall:.3f} "
+            f"ms, device busy {busy:.3f} ms, {sum(r[1] for r in rows)} kernels")
+        for ms, count, key in rows[:12]:
+            log(f"[profile]   {ms:8.3f} ms {100 * ms / busy:5.1f}%  x{count:<4d} {key[:90]}")
+
+
+def augment_phase(card: str, step_ms: float, step_img_s: float, profile: bool = False) -> tuple:
+    """Phase 9 (see the module docstring). Returns (ok, K1 launches)."""
+    t0 = time.perf_counter()
+    ok = render_checks(card, 640, 16)
+    time_renders(card, 640, 64, step_ms)
+    if profile:
+        profile_render(card)
+    ok_entry, launches = aug_entry_point(card, step_img_s)
+    log(f"[aug] phase 9 in {time.perf_counter() - t0:.1f} s")
     return ok and ok_entry, launches
 
 
@@ -969,10 +1278,11 @@ def main() -> int:
     ap.add_argument("--check-only", action="store_true",
                     help="phases 1-3 only: build the kernels and check them")
     ap.add_argument("--train-only", action="store_true",
-                    help="phases 1, 2, 7 and 8 only (phase 8 trains on phase 7's set)")
+                    help="phases 1, 2, 7, 8 and 9 only (phases 8 and 9 train on phase 7's "
+                         "set)")
     ap.add_argument("--profile", action="store_true",
-                    help="also break the bs32 serve call down by stage and by kernel "
-                         "(torch.profiler)")
+                    help="also break the bs32 serve call and the augmentation render down "
+                         "by stage and by kernel (torch.profiler)")
     args = ap.parse_args()
 
     import torch
@@ -1046,10 +1356,17 @@ def main() -> int:
             return 1
     if args.train_only:
         val = validation_phase(args.seed, card)
-        ok8 = val is not None and train_phase(card, args.seed)[0]
-        log(card)
+        if val is None:
+            log("[val] FAIL")
+            return 1
+        ok8, _, step_ms, step_img_s = train_phase(card, args.seed)
         if not ok8:
             log("[train] FAIL")
+            return 1
+        ok9 = augment_phase(card, step_ms, step_img_s, args.profile)[0]
+        log(card)
+        if not ok9:
+            log("[aug] FAIL")
             return 1
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -1229,11 +1546,19 @@ def main() -> int:
 
     # ---- 8. training ------------------------------------------------------
     torch.cuda.empty_cache()
-    ok8, train_launches = train_phase(card, args.seed)
+    ok8, train_launches, step_ms, step_img_s = train_phase(card, args.seed)
     if not ok8:
         log("[train] FAIL")
         return 1
     launches += train_launches
+
+    # ---- 9. device augmentation -----------------------------------------------
+    torch.cuda.empty_cache()
+    ok9, aug_launches = augment_phase(card, step_ms, step_img_s, args.profile)
+    if not ok9:
+        log("[aug] FAIL")
+        return 1
+    launches += aug_launches
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

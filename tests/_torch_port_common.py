@@ -227,3 +227,44 @@ def labelled_set(root: Path, seed: int = 0) -> Path:
     assert rows
     first.write_text("\n".join(rows) + "\n")
     return root / "images"
+
+
+def train_files(tmp_path, epochs: int = 1, device_aug: bool = False):
+    """A labelled BMP set, a data YAML, a small model config and a train
+    cfg YAML (the memorisation recipe at 64 px, f32; with ``device_aug``
+    the reference recipe's mosaic, HSV, translate, scale and a horizontal
+    flip, rendered by the device renderer)."""
+    import json
+
+    from ayolov2_torch.models import yolov5_cfg
+
+    write_image_set(tmp_path, [(64, 64), (48, 64), (64, 48), (64, 64)] * 2, seed=9)
+    (tmp_path / "labels").mkdir()
+    rng = np.random.default_rng(9)
+    for i in range(8):
+        (tmp_path / "labels" / f"{i + 1:06d}.txt").write_text(
+            f"{i % 3} {rng.uniform(0.3, 0.7):.4f} {rng.uniform(0.3, 0.7):.4f} 0.3 0.4\n")
+    data = tmp_path / "data.yaml"
+    data.write_text(f"train_path: {tmp_path / 'images'}\nval_path: {tmp_path / 'images'}\n"
+                    "nc: 3\nnames: [a, b, c]  # three classes\n")
+    cfg = yolov5_cfg("n", nc=3)  # the narrowest width the early-network kernel takes
+    model = tmp_path / "model.yaml"
+    model.write_text(json.dumps(cfg))
+    text = (ROOT / "res/configs/cfg/train_golden_memorize.yaml").read_text()
+    for a, b in (("epochs: 1500", f"epochs: {epochs}"), ("batch_size: 16", "batch_size: 4"),
+                 ("image_size: 320", "image_size: 64"), ("validate_period: 100",
+                                                         "validate_period: 1"),
+                 ("  plot: false", "  plot: false\n  half: false")):
+        assert a in text
+        text = text.replace(a, b)
+    if device_aug:
+        for a, b in (("  augment: false", "  augment: true"), ("  mosaic: 0.0", "  mosaic: 1.0"),
+                     ("  translate: 0.0", "  translate: 0.1"), ("  scale: 0.0", "  scale: 0.5"),
+                     ("augmentation: []", "augmentation:\n  - policy:\n      HorizontalFlip: "
+                                          "{p: 0.5}\n    prob: 1.0"),
+                     ("  plot: false", "  plot: false\n  device_aug: true")):
+            assert a in text
+            text = text.replace(a, b, 1)
+    train_cfg = tmp_path / "cfg.yaml"
+    train_cfg.write_text(text)
+    return model, data, train_cfg

@@ -182,17 +182,59 @@ def test_image_folder_dataset_matches_jax(val_images):
         assert a[1:] == b[1:]
 
 
+@pytest.mark.parametrize("scale_up", [False, True])
+def test_image_folder_dataset_scale_up_matches_jax(val_images, scale_up):
+    """``scale_up`` (what an augmenting DetectionDataset passes): the shrunk
+    image is resized by INTER_LINEAR instead of INTER_AREA, and the letterbox
+    may enlarge."""
+    from ayolov2_tpu.data import ImageFolderDataset as JaxFolder
+    from ayolov2_torch.data import ImageFolderDataset
+
+    kw = dict(img_size=LABELLED_IMG, batch_size=4, rect=True, pad=0.5, scale_up=scale_up)
+    port = ImageFolderDataset(str(val_images), cache_images="mem", **kw)
+    jax = JaxFolder(str(val_images), **kw)
+    assert port.scale_up == jax.scale_up == scale_up
+    shrunk = [i for i, (w, h) in enumerate(port.shapes) if max(w, h) > LABELLED_IMG]
+    assert shrunk
+    for i in range(len(port)):
+        a, b = port[i], jax[i]
+        np.testing.assert_array_equal(a[0], b[0])
+        assert a[1:] == b[1:]
+        np.testing.assert_array_equal(port.load_image(i)[0], jax.load_image(i)[0])
+
+
+def test_load_image_copy_matches_jax(val_images):
+    """``load_image(copy=False)`` hands out the cached array (readers that do
+    not write), ``copy=True`` (the default) a copy, as in the JAX package."""
+    from ayolov2_tpu.data import ImageFolderDataset as JaxFolder
+    from ayolov2_torch.data import ImageFolderDataset
+
+    for cls in (ImageFolderDataset, JaxFolder):
+        ds = cls(str(val_images), img_size=LABELLED_IMG, cache_images="mem")
+        shared, copied = ds.load_image(2, copy=False), ds.load_image(2)
+        assert shared[0] is ds.load_image(2, copy=False)[0]
+        assert copied[0] is not shared[0] and not np.shares_memory(copied[0], shared[0])
+        np.testing.assert_array_equal(copied[0], shared[0])
+        assert copied[1:] == shared[1:]
+    uncached = ImageFolderDataset(str(val_images), img_size=LABELLED_IMG)
+    np.testing.assert_array_equal(uncached.load_image(2, copy=False)[0], shared[0])
+
+
 def test_unported_options_raise(val_images):
+    """The host pixel path of training augmentation raises (it renders on
+    the card in plan mode), and so do the disk caches."""
     from ayolov2_torch.data import DetectionDataset, ImageFolderDataset
 
     with pytest.raises(NotImplementedError, match="augmentation"):
-        DetectionDataset(str(val_images), yolo_augmentation={"mosaic": 1.0})
+        DetectionDataset(str(val_images), yolo_augmentation={"mosaic": 1.0}).get_item(0)
     with pytest.raises(NotImplementedError, match="augmentation"):
-        DetectionDataset(str(val_images), augmentation=[{"policy": {"HorizontalFlip": {}}}])
+        DetectionDataset(str(val_images),
+                         augmentation=[{"policy": {"HorizontalFlip": {}}}]).get_item(0)
     with pytest.raises(NotImplementedError, match="cache"):
         ImageFolderDataset(str(val_images), cache_images="disk")
-    with pytest.raises(NotImplementedError, match="device augmentation"):
-        DetectionDataset(str(val_images), img_size=LABELLED_IMG).enable_device_aug()
+    with pytest.raises(NotImplementedError, match="host-augmentation slice"):
+        DetectionDataset(str(val_images), img_size=LABELLED_IMG,
+                         yolo_augmentation={"augment": True})[0]
 
 
 @pytest.mark.parametrize("rect,kw", [(True, dict()), (True, dict(shard=(1, 2))),

@@ -9,7 +9,7 @@ import pytest
 import torch
 import yaml
 
-from _torch_port_common import CFG, ROOT
+from _torch_port_common import CFG, ROOT, train_files
 
 torch.set_num_threads(1)
 
@@ -44,10 +44,11 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     names = set(r.stdout.split())
-    assert len(names) >= 39
+    assert len(names) >= 41
     assert {"ayolov2_torch.cli.train", "ayolov2_torch.train.optimizer",
             "ayolov2_torch.train.train_state", "ayolov2_torch.train.trainer",
-            "ayolov2_torch.utils.anchors"} <= names
+            "ayolov2_torch.utils.anchors", "ayolov2_torch.data.augment",
+            "ayolov2_torch.data.device_augment"} <= names
 
 
 def test_no_file_names_jax():
@@ -110,40 +111,6 @@ def test_validation_entry_points_need_a_device_without_cuda(monkeypatch, tmp_pat
             main(["--weights", "runs/golden_r4_mem/train/2026_0818_runs/weights/best.ckpt"])
 
 
-def _train_files(tmp_path, epochs: int = 1):
-    """A labelled BMP set, a data YAML, a small model config and a train
-    cfg YAML (the memorisation recipe at 64 px, f32)."""
-    import json
-
-    import numpy as np
-
-    from _torch_port_common import write_image_set
-    from ayolov2_torch.models import yolov5_cfg
-
-    write_image_set(tmp_path, [(64, 64), (48, 64), (64, 48), (64, 64)] * 2, seed=9)
-    (tmp_path / "labels").mkdir()
-    rng = np.random.default_rng(9)
-    for i in range(8):
-        (tmp_path / "labels" / f"{i + 1:06d}.txt").write_text(
-            f"{i % 3} {rng.uniform(0.3, 0.7):.4f} {rng.uniform(0.3, 0.7):.4f} 0.3 0.4\n")
-    data = tmp_path / "data.yaml"
-    data.write_text(f"train_path: {tmp_path / 'images'}\nval_path: {tmp_path / 'images'}\n"
-                    "nc: 3\nnames: [a, b, c]  # three classes\n")
-    cfg = yolov5_cfg("n", nc=3)  # the narrowest width the early-network kernel takes
-    model = tmp_path / "model.yaml"
-    model.write_text(json.dumps(cfg))
-    text = (ROOT / "res/configs/cfg/train_golden_memorize.yaml").read_text()
-    for a, b in (("epochs: 1500", f"epochs: {epochs}"), ("batch_size: 16", "batch_size: 4"),
-                 ("image_size: 320", "image_size: 64"), ("validate_period: 100",
-                                                         "validate_period: 1"),
-                 ("  plot: false", "  plot: false\n  half: false")):
-        assert a in text
-        text = text.replace(a, b)
-    train_cfg = tmp_path / "cfg.yaml"
-    train_cfg.write_text(text)
-    return model, data, train_cfg
-
-
 def test_training_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path):
     from ayolov2_torch.cli import train
     from ayolov2_torch.data import DataLoader, DetectionDataset
@@ -151,7 +118,7 @@ def test_training_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path)
     from ayolov2_torch.train.trainer import YoloTrainer
     from ayolov2_torch.utils.config import load_yaml
 
-    model_cfg, data, cfg = _train_files(tmp_path)
+    model_cfg, data, cfg = train_files(tmp_path)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     loader = DataLoader(DetectionDataset(str(tmp_path / "images"), img_size=64), batch_size=4)
     model = build_model(yolov5_cfg("n", nc=3), device="cpu")
@@ -165,8 +132,7 @@ def test_training_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path)
 def test_trainer_refuses_unported_options(tmp_path):
     from ayolov2_torch.train.trainer import refuse_unported
 
-    for key, value in (("tp", 2), ("fsdp", True), ("device_aug", True), ("remat", True),
-                       ("plot", True)):
+    for key, value in (("tp", 2), ("fsdp", True), ("remat", True), ("plot", True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             refuse_unported({"plot": False, key: value})
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -182,7 +148,7 @@ def test_train_cli_on_cpu_then_val_reads_its_checkpoints(tmp_path):
     from ayolov2_torch.cli import train, val
     from ayolov2_torch.utils.checkpoint import load_checkpoint
 
-    model_cfg, data, cfg = _train_files(tmp_path)
+    model_cfg, data, cfg = train_files(tmp_path)
     trainer = train.main(["--model", str(model_cfg), "--data", str(data), "--cfg", str(cfg),
                           "--log-dir", str(tmp_path / "runs"), "--device", "cpu"])
     wdir = trainer.wdir
