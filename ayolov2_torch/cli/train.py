@@ -10,7 +10,10 @@ dir. Runs on the card unless ``--device cpu`` is given. Configs are read by
 the port's own YAML reader (or as JSON). With ``train.device_aug: true``
 the training augmentation is planned on the host and rendered on the
 device (``train.device_aug_resident``: true, false or auto, resident up to
-2 GiB of frames; ``train.device_aug_dtype``: bfloat16 or float32).
+2 GiB of frames; ``train.device_aug_dtype``: bfloat16 or float32);
+otherwise it runs on the host, in ``train.workers`` threads or, with
+``train.workers_mode: process``, forked processes (the setting for host
+augmentation, which holds the GIL).
 
 Usage:
     python -m ayolov2_torch.cli.train --model res/configs/model/yolov5s.yaml \\
@@ -139,9 +142,13 @@ def main(argv: Optional[Sequence[str]] = None) -> YoloTrainer:
         LOGGER.info("device augmentation on (%s source frames)",
                     "resident" if resident else "streamed")
     max_labels = int(tcfg.get("max_labels_per_image", 64))
+    workers_mode = str(tcfg.get("workers_mode", "thread"))
+    if workers_mode not in ("thread", "process"):
+        raise SystemExit(f"train.workers_mode {workers_mode!r} is not a loader mode: use 'thread' "
+                         "or 'process'")
     train_loader = DataLoader(train_dataset, batch_size=int(tcfg["batch_size"]),
                               shuffle=not tcfg.get("rect", False), drop_last=True,
-                              workers=int(tcfg.get("workers", 4)),
+                              workers=int(tcfg.get("workers", 4)), workers_mode=workers_mode,
                               max_labels_per_image=max_labels)
 
     # the validation protocol: rect (pad 0.5, the default), train (the train

@@ -9,14 +9,15 @@ xywh-normalised] labels, as in the JAX package.
 
 Images are read and resized by ``data/image_io.py`` (no OpenCV for .bmp).
 ``get_item(index, salt)`` is the loader's entry, ``labels`` / ``segments``
-feed auto-anchor and the class weights. Training without augmentation
-(the memorisation configs) letterboxes on the host. With augmentation the
-dataset runs in plan mode (``enable_device_aug``): ``plan_item`` draws
-mosaic, mixup, the perspective warp, the flips and the HSV gains from the
-JAX package's seeded stream, computes the labels on the host and leaves
-the pixels to ``data/device_augment.py`` on the card. The host pixel path
-(cv2's warps, HSV, copy-paste, pixel policies) is not ported yet and
-raises, naming the later slice.
+feed auto-anchor and the class weights. By default ``get_item`` augments on
+the host as the JAX package does: mosaic (with ``copy_paste`` and
+``copy_paste2``) and mixup, or the letterbox with ``copy_paste2`` and the
+random perspective (rect batches included), then the named policies, then
+the HSV jitter; every draw comes from the item's seeded generator in the JAX
+package's order and the pixels from ``data/image_ops.py``. In plan mode
+(``enable_device_aug``) ``plan_item`` draws the same geometry, computes the
+labels on the host and leaves the pixels to ``data/device_augment.py`` on
+the card.
 """
 
 from __future__ import annotations
@@ -31,9 +32,14 @@ import numpy as np
 
 from ayolov2_torch.data.augment import (
     MultiAugmentationPolicies,
+    augment_hsv,
+    copy_paste,
+    copy_paste2,
     hsv_gains,
+    mixup,
     perspective_matrix,
     perspective_targets,
+    random_perspective,
 )
 from ayolov2_torch.data.image_io import image_size, imread, resize_area, resize_linear
 from ayolov2_torch.utils.boxes import xyn2xy, xywh2xyxy, xyxy2xywh
@@ -292,9 +298,8 @@ def _img2label_path(img_path: str, label_type: str) -> Path:
 
 
 class DetectionDataset(ImageFolderDataset):
-    """Images + YOLO labels: letterboxed on the host without augmentation
-    (validation, and training with augmentation off), or planned for the
-    card's renderer with it (``enable_device_aug``)."""
+    """Images + YOLO labels, augmented on the host (or, with
+    ``enable_device_aug``, planned for the card's renderer)."""
 
     def __init__(
         self,
@@ -358,10 +363,89 @@ class DetectionDataset(ImageFolderDataset):
         _write_cache(cache_file, {"key": key, "labels": labels, "segments": segments})
         return labels, segments
 
-    def _augments_on_host(self) -> bool:
+    def _image_labels(self, idx: int, **to_pixels):
+        """(labels (n, 5) [cls, xyxy in pixels], segments in pixels) of one
+        image, copies; ``to_pixels`` are ``xywh2xyxy``'s ratio, wh and pad."""
+        labels = self.labels[idx].copy() if self.labels[idx].size else np.zeros((0, 5), np.float32)
+        segments = [seg.copy() for seg in self.segments[idx]]
+        if labels.size:
+            labels[:, 1:] = xywh2xyxy(labels[:, 1:], **to_pixels)
+            segments = [xyn2xy(x, **to_pixels) for x in segments]
+        return labels, segments
+
+    @staticmethod
+    def _mosaic_slot(i: int, mc_w: int, mc_h: int, w: int, h: int, s2: int):
+        """Slot ``i`` (top left, top right, bottom left, bottom right) of the
+        mosaic around (mc_w, mc_h) for a w x h image: its rectangle on the
+        2s canvas and the image's top-left corner there."""
+        if i == 0:
+            x1a, y1a, x2a, y2a = max(mc_w - w, 0), max(mc_h - h, 0), mc_w, mc_h
+            x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
+        elif i == 1:
+            x1a, y1a, x2a, y2a = mc_w, max(mc_h - h, 0), min(mc_w + w, s2), mc_h
+            x1b, y1b = 0, h - (y2a - y1a)
+        elif i == 2:
+            x1a, y1a, x2a, y2a = max(mc_w - w, 0), mc_h, mc_w, min(s2, mc_h + h)
+            x1b, y1b = w - (x2a - x1a), 0
+        else:
+            x1a, y1a, x2a, y2a = mc_w, mc_h, min(mc_w + w, s2), min(s2, mc_h + h)
+            x1b, y1b = 0, 0
+        return (x1a, y1a, x2a, y2a), (x1b, y1b)
+
+    def _warp_args(self) -> Dict[str, float]:
         ya = self.yolo_augmentation
-        return bool(self.augment or ya.get("mosaic") or ya.get("mixup") or ya.get("copy_paste")
-                    or (ya.get("copy_paste2") or {}).get("p") or self.policies is not None)
+        return dict(degrees=ya.get("degrees", 0.0), translate=ya.get("translate", 0.1),
+                    scale=ya.get("scale", 0.5), shear=ya.get("shear", 0.0),
+                    perspective=ya.get("perspective", 0.0))
+
+    # -- the host path --------------------------------------------------------------
+
+    def load_mosaic(self, index: int, rng: np.random.Generator):
+        """The 4-image mosaic on a 2s canvas (fill 114), copy-paste within it
+        and from other images, then the random perspective down to s x s.
+        Returns (image, labels (n, 5) [cls, xyxy])."""
+        s = self.img_size
+        half = s // 2
+        mc_h, mc_w = (int(rng.uniform(half, 2 * s - half)) for _ in range(2))
+        indices = [index] + list(rng.choice(self.indices, 3))
+        rng.shuffle(indices)
+
+        mosaic_img = np.full((s * 2, s * 2, 3), 114, dtype=np.uint8)
+        mosaic_labels, mosaic_segments = [], []
+        for i, idx in enumerate(indices):
+            img, _, (h, w) = self.load_image(idx, copy=False)
+            (x1a, y1a, x2a, y2a), (x1b, y1b) = self._mosaic_slot(i, mc_w, mc_h, w, h, s * 2)
+            mosaic_img[y1a:y2a, x1a:x2a] = img[y1b:y1b + y2a - y1a, x1b:x1b + x2a - x1a]
+            labels, segs = self._image_labels(idx, wh=(w, h), pad=(x1a - x1b, y1a - y1b))
+            mosaic_labels.append(labels)
+            mosaic_segments.extend(segs)
+
+        labels4 = np.concatenate(mosaic_labels, 0)
+        for x in (labels4[:, 1:], *mosaic_segments):
+            np.clip(x, 1e-3, 2 * s, out=x)
+
+        ya = self.yolo_augmentation
+        mosaic_img, labels4, mosaic_segments = copy_paste(
+            mosaic_img, labels4, mosaic_segments, rng, p=ya.get("copy_paste", 0.0))
+        cp2 = ya.get("copy_paste2") or {}
+        if cp2.get("p", 0.0) > 0.0:
+            for _ in range(cp2.get("n_img", 3)):
+                mosaic_img, labels4, mosaic_segments = self._cross_copy_paste(
+                    mosaic_img, labels4, mosaic_segments, rng)
+        return random_perspective(mosaic_img, labels4, rng, segments=mosaic_segments,
+                                  border=(-half, -half), **self._warp_args())
+
+    def _cross_copy_paste(self, img, labels, segs, rng: np.random.Generator):
+        """``copy_paste2`` from a random donor image."""
+        cp2 = self.yolo_augmentation.get("copy_paste2") or {}
+        j = int(rng.integers(0, len(self.img_files)))
+        img2, _, (h2, w2) = self.load_image(j)
+        labels2, segs2 = self._image_labels(j, wh=(w2, h2))
+        return copy_paste2(
+            img, labels, segs, img2, labels2, segs2, rng,
+            scale_min=cp2.get("scale_min", 0.35), scale_max=cp2.get("scale_max", 1.0),
+            p=cp2.get("p", 0.0), n_trial=cp2.get("n_trial", 5),
+            area_thr=cp2.get("area_thr", 10), ioa_thr=cp2.get("ioa_thr", 0.3))
 
     # -- plan mode: geometry and labels on the host, pixels on the card -------
     #
@@ -433,28 +517,11 @@ class DetectionDataset(ImageFolderDataset):
         for i, idx in enumerate(indices):
             idx = int(idx)
             h, w = self._src_hw(idx)
-            if i == 0:  # top left
-                x1a, y1a, x2a, y2a = max(mc_w - w, 0), max(mc_h - h, 0), mc_w, mc_h
-                x1b, y1b = w - (x2a - x1a), h - (y2a - y1a)
-            elif i == 1:  # top right
-                x1a, y1a, x2a, y2a = mc_w, max(mc_h - h, 0), min(mc_w + w, s * 2), mc_h
-                x1b, y1b = 0, h - (y2a - y1a)
-            elif i == 2:  # bottom left
-                x1a, y1a, x2a, y2a = max(mc_w - w, 0), mc_h, mc_w, min(s * 2, mc_h + h)
-                x1b, y1b = w - (x2a - x1a), 0
-            else:  # bottom right
-                x1a, y1a, x2a, y2a = mc_w, mc_h, min(mc_w + w, s * 2), min(s * 2, mc_h + h)
-                x1b, y1b = 0, 0
+            (x1a, y1a, x2a, y2a), (x1b, y1b) = self._mosaic_slot(i, mc_w, mc_h, w, h, s * 2)
             plan["src_idx"][pair, i] = idx
             plan["rects"][pair, i] = (x1a, y1a, x2a, y2a)
             plan["offs"][pair, i] = (x1a - x1b, y1a - y1b)
-            pad_w, pad_h = x1a - x1b, y1a - y1b
-
-            labels = self.labels[idx].copy() if self.labels[idx].size else np.zeros((0, 5), np.float32)
-            segs = [seg.copy() for seg in self.segments[idx]]
-            if labels.size:
-                labels[:, 1:] = xywh2xyxy(labels[:, 1:], wh=(w, h), pad=(pad_w, pad_h))
-                segs = [xyn2xy(x, wh=(w, h), pad=(pad_w, pad_h)) for x in segs]
+            labels, segs = self._image_labels(idx, wh=(w, h), pad=(x1a - x1b, y1a - y1b))
             mosaic_labels.append(labels)
             mosaic_segments.extend(segs)
 
@@ -464,18 +531,10 @@ class DetectionDataset(ImageFolderDataset):
         # copy_paste and copy_paste2 are 0 here (device_aug_ineligible): at 0
         # the host path draws nothing for them
 
-        ya = self.yolo_augmentation
-        persp = ya.get("perspective", 0.0)
-        M, sc, width, height = perspective_matrix(
-            (s * 2, s * 2), rng,
-            degrees=ya.get("degrees", 0.0),
-            translate=ya.get("translate", 0.1),
-            scale=ya.get("scale", 0.5),
-            shear=ya.get("shear", 0.0),
-            perspective=persp,
-            border=(-half, -half),
-        )
-        labels4 = perspective_targets(labels4, mosaic_segments, M, sc, width, height, persp)
+        warp = self._warp_args()
+        M, sc, width, height = perspective_matrix((s * 2, s * 2), rng, border=(-half, -half), **warp)
+        labels4 = perspective_targets(labels4, mosaic_segments, M, sc, width, height,
+                                      warp["perspective"])
         plan["minv"][pair] = np.linalg.inv(M).astype(np.float32)
         return labels4
 
@@ -526,11 +585,7 @@ class DetectionDataset(ImageFolderDataset):
             top, left = int(round(dh - 0.1)), int(round(dw - 0.1))
             shapes = ((h0, w0), ((h1 / h0, w1 / w0), (dw, dh)))
 
-            labels = self.labels[index].copy() if self.labels[index].size else np.zeros((0, 5), np.float32)
-            segments = [seg.copy() for seg in self.segments[index]]
-            if labels.size:
-                labels[:, 1:] = xywh2xyxy(labels[:, 1:], ratio=(r, r), wh=(w1, h1), pad=(dw, dh))
-                segments = [xyn2xy(x, ratio=(r, r), wh=(w1, h1), pad=(dw, dh)) for x in segments]
+            labels, segments = self._image_labels(index, ratio=(r, r), wh=(w1, h1), pad=(dw, dh))
 
             # source -> letterboxed frame, cv2.resize's half-pixel convention:
             # x_dst = (x_src + 0.5) * (new_w / w1) - 0.5 + left
@@ -540,16 +595,9 @@ class DetectionDataset(ImageFolderDataset):
             L[1, 1], L[1, 2] = sy, 0.5 * sy - 0.5 + top
 
             if self.augment:
-                persp = ya.get("perspective", 0.0)
-                M2, sc, w_, h_ = perspective_matrix(
-                    (s, s), rng,
-                    degrees=ya.get("degrees", 0.0),
-                    translate=ya.get("translate", 0.1),
-                    scale=ya.get("scale", 0.5),
-                    shear=ya.get("shear", 0.0),
-                    perspective=persp,
-                )
-                labels = perspective_targets(labels, segments, M2, sc, w_, h_, persp)
+                warp = self._warp_args()
+                M2, sc, w_, h_ = perspective_matrix((s, s), rng, **warp)
+                labels = perspective_targets(labels, segments, M2, sc, w_, h_, warp["perspective"])
                 F = M2 @ L
             else:
                 F = L
@@ -603,27 +651,42 @@ class DetectionDataset(ImageFolderDataset):
         return self.get_item(index, 0)
 
     def get_item(self, index: int, salt: int = 0):
-        """``__getitem__`` with the loader's epoch-position salt; in plan mode
-        ``plan_item``. Without augmentation an item draws nothing, so the salt
-        (which keeps repeated indices of weighted sampling apart) changes
-        nothing."""
+        """``__getitem__`` with the loader's epoch-position salt, which keeps
+        the draws of repeated indices (weighted sampling) apart; in plan mode
+        ``plan_item``."""
         if self.device_aug:
             return self.plan_item(index, salt)
-        if self._augments_on_host():
-            raise NotImplementedError(
-                "training-time augmentation on the host (cv2's warps, HSV, mixup, copy-paste, "
-                "pixel policies) is not ported yet; it comes with the host-augmentation slice "
-                "of the port. Render it on the card with train.device_aug: true "
-                "(DetectionDataset.enable_device_aug), or train with augment false, mosaic, "
-                "mixup and copy_paste 0 and no augmentation policies")
         index = int(self.indices[index])
-        img, (h0, w0), (h1, w1) = self.load_image(index)
-        img, ratio, pad = letterbox(img, self.target_shape(index), stride=self.stride,
-                                    auto=False, scale_up=False)
-        shapes = ((h0, w0), ((h1 / h0, w1 / w0), pad))
+        rng = self._item_rng(index, salt)
+        ya = self.yolo_augmentation
 
-        labels = self.labels[index].copy() if self.labels[index].size else np.zeros((0, 5), np.float32)
+        if rng.random() < ya.get("mosaic", 0.0):
+            img, labels = self.load_mosaic(index, rng)
+            shapes = ((0, 0), ((0.0, 0.0), (0.0, 0.0)))
+            if rng.random() < ya.get("mixup", 0.0):
+                img, labels = mixup(
+                    img, labels, *self.load_mosaic(int(rng.integers(0, len(self.img_files))), rng),
+                    rng)
+        else:
+            img, (h0, w0), (h1, w1) = self.load_image(index)
+            img, ratio, pad = letterbox(img, self.target_shape(index), stride=self.stride,
+                                        auto=False, scale_up=self.augment)
+            shapes = ((h0, w0), ((h1 / h0, w1 / w0), pad))
+            labels, segments = self._image_labels(index, ratio=ratio, wh=(w1, h1), pad=pad)
+
+            cp2 = ya.get("copy_paste2") or {}
+            if cp2.get("p", 0.0) > 0.0:
+                for _ in range(cp2.get("n_img", 3)):
+                    img, labels, segments = self._cross_copy_paste(img, labels, segments, rng)
+            if self.augment:
+                img, labels = random_perspective(img, labels, rng, **self._warp_args())
+
         if labels.size:
-            labels[:, 1:] = xywh2xyxy(labels[:, 1:], ratio=ratio, wh=(w1, h1), pad=pad)
             labels[:, 1:] = xyxy2xywh(labels[:, 1:], wh=img.shape[:2][::-1], clip_eps=1e-3)
+        if self.policies is not None:
+            img, labels = self.policies(img, labels, rng)
+        if self.augment:
+            img = np.ascontiguousarray(img)
+            augment_hsv(img, rng, ya.get("hsv_h", 0.015), ya.get("hsv_s", 0.7),
+                        ya.get("hsv_v", 0.4))
         return np.ascontiguousarray(img), labels.astype(np.float32), self.img_files[index], shapes

@@ -87,11 +87,13 @@ def image_size(path: str) -> Tuple[int, int]:
     return w, h
 
 
-def _linear_taps(src: int, dst: int, columns: bool):
+def _linear_taps(src: int, dst: int, columns: bool, scale: Optional[float] = None):
     """cv2's INTER_LINEAR taps per output index, as resize.cpp computes them:
-    (i0, i1, w0, w1), 11-bit weights. For columns a source index outside
+    (i0, i1, w0, w1), 11-bit weights. ``scale`` (source pixels per output
+    pixel) defaults to ``src / dst``. For columns a source index outside
     the image is clamped with its weight; for rows only the index is."""
-    scale = 1.0 / (dst / src)
+    if scale is None:
+        scale = 1.0 / (dst / src)
     f = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = (f - s.astype(np.float32)).astype(np.float32)
@@ -105,15 +107,19 @@ def _linear_taps(src: int, dst: int, columns: bool):
     return np.clip(s, 0, src - 1), np.clip(s + 1, 0, src - 1), w0, w1
 
 
-def resize_linear(im: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+def resize_linear(im: np.ndarray, size: Tuple[int, int],
+                  scale: Optional[Tuple[float, float]] = None) -> np.ndarray:
     """``cv2.resize(im, size, interpolation=cv2.INTER_LINEAR)`` for (h, w, c)
-    uint8; ``size`` is (w, h)."""
+    uint8; ``size`` is (w, h). ``scale`` (x, y) is the source step per
+    output pixel where it is not ``w / size``: ``cv2.resize(im, (0, 0),
+    fx=f, fy=f)`` maps by ``1 / f``."""
     dw, dh = size
     h, w = im.shape[:2]
-    x0, x1, a0, a1 = _linear_taps(w, dw, columns=True)
+    sx, sy = scale if scale is not None else (None, None)
+    x0, x1, a0, a1 = _linear_taps(w, dw, columns=True, scale=sx)
     src = im.astype(np.int64)
     rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
-    y0, y1, b0, b1 = _linear_taps(h, dh, columns=False)
+    y0, y1, b0, b1 = _linear_taps(h, dh, columns=False, scale=sy)
     # the rows combine as OpenCV's vector code does: 16-bit products of the
     # sums shifted right by 4, high halves added, rounded off by 2 bits
     out = ((rows[y0] >> 4) * b0[:, None, None] >> 16) + ((rows[y1] >> 4) * b1[:, None, None] >> 16)

@@ -1,6 +1,7 @@
-"""Batching loader: fixed-shape numpy batches built by worker threads.
+"""Batching loader: fixed-shape numpy batches built by worker threads or
+processes.
 
-The counterpart of ``ayolov2_tpu/data/loader.py`` in thread mode:
+The counterpart of ``ayolov2_tpu/data/loader.py``:
 
 - images: (B, H, W, 3) uint8 NHWC (the division by 255 happens on the card);
 - labels: (B * max_labels, 6) [img, cls, x, y, w, h] rows + a valid mask;
@@ -15,15 +16,24 @@ The counterpart of ``ayolov2_tpu/data/loader.py`` in thread mode:
   pass and is published to the dataset, and each item gets its position in
   the epoch as a salt (``get_item``). The orders equal the JAX loader's.
 
-``workers`` threads build batches concurrently (numpy releases the GIL in
-the heavy copies), at most ``2 * workers`` ahead of the consumer; batches
-come out in order. A dataset in plan mode (``enable_device_aug``) yields
-plans, collated into ``PlanBatch``es for the card's renderer. The process
-pool of the JAX loader is not ported yet.
+``workers`` build batches concurrently, at most ``2 * workers`` ahead of
+the consumer, and batches come out in order. ``workers_mode="thread"``
+(the default) runs them as threads: enough where numpy releases the GIL, as
+in the plan mode and the letterbox. ``"process"`` forks a pool of workers
+each epoch (the dataset and its image cache shared copy-on-write), whose
+batches cross a pipe; host augmentation holds the GIL for much of each
+item, so it scales with processes. A worker's exception is raised again in
+the consumer. The workers run numpy only: they touch neither the card nor
+torch's thread pools. A dataset in plan mode (``enable_device_aug``) yields
+plans, collated into ``PlanBatch``es for the card's renderer, on threads in
+either mode.
 """
 
 from __future__ import annotations
 
+import multiprocessing as mp
+import pickle
+import queue
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple
 
@@ -68,6 +78,7 @@ class DataLoader:
         batch_size: the global batch; with ``shard=(i, n)`` this loader
             yields ``batch_size // n`` items a step from its slice.
         workers: batches built concurrently.
+        workers_mode: "thread" or "process" (a forked pool each epoch).
         max_labels_per_image: label rows per image in ``pad_targets``.
         pad_final_batch: pad a short final batch (``n_real`` counts the real
             items).
@@ -89,7 +100,11 @@ class DataLoader:
         shuffle: bool = False,
         drop_last: bool = False,
         seed: int = 0,
+        workers_mode: str = "thread",
     ) -> None:
+        if workers_mode not in ("thread", "process"):
+            raise ValueError(f"workers_mode must be 'thread' or 'process', got {workers_mode!r}")
+        self.workers_mode = workers_mode
         self.dataset = dataset
         self.shard = shard
         self.batch_size = batch_size // shard[1]
@@ -161,7 +176,10 @@ class DataLoader:
             elif self.pad_final_batch:
                 short = self.batch_size - len(batches[-1])
                 batches[-1] = np.concatenate([batches[-1], batches[-1][:1].repeat(short)])
-        yield from self._iter_threads(batches, n_real)
+        if self.workers_mode == "process" and not getattr(self.dataset, "device_aug", False):
+            yield from self._iter_processes(batches, n_real)
+        else:
+            yield from self._iter_threads(batches, n_real)
         self.epoch += 1
 
     def _pos0(self, i: int) -> int:
@@ -224,3 +242,74 @@ class DataLoader:
                 cond.notify_all()
             for t in threads:
                 t.join(timeout=60)
+
+    def _iter_processes(self, batches: List[np.ndarray], n_real: List[int]) -> Iterator:
+        """One epoch on a forked pool: the workers take batch numbers from a
+        queue and put back (number, batch), at most ``2 * workers`` ahead;
+        the consumer reassembles them in order."""
+        n_batches = len(batches)
+        if n_batches == 0:
+            return
+        ctx = mp.get_context("fork")
+        tasks, results = ctx.Queue(), ctx.Queue()
+
+        def work() -> None:
+            import torch
+
+            torch.set_num_threads(1)  # the parent's pools do not survive the fork
+            while True:
+                i = tasks.get()
+                if i is None:
+                    return
+                try:
+                    results.put((i, self._build(batches[i], n_real[i], self._pos0(i))))
+                except BaseException as e:  # raised again in the consumer
+                    results.put((i, _WorkerError(e)))
+                    raise
+
+        procs = [ctx.Process(target=work, daemon=True, name=f"loader-p{k}")
+                 for k in range(min(self.workers, n_batches))]
+        for p in procs:
+            p.start()
+        try:
+            issued = min(2 * self.workers, n_batches)
+            for i in range(issued):
+                tasks.put(i)
+            done: dict = {}
+            for i in range(n_batches):
+                while i not in done:
+                    try:
+                        j, built = results.get(timeout=5.0)
+                    except queue.Empty:
+                        # a worker killed from outside sends nothing
+                        dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
+                        if dead:
+                            raise RuntimeError(f"a loader worker died (exit code {dead[0]})")
+                        continue
+                    if isinstance(built, _WorkerError):
+                        raise built.error
+                    done[j] = built
+                if issued < n_batches:
+                    tasks.put(issued)
+                    issued += 1
+                yield done.pop(i)
+        finally:
+            for _ in procs:
+                tasks.put(None)
+            for p in procs:
+                p.join(timeout=5)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+
+
+class _WorkerError:
+    """A worker's exception on its way through the result pipe (as itself
+    where it pickles, else as a ``RuntimeError`` with its repr)."""
+
+    def __init__(self, error: BaseException) -> None:
+        try:
+            pickle.dumps(error)
+            self.error = error
+        except Exception:
+            self.error = RuntimeError(repr(error))

@@ -324,6 +324,20 @@ class YoloTrainer(AbstractTrainer):
         LOGGER.info("Start training: %s params, %d epochs, batch %d (accumulate %d), img %d, "
                     "device %s", f"{count_params(self.model):,}", self.epochs, self.batch_size,
                     self.accumulate, self.img_size, self.device)
+        LOGGER.info("training images: %s", self.augmentation_path())
+
+    def augmentation_path(self) -> str:
+        """Where the training images are made: on the card, or on the host by
+        the loader's threads or processes."""
+        loader = self.train_loader
+        if getattr(loader.dataset, "device_aug", False):
+            return f"augmented on the card (device_aug; {loader.workers} host threads plan)"
+        ds = loader.dataset
+        augments = ds.augment or ds.yolo_augmentation.get("mosaic") or ds.policies is not None
+        what = "augmented" if augments else "letterboxed"
+        mode = getattr(loader, "workers_mode", "thread")
+        return f"{what} on the host by {loader.workers} worker " \
+               f"{'processes' if mode == 'process' else 'threads'}"
 
     def epoch_iterator(self):
         return self.train_loader

@@ -86,6 +86,23 @@ Phases, each printing its own lines; any failure exits non-zero:
    on finite losses, ``step`` and ``ema_updates`` of 8, both checkpoints
    and resident frames, then ``cli.val`` (K1) on its ``best.ckpt``.
 
+10. host augmentation: phase 7's BMPs linked under ``build/chip_smoke_host/``
+   with its labels, every other image's boxes written as 12-point polygons
+   (segments), so that copy-paste pastes. 10.1: one shuffled epoch of
+   ``train_config.yaml``'s augmentation at 640, bs 8, through the loader
+   with 4 threads and with 4 forked processes, gated on equal batches bit
+   for bit. 10.2: ``get_item`` ms per item on one host thread for
+   ``train_config.yaml`` (a) and ``finetune.yaml`` (b, mixup, rotation,
+   shear) and each pixel policy and ``Affine`` forced to p = 1 on one 640
+   item. 10.3: ``cli.train`` from the golden checkpoint with
+   ``train_golden.yaml`` (320 px, bs 16, thread workers) and with
+   ``train_config.yaml`` (640 px, bs 32, ``workers_mode: process``), each
+   for 2 epochs with its augmentation sections byte for byte as shipped
+   (only epochs, validate_period, the batch, plot and workers_mode change),
+   gated on finite losses, ``step`` = ``ema_updates`` = the micro-steps,
+   the log naming the host path, and ``cli.val`` (K1) on each ``best.ckpt``
+   with mAP50 in [0, 1].
+
 ``--profile`` adds where the serve call's and the augmentation render's
 device time goes (torch.profiler) and where the kernel's own time goes
 (clock stamps at its layer boundaries, from a second build of the same
@@ -109,6 +126,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -1272,14 +1290,252 @@ def augment_phase(card: str, step_ms: float, step_img_s: float, profile: bool = 
     return ok and ok_entry, launches
 
 
+# ---- phase 10: host augmentation ------------------------------------------------
+
+HOST_DIR = ROOT / "build/chip_smoke_host"
+HOST_RECIPES = {"golden": ROOT / "res/configs/cfg/train_golden.yaml",
+                "a": RECIPES["a"], "b": RECIPES["b"]}
+
+
+def write_host_set(root: Path, src: Path) -> Path:
+    """``root/images``: links to phase 7's BMPs; ``root/labels`` and
+    ``root/segments`` (the two label types of the shipped configs): phase 7's
+    boxes, every other image's as polygons (a 12-point ellipse in each box),
+    so that copy-paste has segments to paste."""
+    shutil.rmtree(root, ignore_errors=True)
+    for d in ("images", "labels", "segments"):
+        (root / d).mkdir(parents=True)
+    t = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    for k, img in enumerate(sorted((src / "images").glob("*.bmp"))):
+        (root / "images" / img.name).symlink_to(img)
+        rows = []
+        for line in (src / "labels" / f"{img.stem}.txt").read_text().splitlines():
+            c, x, y, w, h = (float(v) for v in line.split())
+            if k % 2:
+                poly = np.stack([x + w / 2 * np.cos(t), y + h / 2 * np.sin(t)], 1).clip(0, 1)
+                rows.append(f"{int(c)} " + " ".join(f"{v:.6f}" for v in poly.ravel()))
+            else:
+                rows.append(line)
+        for d in ("labels", "segments"):
+            (root / d / f"{img.stem}.txt").write_text("".join(r + "\n" for r in rows))
+    return root / "images"
+
+
+def shipped_cfg(recipe: str, epochs: int, workers_mode: str, bs: Optional[int] = None,
+                img: Optional[int] = None) -> Path:
+    """The shipped train config with only run-length fields changed: epochs,
+    validate_period 1, ``workers_mode``, the batch where given and ``plot:
+    false`` (and the image size for a rehearsal on the CPU); its
+    augmentation sections stay byte for byte as shipped."""
+    import re
+
+    from ayolov2_torch.utils.config import load_yaml
+
+    src = HOST_RECIPES[recipe]
+    text = src.read_text()
+    edits = [(r"(?m)^  epochs: \d+", f"  epochs: {epochs}"),
+             (r"(?m)^  validate_period: \d+", "  validate_period: 1"),
+             (r"(?m)^  plot: \w+", "  plot: false"),
+             (r"(?m)^  workers: (\d+)", f"  workers: \\1\n  workers_mode: {workers_mode}")]
+    if bs:
+        edits.append((r"(?m)^  batch_size: \d+", f"  batch_size: {bs}"))
+    if img:
+        edits.append((r"(?m)^  image_size: \d+", f"  image_size: {img}"))
+    for pattern, repl in edits:
+        text, n = re.subn(pattern, repl, text, count=1)
+        if n != 1:
+            raise ValueError(f"{src} has no line {pattern!r}")
+    out = HOST_DIR / f"cfg_{recipe}_{workers_mode}.yaml"
+    out.write_text(text)
+    new, old = load_yaml(out), load_yaml(src)
+    for section in ("yolo_augmentation", "augmentation"):
+        if new.get(section) != old.get(section):
+            raise ValueError(f"{out}: section {section} differs from {src}")
+    return out
+
+
+def host_dataset(recipe: str, img: int, images: Path, **kw):
+    """Phase 10's set under a shipped recipe's augmentation sections."""
+    from ayolov2_torch.data import DetectionDataset
+    from ayolov2_torch.utils.config import load_yaml
+
+    cfg = load_yaml(HOST_RECIPES[recipe])
+    return DetectionDataset(str(images), img_size=img, batch_size=32,
+                            label_type=cfg["train"].get("label_type", "labels"),
+                            yolo_augmentation=cfg["yolo_augmentation"],
+                            augmentation=cfg.get("augmentation"), **kw)
+
+
+def thread_equals_process(images: Path, img: int, bs: int, workers: int) -> bool:
+    """10.1: one shuffled epoch of recipe (a)'s host items through the loader
+    with threads and with processes: the same bytes, batch for batch."""
+    from ayolov2_torch.data import DataLoader
+
+    ds = host_dataset("a", img, images)
+    epochs, times = {}, {}
+    for mode in ("thread", "process"):
+        loader = DataLoader(ds, batch_size=bs, shuffle=True, drop_last=True, workers=workers,
+                            workers_mode=mode, seed=3)
+        t0 = time.perf_counter()
+        epochs[mode] = list(loader)
+        times[mode] = time.perf_counter() - t0
+    same = len(epochs["thread"]) == len(epochs["process"]) > 0 and all(
+        np.array_equal(a.images, b.images) and np.array_equal(a.targets, b.targets)
+        and np.array_equal(a.target_mask, b.target_mask)
+        for a, b in zip(epochs["thread"], epochs["process"]))
+    n = sum(len(b.paths) for b in epochs["thread"])
+    log(f"[host] 10.1 recipe (a) at {img}, bs {bs}, one epoch ({n} items) with {workers} worker "
+        f"threads and {workers} worker processes: batches equal bit for bit {same}; "
+        f"{n / times['thread']:.1f} img/s on threads, {n / times['process']:.1f} img/s on "
+        f"processes (host, os.cpu_count() {os.cpu_count()}) {'ok' if same else 'FAIL'}")
+    return same
+
+
+def item_profile(ds, n: int, top: int = 8) -> list:
+    """The functions that take the most own time over ``n`` items:
+    [(name, ms per item)]."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for i in range(n):
+        ds.get_item(i % len(ds), 7 + i // len(ds))
+    prof.disable()
+    rows = [(f"{Path(f).stem}.{name}" if f != "~" else name.strip("<>{}"), tt / n * 1e3)
+            for (f, _, name), (_, _, tt, _, _) in pstats.Stats(prof).stats.items()]
+    return sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def time_host_items(images: Path, img: int, n: int = 32) -> None:
+    """10.2: get_item ms per item on one host thread, recipes (a) and (b),
+    and each pixel policy forced to p = 1 on a 640 item of recipe (a)."""
+    from ayolov2_torch.data import augment
+
+    for recipe in ("a", "b"):
+        ds = host_dataset(recipe, img, images, cache_images="mem")
+        ds.get_item(0, 0)
+        t0 = time.perf_counter()
+        for i in range(n):
+            ds.get_item(i % len(ds), i // len(ds))
+        ms = (time.perf_counter() - t0) / n * 1e3
+        log(f"[host] 10.2 get_item recipe ({recipe}) at {img}: {ms:.1f} ms per item (host, one "
+            f"thread, mean of {n})")
+        log(f"[host] 10.2 recipe ({recipe}) where an item's time goes (cProfile, own time, ms "
+            f"per item): " + ", ".join(f"{k} {v:.1f}" for k, v in item_profile(ds, n)))
+    im = host_dataset("a", img, images, cache_images="mem").get_item(0, 0)[0]
+    labels = np.array([[0, 0.5, 0.5, 0.2, 0.3]], np.float32)
+    times = []
+    for name, fn in [*augment.PIXEL_TRANSFORMS.items(),
+                     ("Affine", lambda x, rng: augment._affine(x, labels.copy(), rng, rotate=[-10, 10],
+                                                              shear=[-5, 5])[0])]:
+        rng = np.random.default_rng(0)
+        fn(im.copy(), rng)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(im.copy(), rng)
+        times.append(f"{name} {(time.perf_counter() - t0) / 3 * 1e3:.1f}")
+    log(f"[host] 10.2 pixel policies at p = 1 on a {im.shape[1]}x{im.shape[0]} image, ms (host, "
+        f"one thread, mean of 3): " + ", ".join(times))
+
+
+def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: float,
+                     device: str = "cuda", bs: Optional[int] = None, epochs: int = 2,
+                     img: Optional[int] = None) -> tuple:
+    """10.3: ``cli.train`` with a shipped recipe on phase 10's set from the
+    golden checkpoint, then ``cli.val`` (K1) on its best.ckpt. Returns (ok,
+    early_pipeline launches of cli.val)."""
+    import re
+
+    from ayolov2_torch.cli import val
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_checkpoint
+    from ayolov2_torch.utils.config import load_yaml
+
+    cfg_path = shipped_cfg(recipe, epochs, workers_mode, bs, img)
+    tcfg = load_yaml(cfg_path)["train"]
+    img, bs = int(tcfg["image_size"]), int(tcfg["batch_size"])
+    data = HOST_DIR / "data.json"
+    data.write_text(json.dumps({"train_path": str(images), "val_path": str(images), "nc": 20,
+                                "names": [f"class{i}" for i in range(20)]}))
+    dev = [] if device == "cuda" else ["--device", device]
+    runs = HOST_DIR / f"runs_{recipe}_{workers_mode}"
+    proc, wall = run_logged(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
+                             str(data), "--cfg", str(cfg_path), "--log-dir", str(runs), *dev])
+    out = proc.stdout + proc.stderr
+    (HOST_DIR / f"train_{recipe}_{workers_mode}.log").write_text(out)
+    rows = re.findall(r"epoch +(\d+) done in ([\d.]+)s \((\S+) img/s\): (\d+) steps, mean loss "
+                      r"box (\S+) obj (\S+) cls (\S+) total (\S+)", out)
+    path = re.search(r"training images: (.*)", out)
+    run_dir = re.search(r"Run dir: (\S+)", out)
+    log(f"[host] python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
+        f"{HOST_RECIPES[recipe].name} as shipped ({img} px, bs {bs}, {epochs} epochs, "
+        f"workers_mode {workers_mode}): exit {proc.returncode} in {wall:.1f} s; training images "
+        f"{path.group(1) if path else '?'}")
+    for r in rows:
+        log(f"[host]   epoch {r[0]}: {r[1]} s, {r[2]} img/s (phase 8's step alone at 640 bs 64: "
+            f"{step_img_s:.1f} img/s), {r[3]} steps, mean loss box {r[4]} obj {r[5]} cls {r[6]} "
+            f"total {r[7]}")
+    if proc.returncode != 0 or not run_dir:
+        log("[host] " + " | ".join(out.strip().splitlines()[-8:]))
+        return False, 0
+    wdir = Path(run_dir.group(1)) / "weights"
+    n_steps = len(list(images.glob("*.bmp"))) // bs
+    meta = load_checkpoint(wdir / "last.ckpt")["meta"]
+    finite = all(np.isfinite(float(v)) for r in rows for v in r[4:])
+    mode_word = "processes" if workers_mode == "process" else "threads"
+    ok = (len(rows) == epochs and finite and (wdir / "best.ckpt").exists()
+          and meta["step"] == meta["ema_updates"] == epochs * n_steps
+          and path is not None and "on the host by" in path.group(1)
+          and mode_word in path.group(1))
+    if not ok:
+        log(f"[host] FAIL: epochs {len(rows)}, finite {finite}, best.ckpt "
+            f"{(wdir / 'best.ckpt').exists()}, step {meta['step']}, ema_updates "
+            f"{meta['ema_updates']} (want {epochs * n_steps}), host {mode_word}")
+        return False, 0
+    vargs = ["--weights", str(wdir / "best.ckpt"), "--data-cfg", str(data), "-iw", str(img),
+             "--batch-size", str(bs), *dev]
+    early.early_pipeline.launches = 0  # main path (cli.val in this process): counts from here
+    t0 = time.perf_counter()
+    result = val.main(vargs)
+    launches = early.early_pipeline.launches
+    ok = ok and launches > 0 and 0.0 <= result["map50"] <= 1.0
+    log(f"[host] last.ckpt: epoch {meta['epoch']}, step {meta['step']}, ema_updates "
+        f"{meta['ema_updates']}; python -m ayolov2_torch.cli.val on best.ckpt (K1, rect): seen "
+        f"{result['seen']} mAP50 {result['map50']:.5f} mAP50-95 {result['map50_95']:.5f} in "
+        f"{time.perf_counter() - t0:.1f} s, early_pipeline launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def host_aug_phase(step_img_s: float, device: str = "cuda", img: int = 640, bs: int = 32,
+                   train_img: Optional[int] = None) -> tuple:
+    """Phase 10 (see the module docstring). Returns (ok, K1 launches).
+    ``device``, ``img``, ``bs`` and ``train_img`` (the configs' image size)
+    shrink it for a rehearsal on the CPU."""
+    t0 = time.perf_counter()
+    images = write_host_set(HOST_DIR, VAL_DIR)
+    ok = thread_equals_process(images, img, 8, workers=4)  # 16 batches: the workers pipeline
+    time_host_items(images, img)
+    launches = 0
+    for recipe, mode, run_bs in (("golden", "thread", None), ("a", "process", bs)):
+        ok_run, n = host_entry_point(recipe, mode, images, step_img_s, device, run_bs,
+                                     img=train_img)
+        ok, launches = ok and ok_run, launches + n
+    log(f"[host] phase 10 in {time.perf_counter() - t0:.1f} s")
+    return ok, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--check-only", action="store_true",
                     help="phases 1-3 only: build the kernels and check them")
     ap.add_argument("--train-only", action="store_true",
-                    help="phases 1, 2, 7, 8 and 9 only (phases 8 and 9 train on phase 7's "
+                    help="phases 1, 2, 7, 8, 9 and 10 only (phases 8-10 train on phase 7's "
                          "set)")
+    ap.add_argument("--host-only", action="store_true",
+                    help="phases 1, 2, 7 and 10 only (host augmentation)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -1354,19 +1610,25 @@ def main() -> int:
             f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
         if not ok:
             return 1
-    if args.train_only:
+    if args.train_only or args.host_only:
         val = validation_phase(args.seed, card)
         if val is None:
             log("[val] FAIL")
             return 1
-        ok8, _, step_ms, step_img_s = train_phase(card, args.seed)
-        if not ok8:
-            log("[train] FAIL")
-            return 1
-        ok9 = augment_phase(card, step_ms, step_img_s, args.profile)[0]
+        step_img_s = float("nan")
+        if args.train_only:
+            ok8, _, step_ms, step_img_s = train_phase(card, args.seed)
+            if not ok8:
+                log("[train] FAIL")
+                return 1
+            if not augment_phase(card, step_ms, step_img_s, args.profile)[0]:
+                log("[aug] FAIL")
+                return 1
+        torch.cuda.empty_cache()
+        ok10 = host_aug_phase(step_img_s)[0]
         log(card)
-        if not ok9:
-            log("[aug] FAIL")
+        if not ok10:
+            log("[host] FAIL")
             return 1
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -1559,6 +1821,14 @@ def main() -> int:
         log("[aug] FAIL")
         return 1
     launches += aug_launches
+
+    # ---- 10. host augmentation ---------------------------------------------
+    torch.cuda.empty_cache()
+    ok10, host_launches = host_aug_phase(step_img_s)
+    if not ok10:
+        log("[host] FAIL")
+        return 1
+    launches += host_launches
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

@@ -150,9 +150,12 @@ def test_policies_validate_names_as_jax():
     for cls in (MultiAugmentationPolicies, JaxPolicies):
         with pytest.raises(ValueError, match="Unknown augmentation transform: Mosaic"):
             cls([{"policy": {"Mosaic": {}}}])
-    with pytest.raises(NotImplementedError, match="host-augmentation slice"):
-        MultiAugmentationPolicies(good)(np.zeros((8, 8, 3), np.uint8), np.zeros((0, 5)),
-                                        np.random.default_rng(0))
+    im = np.random.default_rng(1).integers(0, 256, (24, 40, 3), dtype=np.uint8)
+    labels = np.array([[1, 0.3, 0.4, 0.2, 0.2]])
+    a = JaxPolicies(good)(im.copy(), labels.copy(), np.random.default_rng(0))
+    b = MultiAugmentationPolicies(good)(im.copy(), labels.copy(), np.random.default_rng(0))
+    np.testing.assert_array_equal(b[0], a[0])
+    np.testing.assert_array_equal(b[1], a[1])
 
 
 # ---- (ii) plans -------------------------------------------------------------------
@@ -339,8 +342,7 @@ def test_loader_plan_batches_match_jax(images, resident):
 
 def test_ineligible_configs_raise_jax_reasons(images):
     """enable_device_aug refuses what the JAX package refuses, with its
-    reasons; the host path raises for augmentation; the trainer refuses
-    device_aug with multi_scale."""
+    reasons; the host path augments those configs, with JAX's labels."""
     from ayolov2_tpu.data import DetectionDataset as JaxDataset
     from ayolov2_torch.data import DetectionDataset
 
@@ -359,9 +361,11 @@ def test_ineligible_configs_raise_jax_reasons(images):
             with pytest.raises(ValueError, match=f"device augmentation unsupported: {reason}"):
                 ds.enable_device_aug()
     for kw in (dict(yolo_augmentation={"mosaic": 1.0}), dict(yolo_augmentation={"augment": True}),
-               dict(augmentation=FLIPS)):
-        with pytest.raises(NotImplementedError, match="host-augmentation slice"):
-            DetectionDataset(str(images), img_size=LABELLED_IMG, **kw).get_item(0)
+               dict(augmentation=FLIPS), *(kw for kw, _ in cases)):
+        port, ref = (cls(str(images), img_size=LABELLED_IMG, **kw).get_item(0)
+                     for cls in (DetectionDataset, JaxDataset))
+        np.testing.assert_array_equal(port[1], ref[1])
+        assert port[0].shape == ref[0].shape
 
 
 def test_trainer_refuses_device_aug_with_multi_scale(tmp_path):

@@ -20,8 +20,10 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, ayolov2_torch, ayolov2_torch.models, ayolov2_torch.ops.nms, "
         "ayolov2_torch.ops.early_pipeline, ayolov2_torch.export, ayolov2_torch.parallel, "
-        "ayolov2_torch.utils.weights\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu')]\n"
+        "ayolov2_torch.utils.weights, ayolov2_torch.data.image_ops, ayolov2_torch.data.augment, "
+        "ayolov2_torch.data.datasets, ayolov2_torch.data.loader\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu', 'cv2', "
+        "'PIL')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -44,11 +46,12 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     names = set(r.stdout.split())
-    assert len(names) >= 41
+    assert len(names) >= 42
     assert {"ayolov2_torch.cli.train", "ayolov2_torch.train.optimizer",
             "ayolov2_torch.train.train_state", "ayolov2_torch.train.trainer",
             "ayolov2_torch.utils.anchors", "ayolov2_torch.data.augment",
-            "ayolov2_torch.data.device_augment"} <= names
+            "ayolov2_torch.data.device_augment", "ayolov2_torch.data.image_ops",
+            "ayolov2_torch.data.loader", "ayolov2_torch.data.datasets"} <= names
 
 
 def test_no_file_names_jax():
