@@ -13,7 +13,10 @@ device (``train.device_aug_resident``: true, false or auto, resident up to
 2 GiB of frames; ``train.device_aug_dtype``: bfloat16 or float32);
 otherwise it runs on the host, in ``train.workers`` threads or, with
 ``train.workers_mode: process``, forked processes (the setting for host
-augmentation, which holds the GIL).
+augmentation, which holds the GIL). With ``train.plot`` (the default)
+``labels.png`` and ``train_batch0-2.png`` go to the run dir; with
+``AYOLO_TRACE_DIR`` set, a ``torch.profiler`` trace of train steps 2 to 1 +
+``AYOLO_TRACE_STEPS`` (default 4) goes to ``AYOLO_TRACE_DIR/train``.
 
 Usage:
     python -m ayolov2_torch.cli.train --model res/configs/model/yolov5s.yaml \\

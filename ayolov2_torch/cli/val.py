@@ -2,14 +2,21 @@
 
 The counterpart of ``cli/val.py``: checkpoint -> the model rebuilt from its
 embedded config -> BN folded -> rect val loader -> ``YoloValidator``.
-Runs on the card unless ``--device cpu`` is given.
+Runs on the card unless ``--device cpu`` is given. ``--tta`` validates with
+test-time augmentation (the schedule from ``--tta-cfg``, whose flips are
+torch's NCHW dims, mapped to NHWC axes); ``--plot`` writes the PR, F1, P
+and R curves and the confusion matrix to ``{dst}/val/{DATE}_runs``;
+``--profile`` (``--n-profile`` runs, or ``--profile-step`` N) logs the
+validator's forward (with the early-network kernel where it uses it) in
+ms per image before validating; ``AYOLO_TRACE_DIR`` traces the loop.
 
 Usage:
     python -m ayolov2_torch.cli.val --weights runs/train/xxx/best.ckpt \\
         --data-cfg res/configs/data/coco.yaml [--device cpu] [--json-path out.json]
 
-Not ported yet, and refused with a message: ``--int8``, ``--tta``,
-``--plot``, ``--profile``/``--profile-step`` and exported artifacts.
+Not ported yet, and refused with a message naming the slice: ``--int8``
+(``--calib-batches`` and ``--calib-method`` are accepted for it) and
+exported artifacts.
 """
 
 from __future__ import annotations
@@ -18,8 +25,9 @@ import argparse
 import json
 import logging
 import sys
+import time
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -28,7 +36,7 @@ from ayolov2_torch.eval import YoloValidator
 from ayolov2_torch.models import build_model, count_params
 from ayolov2_torch.models.builder import parse_model_config
 from ayolov2_torch.utils.checkpoint import load_model
-from ayolov2_torch.utils.config import load_yaml
+from ayolov2_torch.utils.config import load_yaml, make_run_dir
 from ayolov2_torch.utils.general import check_img_size, resolve_device
 
 LOGGER = logging.getLogger("val")
@@ -46,25 +54,38 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("-it", "--iou-t", type=float, default=0.65)
     parser.add_argument("--device", type=str, default="",
                         help="cuda, cuda:N, N (a card's index) or cpu; default the card")
+    parser.add_argument("--dst", type=str, default="exp",
+                        help="run dir root: plots go to {dst}/val/{DATE}_runs")
     parser.add_argument("--top-k", type=int, default=512, help="NMS confidence pre-filter top-k")
     parser.add_argument("-ktk", "--keep-top-k", type=int, default=0,
                         help="detections kept after NMS; 0 = --max-det")
     parser.add_argument("--rect", action="store_true", dest="rect", default=True,
                         help="rectangular val batches (default)")
-    parser.add_argument("--plot", action="store_true", help="(not ported yet)")
-    parser.add_argument("--profile", action="store_true", help="(not ported yet)")
+    parser.add_argument("--plot", action="store_true",
+                        help="write the PR/F1/P/R curves and the confusion matrix to the run dir")
+    parser.add_argument("--profile", action="store_true",
+                        help="time the forward before validating (ms per image)")
+    parser.add_argument("--n-profile", type=int, default=100, help="runs for --profile")
     parser.add_argument("--half", action="store_true", help="bf16 is already the default")
+    parser.add_argument("--tta-cfg", type=str, default="res/configs/cfg/tta.yaml",
+                        help="TTA scales and flips (YAML; flips as torch NCHW dims)")
     parser.add_argument("--nms-type", "--nms_type", type=str, default="nms",
                         choices=["nms", "batched_nms", "fast_nms", "matrix_nms", "merge_nms"])
     parser.add_argument("--max-det", type=int, default=300)
     parser.add_argument("--single-cls", action="store_true")
-    parser.add_argument("--tta", action="store_true", help="(not ported yet)")
+    parser.add_argument("--tta", action="store_true", help="test-time augmentation")
     parser.add_argument("--hybrid-label", action="store_true", help="inject GT into NMS candidates")
     parser.add_argument("--no-half", action="store_true", help="f32 compute instead of bf16")
     parser.add_argument("--no-rect", action="store_false", dest="rect", help="square batches")
     parser.add_argument("--no-fuse", action="store_true", help="skip conv+BN folding")
-    parser.add_argument("--int8", action="store_true", help="(not ported yet)")
-    parser.add_argument("--profile-step", type=int, default=0, help="(not ported yet)")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 validation (not ported yet: the compression slice)")
+    parser.add_argument("--calib-batches", type=int, default=4,
+                        help="calibration batches for --int8")
+    parser.add_argument("--calib-method", type=str, default="absmax", choices=["absmax", "p999"],
+                        help="int8 input-range calibration for --int8")
+    parser.add_argument("--profile-step", type=int, default=0,
+                        help="time the forward N times (as --profile)")
     parser.add_argument("-v", "--verbose", type=int, nargs="?", const=1, default=1,
                         help="verbosity (>= 2: per-class metrics)")
     parser.add_argument("--n-skip", type=int, default=0, help="skip every n images")
@@ -80,20 +101,52 @@ def device_of(arg: str) -> torch.device:
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    later = {
-        "int8": "int8 validation (compress/quantize.py)",
-        "tta": "test-time augmentation (ops/tta.py)",
-        "plot": "plots (utils/plots.py)",
-        "profile": "the forward profile (utils/profiling.py)",
-        "profile_step": "the forward profile (utils/profiling.py)",
-    }
-    for flag, what in later.items():
-        if getattr(args, flag, False):
-            raise SystemExit(f"--{flag.replace('_', '-')}: {what} is not ported yet; it comes "
-                             "with a later slice of the port")
+    if args.int8:
+        raise SystemExit("--int8: int8 validation (compress/quantize.py) is not ported yet; it "
+                         "comes with the compression slice of the port")
     if args.weights.endswith(".jaxexp"):
         raise SystemExit(f"{args.weights}: validating exported artifacts is not ported yet; "
                          "it comes with the export slice of the port")
+
+
+def load_tta_cfg(path: str) -> Tuple[Optional[List[float]], Optional[List[Optional[int]]]]:
+    """(scales, flips) of a TTA YAML, None where it sets none or the file is
+    missing; its flips are torch's NCHW dims (2 up-down, 3 left-right),
+    returned as NHWC axes (1, 2)."""
+    if not path or not Path(path).exists():
+        LOGGER.info("TTA: %s not found, the default scales and flips", path)
+        return None, None
+    cfg = load_yaml(path) or {}
+    flips = cfg.get("flips")
+    if flips is not None:
+        flips = [None if f is None else {2: 1, 3: 2}[int(f)] for f in flips]
+    return cfg.get("scales"), flips
+
+
+def profile_model(serve, img_hw: Tuple[int, int], batch_size: int, n_run: int,
+                  device: torch.device) -> float:
+    """The forward of ``serve`` (raw maps and decode; the early-network
+    kernel where it uses it) on a zero uint8 batch, in ms per image over
+    ``n_run`` runs after one warm-up, the card synchronised at both ends."""
+    images = torch.zeros((batch_size, img_hw[0], img_hw[1], 3), dtype=torch.uint8, device=device)
+
+    def forward():
+        return serve.model.head.decode(serve.raw_maps(images))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    forward()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n_run):
+        forward()
+    sync()
+    dt = (time.perf_counter() - t0) / n_run / batch_size * 1e3
+    LOGGER.info("Profile: %.3f ms/image (batch %d, %d runs%s)", dt, batch_size, n_run,
+                ", early-network kernel" if serve.early else "")
+    return dt
 
 
 def build_val_model(args: argparse.Namespace, nc: Optional[int], fuse: bool,
@@ -138,6 +191,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         single_cls=args.single_cls,
     )
     loader = DataLoader(dataset, batch_size=args.batch_size)
+
+    tta_scales = tta_flips = None
+    if args.tta:
+        tta_scales, tta_flips = load_tta_cfg(args.tta_cfg)
+    plot_dir = None
+    if args.plot:
+        plot_dir = str(make_run_dir(args.dst, "val"))
+        LOGGER.info("plots -> %s", plot_dir)
     validator = YoloValidator(
         model,
         loader,
@@ -152,9 +213,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             "hybrid_label": args.hybrid_label,
             "half": not args.no_half,
             "verbose": args.verbose,
+            "tta": args.tta,
+            "tta_scales": tta_scales,
+            "tta_flips": tta_flips,
+            "plot_dir": plot_dir,
         },
         device=device,
     )
+    if args.profile_step > 0 or args.profile:
+        profile_model(validator.serve, (h, w), args.batch_size,
+                      args.profile_step or args.n_profile, device)
     result = validator.validation()
     if args.json_path:
         out = {k: v for k, v in result.items() if k != "maps"}

@@ -4,15 +4,21 @@ The counterpart of ``cli/val2.py``: image folder -> rect batches -> the
 serving function (decode + NMS on the device) -> ``ResultWriter`` (a COCO
 answersheet JSON) -> ``COCOmAPEvaluator`` against the GT JSON, which is
 built from the YOLO labels when ``--gt-json`` is not given. Runs on the
-card unless ``--device cpu`` is given.
+card unless ``--device cpu`` is given. ``--tta`` decodes each batch with
+test-time augmentation (``--tta-cfg``; the unscaled branch is the serving
+forward, with the early-network kernel) before the NMS; ``--plot`` writes
+the per-class report's curves and confusion matrix to
+``{dst}/val2/{DATE}_runs`` (or to ``--export``); ``--trace-dir`` writes a
+``torch.profiler`` trace of the serve loop there.
 
 Usage:
     python -m ayolov2_torch.cli.val2 --weights best.ckpt --data-cfg res/configs/data/coco.yaml \\
         [--gt-json instances_val2017.json] --json-path answersheet.json
 
-Not ported yet, and refused with a message: ``--tta``, ``--plot`` and
-``--export``. The pycocotools cross-check is left out (``--no-coco`` is
-accepted and changes nothing).
+``--export`` writes the plots, but not the JAX package's pred-vs-GT renders
+of the source images (which its entry point never asks for). The
+pycocotools cross-check is left out (``--no-coco`` is accepted and changes
+nothing).
 """
 
 from __future__ import annotations
@@ -26,12 +32,15 @@ from typing import Optional, Sequence
 
 import torch
 
-from ayolov2_torch.cli.val import build_val_model, device_of
+from ayolov2_torch.cli.val import build_val_model, device_of, load_tta_cfg
 from ayolov2_torch.data import DataLoader, DetectionDataset, ImageFolderDataset
 from ayolov2_torch.export import make_serving_fn
-from ayolov2_torch.utils.config import load_yaml
+from ayolov2_torch.ops.nms import batched_nms
+from ayolov2_torch.ops.tta import tta_decode
+from ayolov2_torch.utils.config import load_yaml, make_run_dir
 from ayolov2_torch.utils.general import check_img_size
 from ayolov2_torch.utils.metrics import COCOmAPEvaluator
+from ayolov2_torch.utils.profiling import trace_to
 from ayolov2_torch.utils.result_writer import ResultWriter, yolo_labels_to_coco_json
 
 LOGGER = logging.getLogger("val2")
@@ -52,7 +61,9 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--top-k", type=int, default=512)
     parser.add_argument("--keep-top-k", type=int, default=100)
     parser.add_argument("--nms-box", type=int, default=1000)
-    parser.add_argument("--tta", action="store_true", help="(not ported yet)")
+    parser.add_argument("--tta", action="store_true", help="test-time augmentation")
+    parser.add_argument("--tta-cfg", type=str, default="res/configs/cfg/tta.yaml",
+                        help="TTA scales and flips (YAML; flips as torch NCHW dims)")
     parser.add_argument("--no-half", action="store_true")
     parser.add_argument("--half", action="store_true", help="bf16 is already the default")
     parser.add_argument("--rect", action="store_true", dest="rect", default=True,
@@ -63,28 +74,31 @@ def get_parser() -> argparse.ArgumentParser:
                         help="validation image root (overrides data-cfg val_path)")
     parser.add_argument("--device", type=str, default="",
                         help="cuda, cuda:N, N (a card's index) or cpu; default the card")
+    parser.add_argument("--dst", type=str, default="exp",
+                        help="export dir root: {dst}/val2/{DATE}_runs")
     parser.add_argument("-ih", "--img-height", type=int, default=-1)
     parser.add_argument("--agnostic", action="store_true",
                         help="class-agnostic NMS (no class coordinate offset)")
     parser.add_argument("--single-cls", action="store_true", help="validate as a single class")
-    parser.add_argument("--plot", action="store_true", help="(not ported yet)")
-    parser.add_argument("--export", type=str, default="", help="(not ported yet)")
+    parser.add_argument("--plot", action="store_true",
+                        help="per-class report and plots under the dst run dir")
+    parser.add_argument("--export", type=str, default="",
+                        help="write the per-class report's plots to this dir")
     parser.add_argument("--no-coco", "--no_coco", action="store_true",
                         help="accepted; the pycocotools cross-check is not ported")
     parser.add_argument("--verbose", type=int, nargs="?", const=1, default=1)
     parser.add_argument("--check-map", type=float, default=-1.0,
                         help="fail unless mAP50 >= this value")
+    parser.add_argument("--trace-dir", type=str, default="",
+                        help="write a torch.profiler trace of the serve loop here")
     return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = get_parser().parse_args(argv)
-    for flag, what in (("tta", "test-time augmentation (ops/tta.py)"),
-                       ("plot", "plots (utils/plots.py)"),
-                       ("export", "the debug renders (utils/plots.py)")):
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag}: {what} is not ported yet; it comes with a later "
-                             "slice of the port")
+    if args.weights.endswith(".jaxexp"):
+        raise SystemExit(f"{args.weights}: exported artifacts are not read yet; they come "
+                         "with the export slice of the port")
     device = device_of(args.device)
 
     data_cfg = load_yaml(args.data_cfg)
@@ -103,28 +117,41 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         rect=args.rect, pad=0.5, stride=stride, n_skip=args.n_skip,
     )
     loader = DataLoader(dataset, batch_size=args.batch_size, detection=False)
+    image_dtype = torch.float32 if args.no_half else torch.bfloat16
     serve = make_serving_fn(
         model, conf_thres=args.conf_t, iou_thres=args.iou_t, top_k=args.top_k,
-        keep_top_k=args.keep_top_k, nms_box=args.nms_box,
-        image_dtype=torch.float32 if args.no_half else torch.bfloat16,
+        keep_top_k=args.keep_top_k, nms_box=args.nms_box, image_dtype=image_dtype,
         fused_decode=False, multi_label=not args.single_cls,
         agnostic=args.agnostic or args.single_cls, nms_type=args.nms_type, device=device,
     )
+    if args.tta:
+        scales, flips = load_tta_cfg(args.tta_cfg)
+
+        def detect(images: torch.Tensor):
+            pred = tta_decode(serve, images, image_dtype, scales, flips)
+            return batched_nms(
+                pred, conf_thres=args.conf_t, iou_thres=args.iou_t,
+                nms_box=min(args.nms_box, pred.shape[1]), pre_top_k=args.top_k,
+                keep_top_k=args.keep_top_k, multi_label=not args.single_cls,
+                agnostic=args.agnostic or args.single_cls, nms_type=args.nms_type)
+    else:
+        detect = serve
 
     writer = ResultWriter(args.json_path)
     writer.start()
     seen = 0
     t_infer = 0.0
-    for images, metas, indices, n_real in loader:
-        h, w = images.shape[1:3]
-        t0 = time.perf_counter()
-        det, n_valid = serve(torch.from_numpy(images).to(device))
-        det, n_valid = det.cpu().numpy(), n_valid.cpu().numpy()  # waits for the device
-        t_infer += time.perf_counter() - t0
-        # metas and indices are cut to the real (unpadded) items already
-        paths = [dataset.img_files[i] for i in indices]
-        writer.add_outputs(paths, det[:n_real], n_valid[:n_real], (h, w), metas)
-        seen += n_real
+    with trace_to(args.trace_dir or None, device):
+        for images, metas, indices, n_real in loader:
+            h, w = images.shape[1:3]
+            t0 = time.perf_counter()
+            det, n_valid = detect(torch.from_numpy(images).to(device))
+            det, n_valid = det.cpu().numpy(), n_valid.cpu().numpy()  # waits for the device
+            t_infer += time.perf_counter() - t0
+            # metas and indices are cut to the real (unpadded) items already
+            paths = [dataset.img_files[i] for i in indices]
+            writer.add_outputs(paths, det[:n_real], n_valid[:n_real], (h, w), metas)
+            seen += n_real
     results = writer.close()
     LOGGER.info("%d images, %.1f ms/img inference+NMS, %d predictions",
                 seen, t_infer / max(seen, 1) * 1e3, len(results))
@@ -141,10 +168,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         )
         gt = yolo_labels_to_coco_json(label_ds)
 
-    evaluator = COCOmAPEvaluator(gt, cat_from_yolo=False)
+    export_root = args.export
+    if args.plot and not export_root:
+        export_root = str(make_run_dir(args.dst, "val2"))
+    evaluator = COCOmAPEvaluator(gt, cat_from_yolo=False, export_root=export_root or None)
     metrics = evaluator.evaluate(results, max_det=args.keep_top_k)
-    if args.verbose >= 2:
-        evaluator.evaluate_per_class(results)
+    if args.plot or args.export or args.verbose >= 2:
+        evaluator.evaluate_per_class(results, debug=bool(args.export))
+        if export_root:
+            LOGGER.info("per-class plots -> %s", export_root)
     LOGGER.info("COCO eval: %s", json.dumps({k: round(v, 4) for k, v in metrics.items()}))
     if args.check_map >= 0 and metrics["map50"] < args.check_map:
         raise SystemExit(f"mAP50 {metrics['map50']:.4f} < required {args.check_map}")

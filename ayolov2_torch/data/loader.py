@@ -35,6 +35,7 @@ import multiprocessing as mp
 import pickle
 import queue
 import threading
+import time
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -83,6 +84,10 @@ class DataLoader:
         pad_final_batch: pad a short final batch (``n_real`` counts the real
             items).
         shuffle, drop_last, seed: the training order (see above).
+        timeout: seconds the consumer waits for the next batch from the
+            process pool while a worker is alive, as in torch's
+            ``DataLoader``; then the workers are terminated and a
+            ``RuntimeError`` names them. 0 waits without a bound.
 
     Yields ``Batch`` (detection=True) or (images, metas, indices, n_real)
     with metas and indices cut to the real items (detection=False).
@@ -101,9 +106,13 @@ class DataLoader:
         drop_last: bool = False,
         seed: int = 0,
         workers_mode: str = "thread",
+        timeout: float = 600.0,
     ) -> None:
         if workers_mode not in ("thread", "process"):
             raise ValueError(f"workers_mode must be 'thread' or 'process', got {workers_mode!r}")
+        if timeout < 0:
+            raise ValueError(f"timeout must be non-negative, got {timeout}")
+        self.timeout = timeout
         self.workers_mode = workers_mode
         self.dataset = dataset
         self.shard = shard
@@ -246,7 +255,8 @@ class DataLoader:
     def _iter_processes(self, batches: List[np.ndarray], n_real: List[int]) -> Iterator:
         """One epoch on a forked pool: the workers take batch numbers from a
         queue and put back (number, batch), at most ``2 * workers`` ahead;
-        the consumer reassembles them in order."""
+        the consumer reassembles them in order. A worker that died, or no
+        batch within ``timeout`` seconds, raises."""
         n_batches = len(batches)
         if n_batches == 0:
             return
@@ -276,15 +286,25 @@ class DataLoader:
             for i in range(issued):
                 tasks.put(i)
             done: dict = {}
+            poll = min(5.0, self.timeout or 5.0)
             for i in range(n_batches):
+                since = time.monotonic()
                 while i not in done:
                     try:
-                        j, built = results.get(timeout=5.0)
+                        j, built = results.get(timeout=poll)
                     except queue.Empty:
                         # a worker killed from outside sends nothing
                         dead = [p.exitcode for p in procs if p.exitcode not in (None, 0)]
                         if dead:
                             raise RuntimeError(f"a loader worker died (exit code {dead[0]})")
+                        waited = time.monotonic() - since
+                        if self.timeout and waited >= self.timeout:
+                            pids = [p.pid for p in procs if p.is_alive()]
+                            for p in procs:
+                                p.terminate()
+                            raise RuntimeError(
+                                f"no batch from the loader's workers (pids {pids}) in "
+                                f"{waited:.1f} s; waited for batch {i} of {n_batches}")
                         continue
                     if isinstance(built, _WorkerError):
                         raise built.error

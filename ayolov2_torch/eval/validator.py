@@ -22,14 +22,25 @@ With ``compute_loss`` (the trainer's validation) the loop also returns the
 validation loss (lbox, lobj, lcls averaged over batches) of the raw maps in
 f32, on the plain path with the forward from the image (no kernel): a
 padded final batch weights its padding images 0 and masks their target
-rows, as the JAX validator does. Test-time augmentation is not ported yet
-and raises.
+rows, as the JAX validator does.
+
+With ``tta`` the plain path decodes each batch by ``ops/tta.tta_decode``
+(scales and flips from ``tta_scales`` / ``tta_flips``): its unscaled,
+unflipped branch is the serving forward, so the early-network kernel runs
+there when the model takes it, and the scaled and flipped branches run the
+model from layer 0 on the normalised images. (JAX's TTA path, like its
+fused path, never calls its Pallas kernel.) No loss is computed under TTA,
+as in JAX. With ``plot_dir`` the confusion matrix is gathered and, with the
+PR, F1, P and R curves, written there as PNGs. The loop runs inside
+``maybe_trace("val")`` (a ``torch.profiler`` trace under
+``AYOLO_TRACE_DIR/val`` when that is set).
 """
 
 from __future__ import annotations
 
 import logging
 import time
+from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -37,9 +48,11 @@ import torch
 
 from ayolov2_torch.export.exporter import make_serving_fn
 from ayolov2_torch.ops.nms import batched_nms, detections_to_list
+from ayolov2_torch.ops.tta import tta_decode
 from ayolov2_torch.utils.boxes import scale_coords, xywh2xyxy
 from ayolov2_torch.utils.general import resolve_device
-from ayolov2_torch.utils.metrics import IOUV, ap_per_class, process_batch
+from ayolov2_torch.utils.metrics import IOUV, ConfusionMatrix, ap_per_class, process_batch
+from ayolov2_torch.utils.profiling import maybe_trace
 
 LOGGER = logging.getLogger(__name__)
 
@@ -80,8 +93,10 @@ class YoloValidator:
         cfg: conf_t, iou_t, nms_type, single_cls, max_det, pre_top_k,
             nms_box, hybrid_label, half (bf16, the default, else f32),
             fused (the fused path where the model allows it), early_pipeline
-            (the early-network kernel where the model allows it), verbose,
-            nc (without a model).
+            (the early-network kernel where the model allows it), tta,
+            tta_scales and tta_flips (NHWC axes; None: ``ops/tta.py``'s
+            defaults), plot_dir (curves and confusion matrix written there),
+            verbose, nc (without a model).
         compute_loss: a ``ComputeLoss``: also compute the validation loss
             (the plain path then, without the kernel).
         detection_fn: images -> (detections, counts), used instead of the
@@ -105,10 +120,6 @@ class YoloValidator:
             cfg["fused"] = False
             cfg["early_pipeline"] = False
         self.compute_loss = compute_loss
-        if cfg.get("tta"):
-            raise NotImplementedError("test-time augmentation is not ported yet (ops/tta.py)")
-        if cfg.get("plot_dir"):
-            raise NotImplementedError("validation plots are not ported yet")
         self.device = resolve_device(device)
         self.loader = loader
         self.detection_fn = detection_fn
@@ -124,13 +135,19 @@ class YoloValidator:
         self.pre_top_k = int(cfg.get("pre_top_k", 512))
         self.nms_box = int(cfg.get("nms_box", 1000))
         self.hybrid_label = bool(cfg.get("hybrid_label", False))
+        self.tta = bool(cfg.get("tta", False))
+        self.tta_scales = cfg.get("tta_scales")
+        self.tta_flips = cfg.get("tta_flips")
         self.image_dtype = torch.bfloat16 if cfg.get("half", True) else torch.float32
         self.verbose = bool(cfg.get("verbose", False))
+        self.plot_dir = cfg.get("plot_dir")
+        self.confusion = ConfusionMatrix(self.nc) if self.plot_dir else None
 
         self.use_fused = (
             bool(cfg.get("fused", True))
             and model is not None
             and getattr(model, "fused", False)
+            and not self.tta
             and not self.hybrid_label
             and self.nms_type in ("nms", "batched_nms")
         )
@@ -174,10 +191,14 @@ class YoloValidator:
         if self.use_fused:
             det, n_valid = self.serve(images)
             return det, n_valid, None
-        raw = self.serve.raw_maps(images)
-        if self.compute_loss is not None and batch is not None:
-            self._loss(raw, batch)
-        pred = self.serve.model.head.decode(raw)
+        if self.tta:
+            pred = tta_decode(self.serve, images, self.image_dtype, self.tta_scales,
+                              self.tta_flips)
+        else:
+            raw = self.serve.raw_maps(images)
+            if self.compute_loss is not None and batch is not None:
+                self._loss(raw, batch)
+            pred = self.serve.model.head.decode(raw)
         self._sync()
         t_forward = time.perf_counter()
         if self.hybrid_label:
@@ -206,10 +227,11 @@ class YoloValidator:
         return det, n_valid
 
     def statistics_per_image(self, dets: List[np.ndarray], batch, img_hw: Tuple[int, int],
-                             stats: List) -> None:
+                             stats: List, confusion: Optional[ConfusionMatrix] = None) -> None:
         """Per-image TP accumulation in native coordinates: labels from
         normalised xywh to letterbox pixels, then labels and predictions
-        through the same ``scale_coords`` to the native image."""
+        through the same ``scale_coords`` to the native image (and into
+        ``confusion`` where given)."""
         targets = batch.targets
         mask = batch.target_mask
         h, w = img_hw
@@ -236,6 +258,8 @@ class YoloValidator:
                 tbox = scale_coords((h, w), tbox, native, ratio_pad if shape0 != (0, 0) else None)
                 labels_native = np.concatenate([rows[:, 1:2], tbox], 1)
                 correct = process_batch(pred_native, labels_native)
+                if confusion is not None:
+                    confusion.process_batch(pred_native, labels_native)
             else:
                 correct = np.zeros((det.shape[0], len(IOUV)), bool)
             stats.append((correct, det[:, 4], det[:, 5], tcls))
@@ -246,11 +270,15 @@ class YoloValidator:
         (per-class mAP50-95), t (pre, inference, NMS ms per image), seen and
         n_labels (the labels of the images seen)."""
         verbose = self.verbose if verbose is None else verbose
+        self._loss_sum = np.zeros(3, np.float64)
+        with maybe_trace("val", self.device):
+            return self._validation_loop(verbose)
+
+    def _validation_loop(self, verbose: bool) -> Dict[str, Any]:
         stats: List = []
         dt = np.zeros(3, np.float64)
         seen = 0
         n_batches = 0
-        self._loss_sum = np.zeros(3, np.float64)
         for batch in self.loader:
             bs, h, w = batch.images.shape[:3]
             t0 = time.perf_counter()
@@ -266,7 +294,7 @@ class YoloValidator:
             seen += n_real
             n_batches += 1
             dets = detections_to_list(det, n_valid)[:n_real]
-            self.statistics_per_image(dets, batch, (h, w), stats)
+            self.statistics_per_image(dets, batch, (h, w), stats, confusion=self.confusion)
         result = self.compute_statistics(stats, dt, seen, verbose)
         result["loss"] = (self._loss_sum / max(n_batches, 1)).tolist()
         return result
@@ -288,7 +316,9 @@ class YoloValidator:
             if len(tcls):
                 nt = np.bincount(tcls.astype(np.int64), minlength=self.nc)
             if len(arrs[0]):
-                p, r, ap, f1, ap_class = ap_per_class(arrs[0].astype(bool), arrs[1], arrs[2], tcls)
+                p, r, ap, f1, ap_class = ap_per_class(
+                    arrs[0].astype(bool), arrs[1], arrs[2], tcls,
+                    plot=self.plot_dir is not None, save_dir=self.plot_dir, names=self.names)
                 ap50, ap_mean = ap[:, 0], ap.mean(1)
                 mp, mr, map50, map5095 = p.mean(), r.mean(), ap50.mean(), ap_mean.mean()
                 for i, c in enumerate(ap_class):
@@ -297,6 +327,12 @@ class YoloValidator:
                     for i, c in enumerate(ap_class):
                         LOGGER.info("%20s %11d %11d %11.3g %11.3g %11.3g %11.3g",
                                     self.names[c], seen, int(nt[c]), p[i], r[i], ap50[i], ap_mean[i])
+        if self.confusion is not None:
+            from ayolov2_torch.utils.plots import plot_confusion_matrix
+
+            Path(self.plot_dir).mkdir(parents=True, exist_ok=True)
+            plot_confusion_matrix(self.confusion.matrix, Path(self.plot_dir) / "confusion_matrix.png",
+                                  self.names)
         t = tuple(x / max(seen, 1) * 1e3 for x in dt)  # ms per image
         LOGGER.info("%20s %11s %11s %11s %11s %11s %11s",
                     "Class", "Images", "Labels", "P", "R", "mAP@.5", "mAP@.5:.95")

@@ -18,17 +18,22 @@ The counterpart of ``ayolov2_tpu/train/trainer.py`` on one device:
 - ``device_aug``: the loader yields plans (``PlanBatch``) and
   ``training_step`` renders them on the trainer's device
   (``data/device_augment.py``, operands in ``device_aug_dtype``); the
-  rendered batch goes to the step without leaving the device.
+  rendered batch goes to the step without leaving the device;
+- ``plot`` (default true): ``labels.png`` (the class histogram and box
+  sizes) at the start and ``train_batch{0,1,2}.png``, the first three
+  batches of epoch 0 as the step sees them (the host batch, or the rendered
+  one with ``device_aug``), in the run dir; a plot that fails is logged and
+  training goes on;
+- a ``torch.profiler`` trace of steps 2 to 1 + ``AYOLO_TRACE_STEPS`` under
+  ``AYOLO_TRACE_DIR/train`` when that is set (``utils/profiling.py``).
 
 Not ported yet, and refused with a message naming the later slice: ``tp``,
-``fsdp``, ``remat``, ``plot: true`` (the JAX default; set ``plot: false``),
-the trace window (``AYOLO_TRACE_DIR``) and more than one device or process.
+``fsdp``, ``remat`` and more than one device or process.
 """
 
 from __future__ import annotations
 
 import logging
-import os
 import shutil
 import time
 from pathlib import Path
@@ -57,6 +62,8 @@ from ayolov2_torch.utils.general import (
     labels_to_image_weights,
     resolve_device,
 )
+from ayolov2_torch.utils.plots import plot_images, plot_label_histogram
+from ayolov2_torch.utils.profiling import StepWindowTracer
 
 LOGGER = logging.getLogger(__name__)
 
@@ -192,11 +199,7 @@ def refuse_unported(tcfg: Dict[str, Any]) -> None:
         (int(tcfg.get("tp", 0) or 0) > 1, "train.tp (tensor parallelism)", "parallelism"),
         (bool(tcfg.get("fsdp", False)), "train.fsdp (ZeRO sharding)", "parallelism"),
         (bool(tcfg.get("remat", False)), "train.remat (activation rematerialisation)",
-         "model options"),
-        (bool(tcfg.get("plot", True)), "train.plot (utils/plots.py; the default is true, set "
-         "plot: false)", "plots"),
-        (bool(os.environ.get("AYOLO_TRACE_DIR")), "the trace window (AYOLO_TRACE_DIR)",
-         "profiling"),
+         "model zoo"),
     ]
     for on, what, slice_name in later:
         if on:
@@ -278,6 +281,9 @@ class YoloTrainer(AbstractTrainer):
         self._validator = self._validator_aux = None
         self._ckpt_writer = AsyncCheckpointWriter() if tcfg.get("async_ckpt", False) else None
         self._augmenter = None
+        self.plot = bool(tcfg.get("plot", True))
+        self._tracer = StepWindowTracer("train", self.device)
+        self._step_calls = 0
 
         self.image_weights = bool(tcfg.get("image_weights", False))
         self.class_weights = labels_to_class_weights(train_loader.dataset.labels, model.nc)
@@ -321,10 +327,18 @@ class YoloTrainer(AbstractTrainer):
                         [float(v) for v in level.reshape(-1)] for level in anchors]
                 self._train_step = make_train_step(self.compute_loss,
                                                    image_dtype=self.image_dtype)
+        if self.plot:
+            self._plot("labels.png", lambda path: plot_label_histogram(
+                self.train_loader.dataset.labels, self.model.nc, path))
         LOGGER.info("Start training: %s params, %d epochs, batch %d (accumulate %d), img %d, "
                     "device %s", f"{count_params(self.model):,}", self.epochs, self.batch_size,
                     self.accumulate, self.img_size, self.device)
         LOGGER.info("training images: %s", self.augmentation_path())
+        if self.plot:
+            LOGGER.info("plots: labels.png and train_batch0-2.png in %s", self.log_dir)
+        if self._tracer.target:
+            LOGGER.info("trace window: steps %d-%d into %s", StepWindowTracer.START_STEP,
+                        StepWindowTracer.START_STEP + self._tracer.steps - 1, self._tracer.target)
 
     def augmentation_path(self) -> str:
         """Where the training images are made: on the card, or on the host by
@@ -364,6 +378,17 @@ class YoloTrainer(AbstractTrainer):
                 dtype=str(self.tcfg.get("device_aug_dtype", "bfloat16")), device=self.device)
         return self._augmenter(batch)
 
+    def _plot(self, name: str, draw) -> None:
+        """``draw(path)`` into the run dir, timed in the log; a plot that
+        fails is logged and training goes on."""
+        t0 = time.perf_counter()
+        try:
+            draw(self.log_dir / name)
+        except Exception as e:  # plotting must never stop training
+            LOGGER.warning("plot %s failed: %s", name, e)
+            return
+        LOGGER.info("plot %s written in %.3f s", name, time.perf_counter() - t0)
+
     def training_step(self, batch, batch_idx: int) -> Dict[str, float]:
         dev = self.device
         if batch.images is None and hasattr(batch, "minv"):
@@ -372,9 +397,16 @@ class YoloTrainer(AbstractTrainer):
             images = self._render_batch(batch)  # already on the device
         else:
             images = batch.images
+        if self.current_epoch == 0 and batch_idx < 3 and self.plot:
+            self._plot(f"train_batch{batch_idx}.png", lambda path: plot_images(
+                images.cpu().numpy() if torch.is_tensor(images) else images, batch.targets,
+                batch.target_mask, path, self.class_names))
+        if not torch.is_tensor(images):
             if self.multi_scale:
                 images = self._random_resize(images, batch_idx)
             images = torch.from_numpy(images).to(dev, non_blocking=True)
+        self._tracer.step(self._step_calls)
+        self._step_calls += 1
         items = self._train_step(self.state, images, host_to_device(batch.targets, dev),
                                  host_to_device(batch.target_mask, dev))
         self._loss_sum += items
@@ -477,6 +509,7 @@ class YoloTrainer(AbstractTrainer):
             write_checkpoint(path, payload)
 
     def on_train_end(self) -> None:
+        self._tracer.close()
         epoch = self.current_epoch - 1 if self.partial_epoch else self.current_epoch
         self._save_weights(epoch, "last.ckpt")
         if self._ckpt_writer is not None:

@@ -40,3 +40,12 @@ COCO_CATEGORY_IDS = [
     65, 67, 70, 72, 73, 74, 75, 76, 77, 78, 79, 80, 81, 82, 84, 85, 86, 87, 88,
     89, 90,
 ]
+
+# the per-class plot palette: 20 BGR colours, cycled by class index
+PLOT_COLORS = [
+    (56, 56, 255), (151, 157, 255), (31, 112, 255), (29, 178, 255),
+    (49, 210, 207), (10, 249, 72), (23, 204, 146), (134, 219, 61),
+    (52, 147, 26), (187, 212, 0), (168, 153, 44), (255, 194, 0),
+    (147, 69, 52), (255, 115, 100), (236, 24, 0), (255, 56, 132),
+    (133, 0, 82), (255, 56, 203), (200, 149, 255), (199, 55, 255),
+]

@@ -6,8 +6,11 @@ JAX package's: ``compute_ap`` (101-point interpolation), ``ap_per_class``
 (the max-F1 operating point), ``process_batch`` (TP matrix at IoU 0.5:0.95,
 unique per detection and per label), ``check_correct_prediction_by_iou``,
 ``ConfusionMatrix`` and ``COCOmAPEvaluator`` (the COCOeval bbox protocol
-without pycocotools, and the per-class report). Plots and the debug renders
-(which need cv2) are not ported yet.
+without pycocotools, and the per-class report). With ``plot=True``
+``ap_per_class`` writes the PR, F1, P and R curves, and an evaluator with
+``export_root`` writes them and its confusion matrix there
+(``utils/plots.py``). The evaluator's pred-vs-GT renders of source images
+(JAX's ``img_root``, which no entry point passes) are left out.
 """
 
 from __future__ import annotations
@@ -45,11 +48,15 @@ def ap_per_class(
     conf: np.ndarray,
     pred_cls: np.ndarray,
     target_cls: np.ndarray,
+    plot: bool = False,
+    save_dir: Optional[Union[str, Path]] = None,
+    names: Sequence[str] = (),
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Per-class P/R/AP/F1 at the max-F1 operating point.
 
-    Returns (p, r, ap (nc, n_iou), f1, unique_classes). (The JAX package's
-    ``plot=True``, curves as PNGs, is not ported yet.)
+    Returns (p, r, ap (nc, n_iou), f1, unique_classes). With ``plot=True``
+    writes PR_curve.png, F1_curve.png, P_curve.png and R_curve.png to
+    ``save_dir``.
     """
     order = np.argsort(-conf)
     tp, conf, pred_cls = tp[order], conf[order], pred_cls[order]
@@ -58,6 +65,7 @@ def ap_per_class(
     nc = unique_classes.shape[0]
 
     px = np.linspace(0, 1, 1000)
+    py = []  # PR curves at IoU 0.5 per class
     ap = np.zeros((nc, tp.shape[1]))
     p = np.zeros((nc, 1000))
     r = np.zeros((nc, 1000))
@@ -66,6 +74,8 @@ def ap_per_class(
         n_l = (target_cls == c).sum()
         n_p = int(i.sum())
         if n_p == 0 or n_l == 0:
+            if plot:
+                py.append(np.zeros_like(px))
             continue
         fpc = (1 - tp[i]).cumsum(0)
         tpc = tp[i].cumsum(0)
@@ -74,9 +84,22 @@ def ap_per_class(
         r[ci] = np.interp(-px, -conf[i], recall[:, 0], left=0)
         p[ci] = np.interp(-px, -conf[i], precision[:, 0], left=1)
         for j in range(tp.shape[1]):
-            ap[ci, j], _, _ = compute_ap(recall[:, j], precision[:, j])
+            ap[ci, j], mpre, mrec = compute_ap(recall[:, j], precision[:, j])
+            if plot and j == 0:
+                py.append(np.interp(px, mrec, mpre))
 
     f1 = 2 * p * r / (p + r + 1e-16)
+    if plot and save_dir is not None:
+        from ayolov2_torch.utils.plots import plot_mc_curve, plot_pr_curve
+
+        save_dir = Path(save_dir)
+        save_dir.mkdir(parents=True, exist_ok=True)
+        cls_names = [names[int(c)] if int(c) < len(names) else str(int(c)) for c in unique_classes]
+        plot_pr_curve(px, np.stack(py, 1) if py else np.zeros((1000, 1)), ap,
+                      save_dir / "PR_curve.png", cls_names)
+        plot_mc_curve(px, f1, save_dir / "F1_curve.png", cls_names, ylabel="F1")
+        plot_mc_curve(px, p, save_dir / "P_curve.png", cls_names, ylabel="Precision")
+        plot_mc_curve(px, r, save_dir / "R_curve.png", cls_names, ylabel="Recall")
     i = f1.mean(0).argmax()
     return p[:, i], r[:, i], ap, f1[:, i], unique_classes.astype(np.int32)
 
@@ -192,7 +215,8 @@ class COCOmAPEvaluator:
         "large": (96.0 ** 2, 1e10),
     }
 
-    def __init__(self, gt_path: Union[str, Path, Dict], cat_from_yolo: bool = False) -> None:
+    def __init__(self, gt_path: Union[str, Path, Dict], cat_from_yolo: bool = False,
+                 export_root: Optional[str] = None) -> None:
         gt = gt_path if isinstance(gt_path, dict) else json.loads(Path(gt_path).read_text())
         self.cat_ids = [c["id"] for c in gt.get("categories", [])] or COCO_CATEGORY_IDS
         self.names = [c.get("name", str(c["id"])) for c in gt.get("categories", [])] or [
@@ -201,6 +225,9 @@ class COCOmAPEvaluator:
         self.fix_label = {cid: i for i, cid in enumerate(self.cat_ids)}
         self.img_ids = sorted({im["id"] for im in gt["images"]})
         self.cat_from_yolo = cat_from_yolo
+        self.export_root = export_root  # where evaluate_per_class writes its plots
+        if export_root is not None:
+            Path(export_root).mkdir(parents=True, exist_ok=True)
         self.gt_by_key: Dict[Tuple[int, int], List[dict]] = defaultdict(list)
         self.gt_by_img: Dict[int, List[dict]] = defaultdict(list)
         for ann in gt["annotations"]:
@@ -313,10 +340,15 @@ class COCOmAPEvaluator:
 
     # -- reference-style per-class report path (metrics.py:649-880) ---------
 
-    def evaluate_per_class(self, pred_path: Union[str, Path, List[dict]]) -> Dict[str, object]:
+    def evaluate_per_class(self, pred_path: Union[str, Path, List[dict]],
+                           debug: bool = False) -> Dict[str, object]:
         """The reference evaluator's per-class report: per-image
         check_correct_prediction_by_iou, then the ap_per_class rollup.
-        Complements :meth:`evaluate`, which is the COCOeval protocol."""
+        Complements :meth:`evaluate`, which is the COCOeval protocol. With
+        ``export_root`` the curves and the confusion matrix are written
+        there. ``debug`` asks for the pred-vs-GT renders of the source
+        images, which need JAX's ``img_root`` and are not ported: it draws
+        nothing, as JAX's does without ``img_root``."""
         preds = (
             pred_path if isinstance(pred_path, list)
             else json.loads(Path(pred_path).read_text())
@@ -325,6 +357,7 @@ class COCOmAPEvaluator:
         for p in preds:
             pred_by_img[p["image_id"]].append(p)
 
+        confusion = ConfusionMatrix(nc=len(self.names)) if self.export_root else None
         corrects = []
         for img_id in sorted(set(self.img_ids) | set(pred_by_img)):
             dts = pred_by_img.get(img_id, [])
@@ -347,9 +380,21 @@ class COCOmAPEvaluator:
                 label_gt[:, 3:5] += label_gt[:, 1:3]
             correct = check_correct_prediction_by_iou(label_pred, label_gt)
             corrects.append((correct, label_pred[:, 4], label_pred[:, 5], label_gt[:, 0]))
+            if confusion is not None:
+                confusion.process_batch(label_pred, label_gt)
 
         c = [np.concatenate(x, 0) for x in zip(*corrects)]
-        precision, recall, ap, f1, ap_class = ap_per_class(c[0], c[1], c[2], c[3])
+        precision, recall, ap, f1, ap_class = ap_per_class(
+            c[0], c[1], c[2], c[3], plot=self.export_root is not None,
+            save_dir=self.export_root, names=self.names)
+        if confusion is not None:
+            try:
+                from ayolov2_torch.utils.plots import plot_confusion_matrix
+
+                plot_confusion_matrix(confusion.matrix,
+                                      Path(self.export_root) / "confusion_matrix.png", self.names)
+            except Exception as e:  # plotting must not stop the evaluation
+                LOGGER.warning("confusion matrix plot failed: %s", e)
         ap50, ap_mean = ap[:, 0], ap.mean(1)
         result = {
             "p": precision,

@@ -98,10 +98,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``train_golden.yaml`` (320 px, bs 16, thread workers) and with
    ``train_config.yaml`` (640 px, bs 32, ``workers_mode: process``), each
    for 2 epochs with its augmentation sections byte for byte as shipped
-   (only epochs, validate_period, the batch, plot and workers_mode change),
-   gated on finite losses, ``step`` = ``ema_updates`` = the micro-steps,
-   the log naming the host path, and ``cli.val`` (K1) on each ``best.ckpt``
-   with mAP50 in [0, 1].
+   (only epochs, validate_period, the batch, workers_mode and, for
+   ``train_golden.yaml``, plot change), gated on finite losses, ``step`` =
+   ``ema_updates`` = the micro-steps, the log naming the host path, and
+   ``cli.val`` (K1) on each ``best.ckpt`` with mAP50 in [0, 1].
+
+11. the shipped surface, riding on phase 10's ``train_config.yaml`` run
+   (under ``build/chip_smoke_surface/``): 11.1 that run keeps ``plot: true``
+   as shipped, with ``AYOLO_TRACE_DIR`` set and ``AYOLO_TRACE_STEPS=2``:
+   ``labels.png`` (600x1440) and ``train_batch0-2.png`` (4 x 4 tiles of 640)
+   decode at their sizes, the train trace holds exactly ``ProfilerStep#2``
+   and ``#3`` and names the card's kernels; then the same run again
+   without plots and trace window, and what the diagnostics cost: the two
+   runs' wall times and epochs against each other, the plots' and the
+   trace's writing seconds. 11.2 its ``cli.val`` runs with ``--plot
+   --profile --n-profile 20 --tta --dst``: the four curves and the
+   confusion matrix decode at matplotlib's sizes, the profile is logged in
+   ms per image, and the val trace names K1's kernel. 11.3 phase 7's 128
+   images at 640, bf16, bs 32: the validator with TTA and K1 on its first
+   branch within 0.02 mAP50 of TTA on cuDNN (one launch a batch), printed
+   beside the non-TTA mAP50, each with its warm pass's img/s. 11.4 TTA's
+   decoded predictions on 8 of those images at 320, f32, card against CPU
+   within 1e-3 of the peak. 11.5 ``cli.val2 --tta --plot --trace-dir`` on
+   11.1's ``best.ckpt``: an answersheet, the plots, and a trace of the serve
+   loop naming K1's kernel.
 
 ``--profile`` adds where the serve call's and the augmentation render's
 device time goes (torch.profiler) and where the kernel's own time goes
@@ -118,6 +138,7 @@ from ``--seed`` too.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -901,10 +922,14 @@ def write_train_files(root: Path, images: Path, epochs: int, img: int = 320,
     return data, cfg
 
 
-def run_logged(args, timeout: int = 900):
+EPOCH_ROW = (r"epoch +(\d+) done in ([\d.]+)s \((\S+) img/s\): (\d+) steps, mean loss "
+             r"box (\S+) obj (\S+) cls (\S+) total (\S+)")
+
+
+def run_logged(args, timeout: int = 900, env: Optional[dict] = None):
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
-                          timeout=timeout)
+                          timeout=timeout, env=env)
     return proc, time.perf_counter() - t0
 
 
@@ -1202,8 +1227,7 @@ def aug_entry_point(card: str, step_img_s: float, device: str = "cuda", img: int
                              *dev])
     out = proc.stdout + proc.stderr
     (AUG_DIR / "train.log").write_text(out)
-    rows = re.findall(r"epoch +(\d+) done in ([\d.]+)s \((\S+) img/s\): (\d+) steps, mean loss "
-                      r"box (\S+) obj (\S+) cls (\S+) total (\S+)", out)
+    rows = re.findall(EPOCH_ROW, out)
     run_dir = re.search(r"Run dir: (\S+)", out)
     log(f"[aug] python -m ayolov2_torch.cli.train --model best.ckpt (golden) device_aug (recipe "
         f"(a), {img} px, bs {bs}, {epochs} epochs): exit {proc.returncode} in {wall:.1f} s; "
@@ -1322,11 +1346,11 @@ def write_host_set(root: Path, src: Path) -> Path:
 
 
 def shipped_cfg(recipe: str, epochs: int, workers_mode: str, bs: Optional[int] = None,
-                img: Optional[int] = None) -> Path:
+                img: Optional[int] = None, keep_plot: bool = False) -> Path:
     """The shipped train config with only run-length fields changed: epochs,
     validate_period 1, ``workers_mode``, the batch where given and ``plot:
-    false`` (and the image size for a rehearsal on the CPU); its
-    augmentation sections stay byte for byte as shipped."""
+    false`` unless ``keep_plot`` (and the image size for a rehearsal on the
+    CPU); its augmentation sections stay byte for byte as shipped."""
     import re
 
     from ayolov2_torch.utils.config import load_yaml
@@ -1335,8 +1359,9 @@ def shipped_cfg(recipe: str, epochs: int, workers_mode: str, bs: Optional[int] =
     text = src.read_text()
     edits = [(r"(?m)^  epochs: \d+", f"  epochs: {epochs}"),
              (r"(?m)^  validate_period: \d+", "  validate_period: 1"),
-             (r"(?m)^  plot: \w+", "  plot: false"),
              (r"(?m)^  workers: (\d+)", f"  workers: \\1\n  workers_mode: {workers_mode}")]
+    if not keep_plot:
+        edits.append((r"(?m)^  plot: \w+", "  plot: false"))
     if bs:
         edits.append((r"(?m)^  batch_size: \d+", f"  batch_size: {bs}"))
     if img:
@@ -1441,10 +1466,13 @@ def time_host_items(images: Path, img: int, n: int = 32) -> None:
 
 def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: float,
                      device: str = "cuda", bs: Optional[int] = None, epochs: int = 2,
-                     img: Optional[int] = None) -> tuple:
+                     img: Optional[int] = None, surface: bool = False) -> tuple:
     """10.3: ``cli.train`` with a shipped recipe on phase 10's set from the
-    golden checkpoint, then ``cli.val`` (K1) on its best.ckpt. Returns (ok,
-    early_pipeline launches of cli.val)."""
+    golden checkpoint, then ``cli.val`` (K1) on its best.ckpt. With
+    ``surface`` (phase 11.1, 11.2, 11.5) the run keeps ``plot`` as shipped
+    and traces a window of 2 steps, and ``cli.val`` runs with ``--plot
+    --profile --tta``, then ``cli.val2 --tta --plot --trace-dir``. Returns
+    (ok, early_pipeline launches of the entry points' runs)."""
     import re
 
     from ayolov2_torch.cli import val
@@ -1452,7 +1480,7 @@ def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: f
     from ayolov2_torch.utils.checkpoint import load_checkpoint
     from ayolov2_torch.utils.config import load_yaml
 
-    cfg_path = shipped_cfg(recipe, epochs, workers_mode, bs, img)
+    cfg_path = shipped_cfg(recipe, epochs, workers_mode, bs, img, keep_plot=surface)
     tcfg = load_yaml(cfg_path)["train"]
     img, bs = int(tcfg["image_size"]), int(tcfg["batch_size"])
     data = HOST_DIR / "data.json"
@@ -1460,17 +1488,23 @@ def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: f
                                 "names": [f"class{i}" for i in range(20)]}))
     dev = [] if device == "cuda" else ["--device", device]
     runs = HOST_DIR / f"runs_{recipe}_{workers_mode}"
+    env = None
+    if surface:
+        shutil.rmtree(SURFACE_DIR, ignore_errors=True)
+        env = dict(os.environ, AYOLO_TRACE_DIR=str(SURFACE_DIR / "train_trace"),
+                   AYOLO_TRACE_STEPS="2")
     proc, wall = run_logged(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
-                             str(data), "--cfg", str(cfg_path), "--log-dir", str(runs), *dev])
+                             str(data), "--cfg", str(cfg_path), "--log-dir", str(runs), *dev],
+                            env=env)
     out = proc.stdout + proc.stderr
     (HOST_DIR / f"train_{recipe}_{workers_mode}.log").write_text(out)
-    rows = re.findall(r"epoch +(\d+) done in ([\d.]+)s \((\S+) img/s\): (\d+) steps, mean loss "
-                      r"box (\S+) obj (\S+) cls (\S+) total (\S+)", out)
+    rows = re.findall(EPOCH_ROW, out)
     path = re.search(r"training images: (.*)", out)
     run_dir = re.search(r"Run dir: (\S+)", out)
     log(f"[host] python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
         f"{HOST_RECIPES[recipe].name} as shipped ({img} px, bs {bs}, {epochs} epochs, "
-        f"workers_mode {workers_mode}): exit {proc.returncode} in {wall:.1f} s; training images "
+        f"workers_mode {workers_mode}{', plot as shipped, a trace window' if surface else ''}): "
+        f"exit {proc.returncode} in {wall:.1f} s; training images "
         f"{path.group(1) if path else '?'}")
     for r in rows:
         log(f"[host]   epoch {r[0]}: {r[1]} s, {r[2]} img/s (phase 8's step alone at 640 bs 64: "
@@ -1493,18 +1527,30 @@ def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: f
             f"{(wdir / 'best.ckpt').exists()}, step {meta['step']}, ema_updates "
             f"{meta['ema_updates']} (want {epochs * n_steps}), host {mode_word}")
         return False, 0
+    if surface:
+        ok = surface_train_outputs(Path(run_dir.group(1)), bs, img, device) and ok
+        ok = diagnostics_cost(recipe, workers_mode, images, dev, bs, epochs, img, wall, rows,
+                              out) and ok
     vargs = ["--weights", str(wdir / "best.ckpt"), "--data-cfg", str(data), "-iw", str(img),
              "--batch-size", str(bs), *dev]
-    early.early_pipeline.launches = 0  # main path (cli.val in this process): counts from here
-    t0 = time.perf_counter()
-    result = val.main(vargs)
-    launches = early.early_pipeline.launches
+    if surface:
+        vargs += ["--plot", "--profile", "--n-profile", "20", "--tta", "--dst",
+                  str(SURFACE_DIR / "dst")]
+    with captured_log() as captured, traced_env(SURFACE_DIR / "val_trace" if surface else None):
+        early.early_pipeline.launches = 0  # main path (cli.val in this process): counts from here
+        t0 = time.perf_counter()
+        result = val.main(vargs)
+        launches = early.early_pipeline.launches
     ok = ok and launches > 0 and 0.0 <= result["map50"] <= 1.0
     log(f"[host] last.ckpt: epoch {meta['epoch']}, step {meta['step']}, ema_updates "
-        f"{meta['ema_updates']}; python -m ayolov2_torch.cli.val on best.ckpt (K1, rect): seen "
-        f"{result['seen']} mAP50 {result['map50']:.5f} mAP50-95 {result['map50_95']:.5f} in "
-        f"{time.perf_counter() - t0:.1f} s, early_pipeline launches {launches} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{meta['ema_updates']}; python -m ayolov2_torch.cli.val {' '.join(vargs[8:])} on "
+        f"best.ckpt (K1, rect): seen {result['seen']} mAP50 {result['map50']:.5f} mAP50-95 "
+        f"{result['map50_95']:.5f} in {time.perf_counter() - t0:.1f} s, early_pipeline launches "
+        f"{launches} {'ok' if ok else 'FAIL'}")
+    if surface:
+        ok = surface_val_outputs(captured.getvalue(), device) and ok
+        ok2, n = surface_val2(wdir / "best.ckpt", data, img, bs, dev)
+        ok, launches = ok and ok2, launches + n
     return ok, launches
 
 
@@ -1520,10 +1566,266 @@ def host_aug_phase(step_img_s: float, device: str = "cuda", img: int = 640, bs: 
     launches = 0
     for recipe, mode, run_bs in (("golden", "thread", None), ("a", "process", bs)):
         ok_run, n = host_entry_point(recipe, mode, images, step_img_s, device, run_bs,
-                                     img=train_img)
+                                     img=train_img, surface=recipe == "a")
         ok, launches = ok and ok_run, launches + n
     log(f"[host] phase 10 in {time.perf_counter() - t0:.1f} s")
     return ok, launches
+
+# ---- phase 11: the shipped surface ----------------------------------------------
+
+SURFACE_DIR = ROOT / "build/chip_smoke_surface"
+K1_KERNEL = "early_pipeline_kernel"
+
+
+@contextlib.contextmanager
+def captured_log():
+    """The port's log records of the block (level INFO), as text."""
+    import io
+    import logging
+
+    text = io.StringIO()
+    handler = logging.StreamHandler(text)
+    root = logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        yield text
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+@contextlib.contextmanager
+def traced_env(target: Optional[Path]):
+    """AYOLO_TRACE_DIR set to ``target`` for the block (unset again after)."""
+    if target is None:
+        yield
+        return
+    os.environ["AYOLO_TRACE_DIR"] = str(target)
+    try:
+        yield
+    finally:
+        del os.environ["AYOLO_TRACE_DIR"]
+
+
+def trace_events(path: Path) -> list:
+    return json.loads(path.read_text())["traceEvents"]
+
+
+def one_trace(root: Path) -> Optional[Path]:
+    found = sorted(root.glob("*.pt.trace.json"))
+    return found[0] if len(found) == 1 else None
+
+
+def kernel_names(path: Path) -> set:
+    return {e.get("name", "") for e in trace_events(path) if e.get("cat") == "kernel"}
+
+
+def png_hw(path: Path) -> Optional[tuple]:
+    """(h, w) of a PNG decoded by the port's reader, or None."""
+    from ayolov2_torch.utils.png import read_png
+
+    try:
+        return tuple(read_png(path).shape[:2])
+    except (OSError, ValueError):
+        return None
+
+
+def surface_train_outputs(run_dir: Path, bs: int, img: int, device: str) -> bool:
+    """11.1: the plots of a run with ``plot: true`` (labels.png 600x1440, the
+    first three batches as mosaics of min(bs, 16) tiles) and its trace
+    window of exactly 2 ProfilerStep ranges."""
+    ns = int(np.ceil(min(bs, 16) ** 0.5))
+    want = {"labels.png": (600, 1440), **{f"train_batch{i}.png": (ns * img, ns * img)
+                                          for i in range(3)}}
+    got = {name: png_hw(run_dir / name) for name in want}
+    trace = one_trace(SURFACE_DIR / "train_trace" / "train")
+    steps = sorted(e["name"] for e in trace_events(trace)  # the host's ranges (the card's
+                   if e.get("cat") == "user_annotation"    # copies are gpu_user_annotation)
+                   and e.get("name", "").startswith("ProfilerStep#")) if trace else []
+    kernels = len(kernel_names(trace)) if trace else 0
+    ok = got == want and steps == ["ProfilerStep#2", "ProfilerStep#3"] and (
+        kernels > 0 or device != "cuda")
+    size = trace.stat().st_size / 1e6 if trace else 0.0
+    log(f"[surface] 11.1 cli.train with plot: true as shipped: "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; train trace {trace.name if trace else None} ({size:.1f} MB): {steps}, "
+        f"{kernels} kernel names {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def diagnostics_cost(recipe: str, workers_mode: str, images: Path, dev: list, bs: int,
+                     epochs: int, img: int, wall: float, rows: list, out: str) -> bool:
+    """11.1's cost: the run of ``host_entry_point`` (``wall`` s, its epoch
+    ``rows`` and log ``out``) made again right after it without plots and
+    trace window. labels.png is drawn before epoch 0, the mosaics inside
+    it; the profiler runs over steps 2-3 and the validation after epoch 0
+    (outside the epochs' times), and its trace is written at step 4, epoch
+    1's first at 4 steps an epoch. So the two runs' walls and epoch sums
+    are compared, not one epoch against another."""
+    import re
+
+    cfg_path = shipped_cfg(recipe, epochs, workers_mode, bs, img)  # plot: false
+    env = {k: v for k, v in os.environ.items() if not k.startswith("AYOLO_TRACE")}
+    proc, plain_wall = run_logged(
+        ["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
+         str(HOST_DIR / "data.json"), "--cfg", str(cfg_path), "--log-dir",
+         str(HOST_DIR / f"runs_{recipe}_{workers_mode}_plain"), *dev], env=env)
+    plain_out = proc.stdout + proc.stderr
+    (HOST_DIR / f"train_{recipe}_{workers_mode}_plain.log").write_text(plain_out)
+    plain = re.findall(EPOCH_ROW, plain_out)
+    plot_s = sum(float(v) for v in re.findall(r"plot \S+ written in ([\d.]+) s", out))
+    write_s = sum(float(v) for v in re.findall(r"profiler trace written to \S+ in ([\d.]+) s", out))
+    ok = proc.returncode == 0 and len(plain) == len(rows) == epochs and not re.search(
+        r"plot \S+ written|profiler trace written", plain_out)
+    diag_epochs = [float(r[1]) for r in rows]
+    plain_epochs = [float(r[1]) for r in plain]
+    added = wall - plain_wall
+    log(f"[surface] 11.1 cost: the same cli.train run without plots and trace window, after it: "
+        f"exit {proc.returncode} in {plain_wall:.1f} s against {wall:.1f} s; epochs "
+        f"{plain_epochs} s against {diag_epochs} s; the diagnostics add {added:.1f} s to the run "
+        f"({added / plain_wall * 100:.1f}%) and "
+        f"{sum(diag_epochs) - sum(plain_epochs):.1f} s to its epochs; of the run's, plots "
+        f"{plot_s:.3f} s, the trace's writing {write_s:.3f} s, the rest (the profiler's slowdown "
+        f"of steps 2-3 and epoch 0's validation, and the runs' spread) "
+        f"{added - plot_s - write_s:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        log("[surface] " + " | ".join(plain_out.strip().splitlines()[-8:]))
+    return ok
+
+
+def surface_val_outputs(text: str, device: str) -> bool:
+    """11.2: ``cli.val --plot --profile --tta --dst`` wrote the curves and the
+    confusion matrix under {dst}/val/{DATE}_runs, logged the profile, and
+    its val trace names K1's kernel (on the card)."""
+    import re
+
+    runs = sorted((SURFACE_DIR / "dst" / "val").glob("*_runs*"))
+    want = {"PR_curve.png": (1200, 1800), "F1_curve.png": (1200, 1800),
+            "P_curve.png": (1200, 1800), "R_curve.png": (1200, 1800),
+            "confusion_matrix.png": (1600, 2000)}
+    got = {name: png_hw(runs[-1] / name) if runs else None for name in want}
+    profile = re.search(r"Profile: ([\d.]+) ms/image \(batch (\d+), (\d+) runs([^)]*)\)", text)
+    trace = one_trace(SURFACE_DIR / "val_trace" / "val")
+    names = kernel_names(trace) if trace else set()
+    k1 = sorted(n for n in names if K1_KERNEL in n)
+    ok = (len(runs) == 1 and got == want and profile is not None
+          and trace is not None and (bool(k1) or device != "cuda"))
+    log(f"[surface] 11.2 cli.val --plot --profile --tta: {runs[-1].relative_to(ROOT) if runs else None}: "
+        + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f"; profile {profile.group(0) if profile else None}; val trace "
+        f"{trace.name if trace else None}: {len(names)} kernel names, K1's {k1[:1]} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def surface_val2(weights: Path, data: Path, img: int, bs: int, dev: list) -> tuple:
+    """11.5: ``cli.val2 --tta --plot --trace-dir``: its answersheet, the
+    per-class report's plots and a trace of the serve loop naming K1's
+    kernel. Returns (ok, early_pipeline launches)."""
+    from ayolov2_torch.cli import val2
+    from ayolov2_torch.ops import early_pipeline as early
+
+    sheet = SURFACE_DIR / "answersheet_tta.json"
+    args = ["--weights", str(weights), "--data-cfg", str(data), "-iw", str(img), "--batch-size",
+            str(bs), "--tta", "--plot", "--dst", str(SURFACE_DIR / "dst"), "--trace-dir",
+            str(SURFACE_DIR / "val2_trace"), "--json-path", str(sheet), *dev]
+    early.early_pipeline.launches = 0  # main path (cli.val2 in this process): counts from here
+    t0 = time.perf_counter()
+    metrics = val2.main(args)
+    launches = early.early_pipeline.launches
+    wall = time.perf_counter() - t0
+    runs = sorted((SURFACE_DIR / "dst" / "val2").glob("*_runs*"))
+    pngs = [png_hw(runs[-1] / f"{n}.png") if runs else None
+            for n in ("PR_curve", "F1_curve", "P_curve", "R_curve", "confusion_matrix")]
+    trace = one_trace(SURFACE_DIR / "val2_trace")
+    k1 = sorted(n for n in kernel_names(trace) if K1_KERNEL in n) if trace else []
+    preds = json.loads(sheet.read_text()) if sheet.exists() else []
+    ok = (bool(preds) and all(pngs) and trace is not None and np.isfinite(metrics["map50"])
+          and ((bool(k1) and launches > 0) or "--device" in dev))
+    log(f"[surface] 11.5 cli.val2 --tta --plot --trace-dir: {len(preds)} predictions, COCO "
+        f"mAP50 {metrics['map50']:.5f} mAP50-95 {metrics['map50_95']:.5f} in {wall:.1f} s; plots "
+        f"{pngs}; trace {trace.name if trace else None} names K1's {k1[:1]}; early_pipeline "
+        f"launches {launches} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def tta_validation(card: str, device: str = "cuda", img_size: int = 640, bs: int = 32) -> tuple:
+    """11.3: phase 7's set, bf16: the validator with TTA and K1 on its first
+    branch, with TTA on cuDNN, and without TTA (K1), each on a warm pass
+    (img/s). Gate: TTA with K1 within 0.02 mAP50 of TTA on cuDNN, one launch
+    a batch. Returns (ok, early_pipeline launches of the TTA run)."""
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.eval import YoloValidator
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    model = load_model(GOLDEN, nc=20, device=device)
+    results = {}
+    for name, cfg in (("TTA, K1 on the first branch", dict(tta=True)),
+                      ("TTA, cuDNN", dict(tta=True, early_pipeline=False)),
+                      ("no TTA, K1", {})):
+        ds = DetectionDataset(str(VAL_DIR / "images"), img_size=img_size, batch_size=bs,
+                              rect=True, pad=0.5)
+        v = YoloValidator(model, DataLoader(ds, batch_size=bs), cfg=cfg, device=device)
+        v.validation()  # the first pass's set-up (cuDNN plans, grids)
+        early.early_pipeline.launches = 0  # main path (this run): counts from here
+        t0 = time.perf_counter()
+        r = v.validation()
+        wall = time.perf_counter() - t0
+        r["launches"], r["batches"], r["img_s"] = (early.early_pipeline.launches,
+                                                   len(ds.batch_shapes), r["seen"] / wall)
+        results[name] = r
+    tk, tc, _ = results.values()
+    ok = (all(r["seen"] == len(ds) for r in results.values())
+          and abs(tk["map50"] - tc["map50"]) <= 0.02 and tk["launches"] == tk["batches"]
+          and tc["launches"] == 0)
+    log(f"[surface] 11.3 {card}: validation yolov5s bs{bs} rect bf16 on phase 7's "
+        f"{tk['seen']} images, warm pass: " + "; ".join(
+            f"{k}: mAP50 {r['map50']:.5f} mAP50-95 {r['map50_95']:.5f}, {r['img_s']:.1f} img/s, "
+            f"inference {r['t'][1]:.3f} ms per image, early_pipeline launches {r['launches']}"
+            for k, r in results.items())
+        + f"; TTA with K1 - TTA on cuDNN mAP50 {tk['map50'] - tc['map50']:+.5f} (gate 0.02) "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, tk["launches"]
+
+
+def tta_card_vs_cpu(seed: int, n: int = 8, img: int = 320, card_device: str = "cuda") -> bool:
+    """11.4: TTA's decoded predictions of the golden model on the card
+    against the CPU, f32 (TF32 off), on ``n`` of phase 7's images
+    letterboxed to ``img``: max |d| within 1e-3 of the peak."""
+    import torch
+
+    from ayolov2_torch.data import ImageFolderDataset
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.ops.tta import tta_decode
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    folder = ImageFolderDataset(str(VAL_DIR / "images"), img_size=img, batch_size=n)
+    order = np.random.default_rng(seed).permutation(len(folder))[:n]
+    batch = torch.from_numpy(np.stack([folder[int(i)][0] for i in order]))
+    card, cpu = (tta_decode(make_serving_fn(load_model(GOLDEN, nc=20, device=device),
+                                            image_dtype=torch.float32, early_pipeline=False,
+                                            device=device),
+                            batch.to(device), torch.float32).cpu()
+                 for device in (card_device, "cpu"))
+    err = float((card - cpu).abs().max()) / float(cpu.abs().max())
+    ok = card.shape == cpu.shape and bool(torch.isfinite(card).all()) and err <= 1e-3
+    log(f"[surface] 11.4 TTA decode, golden yolov5s f32, {n} images at {img}: card vs CPU "
+        f"{tuple(card.shape)} max|d|/peak {err:.2e} (gate 1e-3) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def surface_phase(card: str, seed: int) -> tuple:
+    """Phase 11's parts outside phase 10's recipe (a) run (see the module
+    docstring). Returns (ok, K1 launches)."""
+    t0 = time.perf_counter()
+    ok, launches = tta_validation(card)
+    ok = tta_card_vs_cpu(seed) and ok
+    log(f"[surface] 11.3-11.4 in {time.perf_counter() - t0:.1f} s")
+    return ok, launches
+
 
 
 def main() -> int:
@@ -1532,10 +1834,11 @@ def main() -> int:
     ap.add_argument("--check-only", action="store_true",
                     help="phases 1-3 only: build the kernels and check them")
     ap.add_argument("--train-only", action="store_true",
-                    help="phases 1, 2, 7, 8, 9 and 10 only (phases 8-10 train on phase 7's "
-                         "set)")
+                    help="phases 1, 2, 7, 8, 9, 10 and 11 only (phases 8-10 train on phase "
+                         "7's set)")
     ap.add_argument("--host-only", action="store_true",
-                    help="phases 1, 2, 7 and 10 only (host augmentation)")
+                    help="phases 1, 2, 7, 10 and 11 only (host augmentation and the "
+                         "shipped surface)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -1626,10 +1929,13 @@ def main() -> int:
                 return 1
         torch.cuda.empty_cache()
         ok10 = host_aug_phase(step_img_s)[0]
-        log(card)
         if not ok10:
             log("[host] FAIL")
             return 1
+        if not surface_phase(card, args.seed)[0]:
+            log("[surface] FAIL")
+            return 1
+        log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return 0
@@ -1829,6 +2135,14 @@ def main() -> int:
         log("[host] FAIL")
         return 1
     launches += host_launches
+
+    # ---- 11. the shipped surface (its entry points rode on phase 10) -----------
+    torch.cuda.empty_cache()
+    ok11, surface_launches = surface_phase(card, args.seed)
+    if not ok11:
+        log("[surface] FAIL")
+        return 1
+    launches += surface_launches
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

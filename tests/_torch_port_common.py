@@ -1,12 +1,13 @@
 """Shared fixtures of the port's parity tests: the same numpy weights and
-inputs go through the JAX package and through ayolov2_torch."""
+inputs go through the JAX package and through ayolov2_torch.
+
+JAX is imported inside the helpers that run it, so that a fresh interpreter
+can import the file helpers without it (the tests that fork)."""
 
 from __future__ import annotations
 
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -53,6 +54,9 @@ def random_variables(shapes, seed: int):
 
 def jax_init(variant: str, seed: int = 0, img: int = 64, nc=None):
     """(JAX model, unfused numpy variables from ``seed``)."""
+    import jax
+    import jax.numpy as jnp
+
     from ayolov2_tpu.models import build_model
 
     model = build_model(CFG[variant], dtype=jnp.float32, nc=nc)
@@ -63,6 +67,9 @@ def jax_init(variant: str, seed: int = 0, img: int = 64, nc=None):
 
 def jax_apply(model, variables, x, **kw):
     """model.apply under jit (far quicker on the CPU than op by op)."""
+    import jax
+    import jax.numpy as jnp
+
     fn = jax.jit(lambda v, x: model.apply(v, x, **kw))
     return fn(variables, jnp.asarray(x))
 
@@ -77,12 +84,15 @@ def golden_variables():
             "batch_stats": to_numpy_tree(ema["batch_stats"])}
 
 
-def jax_model(variant_or_path: str, fused: bool = False, nc=None, dtype=jnp.float32):
+def jax_model(variant_or_path: str, fused: bool = False, nc=None, dtype=None):
+    """The JAX model of a variant or config path, f32 unless ``dtype``."""
+    import jax.numpy as jnp
+
     from ayolov2_tpu.models import build_model
     from ayolov2_tpu.models.builder import parse_model_config
 
     cfg = CFG.get(variant_or_path, variant_or_path)
-    return build_model(parse_model_config(cfg), dtype=dtype, fused=fused, nc=nc)
+    return build_model(parse_model_config(cfg), dtype=dtype or jnp.float32, fused=fused, nc=nc)
 
 
 def port_model(variant: str, variables, nc=None):

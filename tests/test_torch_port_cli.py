@@ -73,13 +73,42 @@ def test_val2_cli_writes_an_answersheet_its_evaluator_scores(data_cfg, tmp_path)
 
 
 @pytest.mark.parametrize("module,flags,match", [
-    ("val", ["--int8"], "int8"), ("val", ["--tta"], "test-time"), ("val", ["--plot"], "plots"),
-    ("val", ["--profile"], "profile"), ("val", ["--weights", "m.jaxexp"], "exported"),
-    ("val2", ["--tta"], "test-time"), ("val2", ["--export", "out"], "renders"),
+    ("val", ["--int8"], "int8 validation .* compression slice"),
+    ("val", ["--int8", "--calib-batches", "2", "--calib-method", "p999"], "compression slice"),
+    ("val", ["--weights", "m.jaxexp"], "exported artifacts .* export slice"),
+    ("val2", ["--weights", "m.jaxexp"], "exported artifacts .* export slice"),
+    ("train", ["--n-devices", "2"], "more than one device .* parallelism slice"),
 ])
 def test_unported_flags_exit_with_a_message(module, flags, match):
+    """What the port still refuses stops the entry point naming the slice it
+    comes with (``remat``, ``tp`` and ``fsdp``: the isolation tests)."""
     import importlib
 
     main = importlib.import_module(f"ayolov2_torch.cli.{module}").main
     with pytest.raises(SystemExit, match=match):
         main(flags + ["--device", "cpu"])
+
+
+def _jax_option_strings(path) -> set:
+    """Every option string JAX's entry point passes to ``add_argument``."""
+    import ast
+
+    opts = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument":
+            opts |= {a.value for a in node.args if isinstance(a, ast.Constant)}
+    return opts
+
+
+@pytest.mark.parametrize("module", ["train", "val", "val2"])
+def test_parsers_take_every_flag_of_jax(module):
+    """The port's parser has each option of ``cli/{module}.py``, so a command
+    line written for the JAX entry point parses (the refused ones stop it by
+    name, above)."""
+    import importlib
+
+    parser = importlib.import_module(f"ayolov2_torch.cli.{module}").get_parser()
+    port = {s for action in parser._actions for s in action.option_strings}
+    jax_opts = _jax_option_strings(ROOT / "cli" / f"{module}.py")
+    assert len(jax_opts) > 8
+    assert jax_opts <= port, sorted(jax_opts - port)

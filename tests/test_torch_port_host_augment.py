@@ -6,18 +6,16 @@ same seeded inputs.
 - ``DetectionDataset.get_item`` against JAX's on the shared synthetic set
   (box and polygon labels) under the three shipped recipes' augmentation
   sections as written, each pixel policy forced to p = 1, rect batches with
-  augmentation and copy_paste2, and mixup;
-- the loader's process pool: equal to threads, a worker's error raised in
-  the consumer, its workers other processes; ``train.workers_mode`` from
-  ``cli.train`` to the loader; ``cli.train`` with ``train_golden.yaml``'s
-  augmentation, then ``cli.val``.
+  augmentation and copy_paste2, and mixup.
+
+The loader's process pool and ``cli.train`` on it are tested in
+``test_torch_port_process_loader.py``, each case in a fresh interpreter.
 
 Pixel gates: within one level on at most 0.5% of the pixels (OpenCV's
 float paths: warps, HSV back, filters, blends, the scaled resize); within
 two levels on at most 1% for the JPEG round trip. Integer paths are equal.
 """
 
-import os
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +23,7 @@ import pytest
 import torch
 import yaml
 
-from _torch_port_common import LABELLED_IMG, ROOT, labelled_set, train_files
+from _torch_port_common import LABELLED_IMG, ROOT, labelled_set
 
 torch.set_num_threads(1)
 
@@ -280,116 +278,3 @@ def test_get_item_equals_jax(images, case, monkeypatch):
                 m.setattr(port_datasets, "augment_hsv", _gains_only)
                 _pixels(_item(port_ds, i, 3 * epoch)[0][0], _item(jax_ds, i, 3 * epoch)[0][0],
                         gate)
-
-
-# ---- the loader's process pool ------------------------------------------------------
-
-
-class _Pids:
-    """Items whose path is the pid of the process that built them; item
-    ``bad`` raises."""
-
-    def __init__(self, n=12, bad=None):
-        self.n, self.bad = n, bad
-
-    def __len__(self):
-        return self.n
-
-    def get_item(self, i, salt=0):
-        if i == self.bad:
-            raise KeyError(f"item {i} is broken")
-        return np.full((8, 8, 3), i, np.uint8), np.zeros((0, 5), np.float32), str(os.getpid()), None
-
-
-def test_process_workers_are_other_processes_and_pass_errors_up():
-    from ayolov2_torch.data import DataLoader
-
-    batches = list(DataLoader(_Pids(), batch_size=4, workers=3, workers_mode="process"))
-    pids = {int(p) for b in batches for p in b.paths}
-    assert os.getpid() not in pids and len(pids) >= 1
-    assert [int(b.images[0, 0, 0, 0]) for b in batches] == [0, 4, 8]
-    with pytest.raises(KeyError, match="item 5 is broken"):
-        list(DataLoader(_Pids(bad=5), batch_size=4, workers=2, workers_mode="process"))
-    with pytest.raises(ValueError, match="workers_mode must be 'thread' or 'process'"):
-        DataLoader(_Pids(), workers_mode="fork")
-
-
-def test_process_batches_equal_thread_batches(images):
-    from ayolov2_torch.data import DataLoader, DetectionDataset
-
-    ya, policies, _ = _recipe("train_golden")
-    ds = DetectionDataset(str(images), img_size=LABELLED_IMG, cache_images="mem",
-                          yolo_augmentation=ya, augmentation=policies)
-    epochs = {}
-    for mode in ("thread", "process"):
-        loader = DataLoader(ds, batch_size=4, shuffle=True, drop_last=True, workers=2,
-                            workers_mode=mode, seed=5)
-        epochs[mode] = [list(loader), list(loader)]  # two epochs: the epoch reaches the workers
-    for ea, eb in zip(epochs["thread"], epochs["process"]):
-        assert len(ea) == len(eb) == 2
-        for a, b in zip(ea, eb):
-            np.testing.assert_array_equal(a.images, b.images)
-            np.testing.assert_array_equal(a.targets, b.targets)
-            np.testing.assert_array_equal(a.target_mask, b.target_mask)
-            assert a.paths == b.paths
-    assert not np.array_equal(epochs["thread"][0][0].images, epochs["thread"][1][0].images)
-
-
-# ---- the entry point -------------------------------------------------------------------
-
-
-def _host_cfg(cfg_path: Path, workers_mode: str, golden_sections: bool = True) -> None:
-    """The tiny train cfg with ``train_golden.yaml``'s augmentation sections
-    as written and ``workers_mode``."""
-    text = cfg_path.read_text()
-    text = text.replace("  plot: false", f"  plot: false\n  workers_mode: {workers_mode}")
-    if golden_sections:
-        golden = (CFGS / "train_golden.yaml").read_text()
-        head = text[: text.index("yolo_augmentation:")]
-        text = head + golden[golden.index("yolo_augmentation:"):]
-    cfg_path.write_text(text)
-
-
-def test_train_cli_host_augmentation_on_cpu_then_val(tmp_path, caplog):
-    """``cli.train --device cpu`` with train_golden.yaml's augmentation on
-    worker processes: the log names the path, step and EMA count 2 micro-
-    steps an epoch, and ``cli.val`` reads best.ckpt. An unknown
-    ``workers_mode`` stops the entry point by name."""
-    import logging
-
-    from ayolov2_torch.cli import train, val
-    from ayolov2_torch.utils.checkpoint import load_checkpoint
-
-    model_cfg, data, cfg = train_files(tmp_path, epochs=2)
-    _host_cfg(cfg, "process")
-    args = ["--model", str(model_cfg), "--data", str(data), "--cfg", str(cfg), "--log-dir",
-            str(tmp_path / "runs"), "--device", "cpu"]
-    with caplog.at_level(logging.INFO):
-        trainer = train.main(args)
-    assert trainer.train_loader.workers_mode == "process"
-    assert "augmented on the host by 2 worker processes" in caplog.text
-    meta = load_checkpoint(trainer.wdir / "last.ckpt")["meta"]
-    assert meta["epoch"] == 1 and meta["step"] == 4 == meta["ema_updates"]
-    result = val.main(["--weights", str(trainer.wdir / "best.ckpt"), "--data-cfg", str(data),
-                       "-iw", "64", "--batch-size", "4", "--device", "cpu"])
-    assert result["seen"] == 8 and 0.0 <= result["map50"] <= 1.0
-
-    cfg.write_text(cfg.read_text().replace("workers_mode: process", "workers_mode: pool"))
-    with pytest.raises(SystemExit, match="train.workers_mode 'pool'"):
-        train.main(args)
-
-
-class _Dies(_Pids):
-    """A worker that builds item ``bad`` is killed from outside."""
-
-    def get_item(self, i, salt=0):
-        if i == self.bad:
-            os.kill(os.getpid(), 9)
-        return super().get_item(i, salt)
-
-
-def test_process_mode_raises_when_a_worker_is_killed():
-    from ayolov2_torch.data import DataLoader
-
-    with pytest.raises(RuntimeError, match="a loader worker died"):
-        list(DataLoader(_Dies(bad=5), batch_size=4, workers=2, workers_mode="process"))

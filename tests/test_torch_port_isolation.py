@@ -21,9 +21,10 @@ def test_import_pulls_in_no_jax():
         "import sys, ayolov2_torch, ayolov2_torch.models, ayolov2_torch.ops.nms, "
         "ayolov2_torch.ops.early_pipeline, ayolov2_torch.export, ayolov2_torch.parallel, "
         "ayolov2_torch.utils.weights, ayolov2_torch.data.image_ops, ayolov2_torch.data.augment, "
-        "ayolov2_torch.data.datasets, ayolov2_torch.data.loader\n"
+        "ayolov2_torch.data.datasets, ayolov2_torch.data.loader, ayolov2_torch.utils.plots, "
+        "ayolov2_torch.utils.png, ayolov2_torch.utils.profiling, ayolov2_torch.ops.tta\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu', 'cv2', "
-        "'PIL')]\n"
+        "'PIL', 'matplotlib')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -32,9 +33,11 @@ def test_import_pulls_in_no_jax():
 
 
 def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
+    """Each module imports with JAX, flax, the JAX package, cv2, PIL, PyYAML,
+    msgpack and matplotlib blocked: the card's machine has none of them."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'flax', 'ayolov2_tpu', 'cv2', 'PIL', 'yaml', 'msgpack'):\n"
+        "for name in ('jax', 'flax', 'ayolov2_tpu', 'cv2', 'PIL', 'yaml', 'msgpack', 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "import ayolov2_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(ayolov2_torch.__path__, 'ayolov2_torch.')]\n"
@@ -51,7 +54,8 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
             "ayolov2_torch.train.train_state", "ayolov2_torch.train.trainer",
             "ayolov2_torch.utils.anchors", "ayolov2_torch.data.augment",
             "ayolov2_torch.data.device_augment", "ayolov2_torch.data.image_ops",
-            "ayolov2_torch.data.loader", "ayolov2_torch.data.datasets"} <= names
+            "ayolov2_torch.data.loader", "ayolov2_torch.data.datasets", "ayolov2_torch.utils.plots",
+            "ayolov2_torch.utils.png", "ayolov2_torch.utils.profiling", "ayolov2_torch.ops.tta"} <= names
 
 
 def test_no_file_names_jax():
@@ -132,15 +136,16 @@ def test_training_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path)
                     "--log-dir", str(tmp_path / "runs")])
 
 
-def test_trainer_refuses_unported_options(tmp_path):
+def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
     from ayolov2_torch.train.trainer import refuse_unported
 
-    for key, value in (("tp", 2), ("fsdp", True), ("remat", True), ("plot", True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            refuse_unported({"plot": False, key: value})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        refuse_unported({})  # plot defaults to true, as in the JAX package
-    refuse_unported({"plot": False})
+    for key, value, slice_name in (("tp", 2, "parallelism"), ("fsdp", True, "parallelism"),
+                                   ("remat", True, "model zoo")):
+        with pytest.raises(NotImplementedError, match=f"not ported yet.*{slice_name} slice"):
+            refuse_unported({key: value})
+    monkeypatch.setenv("AYOLO_TRACE_DIR", str(tmp_path))
+    refuse_unported({})  # plot (true by default) and the trace window are ported
+    refuse_unported({"plot": True, "tp": 1, "fsdp": False, "remat": False})
 
 
 def test_train_cli_on_cpu_then_val_reads_its_checkpoints(tmp_path):

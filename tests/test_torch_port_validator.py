@@ -101,14 +101,19 @@ def test_detection_fn_takes_the_models_place(setup):
         assert got[key] == want[key], key
 
 
-def test_unported_options_raise(setup):
+def test_unported_options_raise(setup, tmp_path):
+    """TTA and plots, refused until they were ported, now take the plain
+    path and gather the confusion matrix; what the kernel path cannot do
+    (take new weights into its packed copy) still raises."""
     from ayolov2_torch.eval import YoloValidator
 
     _, port_model, _, _ = setup
-    for kw, match in ((dict(cfg={"tta": True}), "test-time augmentation"),
-                      (dict(cfg={"plot_dir": "x"}), "plots")):
-        with pytest.raises(NotImplementedError, match=match):
-            YoloValidator(port_model, None, device="cpu", **kw)
+    tta = YoloValidator(port_model, None, cfg={"tta": True}, device="cpu")
+    assert tta.tta and not tta.use_fused and tta.serve.early
+    plots = YoloValidator(port_model, None, cfg={"plot_dir": str(tmp_path)}, device="cpu")
+    assert plots.use_fused and plots.confusion is not None
+    with pytest.raises(ValueError, match="packed weights"):
+        tta.update_weights(port_model)
 
 
 def test_validation_loss_matches_jax(setup):
