@@ -117,7 +117,12 @@ def main(argv: Optional[Sequence[str]] = None) -> YoloTrainer:
             raise SystemExit(f"{args.model} holds no model config; pass a model YAML")
     else:
         model_cfg = parse_model_config(args.model)
-    model = init_model(build_model(model_cfg, nc=nc, device="cpu"), seed=0)
+    # train.remat: each layer an activation checkpoint (true), or one that keeps
+    # the convs' outputs and recomputes BN, activations and concat ("save_convs")
+    remat = tcfg.get("remat", False)
+    model = init_model(build_model(model_cfg, nc=nc, device="cpu",
+                                   remat=remat if isinstance(remat, str) else bool(remat)),
+                       seed=0)
 
     stride = int(max(model.strides))
     img_size = check_img_size(int(tcfg["image_size"]), stride)

@@ -14,9 +14,15 @@ Usage:
     python -m ayolov2_torch.cli.val --weights runs/train/xxx/best.ckpt \\
         --data-cfg res/configs/data/coco.yaml [--device cpu] [--json-path out.json]
 
+An exported artifact (``--weights model.pt2``, from ``cli.export``) is
+validated through ``load_exported`` with its sidecar's batch size and image
+size, square batches (``rect=False``) and the final batch padded; a
+sidecar ``{weights}.yaml`` next to any weights overrides the matching
+flags. A JAX artifact (``.jaxexp``) is read by the JAX package's
+``cli/val.py``, not here.
+
 Not ported yet, and refused with a message naming the slice: ``--int8``
-(``--calib-batches`` and ``--calib-method`` are accepted for it) and
-exported artifacts.
+(``--calib-batches`` and ``--calib-method`` are accepted for it).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 
 from ayolov2_torch.data import DataLoader, DetectionDataset
 from ayolov2_torch.eval import YoloValidator
+from ayolov2_torch.export import load_exported
 from ayolov2_torch.models import build_model, count_params
 from ayolov2_torch.models.builder import parse_model_config
 from ayolov2_torch.utils.checkpoint import load_model
@@ -44,7 +51,8 @@ LOGGER = logging.getLogger("val")
 
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Validate a model (mAP over a val set).")
-    parser.add_argument("--weights", type=str, default="", help="checkpoint path (.ckpt)")
+    parser.add_argument("--weights", type=str, default="",
+                        help="checkpoint (.ckpt) or exported artifact (.pt2)")
     parser.add_argument("--model-cfg", type=str, default="", help="model config (else the ckpt's)")
     parser.add_argument("--data-cfg", type=str, default="res/configs/data/coco.yaml")
     parser.add_argument("-iw", "--img-width", type=int, default=640)
@@ -105,8 +113,54 @@ def refuse_unported(args: argparse.Namespace) -> None:
         raise SystemExit("--int8: int8 validation (compress/quantize.py) is not ported yet; it "
                          "comes with the compression slice of the port")
     if args.weights.endswith(".jaxexp"):
-        raise SystemExit(f"{args.weights}: validating exported artifacts is not ported yet; "
-                         "it comes with the export slice of the port")
+        raise SystemExit(f"{args.weights}: a JAX artifact is read by the JAX package "
+                         "(cli/val.py); the port reads the .pt2 artifacts of "
+                         "ayolov2_torch.cli.export")
+
+
+def load_sidecar(weights: str, args: argparse.Namespace) -> None:
+    """The sidecar ``{weights}.yaml`` an export writes overrides the flags
+    it names (batch size, image size, thresholds, top-k)."""
+    sidecar = Path(weights).with_suffix(".yaml")
+    if not sidecar.exists():
+        return
+    for k, v in (load_yaml(str(sidecar)) or {}).items():
+        k = k.replace("-", "_")
+        if hasattr(args, k):
+            setattr(args, k, v)
+            LOGGER.info("sidecar override: %s = %s", k, v)
+
+
+def validate_exported(args: argparse.Namespace, data_cfg: dict, nc: int, names,
+                      device: torch.device) -> dict:
+    """Validate a ``.pt2`` serving artifact: its fixed (bs, k, 6) detections
+    and counts, on square batches of its own size."""
+    call = load_exported(args.weights)
+    if call.device.type != device.type:
+        raise SystemExit(f"{args.weights} was exported for {call.device.type}; pass "
+                         f"--device {call.device.type}")
+    sidecar = Path(args.weights).with_suffix(".yaml")
+    meta = load_yaml(str(sidecar)) if sidecar.exists() else {}
+    shape = meta.get("input", {}).get("shape") or [args.batch_size, args.img_height,
+                                                   args.img_width, 3]
+    bs, h, w = shape[:3]
+    dataset = DetectionDataset(
+        data_cfg["val_path"], img_size=max(h, w), batch_size=bs, rect=False, stride=32,
+        n_skip=args.n_skip,
+        label_type="segments" if str(data_cfg.get("dataset", "")).lower() == "coco" else "labels",
+        single_cls=args.single_cls,
+    )
+    loader = DataLoader(dataset, batch_size=bs, pad_final_batch=True)
+    validator = YoloValidator(
+        None, loader, class_names=names,
+        cfg={"nc": nc, "single_cls": args.single_cls, "verbose": args.verbose},
+        detection_fn=call, device=call.device,
+    )
+    result = validator.validation()
+    if args.json_path:
+        Path(args.json_path).write_text(json.dumps({k: v for k, v in result.items()
+                                                    if k != "maps"}, indent=2))
+    return result
 
 
 def load_tta_cfg(path: str) -> Tuple[Optional[List[float]], Optional[List[Optional[int]]]]:
@@ -166,12 +220,16 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = get_parser().parse_args(argv)
     refuse_unported(args)
     device = device_of(args.device)
+    if args.weights:
+        load_sidecar(args.weights, args)
     if args.img_height < 0:
         args.img_height = args.img_width
 
     data_cfg = load_yaml(args.data_cfg)
     nc = 1 if args.single_cls else int(data_cfg["nc"])
     names = data_cfg.get("names") or [str(i) for i in range(nc)]
+    if args.weights.endswith(".pt2"):
+        return validate_exported(args, data_cfg, nc, names, device)
 
     model = build_val_model(args, None if args.single_cls else nc, not args.no_fuse, device)
     LOGGER.info("Model: %s params", f"{count_params(model):,}")

@@ -18,7 +18,8 @@ Usage:
 ``--export`` writes the plots, but not the JAX package's pred-vs-GT renders
 of the source images (which its entry point never asks for). The
 pycocotools cross-check is left out (``--no-coco`` is accepted and changes
-nothing).
+nothing). As in the JAX entry point, ``--weights`` is read as a checkpoint
+whatever its suffix: an exported artifact is validated by ``cli.val``.
 """
 
 from __future__ import annotations
@@ -96,9 +97,6 @@ def get_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = get_parser().parse_args(argv)
-    if args.weights.endswith(".jaxexp"):
-        raise SystemExit(f"{args.weights}: exported artifacts are not read yet; they come "
-                         "with the export slice of the port")
     device = device_of(args.device)
 
     data_cfg = load_yaml(args.data_cfg)

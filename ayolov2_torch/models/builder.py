@@ -14,11 +14,14 @@ them in ``torch.channels_last``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from ayolov2_torch.models import layers as L
@@ -50,9 +53,10 @@ def _freeze(obj: Any) -> Any:
     return obj
 
 
-# The modules this port builds (Focus, SPP, MV2Block, MobileViTBlock and the
-# classification tail of the JAX package are not ported yet).
-_KNOWN_MODULES = {"Conv", "Bottleneck", "C3", "SPPF", "UpSample", "Concat", "YOLOHead"}
+_KNOWN_MODULES = {
+    "Conv", "Bottleneck", "C3", "SPP", "SPPF", "Focus", "UpSample", "Concat",
+    "YOLOHead", "MV2Block", "MobileViTBlock", "GlobalAvgPool", "Flatten", "Linear",
+}
 _WIDTH_SCALED = {"Conv", "C3", "SPP", "SPPF", "Focus", "MV2Block"}
 _DEPTH_SCALED = {"C3", "Bottleneck", "MV2Block", "MobileViTBlock"}
 
@@ -100,7 +104,9 @@ def _build_specs(cfg: Dict[str, Any]) -> Tuple[List[LayerSpec], List[int], Optio
         elif mod == "YOLOHead":
             head_index = i
             c_out = 0
-        else:  # UpSample
+        elif mod == "Linear":
+            c_out = int(args[0])
+        else:  # UpSample, GlobalAvgPool, Flatten, MobileViTBlock
             c_out = src_ch(frm_list[0])
 
         for f in frm_list:
@@ -126,7 +132,7 @@ def _source(spec: LayerSpec, f: int) -> int:
     return spec.index - 1 if f == -1 else (f if f >= 0 else spec.index + f)
 
 
-def _make_module(spec: LayerSpec, c_in: int, fused: bool) -> nn.Module:
+def _make_module(spec: LayerSpec, c_in: int, fused: bool, s2d=False) -> nn.Module:
     """The torch module of one (non-head) layer spec, repeat not applied."""
     a, kw = spec.args, spec.kw()
     act = kw.get("activation", "SiLU" if spec.module in _WIDTH_SCALED else None)
@@ -135,36 +141,103 @@ def _make_module(spec: LayerSpec, c_in: int, fused: bool) -> nn.Module:
         k = a[1] if len(a) > 1 else 1
         s = a[2] if len(a) > 2 else 1
         p = a[3] if len(a) > 3 else None
-        return L.ConvBnAct(c_in, a[0], k, s, p, act=act, fused=fused)
+        return L.ConvBnAct(c_in, a[0], k, s, p, act=act, fused=fused, s2d=s2d)
     if m == "Bottleneck":
         return L.Bottleneck(c_in, a[0], a[1] if len(a) > 1 else True, act=act, fused=fused)
     if m == "C3":
         return L.C3(c_in, a[0], n=spec.repeat, shortcut=a[1] if len(a) > 1 else True,
                     act=act, fused=fused)
+    if m == "SPP":
+        return L.SPP(c_in, a[0], tuple(a[1]) if len(a) > 1 else (5, 9, 13), act=act,
+                     fused=fused)
     if m == "SPPF":
         return L.SPPF(c_in, a[0], a[1] if len(a) > 1 else 5, act=act, fused=fused)
+    if m == "Focus":
+        return L.Focus(c_in, a[0], a[1] if len(a) > 1 else 1, a[2] if len(a) > 2 else 1,
+                       act=act, fused=fused)
     if m == "UpSample":
         return L.UpSample(int(a[1]) if len(a) > 1 and a[1] else 2)
     if m == "Concat":
         return L.Concat()
+    if m == "MV2Block":
+        return L.MV2Block(c_in, a[0], a[1] if len(a) > 1 else 1, a[2] if len(a) > 2 else 4,
+                          act=act, fused=fused)
+    if m == "MobileViTBlock":
+        return L.MobileViTBlock(c_in, a[0], a[1], a[2], act=act, fused=fused)
+    if m == "GlobalAvgPool":
+        return L.GlobalAvgPool()
+    if m == "Flatten":
+        return L.Flatten()
+    if m == "Linear":
+        return L.Linear(c_in, a[0], act=act)
     raise ValueError(f"Unknown module type: {m}")
+
+
+REMAT_MODES = (False, True, "save_convs")
+
+
+@contextlib.contextmanager
+def _frozen_batch_stats(mod: nn.Module):
+    """BatchNorm layers of ``mod`` leave their running statistics alone."""
+    bns = [m for m in mod.modules() if isinstance(m, L.BatchNorm2d)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
+
+
+def remat_call(mod: nn.Module, x, remat) -> torch.Tensor:
+    """``mod(x)`` as an activation checkpoint: the backward pass runs the
+    forward again instead of keeping its activations. ``remat=True`` keeps
+    only the input; ``"save_convs"`` also keeps the output of every conv
+    (``aten.convolution``) and recomputes the rest (BatchNorm, activations,
+    concat). The recomputation leaves BatchNorm's running statistics alone,
+    so they move once per step, as without remat."""
+    calls = [0]
+
+    def fn(z):
+        calls[0] += 1
+        if calls[0] == 1:
+            return mod(z)
+        with _frozen_batch_stats(mod):
+            return mod(z)
+
+    kw = {}
+    if remat == "save_convs":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             [torch.ops.aten.convolution.default])
+    return torch.utils.checkpoint.checkpoint(fn, x, use_reentrant=False, **kw)
 
 
 class YOLOModel(nn.Module):
     """The full layer graph as one module.
 
-    ``forward(x, training, start_layer)``: ``training=True`` returns the nl
-    raw maps (bs, ny, nx, na, 5+nc); ``training=False`` returns (decoded,
-    raw maps). The flag picks the head's output only; BatchNorm follows
-    ``train()`` / ``eval()`` as usual, and ``build_model`` returns the model
-    in eval mode.
+    ``forward(x, training, start_layer)``: detection graphs return the nl
+    raw maps (bs, ny, nx, na, 5+nc) with ``training=True`` and (decoded,
+    raw maps) with ``training=False``; headless graphs (``simclr.yaml``)
+    return the final tensor. The flag picks the head's output only;
+    BatchNorm follows ``train()`` / ``eval()`` as usual, and ``build_model``
+    returns the model in eval mode.
+
+    ``s2d_stem``: layer 0's 6x6/s2 conv computed by ``layers.s2d_conv`` in
+    that mode (True = "reshape"; same parameters). ``remat``: in training
+    with gradients on, each layer (each repeat) is an activation checkpoint
+    (:func:`remat_call`). ``out_xyxy``: the decoded boxes as xyxy.
     """
 
     def __init__(self, specs: Tuple[LayerSpec, ...], save: Tuple[int, ...],
                  head_index: Optional[int], nc: int,
                  anchors: Tuple[Tuple[float, ...], ...], strides: Tuple[float, ...],
-                 in_ch: int = 3, fused: bool = False):
+                 in_ch: int = 3, fused: bool = False, s2d_stem=False, remat=False,
+                 out_xyxy: bool = False):
         super().__init__()
+        if remat not in REMAT_MODES:
+            raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
         self.specs = tuple(specs)
         self.save = tuple(save)
         self.head_index = head_index
@@ -173,19 +246,24 @@ class YOLOModel(nn.Module):
         self.strides = tuple(strides)
         self.fused = fused
         self.in_ch = in_ch
+        self.s2d_stem = s2d_stem
+        self.remat = remat
+        self.out_xyxy = out_xyxy
         channels = {-1: in_ch}  # out channels by layer index; -1 = the image
         mods = []
         for spec in self.specs:
             srcs = [_source(spec, f) for f in spec.from_idx]
             if spec.module == "YOLOHead":
-                mods.append(YOLOHead([channels[s] for s in srcs], nc, anchors, strides))
+                mods.append(YOLOHead([channels[s] for s in srcs], nc, anchors, strides,
+                                     out_xyxy=out_xyxy))
                 continue
             c_in = channels[srcs[0]]
+            s2d = s2d_stem if spec.index == 0 else False
             if spec.module in ("C3", "Concat") or spec.repeat == 1:
-                mods.append(_make_module(spec, c_in, fused))
+                mods.append(_make_module(spec, c_in, fused, s2d))
             else:
                 mods.append(nn.Sequential(*(
-                    _make_module(spec, c_in if r == 0 else spec.out_channels, fused)
+                    _make_module(spec, c_in if r == 0 else spec.out_channels, fused, s2d)
                     for r in range(spec.repeat)
                 )))
             channels[spec.index] = spec.out_channels
@@ -194,6 +272,14 @@ class YOLOModel(nn.Module):
     @property
     def head(self) -> Optional[YOLOHead]:
         return None if self.head_index is None else self.model[self.head_index]
+
+    def _run(self, mod: nn.Module, x):
+        """One layer, each repeat an activation checkpoint under remat."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return mod(x)
+        for part in (mod if isinstance(mod, nn.Sequential) else (mod,)):
+            x = remat_call(part, x, self.remat)
+        return x
 
     def forward(self, x: torch.Tensor, training: bool = False, start_layer: int = 0):
         """``start_layer > 0``: ``x`` is the activation entering spec
@@ -215,7 +301,7 @@ class YOLOModel(nn.Module):
                 y = mod([y if f == -1 else saved[_source(spec, f)] for f in spec.from_idx])
             else:
                 f = spec.from_idx[0]
-                y = mod(y if f == -1 else saved[_source(spec, f)])
+                y = self._run(mod, y if f == -1 else saved[_source(spec, f)])
             if spec.index in self.save:
                 saved[spec.index] = y
         return y
@@ -241,8 +327,8 @@ class YOLOModel(nn.Module):
         param = next(self.parameters())
         with torch.device(param.device):
             fused = YOLOModel(self.specs, self.save, self.head_index, self.nc,
-                              self.anchors, self.strides,
-                              in_ch=self.in_ch, fused=True)
+                              self.anchors, self.strides, in_ch=self.in_ch, fused=True,
+                              s2d_stem=self.s2d_stem, out_xyxy=self.out_xyxy)
         sd = {k: v.float() for k, v in self.state_dict().items()}
         fused.load_state_dict(fuse_params(sd), strict=True)
         return fused.to(param.dtype).eval()
@@ -250,12 +336,15 @@ class YOLOModel(nn.Module):
 
 def build_model(cfg: Union[str, Dict[str, Any]], nc: Optional[int] = None,
                 fused: bool = False, dtype: torch.dtype = torch.float32,
-                device: Optional[Union[str, torch.device]] = None) -> YOLOModel:
+                device: Optional[Union[str, torch.device]] = None, s2d_stem=False,
+                remat=False, out_xyxy: bool = False) -> YOLOModel:
     """Build a YOLOModel from a config dict or YAML path, in eval mode.
 
     ``nc`` overrides the config's n_classes. ``device`` defaults to the card
     and raises without CUDA; pass ``"cpu"`` (or ``"meta"`` for shapes and
-    parameter counts only) explicitly.
+    parameter counts only) explicitly. ``s2d_stem`` (False, True, "reshape",
+    "slice", "im2col"), ``remat`` (False, True, "save_convs") and
+    ``out_xyxy``: see :class:`YOLOModel`.
     """
     device = resolve_device(device)
     cfg = parse_model_config(cfg)
@@ -268,7 +357,8 @@ def build_model(cfg: Union[str, Dict[str, Any]], nc: Optional[int] = None,
         strides = _infer_strides(specs, save, head_index, anchors, n_classes, in_ch)
     with torch.device(device):
         model = YOLOModel(tuple(specs), tuple(save), head_index, n_classes, anchors,
-                          strides, in_ch=in_ch, fused=fused)
+                          strides, in_ch=in_ch, fused=fused, s2d_stem=s2d_stem, remat=remat,
+                          out_xyxy=out_xyxy)
     return model.to(dtype).eval()
 
 
@@ -284,9 +374,9 @@ def _infer_strides(specs, save, head_index, anchors, nc, in_ch) -> Tuple[float, 
 
 def init_model(model: YOLOModel, seed: int = 0) -> YOLOModel:
     """Initialise ``model`` in place as flax initialises the JAX package's:
-    every conv kernel ``lecun_normal`` (drawn from ``torch.Generator`` seeded
+    every conv and dense kernel ``lecun_normal`` (drawn from ``torch.Generator`` seeded
     with ``seed``, on the CPU, in module order), BatchNorm scale 1, bias 0,
-    mean 0, variance 1, and the head's prior bias. The draws differ from
+    mean 0, variance 1, LayerNorm scale 1, bias 0, and the head's prior bias. The draws differ from
     JAX's; the distribution is the same. Returns the model."""
     gen = torch.Generator(device="cpu").manual_seed(int(seed))
     with torch.no_grad():
@@ -295,7 +385,10 @@ def init_model(model: YOLOModel, seed: int = 0) -> YOLOModel:
                 L.lecun_normal_(mod.weight, gen)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm2d):
+            elif isinstance(mod, nn.Linear):
+                L.lecun_normal_(mod.weight, gen)
+                mod.bias.zero_()
+            elif isinstance(mod, (nn.BatchNorm2d, nn.LayerNorm)):
                 mod.reset_parameters()
     if model.head is not None:
         model.head.reset_bias()

@@ -1,9 +1,12 @@
-"""YOLOv5 v6 building blocks as torch modules (NCHW tensors, channels_last).
+"""YOLOv5-family building blocks as torch modules (NCHW tensors, channels_last).
 
-The counterpart of ``ayolov2_tpu/models/layers.py`` for the modules the v6
-graph uses: Conv (``ConvBnAct``), Bottleneck, C3, SPPF, UpSample. Attribute
-names follow the kindle/torch convention (``conv``, ``bn``, ``cv1``, ``m.0``)
-so a state_dict bridged from the JAX package loads with ``strict=True``.
+The counterpart of ``ayolov2_tpu/models/layers.py``: Conv (``ConvBnAct``,
+grouped and with the space-to-depth stem), Bottleneck, C3, SPP, SPPF,
+Focus, UpSample, Concat, MV2Block, MobileViTBlock, GlobalAvgPool, Flatten
+and Linear. Attribute names follow the kindle/torch convention (``conv``,
+``bn``, ``cv1``, ``m.0``) and the JAX package's module names elsewhere
+(``expand``, ``tr0``, ``attn.query``), so a state_dict bridged from the JAX
+package loads with ``strict=True``.
 
 BatchNorm carries eps=1e-3 and follows flax's ``nn.BatchNorm`` in training
 (:class:`BatchNorm2d`). Conv kernels start from flax's default,
@@ -64,10 +67,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     unbiased one). Under bf16 autocast the input stays bf16 and the
     statistics are reduced in f32. ``eval()`` uses the running statistics.
     ``num_batches_tracked`` is not counted: the momentum is fixed.
+    ``update_stats = False`` leaves the running statistics alone in training
+    (an activation checkpoint's recomputation sets it).
     """
 
     def __init__(self, num_features: int) -> None:
         super().__init__(num_features, eps=1e-3, momentum=0.03)
+        self.update_stats = True
         # this batch's mean and unbiased variance, overwritten in every
         # training forward (momentum 1), not saved
         self.register_buffer("batch_mean", torch.zeros(num_features), persistent=False)
@@ -79,6 +85,8 @@ class BatchNorm2d(nn.BatchNorm2d):
                                 False, 0.0, self.eps)
         out = F.batch_norm(x, self.batch_mean, self.batch_var, self.weight, self.bias, True, 1.0,
                            self.eps)
+        if not self.update_stats:
+            return out
         n = x.numel() // x.shape[1]
         with torch.no_grad():  # the biased variance averaged in, as flax does
             self.running_mean.lerp_(self.batch_mean, self.momentum)
@@ -91,19 +99,66 @@ def autopad(k: int, p: Optional[int] = None) -> int:
     return k // 2 if p is None else p
 
 
+S2D_MODES = ("reshape", "slice", "im2col")
+
+
+def s2d_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+             mode: str = "reshape") -> torch.Tensor:
+    """A 6x6/s2/p2 conv computed as space-to-depth + a 3x3/s1 VALID conv
+    (the JAX package's ``_S2DConv``): the same function of the same (o, c,
+    6, 6) weight, rearranged at call time as W'[o, (p, q, c), a, b] =
+    W[o, c, 2a + p, 2b + q], so the conv sees 4c input channels.
+
+    ``mode`` picks how the four phases are made: "reshape" (a 6-D reshape
+    and permute), "slice" (strided slices and a channel concat), "im2col"
+    (``F.unfold`` to (c, kh, kw) columns and one matrix product, K = 36c).
+    The JAX package refuses "slice" on its TPU, where it faulted the
+    worker; nothing like that holds on a GPU, so all three run here."""
+    if mode not in S2D_MODES:
+        raise ValueError(f"s2d_stem mode {mode!r}: one of {S2D_MODES}")
+    n, c, h, w = x.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"the s2d stem needs an even H and W, got {h}x{w}")
+    o = weight.shape[0]
+    if mode == "im2col":
+        cols = F.unfold(x, 6, stride=2, padding=2)  # (n, 36c, L), rows in (c, kh, kw) order
+        y = torch.matmul(weight.reshape(o, 36 * c), cols).reshape(n, o, h // 2, w // 2)
+        return y if bias is None else y + bias.reshape(1, o, 1, 1)
+    k = weight.reshape(o, c, 3, 2, 3, 2).permute(0, 3, 5, 1, 2, 4).reshape(o, 4 * c, 3, 3)
+    x = F.pad(x, (2, 2, 2, 2))
+    hp, wp = h + 4, w + 4
+    if mode == "slice":
+        x = torch.cat([x[:, :, p::2, q::2] for p in (0, 1) for q in (0, 1)], dim=1)
+    else:
+        x = x.reshape(n, c, hp // 2, 2, wp // 2, 2).permute(0, 3, 5, 1, 2, 4)
+        x = x.reshape(n, 4 * c, hp // 2, wp // 2)
+    return F.conv2d(x, k, bias)
+
+
 class ConvBnAct(nn.Module):
-    """Conv2d + BatchNorm + activation: the YOLOv5 'Conv' block."""
+    """Conv2d + BatchNorm + activation: the YOLOv5 'Conv' block.
+
+    ``groups``: a grouped conv (``groups = c_in = c_out``: MV2Block's
+    depthwise one). ``s2d``: a 6x6/s2/p2 conv computed by :func:`s2d_conv`
+    in that mode (False: the plain conv); the parameters are the same."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, act: Optional[str] = "SiLU",
-                 fused: bool = False):
+                 fused: bool = False, groups: int = 1, s2d=False):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, k, s, autopad(k, p), bias=fused)
+        self.conv = nn.Conv2d(c_in, c_out, k, s, autopad(k, p), groups=groups, bias=fused)
         self.bn = None if fused else BatchNorm2d(c_out)
         self.act = get_activation(act)
+        stem = k == 6 and s == 2 and autopad(k, p) == 2 and groups == 1
+        self.s2d = ("reshape" if s2d is True else str(s2d)) if (s2d and stem) else None
+        if self.s2d is not None and self.s2d not in S2D_MODES:
+            raise ValueError(f"s2d_stem mode {s2d!r}: one of {S2D_MODES}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv(x)
+        if self.s2d is not None:
+            x = s2d_conv(x, self.conv.weight, self.conv.bias, self.s2d)
+        else:
+            x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
         return self.act(x)
@@ -145,6 +200,24 @@ class C3(nn.Module):
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], dim=1))
 
 
+class SPP(nn.Module):
+    """Spatial pyramid pooling: parallel k x k max pools (stride 1, same
+    padding) of the 1x1 conv's output, concatenated with it."""
+
+    def __init__(self, c_in: int, c_out: int, kernels=(5, 9, 13),
+                 act: Optional[str] = "SiLU", fused: bool = False):
+        super().__init__()
+        c_ = c_in // 2
+        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused)
+        self.cv2 = ConvBnAct(c_ * (len(kernels) + 1), c_out, 1, 1, act=act, fused=fused)
+        self.kernels = tuple(int(k) for k in kernels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.cv1(x)
+        pools = [x] + [F.max_pool2d(x, k, 1, k // 2) for k in self.kernels]
+        return self.cv2(torch.cat(pools, dim=1))
+
+
 class SPPF(nn.Module):
     """Fast SPP: 3 cascaded max pools equivalent to SPP(5, 9, 13)."""
 
@@ -164,6 +237,21 @@ class SPPF(nn.Module):
         return self.cv2(torch.cat([x, y1, y2, y3], dim=1))
 
 
+class Focus(nn.Module):
+    """The legacy YOLOv5 stem: 2x2 space-to-depth slicing, then a conv. The
+    slices are concatenated along channels in the order [::2, ::2],
+    [1::2, ::2], [::2, 1::2], [1::2, 1::2] over (h, w)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
+                 act: Optional[str] = "SiLU", fused: bool = False):
+        super().__init__()
+        self.conv = ConvBnAct(4 * c_in, c_out, k, s, act=act, fused=fused)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2],
+                                    x[:, :, ::2, 1::2], x[:, :, 1::2, 1::2]], dim=1))
+
+
 class UpSample(nn.Module):
     """Nearest-neighbour upsample by an integer factor."""
 
@@ -180,3 +268,134 @@ class Concat(nn.Module):
 
     def forward(self, xs) -> torch.Tensor:
         return torch.cat(list(xs), dim=1)
+
+
+class MV2Block(nn.Module):
+    """MobileNetV2 inverted residual: 1x1 expand (when expansion != 1),
+    3x3 depthwise at ``stride``, 1x1 project without activation; the input
+    is added back at stride 1 with equal widths. The hidden width is
+    ``round(c_in * expansion)`` of the real input width."""
+
+    def __init__(self, c_in: int, c_out: int, stride: int = 1, expansion: float = 4,
+                 act: Optional[str] = "SiLU", fused: bool = False):
+        super().__init__()
+        hidden = int(round(c_in * expansion))
+        self.expand = (ConvBnAct(c_in, hidden, 1, 1, act=act, fused=fused)
+                       if expansion != 1 else None)
+        self.depthwise = ConvBnAct(hidden, hidden, 3, stride, act=act, fused=fused,
+                                   groups=hidden)
+        self.project = ConvBnAct(hidden, c_out, 1, 1, act=None, fused=fused)
+        self.add = stride == 1 and c_in == c_out
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.expand(x) if self.expand is not None else x
+        y = self.project(self.depthwise(y))
+        return x + y if self.add else y
+
+
+class Attention(nn.Module):
+    """flax's ``MultiHeadDotProductAttention`` (self-attention, ``heads``
+    heads of dim / heads): q/k/v/out projections with biases, the query
+    scaled by (dim / heads) ** -0.5, softmax over the tokens (dim -2).
+    ``query``/``key``/``value``/``out`` are ``nn.Linear`` whose rows and
+    columns are flax's (dim, heads, head_dim) and (heads, head_dim, dim)
+    kernels flattened (``utils/weights.py``)."""
+
+    def __init__(self, dim: int, heads: int = 4):
+        super().__init__()
+        self.heads = heads
+        self.query = nn.Linear(dim, dim)
+        self.key = nn.Linear(dim, dim)
+        self.value = nn.Linear(dim, dim)
+        self.out = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead, (n, d) = x.shape[:-2], x.shape[-2:]
+        h = self.heads
+
+        def split(t):  # (..., n, d) -> (B, h, n, d / h)
+            return t.reshape(-1, n, h, d // h).transpose(1, 2)
+
+        y = F.scaled_dot_product_attention(split(self.query(x)), split(self.key(x)),
+                                           split(self.value(x)))
+        return self.out(y.transpose(1, 2).reshape(*lead, n, d))
+
+
+class TransformerBlock(nn.Module):
+    """Pre-norm transformer encoder block (MobileViT): LayerNorm (flax's
+    epsilon, 1e-6) -> attention -> residual, LayerNorm -> Linear -> SiLU ->
+    Linear -> residual."""
+
+    def __init__(self, dim: int, mlp_dim: int, heads: int = 4):
+        super().__init__()
+        self.ln1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = Attention(dim, heads)
+        self.ln2 = nn.LayerNorm(dim, eps=1e-6)
+        self.fc1 = nn.Linear(dim, mlp_dim)
+        self.fc2 = nn.Linear(mlp_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(self.ln1(x))
+        return x + self.fc2(F.silu(self.fc1(self.ln2(x))))
+
+
+class MobileViTBlock(nn.Module):
+    """MobileViT block: a local 3x3 conv and a 1x1 projection to ``dim``,
+    ``depth`` transformer blocks over the (h/2)(w/2) tokens of each of the
+    four 2x2 patch phases, LayerNorm, a 1x1 projection back to c_in,
+    concatenation with the input and a 3x3 fusion conv. Output width = c_in;
+    H and W must be even."""
+
+    def __init__(self, c_in: int, dim: int, mlp_dim: int, depth: int,
+                 act: Optional[str] = "SiLU", fused: bool = False):
+        super().__init__()
+        self.local_conv = ConvBnAct(c_in, c_in, 3, 1, act=act, fused=fused)
+        self.proj_in = ConvBnAct(c_in, dim, 1, 1, act=None, fused=fused)
+        self.depth = depth
+        for i in range(depth):
+            setattr(self, f"tr{i}", TransformerBlock(dim, mlp_dim))
+        self.ln_out = nn.LayerNorm(dim, eps=1e-6)
+        self.proj_out = ConvBnAct(dim, c_in, 1, 1, act=act, fused=fused)
+        self.fusion = ConvBnAct(2 * c_in, c_in, 3, 1, act=act, fused=fused)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.proj_in(self.local_conv(x))
+        b, d, h, w = y.shape
+        # unfold: (b, d, h, w) -> (b, 4 phases (ph, pw), (h/2)(w/2) tokens, d)
+        y = y.reshape(b, d, h // 2, 2, w // 2, 2).permute(0, 3, 5, 2, 4, 1)
+        y = y.reshape(b, 4, (h // 2) * (w // 2), d)
+        for i in range(self.depth):
+            y = getattr(self, f"tr{i}")(y)
+        y = self.ln_out(y)
+        # fold back to (b, d, h, w)
+        y = y.reshape(b, 2, 2, h // 2, w // 2, d).permute(0, 5, 3, 1, 4, 2).reshape(b, d, h, w)
+        y = self.proj_out(y)
+        return self.fusion(torch.cat([x, y], dim=1))
+
+
+class GlobalAvgPool(nn.Module):
+    """Mean over H and W, kept as (B, C, 1, 1)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.mean(dim=(2, 3), keepdim=True)
+
+
+class Flatten(nn.Module):
+    """(B, C, H, W) -> (B, H * W * C) in the JAX package's NHWC order."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 4:
+            x = x.permute(0, 2, 3, 1)
+        return x.reshape(x.shape[0], -1)
+
+
+class Linear(nn.Module):
+    """A dense layer (``fc``) and its activation (none by default)."""
+
+    def __init__(self, c_in: int, c_out: int, act: Optional[str] = None):
+        super().__init__()
+        self.fc = nn.Linear(c_in, c_out)
+        self.act = get_activation(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.fc(x))

@@ -36,12 +36,14 @@ def check_anchor_order(anchors: np.ndarray, strides: Sequence[float]) -> np.ndar
 
 
 class YOLOHead(nn.Module):
-    """Per-level 1x1 conv to na*(5+nc) channels + static-shape decode."""
+    """Per-level 1x1 conv to na*(5+nc) channels + static-shape decode;
+    ``out_xyxy`` decodes the boxes as xyxy instead of xywh."""
 
     def __init__(self, ch: Sequence[int], nc: int,
                  anchors: Tuple[Tuple[float, ...], ...],
-                 strides: Tuple[float, ...]):
+                 strides: Tuple[float, ...], out_xyxy: bool = False):
         super().__init__()
+        self.out_xyxy = out_xyxy
         self.nc = nc
         self.anchors = anchors
         self.strides = tuple(strides)
@@ -100,8 +102,8 @@ class YOLOHead(nn.Module):
         return self.decode(raw), raw
 
     def decode(self, raw: List[torch.Tensor]) -> torch.Tensor:
-        """Raw maps -> (bs, sum ny*nx*na, 5+nc) f32: xywh pixels,
-        objectness and class probabilities."""
+        """Raw maps -> (bs, sum ny*nx*na, 5+nc) f32: xywh (``out_xyxy``:
+        xyxy) pixels, objectness and class probabilities."""
         anchor_grid = self.anchor_grid()
         decoded = []
         for i, y in enumerate(raw):
@@ -113,4 +115,8 @@ class YOLOHead(nn.Module):
             wh = (sig[..., 2:4] * 2.0) ** 2 * anchors
             out = torch.cat([xy, wh, sig[..., 4:]], dim=-1)
             decoded.append(out.reshape(bs, ny * nx * self.na, self.no))
-        return torch.cat(decoded, dim=1)
+        z = torch.cat(decoded, dim=1)
+        if self.out_xyxy:
+            xy, wh = z[..., 0:2], z[..., 2:4]
+            z = torch.cat([xy - wh / 2, xy + wh / 2, z[..., 4:]], dim=-1)
+        return z

@@ -13,7 +13,15 @@ continues with ``forward(..., start_layer=4)``.
   with the same bf16 rounding points; the CPU tests and the on-card check
   use it.
 - :func:`early_pipeline` is the wrapper: on a CPU tensor it runs the plain
-  version, on a CUDA tensor it launches the kernel or raises.
+  version, on a CUDA tensor it launches the kernel or raises. It calls the
+  operator ``torch.ops.ayolov2.early_pipeline(images, packed, c0, n)``
+  (:func:`early_pipeline_op`), whose arguments are the uint8 images, the
+  kernel's packed weight buffer (:func:`pack_weights`) and the two ints
+  that fix the widths, so that ``torch.export`` records it in a graph with
+  the packed weights as a buffer of the exported module. Its CPU
+  implementation unpacks the weights and runs the plain version; its CUDA
+  implementation launches the kernel; a fake implementation gives the
+  output's shape to the tracer. Importing this module registers it.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ class EarlyParams:
     b_cv3: torch.Tensor
     w_c2: torch.Tensor                  # (c2, 9*c1)
     b_c2: torch.Tensor
+    # the packed buffer of each device, made on the first call of the wrapper
     _packed: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
@@ -421,6 +430,45 @@ def pack_weights(ep: EarlyParams) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def packed_layout(c0: int, n: int) -> List[Tuple[int, int]]:
+    """(co, K) of every product in :func:`layer_matrices`' order for widths
+    c0 (c1 = 2 c0, ch = c0, c2 = 4 c0) and C3 depth n."""
+    c1, ch, c2 = 2 * c0, c0, 4 * c0
+    return ([(c0, STEM_K), (c1, 9 * c0), (2 * ch, c1)] + [(ch, ch), (ch, 9 * ch)] * n
+            + [(c1, 2 * ch), (c2, 9 * c1)])
+
+
+def packed_numel(c0: int, n: int) -> int:
+    """Elements of the buffer :func:`pack_weights` makes for these widths."""
+    return sum(co * 64 * (k // (16 * steps_per_chunk(k))) + co for co, k in packed_layout(c0, n))
+
+
+def unpack_weights(wpack: torch.Tensor, c0: int, n: int) -> EarlyParams:
+    """The inverse of :func:`pack_weights`: the packed buffer of widths c0
+    and depth n -> EarlyParams (bit for bit: both are bf16)."""
+    if wpack.dim() != 1 or wpack.numel() != packed_numel(c0, n):
+        raise ValueError(f"packed weights of {tuple(wpack.shape)} elements do not hold widths "
+                         f"c0={c0} n={n} ({packed_numel(c0, n)} elements)")
+    layout = packed_layout(c0, n)
+    mats, pos = [], 0
+    for co, k in layout:
+        size = co * 64 * (k // (16 * steps_per_chunk(k)))
+        mats.append(unpack_chunks(wpack[pos:pos + size].reshape(-1, co, 64), k))
+        pos += size
+    biases = []
+    for co, _ in layout:
+        biases.append(wpack[pos:pos + co])
+        pos += co
+    ch = c0
+    w_stem = F.pad(mats[0].reshape(c0, 9, 16)[:, :, :12].reshape(c0, 108), (0, 4))
+    m = range(3, 3 + 2 * n, 2)
+    return EarlyParams(
+        w_stem, biases[0], mats[1], biases[1], mats[2][:ch], biases[2][:ch],
+        tuple(mats[i] for i in m), tuple(biases[i] for i in m),
+        tuple(mats[i + 1] for i in m), tuple(biases[i + 1] for i in m),
+        mats[2][ch:], biases[2][ch:], mats[-2], biases[-2], mats[-1], biases[-1])
+
+
 def _packed(ep: EarlyParams, device: torch.device) -> torch.Tensor:
     """The packed weights on ``device``, cached per device."""
     key = str(device)
@@ -458,38 +506,76 @@ def _kernel_plan(ep: EarlyParams) -> EarlyPlan:
     return plan_early(ep.c0, ep.n)
 
 
-def _launch(lib: ctypes.CDLL, images: torch.Tensor, ep: EarlyParams,
+def _launch(lib: ctypes.CDLL, images: torch.Tensor, wpack: torch.Tensor, c0: int, n: int,
             prof: torch.Tensor = None) -> torch.Tensor:
-    plan = _kernel_plan(ep)
+    plan = plan_early(c0, n)
     bs, h, w, _ = images.shape
-    wpack = _packed(ep, images.device)
-    out = torch.empty((bs, h // 8, w // 8, ep.c2), dtype=torch.bfloat16, device=images.device)
+    out = torch.empty((bs, h // 8, w // 8, 4 * c0), dtype=torch.bfloat16, device=images.device)
     ints = (ctypes.c_int * len(PLAN_FIELDS))(*plan.as_ints())
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
         err = lib.early_pipeline_launch(
             images.data_ptr(), out.data_ptr(), wpack.data_ptr(),
             prof.data_ptr() if prof is not None else None,
-            bs, h, w, ep.c0, ep.n, ints, stream)
+            bs, h, w, c0, n, ints, stream)
     if err != 0:
         raise RuntimeError(f"early_pipeline kernel launch failed: error {err} (widths "
-                           f"c0={ep.c0} c1={ep.c1} ch={ep.ch} c2={ep.c2} n={ep.n}, tile "
+                           f"c0={c0} c1={2 * c0} ch={c0} c2={4 * c0} n={n}, tile "
                            f"{plan.th}x{plan.tw})")
     early_pipeline.launches += 1
     return out
 
 
+def _check_op(images: torch.Tensor, wpack: torch.Tensor, c0: int, n: int) -> None:
+    if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
+        raise ValueError(f"expected (bs, H, W, 3) uint8 images, got {tuple(images.shape)} "
+                         f"{images.dtype}")
+    if images.shape[1] % 8 or images.shape[2] % 8 or not images.is_contiguous():
+        raise ValueError(f"image batch {tuple(images.shape)}: need contiguous images with H, "
+                         "W multiples of 8")
+    if wpack.dtype != torch.bfloat16 or wpack.device != images.device:
+        raise ValueError(f"packed weights {wpack.dtype} on {wpack.device}: need bf16 on "
+                         f"{images.device}")
+    if wpack.numel() != packed_numel(c0, n):
+        raise ValueError(f"packed weights of {wpack.numel()} elements do not hold widths "
+                         f"c0={c0} n={n}")
+
+
+@torch.library.custom_op("ayolov2::early_pipeline", mutates_args=(), device_types="cpu")
+def early_pipeline_op(images: torch.Tensor, wpack: torch.Tensor, c0: int,
+                      n: int) -> torch.Tensor:
+    """The operator: (bs, H, W, 3) uint8, the packed bf16 weights of widths
+    c0 and C3 depth n -> (bs, H/8, W/8, 4 c0) bf16. This body is the CPU
+    implementation: the plain version on the unpacked weights."""
+    _check_op(images, wpack, c0, n)
+    return early_pipeline_ref(images, unpack_weights(wpack, c0, n))
+
+
+@early_pipeline_op.register_kernel("cuda")
+def _early_pipeline_cuda(images: torch.Tensor, wpack: torch.Tensor, c0: int,
+                         n: int) -> torch.Tensor:
+    _check_op(images, wpack, c0, n)
+    plan_early(c0, n)  # raises before any build is tried
+    return _launch(_lib(c0), images, wpack, c0, n)
+
+
+@early_pipeline_op.register_fake
+def _early_pipeline_fake(images: torch.Tensor, wpack: torch.Tensor, c0: int,
+                         n: int) -> torch.Tensor:
+    bs, h, w, _ = images.shape
+    return images.new_empty((bs, h // 8, w // 8, 4 * c0), dtype=torch.bfloat16)
+
+
 def early_pipeline(images: torch.Tensor, ep: EarlyParams) -> torch.Tensor:
     """Fused stem/conv1/C3/conv2: (bs, H, W, 3) uint8 raw pixels ->
-    (bs, H/8, W/8, c2) bf16 NHWC. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (counted in ``early_pipeline.launches``)."""
+    (bs, H/8, W/8, c2) bf16 NHWC, through the operator. CPU tensors take the
+    plain version; CUDA tensors launch the kernel (counted in
+    ``early_pipeline.launches``); other devices raise."""
     _check(images, ep)
-    if images.device.type == "cpu":
-        return early_pipeline_ref(images, ep)
-    if images.device.type != "cuda":
+    if images.device.type not in ("cpu", "cuda"):
         raise ValueError(f"early_pipeline runs on cpu or cuda, not {images.device}")
     _kernel_plan(ep)  # raises before any build is tried
-    return _launch(_lib(ep.c0), images, ep)
+    return early_pipeline_op(images, _packed(ep, images.device), ep.c0, ep.n)
 
 
 early_pipeline.launches = 0
@@ -510,7 +596,7 @@ def early_pipeline_profile(images: torch.Tensor, ep: EarlyParams) -> Dict[str, f
     lib = _lib(ep.c0, profile=True)
     slots = lib.early_pipeline_profile_slots()
     prof = torch.zeros((4096, slots), dtype=torch.int64, device=images.device)
-    _launch(lib, images, ep, prof)
+    _launch(lib, images, _packed(ep, images.device), ep.c0, ep.n, prof)
     torch.cuda.synchronize(images.device)
     total = prof.sum(0).double()
     layers, inner = total[:len(PROFILE_SLOTS)], total[len(PROFILE_SLOTS):].view(4, -1).sum(0)

@@ -61,7 +61,8 @@ def _box_iou_matrix(boxes: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
     return inter / (area[..., :, None] + area[..., None, :] - inter + eps)
 
 
-def _greedy_suppress(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -> torch.Tensor:
+def _greedy_suppress(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                     graph: bool = False) -> torch.Tensor:
     """Greedy NMS keep-mask over score-descending candidates, batched.
 
     iou (bs, K, K), valid (bs, K) bool. Sequential semantics: candidate j is
@@ -70,18 +71,36 @@ def _greedy_suppress(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float) -
     product counting the surviving suppressors of every candidate (0/1
     entries summed in f32, so the counts are exact). The strict upper
     triangle makes the dependencies a DAG, so the fixed point is the greedy
-    keep-set. The loop ends when no image changes, which costs one host sync
-    per sweep; the sweep count of the last call is kept in
-    ``_greedy_suppress.last_sweeps``.
+    keep-set; it ends when no image changes.
+
+    ``graph=False``: a Python loop, one host sync per sweep; the sweep count
+    of the last call is kept in ``_greedy_suppress.last_sweeps``.
+    ``graph=True``: the same sweeps as a ``while_loop`` operator, which
+    ``torch.export`` records in the graph (its cond and body return fresh
+    tensors, as the operator requires).
     """
     k = iou.shape[-1]
     upper = torch.ones(k, k, dtype=torch.bool, device=iou.device).triu(1)
     sup = ((iou > iou_thres) & upper).float()
+
+    def sweep(x):
+        hits = torch.bmm(x.float().unsqueeze(1), sup).squeeze(1)
+        return valid & (hits < 0.5)
+
+    if graph:
+        from torch._higher_order_ops import while_loop
+
+        def body(x, changed):
+            x_new = sweep(x)
+            return x_new, (x_new != x).any()
+
+        start = torch.ones((), dtype=torch.bool, device=valid.device)
+        x, _ = while_loop(lambda x, changed: changed.any(), body, (valid.clone(), start))
+        return x
     x = valid
     sweeps = 0
     while True:
-        hits = torch.bmm(x.float().unsqueeze(1), sup).squeeze(1)
-        x_new = valid & (hits < 0.5)
+        x_new = sweep(x)
         sweeps += 1
         changed = bool((x_new != x).any())
         x = x_new
@@ -96,14 +115,16 @@ _greedy_suppress.last_sweeps = 0
 
 def _suppress_and_select(boxes: torch.Tensor, scores: torch.Tensor, cls: torch.Tensor,
                          valid: torch.Tensor, iou_thres: float, keep_top_k: int,
-                         agnostic: bool, nms_type: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Class-offset suppression + fixed top-k output, batched over dim 0."""
+                         agnostic: bool, nms_type: str,
+                         graph: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Class-offset suppression + fixed top-k output, batched over dim 0;
+    ``graph``: the greedy loop as an operator (:func:`_greedy_suppress`)."""
     off = torch.zeros_like(cls) if agnostic else cls * MAX_WH
     oboxes = boxes + off[..., None]
 
     if nms_type in ("nms", "batched_nms", "merge_nms"):
         iou = _box_iou_matrix(oboxes)
-        keep = _greedy_suppress(iou, valid, iou_thres)
+        keep = _greedy_suppress(iou, valid, iou_thres, graph)
         if nms_type == "merge_nms":
             w = (iou > iou_thres) & valid[:, None, :]
             w = w.to(boxes.dtype) * scores[:, None, :]
@@ -155,9 +176,11 @@ def batched_nms(prediction: torch.Tensor,
                 keep_top_k: int = DEFAULT_KEEP_TOP_K,
                 agnostic: bool = False,
                 multi_label: bool = True,
-                nms_type: str = "nms") -> Tuple[torch.Tensor, torch.Tensor]:
+                nms_type: str = "nms",
+                graph: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batched fixed-shape NMS over decoded (bs, N, 5+nc) predictions
-    (xywh pixels, obj, class probabilities)."""
+    (xywh pixels, obj, class probabilities); ``graph``: the greedy loop as
+    an operator that ``torch.export`` records."""
     if nms_type not in NMS_TYPES:
         raise ValueError(f"Wrong NMS type: {nms_type!r}")
     nms_box = min(nms_box, prediction.shape[1])
@@ -168,7 +191,7 @@ def batched_nms(prediction: torch.Tensor,
     boxes = _xywh2xyxy(_gather_rows(x[..., :4], bidx))
     valid = scores > conf_thres
     return _suppress_and_select(boxes, scores, cls, valid, iou_thres, keep_top_k,
-                                agnostic, nms_type)
+                                agnostic, nms_type, graph)
 
 
 def flat_grid_meta(strides: Sequence[float], anchor_grid: np.ndarray,
@@ -203,14 +226,22 @@ def fused_decode_nms(raw_flat: torch.Tensor, grid_xy: torch.Tensor,
                      keep_top_k: int = DEFAULT_KEEP_TOP_K,
                      agnostic: bool = False,
                      multi_label: bool = False,
-                     nms_type: str = "nms") -> Tuple[torch.Tensor, torch.Tensor]:
+                     nms_type: str = "nms",
+                     approx_prefilter: bool = False,
+                     graph: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode + NMS with the full decode only for the top candidates.
 
     raw_flat: (bs, N, 5+nc) raw head outputs in any float dtype, in the
     head's ny*nx*na level order (:func:`flatten_raw_maps`). The objectness
     prefilter runs on the raw logits (sigmoid is monotonic); only the
-    ``nms_box`` survivors are gathered and decoded in f32. The exact top-k
-    only: the JAX package's ``approx_prefilter`` has no counterpart here.
+    ``nms_box`` survivors are gathered and decoded in f32.
+
+    ``approx_prefilter`` is taken and the prefilter stays the exact top-k:
+    the JAX package's flag selects ``lax.approx_max_k``, an approximate
+    top-k of the TPU, which off the TPU returns the exact one (the same 512
+    indices of 25200 as ``lax.top_k`` on a CPU), and a GPU has no
+    counterpart of it. ``graph``: the greedy loop as an operator that
+    ``torch.export`` records (:func:`_greedy_suppress`).
     """
     if nms_type not in NMS_TYPES:
         raise ValueError(f"Wrong NMS type: {nms_type!r}")
@@ -225,7 +256,7 @@ def fused_decode_nms(raw_flat: torch.Tensor, grid_xy: torch.Tensor,
     boxes = torch.cat([cxy - cwh / 2, cxy + cwh / 2], dim=-1)
     valid = scores > conf_thres
     return _suppress_and_select(boxes, scores, cls, valid, iou_thres, keep_top_k,
-                                agnostic, nms_type)
+                                agnostic, nms_type, graph)
 
 
 def flatten_raw_maps(raw: Sequence[torch.Tensor]) -> torch.Tensor:

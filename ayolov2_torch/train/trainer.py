@@ -27,8 +27,12 @@ The counterpart of ``ayolov2_tpu/train/trainer.py`` on one device:
 - a ``torch.profiler`` trace of steps 2 to 1 + ``AYOLO_TRACE_STEPS`` under
   ``AYOLO_TRACE_DIR/train`` when that is set (``utils/profiling.py``).
 
+``train.remat`` is the model's (``build_model(remat=...)``, set by
+``cli/train.py``): each layer an activation checkpoint, BN statistics moved
+once a step.
+
 Not ported yet, and refused with a message naming the later slice: ``tp``,
-``fsdp``, ``remat`` and more than one device or process.
+``fsdp`` and more than one device or process.
 """
 
 from __future__ import annotations
@@ -198,8 +202,6 @@ def refuse_unported(tcfg: Dict[str, Any]) -> None:
     later = [
         (int(tcfg.get("tp", 0) or 0) > 1, "train.tp (tensor parallelism)", "parallelism"),
         (bool(tcfg.get("fsdp", False)), "train.fsdp (ZeRO sharding)", "parallelism"),
-        (bool(tcfg.get("remat", False)), "train.remat (activation rematerialisation)",
-         "model zoo"),
     ]
     for on, what, slice_name in later:
         if on:

@@ -12,6 +12,15 @@ Name mapping (flax path -> kindle/torch name):
   model_{i}/m{k}/...             -> model.{i}.m.{k}...
   model_{i}_{r}/...              -> model.{i}.{r}...          (repeats)
   head model_{i}/m{k}/kernel     -> model.{i}.m.{k}.weight
+  .../{fc,fc1,fc2}/kernel        -> ....weight                (Dense: (in, out) -> (out, in))
+  .../{ln1,ln2,ln_out}/scale     -> ....weight                (LayerNorm)
+  .../attn/{query,key,value}/kernel (d, heads, d/heads) -> ....weight (d, d)
+  .../attn/{query,key,value}/bias   (heads, d/heads)    -> ....bias (d,)
+  .../attn/out/kernel  (heads, d/heads, d)               -> ....weight (d, d)
+Every other name (``expand``, ``depthwise``, ``project``, ``tr{i}``,
+``local_conv``, ``proj_in``, ``proj_out``, ``fusion``, ...) is kept as it is.
+The attention's head count is not in the state_dict: ``flax_from_state_dict``
+splits the kernels into ``ATTN_HEADS`` heads, MobileViT's 4.
 """
 
 from __future__ import annotations
@@ -20,6 +29,9 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+QKV = ("query", "key", "value")
+ATTN_HEADS = 4  # MobileViT's transformer blocks (JAX package: _TransformerBlock)
 
 
 def _torch_name(path: Tuple[str, ...]) -> str:
@@ -52,12 +64,20 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             if is_stats:
                 put(f"{base}.running_{k}", arr)
                 out[f"{base}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+            elif k == "kernel" and arr.ndim == 4:
+                put(f"{base}.weight", arr.transpose(3, 2, 0, 1))
+            elif k == "kernel" and arr.ndim == 3 and path[-1] in QKV:
+                put(f"{base}.weight", arr.reshape(arr.shape[0], -1).T)
+            elif k == "kernel" and arr.ndim == 3 and path[-1] == "out":
+                put(f"{base}.weight", arr.reshape(-1, arr.shape[-1]).T)
+            elif k == "kernel" and arr.ndim == 2:
+                put(f"{base}.weight", arr.T)
             elif k == "kernel":
-                put(f"{base}.weight", arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T)
+                raise ValueError(f"{'/'.join(path)}/kernel: no torch layout for shape {arr.shape}")
             elif k == "scale":
                 put(f"{base}.weight", arr)
             else:
-                put(f"{base}.{k}", arr)
+                put(f"{base}.{k}", arr.reshape(-1) if k == "bias" else arr)
 
     walk(variables["params"], (), False)
     walk(variables.get("batch_stats", {}), (), True)
@@ -108,6 +128,12 @@ def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             put(stats, path + (leaf[len("running_"):],), arr)
         elif leaf == "weight" and arr.ndim == 4:
             put(params, path + ("kernel",), arr.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and path[-1] in QKV:
+            put(params, path + ("kernel",), arr.T.reshape(arr.shape[1], ATTN_HEADS, -1))
+        elif leaf == "bias" and path[-1] in QKV:
+            put(params, path + ("bias",), arr.reshape(ATTN_HEADS, -1))
+        elif leaf == "weight" and path[-1] == "out":
+            put(params, path + ("kernel",), arr.T.reshape(ATTN_HEADS, -1, arr.shape[0]))
         elif leaf == "weight" and arr.ndim == 2:
             put(params, path + ("kernel",), arr.T)
         elif leaf == "weight":

@@ -123,8 +123,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    11.1's ``best.ckpt``: an answersheet, the plots, and a trace of the serve
    loop naming K1's kernel.
 
-``--profile`` adds where the serve call's and the augmentation render's
-device time goes (torch.profiler) and where the kernel's own time goes
+12. the rest of the model zoo and the exported serving graph: 12.1
+   ``yolov5_v5.yaml`` (Focus, SPP) and ``yolov5_mobilevit.yaml`` (MV2Block,
+   MobileViTBlock; nc 80, seeded weights, widths as shipped) served at bs
+   32, 640 through ``make_serving_fn`` on the cuDNN path (no K1 launch),
+   (32, 100, 6) detections, bf16 raw maps against the f32 forward (max|d| /
+   peak < 0.03), their img/s beside yolov5s's; 12.2 yolov5s with the
+   space-to-depth stem in each mode against the plain stem in f32 (1e-4 of
+   the peak), the stem timed both ways at bs 32; 12.3 both zoo models
+   trained 2 micro-steps at 320, bs 8, f32, card = CPU (phase 8's gate), and
+   yolov5s at 640, bs 64 with ``remat`` off, True and "save_convs" (equal
+   first-step losses, gradients and BN statistics to 1e-2 of each delta;
+   each mode's step ms and peak memory); 12.4 the NMS loop's two forms
+   (Python loop, ``while_loop`` operator) equal and timed at bs 32 and 128;
+   ``python -m ayolov2_torch.cli.export`` of the golden checkpoint (bs 32,
+   640, tpu_nms, and ``--raw-hw 720 1280``) under ``build/chip_smoke_export/``,
+   the artifacts read back in a fresh interpreter against
+   ``make_serving_fn`` / ``make_raw_serving_fn`` (counts equal, max|d| /
+   peak < 1e-3, one K1 launch per exported call, both img/s), and ``cli.val
+   --weights`` the ``.pt2`` on phase 7's set against the validator with
+   ``make_serving_fn`` on the same square batches (1e-3), phase 7's rect
+   K1 run printed beside; 12.5 the ``simclr.yaml`` embedding at bs 8, 320,
+   card against CPU in f32 (1e-4 of the peak). ``--zoo-only`` runs phases
+   1, 2, 3, 7 and 12.
+
+``--profile`` adds where the serve call's (yolov5s, and in 12.1 the two zoo
+models') and the augmentation render's device time goes (torch.profiler) and where the kernel's own time goes
 (clock stamps at its layer boundaries, from a second build of the same
 source with ``-DEARLY_PROFILE``).
 
@@ -191,9 +215,11 @@ def rel_err(got, want):
     return d.max().item() / scale, torch.quantile(d_q, 0.999).item() / scale, d.max().item()
 
 
-def seeded_model(variant: str, seed: int, nc: int = 80):
-    """yolov5{variant} with random weights from numpy: He-scaled convs, BN
-    statistics that make folding matter, the head's prior bias; fused.
+def seeded_model(variant: str, seed: int, nc: int = 80, fuse: bool = True):
+    """yolov5{variant} (or the model config at the path ``variant``) with
+    random weights from numpy: He-scaled convs, BN statistics that make
+    folding matter, dense layers with variance 1/fan_in, the head's prior
+    bias; fused unless ``fuse`` is false.
 
     The features entering the head have an rms near 0.1 with these weights,
     so the head's 1x1 weights are drawn with std 16/sqrt(fan_in): its logits
@@ -203,9 +229,11 @@ def seeded_model(variant: str, seed: int, nc: int = 80):
     import torch
 
     from ayolov2_torch.models import build_model, yolov5_cfg
+    from ayolov2_torch.models.configs import MULTIPLES
     from ayolov2_torch.models.layers import ConvBnAct
 
-    model = build_model(yolov5_cfg(variant, nc=nc), device="cuda")
+    cfg = yolov5_cfg(variant, nc=nc) if variant in MULTIPLES else variant
+    model = build_model(cfg, nc=nc, device="cuda")
     rng = np.random.default_rng(seed)
 
     def put(t, arr):
@@ -222,9 +250,14 @@ def seeded_model(variant: str, seed: int, nc: int = 80):
                 put(mod.bn.bias, rng.normal(0, 0.1, c))
                 put(mod.bn.running_mean, rng.normal(0, 0.1, c))
                 put(mod.bn.running_var, rng.uniform(0.5, 1.5, c))
-        for conv in model.head.m:
-            put(conv.weight, rng.normal(0, 16.0 / np.sqrt(conv.weight.shape[1]), conv.weight.shape))
-    return model.fuse()
+            elif isinstance(mod, torch.nn.Linear):
+                put(mod.weight, rng.normal(0, np.sqrt(1.0 / mod.in_features), mod.weight.shape))
+                put(mod.bias, np.zeros(mod.out_features))
+        if model.head is not None:
+            for conv in model.head.m:
+                put(conv.weight, rng.normal(0, 16.0 / np.sqrt(conv.weight.shape[1]),
+                                            conv.weight.shape))
+    return model.fuse() if fuse else model
 
 
 def images_on_card(shape, seed):
@@ -474,8 +507,8 @@ def write_labels(found, cut: float, top: int = 50):
 def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int = 640,
                      sizes=VAL_SIZES, per_size: int = 32, bs: int = 32):
     """Phase 7 (see the module docstring). Returns (early_pipeline launches
-    in the kernel's validation run, max |kernel - plain| at the rect shapes),
-    or None when a gate failed."""
+    in the kernel's validation run, max |kernel - plain| at the rect shapes,
+    the kernel run's mAP50), or None when a gate failed."""
     import torch
 
     from ayolov2_torch.data import DataLoader, DetectionDataset, ImageFolderDataset
@@ -626,7 +659,7 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
         f"f32 cuDNN run (its first pass) {f32['t'][0]:.3f}/{f32['t'][1]:.3f}/{f32['t'][2]:.3f}; "
         f"loader alone "
         f"{loader_ms:.2f} ms per batch of {bs} ({n_batches} batches, 2 threads)")
-    return launches, max_abs
+    return launches, max_abs, ker["map50"]
 
 
 
@@ -827,11 +860,13 @@ def falling_loss(card: str, seed: int, steps: int = 300, img: int = 320, n: int 
     return dict(ok=ok, ratio=float(ratio), first=float(first), last=float(last))
 
 
-def card_vs_cpu(card: str, seed: int, card_device: str = "cuda") -> bool:
-    """8.1 and 8.2: 4 micro-steps at accumulate 2 in f32 (TF32 off) on the
-    card and on the CPU from the same weights and batch; then the first
-    micro-step in bf16 against f32 on the card (``card_device`` "cpu" for a
-    rehearsal)."""
+def card_vs_cpu(card: str, seed: int, card_device: str = "cuda", cfg: str = "",
+                steps: int = 4, bf16: bool = True) -> bool:
+    """8.1 and 8.2: ``steps`` micro-steps at accumulate 2 in f32 (TF32 off)
+    on the card and on the CPU from the same weights and batch; then the
+    first micro-step in bf16 against f32 on the card (``card_device`` "cpu"
+    for a rehearsal). ``cfg``: a model config's path instead of yolov5s
+    (12.3); ``bf16=False`` leaves 8.2 out."""
     import copy
 
     import torch
@@ -847,8 +882,9 @@ def card_vs_cpu(card: str, seed: int, card_device: str = "cuda") -> bool:
                 [sd[k] for k in stats])
 
     nc, img, bs = 20, 320, 8
+    name = Path(cfg).stem if cfg else "yolov5s"
     _, hyp = memorize_hyp(nc, img)
-    base = init_model(build_model(yolov5_cfg("s", nc=nc), device="cpu"), seed)
+    base = init_model(build_model(cfg or yolov5_cfg("s", nc=nc), nc=nc, device="cpu"), seed)
     start = [[t.detach().clone() for t in group] for group in parts(base)]
     batch = drawn_batch(np.random.default_rng(seed + 3), bs, img, nc)
     runs = {}
@@ -860,7 +896,7 @@ def card_vs_cpu(card: str, seed: int, card_device: str = "cuda") -> bool:
         step = make_train_step(loss, image_dtype=torch.float32)
         data = [torch.from_numpy(a).to(dev) for a in batch]
         t0 = time.perf_counter()
-        items = [step(state, *data).cpu().numpy() for _ in range(4)]
+        items = [step(state, *data).cpu().numpy() for _ in range(steps)]
         runs[dev] = (state, items, time.perf_counter() - t0)
     (sg, ig, tg), (sc, ic, tc) = runs[card_device], runs["cpu"]
     item_err = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(ig, ic))
@@ -872,15 +908,18 @@ def card_vs_cpu(card: str, seed: int, card_device: str = "cuda") -> bool:
         "EMA": tree_delta_err(eg + ebg, ec + ebc, start[0] + start[1]),
     }
     ok = (item_err < 1e-4 and all(e < 1e-2 for e in errs.values())
-          and sg.optimizer.updates == sc.optimizer.updates == 2 and sg.step == 4)
-    log(f"[train] yolov5s nc {nc} full width, bs {bs} at {img}, f32 (TF32 off), 4 micro-steps at "
-        f"accumulate 2 (2 updates, in warmup), card vs CPU from the same init_model({seed}) "
-        f"weights: loss items max rel {item_err:.2e} (gate 1e-4); step-4 deltas max|card - cpu| / "
+          and sg.optimizer.updates == sc.optimizer.updates == steps // 2 and sg.step == steps)
+    log(f"[train] {name} nc {nc} full width, bs {bs} at {img}, f32 (TF32 off), {steps} micro-steps "
+        f"at accumulate 2 ({steps // 2} updates, in warmup), card vs CPU from the same "
+        f"init_model({seed}) weights: loss items max rel {item_err:.2e} (gate 1e-4); step-{steps} "
+        f"deltas max|card - cpu| / "
         f"max|delta|: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
         + f" (gate 1e-2); card {tg:.1f} s, CPU {tc:.1f} s {'ok' if ok else 'FAIL'}")
     log(f"[train] loss items per micro-step, card: "
         + "; ".join(" ".join(f"{v:.6f}" for v in it) for it in ig))
     del runs, sg, sc
+    if not bf16:
+        return ok
     # 8.2: bf16 against f32 on the card, the first micro-step from the same start
     first = {}
     for dt in (torch.float32, torch.bfloat16):
@@ -1828,6 +1867,414 @@ def surface_phase(card: str, seed: int) -> tuple:
 
 
 
+# ---- phase 12: the rest of the model zoo and the exported serving graph -------
+
+EXPORT_DIR = ROOT / "build/chip_smoke_export"
+ZOO = ("yolov5_v5", "yolov5_mobilevit")
+
+
+def zoo_cfg(name: str) -> str:
+    return str(ROOT / f"res/configs/model/{name}.yaml")
+
+
+def serve_rate(fn, batch, iters: int = 10) -> float:
+    """img/s of ``fn(batch)`` on the host clock after 3 warm calls, the card
+    synchronised at both ends."""
+    import torch
+
+    for _ in range(3):
+        fn(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(batch)
+    torch.cuda.synchronize()
+    return batch.shape[0] * iters / (time.perf_counter() - t0)
+
+
+def zoo_serving(card: str, seed: int, s_rate: float, profile: bool = False) -> bool:
+    """12.1: yolov5_v5 and yolov5_mobilevit (nc 80, seeded) served at bs 32,
+    640 through ``make_serving_fn``: the cuDNN path (no early-network
+    kernel: their layers 0..3 are not the v6 pattern), (32, 100, 6)
+    detections, bf16 raw maps against the f32 forward on the card;
+    ``profile``: each serve call's breakdown by kernel."""
+    import torch
+
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.ops import early_pipeline as early
+
+    imgs = images_on_card((32, 640, 640, 3), seed + 40)
+    ok = True
+    for name in ZOO:
+        model = seeded_model(zoo_cfg(name), seed)
+        serve = make_serving_fn(model)
+        early.early_pipeline.launches = 0
+        det, cnt = serve(imgs)
+        torch.cuda.synchronize()
+        launches = early.early_pipeline.launches
+        with torch.no_grad():
+            want = model(imgs.permute(0, 3, 1, 2).float() / 255.0, training=True)
+        errs = [rel_err(a, b)[0] for a, b in zip(serve.raw_maps(imgs), want)]
+        rate = serve_rate(serve, imgs)
+        ok_m = (not serve.early and launches == 0 and tuple(det.shape) == (32, 100, 6)
+                and tuple(cnt.shape) == (32,) and bool(torch.isfinite(det).all())
+                and max(errs) < TOL_PEAK)
+        log(f"[zoo] {card}: {name} nc 80 ({sum(p.numel() for p in model.parameters()):,} "
+            f"params, fused) served bs32 640x640 uint8 -> {tuple(det.shape)}, mean count "
+            f"{cnt.float().mean().item():.2f}, early_pipeline launches {launches} (cuDNN path); "
+            f"bf16 raw maps vs f32 forward max|d|/peak "
+            f"{' '.join(f'{e:.5f}' for e in errs)} (gate {TOL_PEAK}); {rate:.1f} img/s "
+            f"(yolov5s with K1: {s_rate:.1f}, phase 6) {'ok' if ok_m else 'FAIL'}")
+        ok = ok and ok_m
+        if profile:
+            profile_serve(serve, imgs, f"{card} {name}")
+        del model, serve, want
+        torch.cuda.empty_cache()
+    return ok
+
+
+def s2d_stems(card: str, seed: int) -> bool:
+    """12.2: yolov5s with its 6x6/s2 stem computed by space-to-depth in each
+    mode: raw maps in f32 (TF32 off) at bs 8, 640 within 1e-4 of the peak of
+    the plain stem's; the stem (layer 0, bf16 channels_last, BN folded) at
+    bs 32, 640 timed each way."""
+    import copy
+
+    import torch
+
+    from ayolov2_torch.models import build_model, yolov5_cfg
+
+    model = seeded_model("s", seed)
+    sd = model.state_dict()
+    x = images_on_card((8, 640, 640, 3), seed + 41).permute(0, 3, 1, 2).float() / 255.0
+    xb = (images_on_card((32, 640, 640, 3), seed + 42).permute(0, 3, 1, 2)
+          .to(torch.bfloat16) / 255.0).contiguous(memory_format=torch.channels_last)
+    ok, times = True, {}
+    with torch.no_grad():
+        want = model(x, training=True)
+        stem = copy.deepcopy(model.model[0]).to(torch.bfloat16, memory_format=torch.channels_last)
+        times["plain 6x6/s2 conv"] = time_ms(lambda: stem(xb), 20)
+        errs = {}
+        for mode in ("reshape", "slice", "im2col"):
+            m = build_model(yolov5_cfg("s"), fused=True, s2d_stem=mode, device="cuda")
+            m.load_state_dict(sd)
+            errs[mode] = max(rel_err(a, b)[0] for a, b in zip(m(x, training=True), want))
+            stem = copy.deepcopy(m.model[0]).to(torch.bfloat16,
+                                                memory_format=torch.channels_last)
+            times[f"s2d {mode}"] = time_ms(lambda: stem(xb), 20)
+            ok = ok and errs[mode] < 1e-4
+            del m
+    log(f"[zoo] yolov5s s2d stem vs the plain stem, f32 bs8 640x640, raw maps max|d|/peak: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (gate 1e-4) "
+        f"{'ok' if ok else 'FAIL'}")
+    log(f"[time] {card}: yolov5s stem (layer 0: conv + bias + SiLU, bf16 channels_last) bs32 "
+        f"640x640: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items()))
+    torch.cuda.empty_cache()
+    return ok
+
+
+def remat_steps(card: str, seed: int, img: int = 640, bs: int = 64, nc: int = 80,
+                iters: int = 4) -> bool:
+    """12.3: yolov5s at ``train_config.yaml``'s 640, bs 64, bf16 autocast,
+    with ``remat`` off, True and "save_convs": the first micro-step's loss
+    items, gradients and BN statistics of each mode against remat off
+    (gate: 1e-2 of each delta, as phase 8), then the step's device time and
+    peak memory per mode."""
+    import torch
+
+    from ayolov2_torch.models import build_model, init_model, yolov5_cfg
+    from ayolov2_torch.train.train_state import EMA, finish_step, train_forward
+
+    _, hyp = memorize_hyp(nc, img)
+    base = init_model(build_model(yolov5_cfg("s", nc=nc), device="cpu"), seed).state_dict()
+    data = [torch.from_numpy(a).cuda()
+            for a in drawn_batch(np.random.default_rng(seed + 43), bs, img, nc)]
+    runs = {}
+    for mode in (False, True, "save_convs"):
+        model = build_model(yolov5_cfg("s", nc=nc), device="cpu", remat=mode)
+        model.load_state_dict(base)
+        model = model.cuda().to(memory_format=torch.channels_last)
+        state, loss = train_setup(model, hyp, nc, bs, 1, epochs=300, steps_per_epoch=100)
+        sd = state.model.state_dict()
+        stat_keys = [k for k in sd if k.endswith(("running_mean", "running_var"))]
+        start = [sd[k].detach().clone() for k in stat_keys]
+        total, items = train_forward(state.model, loss, *data, torch.bfloat16)
+        total.backward()
+        grads = [p.grad.detach().clone() for p in state.model.parameters()]
+        stats = [state.model.state_dict()[k].detach().clone() for k in stat_keys]
+        ema = EMA()
+        finish_step(state, ema)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(iters):
+            total, _ = train_forward(state.model, loss, *data, torch.bfloat16)
+            total.backward()
+            finish_step(state, ema)
+        ev[1].record()
+        torch.cuda.synchronize()
+        runs[mode] = dict(items=items.detach().cpu().numpy(), grads=grads, stats=stats,
+                          start=start, ms=ev[0].elapsed_time(ev[1]) / iters,
+                          peak=torch.cuda.max_memory_allocated() / 1e9)
+        del state, model, loss, total
+        torch.cuda.empty_cache()
+    ref, ok = runs[False], True
+    for mode in (True, "save_convs"):
+        r = runs[mode]
+        item_err = float(np.abs(r["items"] - ref["items"]).max() / np.abs(ref["items"]).max())
+        zeros = [torch.zeros_like(g) for g in ref["grads"]]
+        g_err = tree_delta_err(r["grads"], ref["grads"], [z.cpu() for z in zeros])
+        s_err = tree_delta_err(r["stats"], ref["stats"], [t.cpu() for t in ref["start"]])
+        ok_m = item_err < 1e-3 and g_err < 1e-2 and s_err < 1e-2
+        ok = ok and ok_m
+        log(f"[zoo] remat={mode!r} vs off, yolov5s {img} bs {bs} bf16, first micro-step: loss "
+            f"items max rel {item_err:.2e} (gate 1e-3), gradients {g_err:.2e}, BN statistics' "
+            f"deltas {s_err:.2e} (gate 1e-2) {'ok' if ok_m else 'FAIL'}")
+    log(f"[time] {card}: train micro-step yolov5s {img}x{img} bs {bs} bf16 (forward+loss, "
+        f"backward, optimizer+EMA; CUDA events, {iters} steps) and peak memory: "
+        + "; ".join(f"remat={m!r} {r['ms']:.3f} ms {r['peak']:.2f} GB" for m, r in runs.items())
+        + f"; save_convs / True / off memory {runs['save_convs']['peak'] / ref['peak']:.3f} / "
+        f"{runs[True]['peak'] / ref['peak']:.3f}, time {runs['save_convs']['ms'] / ref['ms']:.3f}"
+        f" / {runs[True]['ms'] / ref['ms']:.3f}")
+    return ok
+
+
+def nms_forms(card: str, seed: int) -> bool:
+    """12.4 (NMS): the greedy suppression as the Python loop (the eager
+    default) and as the ``while_loop`` operator (the exported graph's), in
+    the yolov5s serve call at bs 32 and bs 128: equal outputs, and each
+    form's img/s in turns (loop, operator, operator, loop)."""
+    import torch
+
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.ops import nms
+
+    serve = make_serving_fn(seeded_model("s", seed))
+    ok, line = True, []
+    for bs in (32, 128):
+        imgs = images_on_card((bs, 640, 640, 3), seed + 44 + bs)
+        serve.graph_nms = False
+        det, cnt = serve(imgs)
+        sweeps = nms._greedy_suppress.last_sweeps
+        serve.graph_nms = True
+        det_g, cnt_g = serve(imgs)
+        same = torch.equal(cnt, cnt_g) and torch.equal(det, det_g)
+        rates = {False: [], True: []}
+        for form in (False, True, True, False):
+            serve.graph_nms = form
+            rates[form].append(serve_rate(serve, imgs, 8 if bs == 128 else 20))
+        ok = ok and same
+        line.append(f"bs{bs} ({sweeps} sweeps) equal {'yes' if same else 'NO'}, loop "
+                    f"{np.mean(rates[False]):.1f} img/s ({' '.join(f'{r:.1f}' for r in rates[False])}), "
+                    f"while_loop {np.mean(rates[True]):.1f} ({' '.join(f'{r:.1f}' for r in rates[True])})")
+    serve.graph_nms = False
+    log(f"[time] {card}: serve yolov5s 640 with K1, the NMS loop's two forms: " + "; ".join(line)
+        + f" {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def artifact_check(pt2: str, raw_pt2: str, seed: int) -> int:
+    """12.4, run as ``python3 -c`` in a fresh interpreter: the exported
+    golden checkpoint's artifacts read back by ``load_exported`` against
+    ``make_serving_fn`` / ``make_raw_serving_fn`` of the same checkpoint on
+    the same batch (counts equal, boxes and scores within 1e-3 of the
+    peak), the early-network kernel's launches per artifact call, and both
+    calls' img/s at bs 32 in turns. Prints one ``ARTIFACT {json}`` line."""
+    import torch
+
+    from ayolov2_torch.export import load_exported, make_raw_serving_fn, make_serving_fn
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    def det_err(a, b):
+        (da, na), (db, nb) = a, b
+        if not torch.equal(na, nb):
+            return float("inf")
+        peak = max(db.abs().max().item(), 1e-3)
+        return max((da[i, :n] - db[i, :n]).abs().max().item() if n else 0.0
+                   for i, n in enumerate(nb.tolist())) / peak
+
+    out = {}
+    early.early_pipeline.launches = 0
+    t0 = time.perf_counter()
+    call = load_exported(pt2)
+    out["load_s"] = time.perf_counter() - t0
+    imgs = images_on_card((32, 640, 640, 3), seed + 50)
+    got = call(imgs)
+    torch.cuda.synchronize()
+    out["first_call_launches"] = early.early_pipeline.launches
+    model = load_model(GOLDEN, nc=20, device="cuda")
+    serve = make_serving_fn(model)
+    want = serve(imgs)
+    out["counts_equal"] = bool(torch.equal(got[1], want[1]))
+    out["mean_count"] = got[1].float().mean().item()
+    out["det_err"] = det_err(got, want)
+    early.early_pipeline.launches = 0
+    for _ in range(5):
+        call(imgs)
+    torch.cuda.synchronize()
+    out["launches_per_call"] = early.early_pipeline.launches / 5
+    rates = {"artifact": [], "make_serving_fn": []}
+    for name in ("artifact", "make_serving_fn", "make_serving_fn", "artifact"):
+        rates[name].append(serve_rate(call if name == "artifact" else serve, imgs, 20))
+    out["rates"] = rates
+    raw_call = load_exported(raw_pt2)
+    frames = images_on_card((32, 720, 1280, 3), seed + 51)
+    raw_serve = make_raw_serving_fn(model, (720, 1280), (640, 640))
+    out["raw_err"] = det_err(raw_call(frames), raw_serve(frames))
+    out["launches"] = early.early_pipeline.launches
+    print("ARTIFACT " + json.dumps(out), flush=True)
+    return 0
+
+
+def export_phase(card: str, seed: int, k1_map50: float) -> tuple:
+    """12.4: ``python -m ayolov2_torch.cli.export`` of the golden checkpoint
+    (bs 32, 640, tpu_nms; and ``--raw-hw 720 1280``), both in parallel;
+    :func:`artifact_check` in a fresh interpreter; ``cli.val --weights`` the
+    artifact on phase 7's set (square 640 batches of 32, the last padded)
+    against the validator over the same loader with ``make_serving_fn`` of
+    the checkpoint as its detection function (within 1e-3), phase 7's rect
+    run printed beside. Returns (ok, the kernel's launches)."""
+    import torch
+
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.eval import YoloValidator
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    common = [sys.executable, "-m", "ayolov2_torch.cli.export", "--weights", str(GOLDEN),
+              "--nc", "20", "--batch-size", "32", "-iw", "640", "--type", "tpu_nms"]
+    jobs = {"nms": common + ["--out", str(EXPORT_DIR / "golden_tpu_nms")],
+            "raw": common + ["--raw-hw", "720", "1280", "--out", str(EXPORT_DIR / "golden_raw")]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True) for k, c in jobs.items()}
+    ok = True
+    for k, proc in procs.items():
+        text, _ = proc.communicate(timeout=600)
+        tail = [ln for ln in text.splitlines() if ln.strip()][-2:]
+        log(f"[export] cli.export {k}: exit {proc.returncode} ({time.perf_counter() - t0:.1f} s "
+            f"since both started); " + " | ".join(ln.strip()[:200] for ln in tail))
+        ok = ok and proc.returncode == 0
+    if not ok:
+        return False, 0
+    pt2, raw_pt2 = EXPORT_DIR / "golden_tpu_nms.pt2", EXPORT_DIR / "golden_raw.pt2"
+    side = json.loads((EXPORT_DIR / "golden_tpu_nms.yaml").read_text())
+    log(f"[export] {pt2.name} {pt2.stat().st_size / 1e6:.1f} MB, {raw_pt2.name} "
+        f"{raw_pt2.stat().st_size / 1e6:.1f} MB; sidecar platforms {side['platforms']}, "
+        f"early_pipeline {side['early_pipeline']}, input {side['input']['shape']}")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
+                           f"artifact_check({str(pt2)!r}, {str(raw_pt2)!r}, {seed}))"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("ARTIFACT ")]
+    if proc.returncode != 0 or not lines:
+        log(f"[export] artifact check: exit {proc.returncode}; "
+            + " | ".join((proc.stdout + proc.stderr).splitlines()[-6:]))
+        return False, 0
+    a = json.loads(lines[-1][len("ARTIFACT "):])
+    ok_a = (side["early_pipeline"] and a["counts_equal"] and a["det_err"] < 1e-3
+            and a["first_call_launches"] == 1 and a["launches_per_call"] == 1
+            and a["raw_err"] < 1e-3)
+    rates = {k: float(np.mean(v)) for k, v in a["rates"].items()}
+    log(f"[export] {card}: the .pt2 read in a fresh interpreter ({a['load_s']:.1f} s) vs "
+        f"make_serving_fn of the checkpoint, bs32 640: counts equal "
+        f"{'yes' if a['counts_equal'] else 'NO'} (mean {a['mean_count']:.2f}), max|d|/peak "
+        f"{a['det_err']:.2e} (gate 1e-3); early_pipeline launches on the first call "
+        f"{a['first_call_launches']}, per call {a['launches_per_call']:.1f} (gate 1); raw frames "
+        f"720x1280 vs make_raw_serving_fn max|d|/peak {a['raw_err']:.2e} (gate 1e-3); "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok_a else 'FAIL'}")
+    log(f"[time] {card}: the exported call {rates['artifact']:.1f} img/s "
+        f"({' '.join(f'{r:.1f}' for r in a['rates']['artifact'])}) vs make_serving_fn "
+        f"{rates['make_serving_fn']:.1f} ({' '.join(f'{r:.1f}' for r in a['rates']['make_serving_fn'])}),"
+        f" yolov5s golden bs32 640, K1 in both, in turns")
+    launches = int(a["launches"])
+
+    out = EXPORT_DIR / "val.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ayolov2_torch.cli.val", "--weights", str(pt2),
+                           "--data-cfg", str(VAL_DIR / "data.json"), "--json-path", str(out)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        log(f"[export] cli.val of the artifact: exit {proc.returncode}; "
+            + " | ".join((proc.stdout + proc.stderr).splitlines()[-4:]))
+        return False, launches
+    art = json.loads(out.read_text())
+    ds = DetectionDataset(str(VAL_DIR / "images"), img_size=640, batch_size=32, rect=False,
+                          stride=32)
+    serve = make_serving_fn(load_model(GOLDEN, nc=20, device="cuda"))
+    early.early_pipeline.launches = 0  # the in-process run: counts from here
+    same = YoloValidator(None, DataLoader(ds, batch_size=32, pad_final_batch=True),
+                         cfg={"nc": 20}, detection_fn=serve, device="cuda").validation()
+    launches += early.early_pipeline.launches
+    ok_v = (art["seen"] == same["seen"] == len(VAL_SIZES) * 32
+            and abs(art["map50"] - same["map50"]) <= 1e-3
+            and abs(art["map50_95"] - same["map50_95"]) <= 1e-3)
+    log(f"[export] cli.val --weights {pt2.name} on phase 7's set ({time.perf_counter() - t0:.1f} "
+        f"s): seen {art['seen']}, mAP50 {art['map50']:.5f} mAP50-95 {art['map50_95']:.5f}; the "
+        f"validator over the same square batches with make_serving_fn (K1) as detection_fn: "
+        f"{same['map50']:.5f} / {same['map50_95']:.5f} (gate 1e-3); phase 7's K1 run (rect "
+        f"batches, every class of a box) {k1_map50:.5f}, {art['map50'] - k1_map50:+.5f} "
+        f"{'ok' if ok_v else 'FAIL'}")
+    del serve
+    torch.cuda.empty_cache()
+    return ok and ok_a and ok_v, launches
+
+
+def simclr_embedding(seed: int) -> bool:
+    """12.5: the classification graph (``simclr.yaml``: GAP, Flatten, two
+    Linear) at bs 8, 320, f32, card against CPU (1e-4 of the peak)."""
+    import copy
+
+    import torch
+
+    model = seeded_model(zoo_cfg("simclr"), seed)
+    cpu = copy.deepcopy(model).cpu()
+    x = np.random.default_rng(seed + 45).integers(0, 256, (8, 320, 320, 3), dtype=np.uint8)
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).float() / 255.0
+    with torch.no_grad():
+        got, want = model(xt.cuda()), cpu(xt)
+    peak, _, _ = rel_err(got.cpu(), want)
+    ok = tuple(got.shape) == (8, 128) and bool(torch.isfinite(got).all()) and peak < 1e-4
+    log(f"[zoo] simclr.yaml embedding {tuple(got.shape)} bs8 320x320 f32, card vs CPU "
+        f"max|d|/peak {peak:.2e} (gate 1e-4) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def zoo_phase(card: str, seed: int, s_rate: float, k1_map50: float,
+              profile: bool = False) -> tuple:
+    """Phase 12 (see the module docstring). Returns (ok, early_pipeline
+    launches of the export path)."""
+    import torch
+
+    t0 = time.perf_counter()
+    checks = [("12.1 zoo serving", lambda: zoo_serving(card, seed, s_rate, profile)),
+              ("12.2 s2d stem", lambda: s2d_stems(card, seed)),
+              ("12.3 zoo training", lambda: all(card_vs_cpu(card, seed, cfg=zoo_cfg(n), steps=2,
+                                                            bf16=False) for n in ZOO)),
+              ("12.3 remat", lambda: remat_steps(card, seed)),
+              ("12.4 NMS forms", lambda: nms_forms(card, seed))]
+    for name, check in checks:
+        t1 = time.perf_counter()
+        ok = check()
+        torch.cuda.empty_cache()
+        log(f"[zoo] {name}: {'ok' if ok else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
+        if not ok:
+            return False, 0
+    t1 = time.perf_counter()
+    ok, launches = export_phase(card, seed, k1_map50)
+    log(f"[zoo] 12.4 export: {'ok' if ok else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
+    if not ok:
+        return False, launches
+    ok = simclr_embedding(seed)
+    log(f"[zoo] phase 12 {'ok' if ok else 'FAIL'} in {time.perf_counter() - t0:.1f} s")
+    return ok, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1839,6 +2286,9 @@ def main() -> int:
     ap.add_argument("--host-only", action="store_true",
                     help="phases 1, 2, 7, 10 and 11 only (host augmentation and the "
                          "shipped surface)")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="phases 1, 2, 3, 7 and 12 only (the model zoo and export; 12.4 "
+                         "validates on phase 7's set)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -1913,6 +2363,16 @@ def main() -> int:
             f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
         if not ok:
             return 1
+    if args.zoo_only:
+        val = validation_phase(args.seed, card)
+        if val is None or not zoo_phase(card, args.seed, float("nan"), val[2],
+                                        args.profile)[0]:
+            log("[zoo] FAIL")
+            return 1
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if args.train_only or args.host_only:
         val = validation_phase(args.seed, card)
         if val is None:
@@ -2143,6 +2603,14 @@ def main() -> int:
         log("[surface] FAIL")
         return 1
     launches += surface_launches
+
+    # ---- 12. the rest of the model zoo and the exported serving graph -----------
+    torch.cuda.empty_cache()
+    ok12, zoo_launches = zoo_phase(card, args.seed, rates[32], val[2], args.profile)
+    if not ok12:
+        log("[zoo] FAIL")
+        return 1
+    launches += zoo_launches
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

@@ -97,13 +97,14 @@ def main() -> int:
                    f"{other.halo:.3f}, {other.total} B): bs64 {ms:.4f} ms")
         early.plan_early = picked
 
+    wpack = early.pack_weights(ep).to(batch.device)
     if args.against:
         libs = {"this tree": early._lib(ep.c0)}
         libs.update({path: early._lib_with(ep.c0, source=path) for path in args.against})
         small = cs.images_on_card((3, 200, 104, 3), args.seed + 5)
         want = early.early_pipeline_ref(small, ep)
         for name, lib in libs.items():
-            peak, p999, _ = cs.rel_err(early._launch(lib, small, ep), want)
+            peak, p999, _ = cs.rel_err(early._launch(lib, small, wpack, ep.c0, ep.n), want)
             ok = peak < cs.TOL_PEAK and p999 < cs.TOL_P999
             cs.log(f"[against] {name} (3, 200, 104): max|d|/peak {peak:.5f} p99.9 {p999:.5f} "
                    f"{'ok' if ok else 'FAIL'}")
@@ -112,7 +113,7 @@ def main() -> int:
         for turn in range(3):
             for name, lib in libs.items():
                 for bs in (32, 128):
-                    ms = cs.time_ms(lambda: early._launch(lib, batch[:bs], ep), 20, warmup=5)
+                    ms = cs.time_ms(lambda: early._launch(lib, batch[:bs], wpack, ep.c0, ep.n), 20, warmup=5)
                     cs.log(f"[against] {card}: turn {turn} {name} bs{bs} {ms:.4f} ms")
 
     if args.ablate:
@@ -121,7 +122,7 @@ def main() -> int:
             ms = cs.time_ms(lambda: early.early_pipeline(batch[:64], ep), 20, warmup=5)
             cs.log(f"[ablate] {card}: turn {turn} whole kernel bs64 {ms:.4f} ms")
             for k, what in ABLATIONS.items():
-                ms = cs.time_ms(lambda: early._launch(libs[k], batch[:64], ep), 20, warmup=5)
+                ms = cs.time_ms(lambda: early._launch(libs[k], batch[:64], wpack, ep.c0, ep.n), 20, warmup=5)
                 cs.log(f"[ablate] {card}: turn {turn} {what} bs64 {ms:.4f} ms")
     return 0
 

@@ -6,6 +6,7 @@ can import the file helpers without it (the tests that fork)."""
 
 from __future__ import annotations
 
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -102,6 +103,94 @@ def port_model(variant: str, variables, nc=None):
 
     model = build_model(yolov5_cfg(variant, nc=nc or 80), device="cpu")
     return load_flax_variables(model, variables)
+
+
+def zoo_cfg(name: str) -> str:
+    """The path of a shipped model config (``res/configs/model/{name}.yaml``)."""
+    return str(ROOT / f"res/configs/model/{name}.yaml")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_zoo_shapes(name: str):
+    """(JAX f32 model of a shipped config, its variables' shapes at 64x64),
+    traced once per config and process."""
+    import jax
+    import jax.numpy as jnp
+
+    from ayolov2_tpu.models import build_model
+
+    model = build_model(zoo_cfg(name), dtype=jnp.float32)
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3), jnp.float32), training=False))
+    return model, shapes
+
+
+def jax_zoo_variables(name: str, seed: int):
+    """(JAX f32 model of a shipped config, numpy variables drawn from ``seed``)."""
+    model, shapes = jax_zoo_shapes(name)
+    return model, random_variables(shapes, seed)
+
+
+def port_zoo_model(name: str, variables, **kw):
+    """The port's unfused model of a shipped config on the CPU, with the JAX
+    variables loaded (``kw``: ``build_model``'s options)."""
+    from ayolov2_torch.models import build_model
+    from ayolov2_torch.utils.weights import load_flax_variables
+
+    return load_flax_variables(build_model(zoo_cfg(name), device="cpu", **kw), variables)
+
+
+# run in a fresh interpreter: read each artifact, call it, save the outputs
+_RELOAD = """
+import sys, numpy as np
+sys.path.insert(0, {root!r})
+from ayolov2_torch.export import load_exported
+out = {{}}
+for name, (path, x) in {jobs!r}.items():
+    res = load_exported(path)(np.load(x))
+    res = res if isinstance(res, tuple) else (res,)
+    for i, r in enumerate(res):
+        out[f"{{name}}_{{i}}"] = r.numpy()
+np.savez({dst!r}, **out)
+bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu')]
+print('modules', bad)
+"""
+
+
+def call_artifacts_fresh(jobs: dict, dst) -> dict:
+    """Call each ``.pt2`` of ``jobs`` ({name: (artifact, input .npy)}) in a
+    fresh interpreter that must not import JAX; returns {f"{name}_{i}":
+    output i}."""
+    import subprocess
+    import sys
+
+    code = _RELOAD.format(root=str(ROOT), jobs=jobs, dst=str(dst))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "modules []" in r.stdout, r.stdout
+    return dict(np.load(dst))
+
+
+def seeded_head_variables(name: str, seed: int):
+    """Drawn weights whose head gives logits of a few units (no score ties
+    at a saturated sigmoid, so the detections' order is defined)."""
+    _, v = jax_zoo_variables(name, seed=seed)
+    head = max((k for k in v["params"] if k.startswith("model_")), key=lambda k: int(k[6:]))
+    for conv in v["params"][head].values():
+        conv["kernel"] = conv["kernel"] * 0.1
+    return v
+
+
+def tree_leaves(tree, prefix=()) -> dict:
+    """{path tuple: numpy array} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(tree_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(v)
+    return out
 
 
 def images(shape, seed: int) -> np.ndarray:

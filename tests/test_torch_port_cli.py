@@ -75,13 +75,15 @@ def test_val2_cli_writes_an_answersheet_its_evaluator_scores(data_cfg, tmp_path)
 @pytest.mark.parametrize("module,flags,match", [
     ("val", ["--int8"], "int8 validation .* compression slice"),
     ("val", ["--int8", "--calib-batches", "2", "--calib-method", "p999"], "compression slice"),
-    ("val", ["--weights", "m.jaxexp"], "exported artifacts .* export slice"),
-    ("val2", ["--weights", "m.jaxexp"], "exported artifacts .* export slice"),
+    ("val", ["--weights", "m.jaxexp"], "JAX artifact is read by the JAX package .* reads "
+                                       "the .pt2"),
     ("train", ["--n-devices", "2"], "more than one device .* parallelism slice"),
 ])
 def test_unported_flags_exit_with_a_message(module, flags, match):
     """What the port still refuses stops the entry point naming the slice it
-    comes with (``remat``, ``tp`` and ``fsdp``: the isolation tests)."""
+    comes with (``tp`` and ``fsdp``: the isolation tests; export's int8:
+    test_torch_port_export.py); a JAX artifact names the package that reads
+    it."""
     import importlib
 
     main = importlib.import_module(f"ayolov2_torch.cli.{module}").main
@@ -100,7 +102,7 @@ def _jax_option_strings(path) -> set:
     return opts
 
 
-@pytest.mark.parametrize("module", ["train", "val", "val2"])
+@pytest.mark.parametrize("module", ["train", "val", "val2", "export"])
 def test_parsers_take_every_flag_of_jax(module):
     """The port's parser has each option of ``cli/{module}.py``, so a command
     line written for the JAX entry point parses (the refused ones stop it by
@@ -112,3 +114,17 @@ def test_parsers_take_every_flag_of_jax(module):
     jax_opts = _jax_option_strings(ROOT / "cli" / f"{module}.py")
     assert len(jax_opts) > 8
     assert jax_opts <= port, sorted(jax_opts - port)
+
+
+def test_val2_reads_any_weights_as_a_checkpoint(data_cfg, tmp_path):
+    """As JAX's ``cli/val2.py`` (no exported branch), ``--weights`` of any
+    suffix goes to the checkpoint reader, which refuses what is not one."""
+    from ayolov2_torch.cli import val2
+
+    art = tmp_path / "m.pt2"
+    art.write_bytes(b"PK\x03\x04 not a checkpoint")
+    with pytest.raises(ValueError):
+        val2.main(["--weights", str(art), "--data-cfg", str(data_cfg), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        val2.main(["--weights", str(tmp_path / "m.jaxexp"), "--data-cfg", str(data_cfg),
+                   "--device", "cpu"])

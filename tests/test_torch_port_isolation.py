@@ -22,7 +22,8 @@ def test_import_pulls_in_no_jax():
         "ayolov2_torch.ops.early_pipeline, ayolov2_torch.export, ayolov2_torch.parallel, "
         "ayolov2_torch.utils.weights, ayolov2_torch.data.image_ops, ayolov2_torch.data.augment, "
         "ayolov2_torch.data.datasets, ayolov2_torch.data.loader, ayolov2_torch.utils.plots, "
-        "ayolov2_torch.utils.png, ayolov2_torch.utils.profiling, ayolov2_torch.ops.tta\n"
+        "ayolov2_torch.utils.png, ayolov2_torch.utils.profiling, ayolov2_torch.ops.tta, "
+        "ayolov2_torch.cli.export\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu', 'cv2', "
         "'PIL', 'matplotlib')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -49,8 +50,8 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     names = set(r.stdout.split())
-    assert len(names) >= 42
-    assert {"ayolov2_torch.cli.train", "ayolov2_torch.train.optimizer",
+    assert len(names) >= 43
+    assert {"ayolov2_torch.cli.train", "ayolov2_torch.cli.export", "ayolov2_torch.train.optimizer",
             "ayolov2_torch.train.train_state", "ayolov2_torch.train.trainer",
             "ayolov2_torch.utils.anchors", "ayolov2_torch.data.augment",
             "ayolov2_torch.data.device_augment", "ayolov2_torch.data.image_ops",
@@ -139,13 +140,14 @@ def test_training_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path)
 def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
     from ayolov2_torch.train.trainer import refuse_unported
 
-    for key, value, slice_name in (("tp", 2, "parallelism"), ("fsdp", True, "parallelism"),
-                                   ("remat", True, "model zoo")):
+    for key, value, slice_name in (("tp", 2, "parallelism"), ("fsdp", True, "parallelism")):
         with pytest.raises(NotImplementedError, match=f"not ported yet.*{slice_name} slice"):
             refuse_unported({key: value})
     monkeypatch.setenv("AYOLO_TRACE_DIR", str(tmp_path))
     refuse_unported({})  # plot (true by default) and the trace window are ported
     refuse_unported({"plot": True, "tp": 1, "fsdp": False, "remat": False})
+    refuse_unported({"remat": True})  # ported with the model zoo
+    refuse_unported({"remat": "save_convs"})
 
 
 def test_train_cli_on_cpu_then_val_reads_its_checkpoints(tmp_path):
