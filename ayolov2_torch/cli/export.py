@@ -16,10 +16,13 @@ the early-network kernel is in the graph (the operator
 keeps the NMS in the graph (boxes out); any other type gives the decoded
 predictions. ``--raw-hw H W``: native H x W frames in, letterboxed in the
 graph, boxes in the frames' coordinates. ``--opset`` and ``--gpu-mem`` are
-logged and ignored, as the JAX entry point does. Not ported yet, and
-refused with a message naming the compression slice: ``--dtype int8`` with
-``--calib-dir`` (without it int8 falls back to float, as in the JAX entry
-point) and decomposed checkpoints.
+logged and ignored, as the JAX entry point does. ``--dtype int8
+--calib-dir DIR``: the int8 artifact, calibrated on the first
+``--calib-batches`` batches of DIR's images (``ImageFolderDataset``,
+letterboxed square, /255 in f32, then the compute dtype) by
+``--calib-method``; without ``--calib-dir`` int8 falls back to float, as in
+the JAX entry point. A decomposed checkpoint (meta ``decompose_map``) is
+exported decomposed.
 """
 
 from __future__ import annotations
@@ -34,8 +37,9 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from ayolov2_torch.export import export_serving, load_exported
+from ayolov2_torch.export.exporter import export_device
 from ayolov2_torch.models.builder import parse_model_config
-from ayolov2_torch.utils.checkpoint import load_variables
+from ayolov2_torch.utils.checkpoint import decompose_map_of_meta, load_variables
 
 LOGGER = logging.getLogger("export")
 
@@ -64,14 +68,13 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--dst", type=str, default="",
                         help="export directory; default next to the checkpoint")
     parser.add_argument("--dtype", type=str, default="fp16", choices=["fp16", "int8", "fp32"],
-                        help="fp16 is bf16 here; fp32 = --no-half; int8 (with --calib-dir) "
-                             "is not ported yet")
+                        help="fp16 is bf16 here; fp32 = --no-half; int8 needs --calib-dir")
     parser.add_argument("--calib-dir", type=str, default="",
-                        help="image folder for int8 calibration (not ported yet)")
+                        help="image folder for int8 calibration")
     parser.add_argument("--calib-batches", type=int, default=8,
                         help="calibration batches (int8 only)")
     parser.add_argument("--calib-method", type=str, default="absmax",
-                        choices=["absmax", "p999"], help="int8 calibration (not ported yet)")
+                        choices=["absmax", "p999"], help="int8 input-range calibration")
     parser.add_argument("--rect", action="store_true", dest="rect", default=True,
                         help="accepted: the artifact has one fixed shape")
     parser.add_argument("--no-rect", action="store_false", dest="rect")
@@ -84,6 +87,28 @@ def get_parser() -> argparse.ArgumentParser:
                              "boxes in the frames' coordinates")
     parser.add_argument("--verbose", type=int, nargs="?", const=1, default=1)
     return parser
+
+
+def calibrated_int8(args: argparse.Namespace, model_cfg, variables, decompose_map,
+                    device) -> dict:
+    """The int8 tree of ``variables``, calibrated on ``--calib-dir``."""
+    import torch
+
+    from ayolov2_torch.compress.quantize import quantize_model
+    from ayolov2_torch.data.datasets import ImageFolderDataset
+
+    dtype = torch.float32 if args.no_half else torch.bfloat16
+    ds = ImageFolderDataset(args.calib_dir, img_size=args.img_width, batch_size=args.batch_size)
+    n_img = min(len(ds), args.calib_batches * args.batch_size)
+    imgs = np.stack([ds[i][0] for i in range(n_img)])
+    batches = [torch.from_numpy(imgs[i:i + args.batch_size].astype(np.float32) / 255.0)
+               .to(device).permute(0, 3, 1, 2).to(dtype)
+               for i in range(0, n_img, args.batch_size)]
+    LOGGER.info("int8 calibration on %d images from %s", n_img, args.calib_dir)
+    _, qvars = quantize_model(model_cfg, variables, batches, dtype=dtype, nc=args.nc,
+                              decompose_map=decompose_map, method=args.calib_method,
+                              device=device)
+    return qvars
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, str]:
@@ -100,9 +125,6 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, str]:
         # as the JAX entry point: int8 without a calibrator falls back to float
         LOGGER.warning("INT8 calibrator must be provided. Switching to float precision.")
         args.dtype = "fp16"
-    if args.dtype == "int8":
-        raise SystemExit("--dtype int8: int8 export is not ported yet; it comes with the "
-                         "compression slice of the port")
     LOGGER.info("--opset %d and --gpu-mem %d are not used by a torch.export artifact",
                 args.opset, args.gpu_mem)
 
@@ -112,9 +134,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, str]:
         model_cfg = parse_model_config(args.model_cfg)
     if not model_cfg:
         raise SystemExit("need --model-cfg or a checkpoint with an embedded model config")
-    if meta.get("decompose_map"):
-        raise SystemExit(f"{args.weights}: decomposed checkpoints are not ported yet; they "
-                         "come with the compression slice of the port")
+    decompose_map = decompose_map_of_meta(meta)
+    quant = args.dtype == "int8"
+    if quant:
+        variables = calibrated_int8(args, model_cfg, variables, decompose_map,
+                                    export_device(platforms or None))
 
     if args.out:
         out = args.out
@@ -137,6 +161,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, str]:
         include_nms=args.type == "tpu_nms",
         half=not args.no_half,
         platforms=platforms or None,
+        decompose_map=decompose_map,
+        quant=quant,
         raw_hw=tuple(args.raw_hw) if args.raw_hw else None,
     )
 

@@ -9,6 +9,12 @@ and R curves and the confusion matrix to ``{dst}/val/{DATE}_runs``;
 ``--profile`` (``--n-profile`` runs, or ``--profile-step`` N) logs the
 validator's forward (with the early-network kernel where it uses it) in
 ms per image before validating; ``AYOLO_TRACE_DIR`` traces the loop.
+``--int8`` validates the int8 model (``compress/quantize.quantize_model``)
+calibrated on the first ``--calib-batches`` val batches (/255 in the
+compute dtype) by ``--calib-method``; its layers 1-3 are int8, so it runs
+without the early-network kernel. A decomposed checkpoint (meta
+``decompose_map``, from ``cli.decompose_model`` or the JAX package's) is
+rebuilt decomposed.
 
 Usage:
     python -m ayolov2_torch.cli.val --weights runs/train/xxx/best.ckpt \\
@@ -20,9 +26,6 @@ size, square batches (``rect=False``) and the final batch padded; a
 sidecar ``{weights}.yaml`` next to any weights overrides the matching
 flags. A JAX artifact (``.jaxexp``) is read by the JAX package's
 ``cli/val.py``, not here.
-
-Not ported yet, and refused with a message naming the slice: ``--int8``
-(``--calib-batches`` and ``--calib-method`` are accepted for it).
 """
 
 from __future__ import annotations
@@ -87,7 +90,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--no-rect", action="store_false", dest="rect", help="square batches")
     parser.add_argument("--no-fuse", action="store_true", help="skip conv+BN folding")
     parser.add_argument("--int8", action="store_true",
-                        help="int8 validation (not ported yet: the compression slice)")
+                        help="int8 post-training quantization, calibrated on val batches")
     parser.add_argument("--calib-batches", type=int, default=4,
                         help="calibration batches for --int8")
     parser.add_argument("--calib-method", type=str, default="absmax", choices=["absmax", "p999"],
@@ -109,9 +112,6 @@ def device_of(arg: str) -> torch.device:
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
-    if args.int8:
-        raise SystemExit("--int8: int8 validation (compress/quantize.py) is not ported yet; it "
-                         "comes with the compression slice of the port")
     if args.weights.endswith(".jaxexp"):
         raise SystemExit(f"{args.weights}: a JAX artifact is read by the JAX package "
                          "(cli/val.py); the port reads the .pt2 artifacts of "
@@ -203,6 +203,26 @@ def profile_model(serve, img_hw: Tuple[int, int], batch_size: int, n_run: int,
     return dt
 
 
+def quantize_on_val(model, loader, n_batches: int, method: str, dtype: torch.dtype,
+                    device: torch.device):
+    """The fused ``model`` quantized to int8, calibrated on the first
+    ``n_batches`` batches of ``loader`` (uint8 -> ``dtype`` -> /255)."""
+    from ayolov2_torch.compress.quantize import quantize_model
+    from ayolov2_torch.utils.weights import flax_from_state_dict
+
+    batches = []
+    for batch in loader:
+        images = torch.from_numpy(batch.images).to(device).permute(0, 3, 1, 2)
+        batches.append(images.to(dtype) / 255.0)
+        if len(batches) >= n_batches:
+            break
+    LOGGER.info("int8 PTQ: calibrating on %d val batches (%s)", len(batches), method)
+    qmodel, _ = quantize_model(model.cfg, flax_from_state_dict(model.state_dict()), batches,
+                               dtype=dtype, nc=model.nc, decompose_map=model.decompose_map,
+                               method=method, device=device)
+    return qmodel
+
+
 def build_val_model(args: argparse.Namespace, nc: Optional[int], fuse: bool,
                     device: torch.device):
     """The model ``--weights`` holds (or ``--model-cfg``'s with its default
@@ -249,6 +269,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         single_cls=args.single_cls,
     )
     loader = DataLoader(dataset, batch_size=args.batch_size)
+    if args.int8:
+        if args.no_fuse:
+            raise SystemExit("--int8 requires the fused serving path (drop --no-fuse)")
+        model = quantize_on_val(model, loader, args.calib_batches, args.calib_method,
+                                torch.float32 if args.no_half else torch.bfloat16, device)
 
     tta_scales = tta_flips = None
     if args.tta:

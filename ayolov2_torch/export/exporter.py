@@ -7,10 +7,13 @@ The counterpart of ``ayolov2_tpu/export/exporter.py``. The graph:
 
 (``include_nms=False``: the decoded (bs, N, 5+nc) predictions instead.)
 With ``early_pipeline=True`` (the default) and a model whose layers 0..3
-match the YOLOv5 v6 pattern, those layers run as the fused early-network
-kernel on the raw uint8 pixels (the operator ``ayolov2::early_pipeline``,
-its packed weights a buffer of the module), and the model continues from
-``start_layer=4``. Every other conv goes to cuDNN through ``F.conv2d``.
+match the YOLOv5 v6 pattern and hold plain float convs
+(``early_pipeline.can_fuse_early_model``: not int8, not decomposed), those
+layers run as the fused early-network kernel on the raw uint8 pixels (the
+operator ``ayolov2::early_pipeline``, its packed weights a buffer of the
+module), and the model continues from ``start_layer=4``. Every other float
+conv goes to cuDNN through ``F.conv2d``; an int8 model's quantized convs
+go to ``ops/int8_conv.py`` (``torch._int_mm`` on the card).
 
 :func:`make_serving_fn` and :func:`make_raw_serving_fn` build the graph as
 a :class:`ServingModule`; :func:`export_serving` records the same module
@@ -50,7 +53,6 @@ from ayolov2_torch.utils.constants import (
 from ayolov2_torch.utils.general import resolve_device
 
 LOGGER = logging.getLogger(__name__)
-COMPRESSION = "it comes with the compression slice of the port"
 
 
 def letterbox_geometry(
@@ -102,7 +104,8 @@ class ServingModule(nn.Module):
 
     ``serve.raw_maps(images)`` returns the head's raw maps of the same
     forward; ``serve.model`` is the BN-folded network it runs (in
-    ``image_dtype``, channels_last, gradients off); ``serve.early`` says
+    ``image_dtype``, channels_last, gradients off; an int8 conv's scales and
+    bias stay f32, ``layers.QuantConv``); ``serve.early`` says
     whether layers 0..3 run as the early-network kernel (``serve.ep`` its
     weights, ``k1_weights`` their packed buffer). ``raw_hw``: the input is
     native (bs, *raw_hw, 3) frames, letterboxed to ``img_hw`` in the graph,
@@ -219,13 +222,14 @@ def make_serving_fn(
     ``batched_nms``. ``include_nms=False``: ``serve`` returns the decoded
     (bs, N, 5+nc) f32 predictions.
     ``early_pipeline``: run layers 0..3 through the fused kernel where the
-    model allows it (``serve.early`` says whether it does).
+    model allows it (``early_pipeline.can_fuse_early_model``; ``serve.early``
+    says whether it does).
     ``multi_label``, ``agnostic``, ``nms_type``: as in ``ops/nms`` (the
     validator takes every class of a box and, with one class, suppresses
     across classes).
     """
     device = resolve_device(device)
-    use_early = bool(early_pipeline) and early.can_fuse_early(model.specs)
+    use_early = bool(early_pipeline) and early.can_fuse_early_model(model)
     return ServingModule(model, device, image_dtype, conf_thres, iou_thres, top_k, keep_top_k,
                          nms_box, include_nms, fused_decode, use_early, multi_label, agnostic,
                          nms_type)
@@ -289,31 +293,31 @@ def export_serving(
 
     ``variables``: the JAX package's {'params', 'batch_stats'} tree (a
     checkpoint's, ``utils/checkpoint.load_variables``), unfused, or fused
-    params with ``fused_input=True``. The artifact ``{out}.pt2``
+    params with ``fused_input=True``, or with ``quant`` the int8 tree of
+    ``compress/quantize.quantize_params`` (fused). ``decompose_map``: a
+    decomposed checkpoint's (its meta's ``decompose_map``). The artifact ``{out}.pt2``
     (``torch.export.save``) holds /255, the BN-folded forward in bf16
     (``half``, the weights stored in bf16) or f32, decode and NMS (the
     greedy loop as a ``while_loop`` operator), for one batch size and image
     size, on one device (``platforms``: None = the card, or ("cpu",)).
     On the card with a model that allows it, layers 0..3 are the operator
-    ``ayolov2::early_pipeline`` with its packed weights in the artifact.
+    ``ayolov2::early_pipeline`` with its packed weights in the artifact. With
+    ``quant`` the int8 weights are in the artifact as int8 and the scales as
+    f32 under either ``half``; the sidecar's ``quant`` is true.
     ``raw_hw``: the raw-frame graph of :func:`make_raw_serving_fn` (requires
     ``include_nms``). The sidecar ``{out}.yaml`` is JSON (which YAML
     readers read too): the val-time overrides, the input and outputs, and
     ``early_pipeline`` (whether the artifact needs the operator registered:
     :func:`load_exported` does that).
     """
-    if decompose_map:
-        raise NotImplementedError(f"decompose_map: decomposed models are not ported yet; "
-                                  f"{COMPRESSION}")
-    if quant:
-        raise NotImplementedError(f"quant: int8 export is not ported yet; {COMPRESSION}")
     if raw_hw is not None and not include_nms:
         raise ValueError("raw_hw export requires include_nms")
     device = export_device(platforms)
     dtype = torch.bfloat16 if half else torch.float32
     from ayolov2_torch.utils.weights import state_dict_from_flax
 
-    model = build_model(model_cfg, nc=nc, fused=fused_input, device="cpu")
+    model = build_model(model_cfg, nc=nc, fused=fused_input or bool(quant), device="cpu",
+                        quant=bool(quant), decompose_map=decompose_map)
     model.load_state_dict(state_dict_from_flax(variables), strict=True)
     model = model.fuse()
     img_hw = (int(img_size[0]), int(img_size[1]))
@@ -322,7 +326,7 @@ def export_serving(
                                     keep_top_k, image_dtype=dtype, device=device)
         in_hw = (int(raw_hw[0]), int(raw_hw[1]))
     else:
-        use_early = device.type == "cuda" and early.can_fuse_early(model.specs)
+        use_early = device.type == "cuda" and early.can_fuse_early_model(model)
         serve = ServingModule(model, device, dtype, conf_thres, iou_thres, top_k, keep_top_k,
                               DEFAULT_NMS_BOX, include_nms, include_nms, use_early, False,
                               False, "nms", img_hw=img_hw)
@@ -347,7 +351,7 @@ def export_serving(
         "top_k": top_k,
         "include_nms": include_nms,
         "half": half,
-        "quant": quant,
+        "quant": bool(quant),
         "platforms": [device.type],
         "early_pipeline": bool(serve.early),
         "on_device_letterbox": raw_hw is not None,

@@ -28,6 +28,7 @@ from ayolov2_torch.models import layers as L
 from ayolov2_torch.models.yolo_head import YOLOHead
 from ayolov2_torch.utils.config import load_yaml
 from ayolov2_torch.utils.general import make_divisible, resolve_device
+from ayolov2_torch.utils.weights import module_name
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,38 +133,38 @@ def _source(spec: LayerSpec, f: int) -> int:
     return spec.index - 1 if f == -1 else (f if f >= 0 else spec.index + f)
 
 
-def _make_module(spec: LayerSpec, c_in: int, fused: bool, s2d=False) -> nn.Module:
+def _make_module(spec: LayerSpec, c_in: int, fused: bool, s2d=False, quant=False) -> nn.Module:
     """The torch module of one (non-head) layer spec, repeat not applied."""
     a, kw = spec.args, spec.kw()
+    q = dict(fused=fused, quant=quant)
     act = kw.get("activation", "SiLU" if spec.module in _WIDTH_SCALED else None)
     m = spec.module
     if m == "Conv":
         k = a[1] if len(a) > 1 else 1
         s = a[2] if len(a) > 2 else 1
         p = a[3] if len(a) > 3 else None
-        return L.ConvBnAct(c_in, a[0], k, s, p, act=act, fused=fused, s2d=s2d)
+        return L.ConvBnAct(c_in, a[0], k, s, p, act=act, s2d=s2d, **q)
     if m == "Bottleneck":
-        return L.Bottleneck(c_in, a[0], a[1] if len(a) > 1 else True, act=act, fused=fused)
+        return L.Bottleneck(c_in, a[0], a[1] if len(a) > 1 else True, act=act, **q)
     if m == "C3":
         return L.C3(c_in, a[0], n=spec.repeat, shortcut=a[1] if len(a) > 1 else True,
-                    act=act, fused=fused)
+                    act=act, **q)
     if m == "SPP":
-        return L.SPP(c_in, a[0], tuple(a[1]) if len(a) > 1 else (5, 9, 13), act=act,
-                     fused=fused)
+        return L.SPP(c_in, a[0], tuple(a[1]) if len(a) > 1 else (5, 9, 13), act=act, **q)
     if m == "SPPF":
-        return L.SPPF(c_in, a[0], a[1] if len(a) > 1 else 5, act=act, fused=fused)
+        return L.SPPF(c_in, a[0], a[1] if len(a) > 1 else 5, act=act, **q)
     if m == "Focus":
         return L.Focus(c_in, a[0], a[1] if len(a) > 1 else 1, a[2] if len(a) > 2 else 1,
-                       act=act, fused=fused)
+                       act=act, **q)
     if m == "UpSample":
         return L.UpSample(int(a[1]) if len(a) > 1 and a[1] else 2)
     if m == "Concat":
         return L.Concat()
     if m == "MV2Block":
         return L.MV2Block(c_in, a[0], a[1] if len(a) > 1 else 1, a[2] if len(a) > 2 else 4,
-                          act=act, fused=fused)
+                          act=act, **q)
     if m == "MobileViTBlock":
-        return L.MobileViTBlock(c_in, a[0], a[1], a[2], act=act, fused=fused)
+        return L.MobileViTBlock(c_in, a[0], a[1], a[2], act=act, **q)
     if m == "GlobalAvgPool":
         return L.GlobalAvgPool()
     if m == "Flatten":
@@ -174,6 +175,14 @@ def _make_module(spec: LayerSpec, c_in: int, fused: bool, s2d=False) -> nn.Modul
 
 
 REMAT_MODES = (False, True, "save_convs")
+QUANT_MODES = (False, True, "calib")
+
+
+def decompose_map_of(mapping) -> Dict[str, Tuple[int, int]]:
+    """A decompose map as {JAX module path: (rank_in, rank_out)}, sorted;
+    from a dict (a checkpoint's JSON gives lists) or (path, ranks) pairs."""
+    items = mapping.items() if isinstance(mapping, dict) else (mapping or ())
+    return {str(k): (int(v[0]), int(v[1])) for k, v in sorted(items)}
 
 
 @contextlib.contextmanager
@@ -228,16 +237,22 @@ class YOLOModel(nn.Module):
     that mode (True = "reshape"; same parameters). ``remat``: in training
     with gradients on, each layer (each repeat) is an activation checkpoint
     (:func:`remat_call`). ``out_xyxy``: the decoded boxes as xyxy.
+    ``quant``: every ConvBnAct's (``layers.ConvBnAct``; True needs
+    ``fused``). ``decompose_map``: {JAX module path ("model_4/m0/cv2"):
+    (rank_in, rank_out)}; each named ConvBnAct (module "model.4.m.0.cv2")
+    becomes its Tucker-2 stack.
     """
 
     def __init__(self, specs: Tuple[LayerSpec, ...], save: Tuple[int, ...],
                  head_index: Optional[int], nc: int,
                  anchors: Tuple[Tuple[float, ...], ...], strides: Tuple[float, ...],
                  in_ch: int = 3, fused: bool = False, s2d_stem=False, remat=False,
-                 out_xyxy: bool = False):
+                 out_xyxy: bool = False, quant=False, decompose_map=()):
         super().__init__()
         if remat not in REMAT_MODES:
             raise ValueError(f"remat={remat!r}: one of {REMAT_MODES}")
+        if quant not in QUANT_MODES:
+            raise ValueError(f"quant={quant!r}: one of {QUANT_MODES}")
         self.specs = tuple(specs)
         self.save = tuple(save)
         self.head_index = head_index
@@ -249,6 +264,8 @@ class YOLOModel(nn.Module):
         self.s2d_stem = s2d_stem
         self.remat = remat
         self.out_xyxy = out_xyxy
+        self.quant = quant
+        self.decompose_map = decompose_map_of(decompose_map)
         channels = {-1: in_ch}  # out channels by layer index; -1 = the image
         mods = []
         for spec in self.specs:
@@ -260,14 +277,19 @@ class YOLOModel(nn.Module):
             c_in = channels[srcs[0]]
             s2d = s2d_stem if spec.index == 0 else False
             if spec.module in ("C3", "Concat") or spec.repeat == 1:
-                mods.append(_make_module(spec, c_in, fused, s2d))
+                mods.append(_make_module(spec, c_in, fused, s2d, quant))
             else:
                 mods.append(nn.Sequential(*(
-                    _make_module(spec, c_in if r == 0 else spec.out_channels, fused, s2d)
+                    _make_module(spec, c_in if r == 0 else spec.out_channels, fused, s2d, quant)
                     for r in range(spec.repeat)
                 )))
             channels[spec.index] = spec.out_channels
         self.model = nn.ModuleList(mods)
+        for path, (r_in, r_out) in self.decompose_map.items():
+            mod = self.get_submodule(module_name(path))
+            if not isinstance(mod, L.ConvBnAct):
+                raise ValueError(f"decompose_map: {path} is not a conv block")
+            mod.decompose(r_in, r_out)
 
     @property
     def head(self) -> Optional[YOLOHead]:
@@ -328,7 +350,9 @@ class YOLOModel(nn.Module):
         with torch.device(param.device):
             fused = YOLOModel(self.specs, self.save, self.head_index, self.nc,
                               self.anchors, self.strides, in_ch=self.in_ch, fused=True,
-                              s2d_stem=self.s2d_stem, out_xyxy=self.out_xyxy)
+                              s2d_stem=self.s2d_stem, out_xyxy=self.out_xyxy,
+                              quant=self.quant, decompose_map=self.decompose_map)
+        fused.cfg = getattr(self, "cfg", None)
         sd = {k: v.float() for k, v in self.state_dict().items()}
         fused.load_state_dict(fuse_params(sd), strict=True)
         return fused.to(param.dtype).eval()
@@ -337,14 +361,16 @@ class YOLOModel(nn.Module):
 def build_model(cfg: Union[str, Dict[str, Any]], nc: Optional[int] = None,
                 fused: bool = False, dtype: torch.dtype = torch.float32,
                 device: Optional[Union[str, torch.device]] = None, s2d_stem=False,
-                remat=False, out_xyxy: bool = False) -> YOLOModel:
+                remat=False, out_xyxy: bool = False, quant=False,
+                decompose_map=()) -> YOLOModel:
     """Build a YOLOModel from a config dict or YAML path, in eval mode.
 
     ``nc`` overrides the config's n_classes. ``device`` defaults to the card
     and raises without CUDA; pass ``"cpu"`` (or ``"meta"`` for shapes and
     parameter counts only) explicitly. ``s2d_stem`` (False, True, "reshape",
-    "slice", "im2col"), ``remat`` (False, True, "save_convs") and
-    ``out_xyxy``: see :class:`YOLOModel`.
+    "slice", "im2col"), ``remat`` (False, True, "save_convs"), ``out_xyxy``,
+    ``quant`` (False, "calib", True) and ``decompose_map``: see
+    :class:`YOLOModel`. The config dict is kept as ``model.cfg``.
     """
     device = resolve_device(device)
     cfg = parse_model_config(cfg)
@@ -358,7 +384,8 @@ def build_model(cfg: Union[str, Dict[str, Any]], nc: Optional[int] = None,
     with torch.device(device):
         model = YOLOModel(tuple(specs), tuple(save), head_index, n_classes, anchors,
                           strides, in_ch=in_ch, fused=fused, s2d_stem=s2d_stem, remat=remat,
-                          out_xyxy=out_xyxy)
+                          out_xyxy=out_xyxy, quant=quant, decompose_map=decompose_map)
+    model.cfg = cfg
     return model.to(dtype).eval()
 
 
@@ -403,7 +430,8 @@ def fuse_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Fold BatchNorm into the preceding convs of a state_dict.
 
     W' = W * gamma / sqrt(var + eps); b' = beta - mean * gamma / sqrt(var + eps),
-    eps = 1e-3. Returns the state_dict of the same model built ``fused=True``.
+    eps = 1e-3, into ``conv`` or, in a decomposed block, ``conv_last``.
+    Returns the state_dict of the same model built ``fused=True``.
     """
     eps = 1e-3
     out: Dict[str, torch.Tensor] = {}
@@ -420,6 +448,7 @@ def fuse_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         mean = state_dict[f"{base}.bn.running_mean"]
         var = state_dict[f"{base}.bn.running_var"]
         scale = gamma / torch.sqrt(var + eps)
-        out[f"{base}.conv.weight"] = state_dict[f"{base}.conv.weight"] * scale.reshape(-1, 1, 1, 1)
-        out[f"{base}.conv.bias"] = beta - mean * scale
+        conv = f"{base}.conv_last" if f"{base}.conv_last.weight" in state_dict else f"{base}.conv"
+        out[f"{conv}.weight"] = state_dict[f"{conv}.weight"] * scale.reshape(-1, 1, 1, 1)
+        out[f"{conv}.bias"] = beta - mean * scale
     return out

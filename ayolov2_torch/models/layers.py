@@ -12,6 +12,12 @@ BatchNorm carries eps=1e-3 and follows flax's ``nn.BatchNorm`` in training
 (:class:`BatchNorm2d`). Conv kernels start from flax's default,
 ``lecun_normal`` (:func:`lecun_normal_`). ``fused=True`` builds the
 BN-folded form: a conv with bias and no BN.
+
+``quant`` (every module with convs takes it): False; "calib", the float
+conv that records its input's range (:class:`ConvBnAct`); True, the int8
+conv (:class:`QuantConv`) wherever :meth:`ConvBnAct.quantizable` holds. A
+Tucker-2 decomposed conv (:meth:`ConvBnAct.decompose`) is a 1x1 -> kxk ->
+1x1 stack ``conv_first`` / ``conv_core`` / ``conv_last``.
 """
 
 from __future__ import annotations
@@ -19,9 +25,12 @@ from __future__ import annotations
 import math
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ayolov2_torch.ops.int8_conv import dequantize, int8_conv
 
 ACTIVATIONS = {
     "SiLU": F.silu,
@@ -135,29 +144,150 @@ def s2d_conv(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]
     return F.conv2d(x, k, bias)
 
 
+class QuantConv(nn.Module):
+    """Symmetric per-channel int8 conv (the JAX package's ``_QuantConv``).
+
+    Buffers: ``q_kernel`` (cout, cin, k, k) int8, ``w_scale`` (cout,) f32,
+    the 0-d ``in_scale`` f32 (the calibrated input range) and ``bias``
+    (cout,) f32. The function, as JAX computes it: s_in = in_scale / 127;
+    xq = clip(round_half_even(x.f32 / s_in), -127, 127) as int8; an int32
+    accumulator (``ops/int8_conv.int8_conv``); y = acc.f32 * (w_scale *
+    s_in) + bias with one rounding (``ops/int8_conv.dequantize``), cast to
+    the input's dtype. A cast of the module's dtype
+    (``.to(torch.bfloat16)``) leaves every buffer as it is: the scales and
+    the bias stay f32 under any serving dtype, as in JAX; device moves
+    apply."""
+
+    def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1, p: int = 0):
+        super().__init__()
+        self.stride, self.pad = s, p
+        self.register_buffer("q_kernel", torch.zeros((c_out, c_in, k, k), dtype=torch.int8))
+        self.register_buffer("w_scale", torch.ones(c_out))
+        self.register_buffer("in_scale", torch.ones(()))
+        self.register_buffer("bias", torch.zeros(c_out))
+
+    def _apply(self, fn, recurse=True):
+        for key, buf in self._buffers.items():
+            if buf is not None:
+                moved = fn(buf)
+                self._buffers[key] = buf.to(moved.device) if moved.dtype != buf.dtype else moved
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # a true division on every device: CUDA multiplies by the reciprocal
+        # of a Python scalar divisor, which is one ulp off for some scales
+        s_in = self.in_scale / self.in_scale.new_tensor(127.0)
+        xq = torch.clamp(torch.round(x.permute(0, 2, 3, 1).float() / s_in), -127.0, 127.0)
+        acc = int8_conv(xq.to(torch.int8), self.q_kernel, self.stride, self.pad)
+        y = dequantize(acc, self.w_scale * s_in, self.bias)
+        return y.to(x.dtype).permute(0, 3, 1, 2)
+
+
+def percentile_999(v: torch.Tensor) -> torch.Tensor:
+    """The 99.9th percentile of a 1-D f32 tensor with linear interpolation,
+    as JAX's ``jnp.percentile`` computes it on the CPU: the rank 99.9 *
+    (0.01 * (n - 1)) and the weights in f32 (XLA folds the /100 into the
+    constant), the two order statistics joined by one fma. The order
+    statistics come from ``topk`` instead of a sort of the whole tensor."""
+    f32 = np.float32
+    n = v.numel()
+    rank = f32(99.9) * (f32(0.01) * f32(n - 1))
+    lo, hi = int(np.floor(rank)), int(np.ceil(rank))
+    w_hi = f32(rank - f32(lo))
+    w_lo = f32(1) - w_hi
+    top = torch.topk(v, n - lo).values  # descending: top[-1] is the lo-th smallest
+    low = top[-1] * float(w_lo)
+    return (top[-1 - (hi - lo)].double() * float(w_hi) + low.double()).float()
+
+
+def quantizable(c_in: int, groups: int, decomposed: bool, fused: bool) -> bool:
+    """Whether a conv takes the int8 path under quant mode (the JAX
+    package's ``_quantizable``): fused, not grouped, not decomposed, cin > 4.
+    That leaves out the cin-3 stem, depthwise convs, decomposed stacks and
+    the head's convs (they are not ConvBnActs)."""
+    return fused and groups == 1 and not decomposed and c_in > 4
+
+
 class ConvBnAct(nn.Module):
     """Conv2d + BatchNorm + activation: the YOLOv5 'Conv' block.
 
     ``groups``: a grouped conv (``groups = c_in = c_out``: MV2Block's
     depthwise one). ``s2d``: a 6x6/s2/p2 conv computed by :func:`s2d_conv`
-    in that mode (False: the plain conv); the parameters are the same."""
+    in that mode (False: the plain conv); the parameters are the same.
+    ``quant``: True makes a quantizable conv a :class:`QuantConv`; "calib"
+    keeps the float conv and records, over every call since
+    :meth:`reset_stats`, the largest absmax and p99.9 of its input's |x|
+    (``in_absmax``, ``in_p999``; the p99.9 of at most ~2^20 elements, a
+    stride through |x| flattened in NHWC order, as JAX takes it). A
+    decomposed conv (:meth:`decompose`) is neither."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, act: Optional[str] = "SiLU",
-                 fused: bool = False, groups: int = 1, s2d=False):
+                 fused: bool = False, groups: int = 1, s2d=False, quant=False):
         super().__init__()
-        self.conv = nn.Conv2d(c_in, c_out, k, s, autopad(k, p), groups=groups, bias=fused)
+        self.c_in, self.c_out, self.k, self.s, self.p = c_in, c_out, k, s, autopad(k, p)
+        self.groups, self.fused, self.quant = groups, fused, quant
+        self.ranks = None
+        if quant is True and self.quantizable:
+            self.conv = QuantConv(c_in, c_out, k, s, self.p)
+        else:
+            self.conv = nn.Conv2d(c_in, c_out, k, s, self.p, groups=groups, bias=fused)
         self.bn = None if fused else BatchNorm2d(c_out)
         self.act = get_activation(act)
-        stem = k == 6 and s == 2 and autopad(k, p) == 2 and groups == 1
+        stem = k == 6 and s == 2 and self.p == 2 and groups == 1
         self.s2d = ("reshape" if s2d is True else str(s2d)) if (s2d and stem) else None
         if self.s2d is not None and self.s2d not in S2D_MODES:
             raise ValueError(f"s2d_stem mode {s2d!r}: one of {S2D_MODES}")
+        self.reset_stats()
+
+    @property
+    def quantizable(self) -> bool:
+        return quantizable(self.c_in, self.groups, self.ranks is not None, self.fused)
+
+    @property
+    def plain(self) -> bool:
+        """A float conv of the given weight: not int8, not recording its
+        input for calibration, not decomposed."""
+        return self.ranks is None and not (self.quant and self.quantizable)
+
+    def reset_stats(self) -> None:
+        self.in_absmax = self.in_p999 = None
+
+    def decompose(self, r_in: int, r_out: int) -> None:
+        """Become the Tucker-2 form: 1x1 to ``r_in``, the k x k conv (stride,
+        padding) to ``r_out``, 1x1 to c_out with the bias when fused; the
+        BatchNorm and activation follow as before."""
+        if self.groups != 1:
+            raise ValueError(f"cannot decompose a grouped conv (groups {self.groups})")
+        device = next(iter(self.conv.buffers() if isinstance(self.conv, QuantConv)
+                           else self.conv.parameters())).device
+        del self.conv
+        self.ranks = (int(r_in), int(r_out))
+        self.s2d = None
+        self.conv_first = nn.Conv2d(self.c_in, self.ranks[0], 1, bias=False, device=device)
+        self.conv_core = nn.Conv2d(self.ranks[0], self.ranks[1], self.k, self.s, self.p,
+                                   bias=False, device=device)
+        self.conv_last = nn.Conv2d(self.ranks[1], self.c_out, 1, bias=self.fused, device=device)
+
+    def _record(self, x: torch.Tensor) -> None:
+        with torch.no_grad():
+            ax = x.float().abs()
+            flat = ax.permute(0, 2, 3, 1).reshape(-1)
+            step = max(1, flat.numel() // (1 << 20))
+            absmax, p999 = ax.max(), percentile_999(flat[::step])
+            if self.in_absmax is not None:
+                absmax = torch.maximum(self.in_absmax, absmax)
+                p999 = torch.maximum(self.in_p999, p999)
+            self.in_absmax, self.in_p999 = absmax, p999
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.s2d is not None:
+        if self.ranks is not None:
+            x = self.conv_last(self.conv_core(self.conv_first(x)))
+        elif self.s2d is not None:
             x = s2d_conv(x, self.conv.weight, self.conv.bias, self.s2d)
         else:
+            if self.quant == "calib" and self.quantizable:
+                self._record(x)
             x = self.conv(x)
         if self.bn is not None:
             x = self.bn(x)
@@ -169,11 +299,11 @@ class Bottleneck(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, shortcut: bool = True,
                  expansion: float = 0.5, act: Optional[str] = "SiLU",
-                 fused: bool = False):
+                 fused: bool = False, quant=False):
         super().__init__()
         c_ = int(c_out * expansion)
-        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused)
-        self.cv2 = ConvBnAct(c_, c_out, 3, 1, act=act, fused=fused)
+        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused, quant=quant)
+        self.cv2 = ConvBnAct(c_, c_out, 3, 1, act=act, fused=fused, quant=quant)
         self.add = shortcut and c_in == c_out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -186,15 +316,15 @@ class C3(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, n: int = 1, shortcut: bool = True,
                  expansion: float = 0.5, act: Optional[str] = "SiLU",
-                 fused: bool = False):
+                 fused: bool = False, quant=False):
         super().__init__()
         c_ = int(c_out * expansion)
-        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused)
+        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused, quant=quant)
         self.m = nn.Sequential(*(
-            Bottleneck(c_, c_, shortcut, 1.0, act=act, fused=fused) for _ in range(n)
+            Bottleneck(c_, c_, shortcut, 1.0, act=act, fused=fused, quant=quant) for _ in range(n)
         ))
-        self.cv2 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused)
-        self.cv3 = ConvBnAct(2 * c_, c_out, 1, 1, act=act, fused=fused)
+        self.cv2 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused, quant=quant)
+        self.cv3 = ConvBnAct(2 * c_, c_out, 1, 1, act=act, fused=fused, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], dim=1))
@@ -205,11 +335,12 @@ class SPP(nn.Module):
     padding) of the 1x1 conv's output, concatenated with it."""
 
     def __init__(self, c_in: int, c_out: int, kernels=(5, 9, 13),
-                 act: Optional[str] = "SiLU", fused: bool = False):
+                 act: Optional[str] = "SiLU", fused: bool = False, quant=False):
         super().__init__()
         c_ = c_in // 2
-        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused)
-        self.cv2 = ConvBnAct(c_ * (len(kernels) + 1), c_out, 1, 1, act=act, fused=fused)
+        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused, quant=quant)
+        self.cv2 = ConvBnAct(c_ * (len(kernels) + 1), c_out, 1, 1, act=act, fused=fused,
+                             quant=quant)
         self.kernels = tuple(int(k) for k in kernels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -222,11 +353,11 @@ class SPPF(nn.Module):
     """Fast SPP: 3 cascaded max pools equivalent to SPP(5, 9, 13)."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 5,
-                 act: Optional[str] = "SiLU", fused: bool = False):
+                 act: Optional[str] = "SiLU", fused: bool = False, quant=False):
         super().__init__()
         c_ = c_in // 2
-        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused)
-        self.cv2 = ConvBnAct(c_ * 4, c_out, 1, 1, act=act, fused=fused)
+        self.cv1 = ConvBnAct(c_in, c_, 1, 1, act=act, fused=fused, quant=quant)
+        self.cv2 = ConvBnAct(c_ * 4, c_out, 1, 1, act=act, fused=fused, quant=quant)
         self.k = k
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -243,9 +374,9 @@ class Focus(nn.Module):
     [1::2, ::2], [::2, 1::2], [1::2, 1::2] over (h, w)."""
 
     def __init__(self, c_in: int, c_out: int, k: int = 1, s: int = 1,
-                 act: Optional[str] = "SiLU", fused: bool = False):
+                 act: Optional[str] = "SiLU", fused: bool = False, quant=False):
         super().__init__()
-        self.conv = ConvBnAct(4 * c_in, c_out, k, s, act=act, fused=fused)
+        self.conv = ConvBnAct(4 * c_in, c_out, k, s, act=act, fused=fused, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(torch.cat([x[:, :, ::2, ::2], x[:, :, 1::2, ::2],
@@ -277,14 +408,14 @@ class MV2Block(nn.Module):
     ``round(c_in * expansion)`` of the real input width."""
 
     def __init__(self, c_in: int, c_out: int, stride: int = 1, expansion: float = 4,
-                 act: Optional[str] = "SiLU", fused: bool = False):
+                 act: Optional[str] = "SiLU", fused: bool = False, quant=False):
         super().__init__()
         hidden = int(round(c_in * expansion))
-        self.expand = (ConvBnAct(c_in, hidden, 1, 1, act=act, fused=fused)
+        self.expand = (ConvBnAct(c_in, hidden, 1, 1, act=act, fused=fused, quant=quant)
                        if expansion != 1 else None)
         self.depthwise = ConvBnAct(hidden, hidden, 3, stride, act=act, fused=fused,
-                                   groups=hidden)
-        self.project = ConvBnAct(hidden, c_out, 1, 1, act=None, fused=fused)
+                                   groups=hidden, quant=quant)
+        self.project = ConvBnAct(hidden, c_out, 1, 1, act=None, fused=fused, quant=quant)
         self.add = stride == 1 and c_in == c_out
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -347,16 +478,16 @@ class MobileViTBlock(nn.Module):
     H and W must be even."""
 
     def __init__(self, c_in: int, dim: int, mlp_dim: int, depth: int,
-                 act: Optional[str] = "SiLU", fused: bool = False):
+                 act: Optional[str] = "SiLU", fused: bool = False, quant=False):
         super().__init__()
-        self.local_conv = ConvBnAct(c_in, c_in, 3, 1, act=act, fused=fused)
-        self.proj_in = ConvBnAct(c_in, dim, 1, 1, act=None, fused=fused)
+        self.local_conv = ConvBnAct(c_in, c_in, 3, 1, act=act, fused=fused, quant=quant)
+        self.proj_in = ConvBnAct(c_in, dim, 1, 1, act=None, fused=fused, quant=quant)
         self.depth = depth
         for i in range(depth):
             setattr(self, f"tr{i}", TransformerBlock(dim, mlp_dim))
         self.ln_out = nn.LayerNorm(dim, eps=1e-6)
-        self.proj_out = ConvBnAct(dim, c_in, 1, 1, act=act, fused=fused)
-        self.fusion = ConvBnAct(2 * c_in, c_in, 3, 1, act=act, fused=fused)
+        self.proj_out = ConvBnAct(dim, c_in, 1, 1, act=act, fused=fused, quant=quant)
+        self.fusion = ConvBnAct(2 * c_in, c_in, 3, 1, act=act, fused=fused, quant=quant)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.proj_in(self.local_conv(x))

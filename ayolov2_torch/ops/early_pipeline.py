@@ -119,6 +119,17 @@ def can_fuse_early(specs) -> bool:
     )
 
 
+def can_fuse_early_model(model) -> bool:
+    """:func:`can_fuse_early` of the model's specs, and every conv of layers
+    0..3 a plain float conv: none int8, recording for calibration or
+    decomposed (``layers.ConvBnAct.plain``). An int8 model (its layers 1-3
+    are int8) and a decomposed one whose map names a layer below 4 serve
+    without the kernel."""
+    if not can_fuse_early(model.specs):
+        return False
+    return all(getattr(m, "plain", True) for i in range(4) for m in model.model[i].modules())
+
+
 def _wk(kernel: torch.Tensor, bias: torch.Tensor, k_pad: int = None):
     """(kh, kw, cin, co) fused kernel -> ((co, K_pad), (co,)) bf16; rows of
     K in (kh, kw, cin) order, zero past the true K."""

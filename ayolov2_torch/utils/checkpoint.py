@@ -14,8 +14,11 @@ high 16 bits of the f32 one.
 epoch, best_score, map50, model_cfg as JSON, ema_updates, step), and
 ``model`` / ``ema`` as ``{params, batch_stats}`` trees under the flax names
 (params in bf16 when ``half``), so the JAX package's ``load_variables``
-reads it. The ``optimizer`` section is the port's own layout (keyed by the
-port's parameter names): only the port resumes from it.
+reads it. A decomposed model's map is ``meta["decompose_map"]`` (JSON of
+{JAX module path: [rank_in, rank_out]}), as the JAX package writes and
+reads it; :func:`load_model` rebuilds the decomposed graph from it. The
+``optimizer`` section is the port's own layout (keyed by the port's
+parameter names): only the port resumes from it.
 
 Not read: flax's chunked form of arrays above 1 GiB and any other extension
 type (both raise), the reference's ``.pt`` checkpoints, and a JAX run's
@@ -160,8 +163,9 @@ def load_variables(path: Union[str, Path], prefer_ema: bool = True
 def load_model(path: Union[str, Path], model_cfg: Union[str, Dict[str, Any], None] = None,
                nc: Optional[int] = None, fuse: bool = True, device=None):
     """A checkpoint's model, loaded strict: the graph from ``model_cfg`` or
-    else the checkpoint's own config, ``nc`` classes (default: the config's),
-    BN folded when ``fuse``; built on ``device`` (default: the card)."""
+    else the checkpoint's own config (decomposed as its meta's
+    ``decompose_map`` says), ``nc`` classes (default: the config's), BN
+    folded when ``fuse``; built on ``device`` (default: the card)."""
     from ayolov2_torch.models import build_model
     from ayolov2_torch.models.builder import parse_model_config
     from ayolov2_torch.utils.weights import load_flax_variables
@@ -170,8 +174,16 @@ def load_model(path: Union[str, Path], model_cfg: Union[str, Dict[str, Any], Non
     cfg = parse_model_config(model_cfg) if model_cfg else json.loads(meta.get("model_cfg") or "{}")
     if not cfg:
         raise ValueError(f"{path} holds no model config; pass one")
-    model = load_flax_variables(build_model(cfg, nc=nc, device=device), variables)
+    model = build_model(cfg, nc=nc, device=device, decompose_map=decompose_map_of_meta(meta))
+    model = load_flax_variables(model, variables)
     return model.fuse() if fuse else model
+
+
+def decompose_map_of_meta(meta: Dict[str, Any]) -> Dict[str, Tuple[int, int]]:
+    """A checkpoint meta's ``decompose_map`` ({} when it has none)."""
+    from ayolov2_torch.models.builder import decompose_map_of
+
+    return decompose_map_of(json.loads(meta["decompose_map"])) if meta.get("decompose_map") else {}
 
 
 # -- the write side -----------------------------------------------------------
@@ -304,6 +316,7 @@ def checkpoint_payload(state, epoch: int, best_score: float = 0.0, map50: Option
             "model_cfg": json.dumps(model_cfg) if model_cfg else "",
             "ema_updates": int(state.ema_updates),
             "step": int(state.step),
+            **_decompose_meta(state.model),
         },
         "model": _variables(state.model, half),
         "ema": _variables(state.ema_model, half),
@@ -311,6 +324,11 @@ def checkpoint_payload(state, epoch: int, best_score: float = 0.0, map50: Option
     if include_optimizer:
         payload["optimizer"] = state.optimizer.state_dict()
     return payload
+
+
+def _decompose_meta(model) -> Dict[str, str]:
+    dmap = getattr(model, "decompose_map", None)
+    return {"decompose_map": json.dumps({k: list(v) for k, v in dmap.items()})} if dmap else {}
 
 
 def write_checkpoint(path: Union[str, Path], payload: Dict[str, Any]) -> None:

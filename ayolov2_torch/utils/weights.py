@@ -17,6 +17,8 @@ Name mapping (flax path -> kindle/torch name):
   .../attn/{query,key,value}/kernel (d, heads, d/heads) -> ....weight (d, d)
   .../attn/{query,key,value}/bias   (heads, d/heads)    -> ....bias (d,)
   .../attn/out/kernel  (heads, d/heads, d)               -> ....weight (d, d)
+  .../conv/q_kernel    int8 HWIO                         -> ....q_kernel int8 OIHW
+  .../conv/{w_scale,in_scale,bias} (in_scale 0-d)        -> kept as they are (f32)
 Every other name (``expand``, ``depthwise``, ``project``, ``tr{i}``,
 ``local_conv``, ``proj_in``, ``proj_out``, ``fusion``, ...) is kept as it is.
 The attention's head count is not in the state_dict: ``flax_from_state_dict``
@@ -47,8 +49,21 @@ def _torch_name(path: Tuple[str, ...]) -> str:
     return ".".join(parts)
 
 
+def module_name(path: str) -> str:
+    """A JAX module path ('model_4/m0/cv2') as the port's module name
+    ('model.4.m.0.cv2')."""
+    return _torch_name(tuple(path.split("/")))
+
+
+def flax_module_path(name: str) -> Tuple[str, ...]:
+    """The port's module name ('model.2.m.0.cv1') as a JAX module path
+    (('model_2', 'm0', 'cv1'))."""
+    return _flax_path(name + ".leaf")[0]
+
+
 def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX variables -> a torch state_dict with kindle names (float32)."""
+    """JAX variables -> a torch state_dict with kindle names (float32; an
+    int8 kernel stays int8)."""
     out: Dict[str, torch.Tensor] = {}
 
     def put(name: str, arr) -> None:
@@ -66,6 +81,9 @@ def state_dict_from_flax(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
                 out[f"{base}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
             elif k == "kernel" and arr.ndim == 4:
                 put(f"{base}.weight", arr.transpose(3, 2, 0, 1))
+            elif k == "q_kernel":
+                out[f"{base}.q_kernel"] = torch.from_numpy(
+                    np.ascontiguousarray(arr.astype(np.int8).transpose(3, 2, 0, 1)))
             elif k == "kernel" and arr.ndim == 3 and path[-1] in QKV:
                 put(f"{base}.weight", arr.reshape(arr.shape[0], -1).T)
             elif k == "kernel" and arr.ndim == 3 and path[-1] == "out":
@@ -110,7 +128,8 @@ def _flax_path(name: str) -> Tuple[Tuple[str, ...], str]:
 
 
 def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Inverse of :func:`state_dict_from_flax` (numpy leaves)."""
+    """Inverse of :func:`state_dict_from_flax` (numpy leaves: f32, and int8
+    for ``q_kernel``)."""
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
 
@@ -121,9 +140,12 @@ def flax_from_state_dict(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
     for name, t in state_dict.items():
         path, leaf = _flax_path(name)
-        arr = t.detach().cpu().float().numpy()
         if leaf == "num_batches_tracked":
             continue
+        if leaf == "q_kernel":
+            put(params, path + (leaf,), t.detach().cpu().numpy().transpose(2, 3, 1, 0))
+            continue
+        arr = t.detach().cpu().float().numpy()
         if leaf.startswith("running_"):
             put(stats, path + (leaf[len("running_"):],), arr)
         elif leaf == "weight" and arr.ndim == 4:

@@ -147,6 +147,35 @@ Phases, each printing its own lines; any failure exits non-zero:
    card against CPU in f32 (1e-4 of the peak). ``--zoo-only`` runs phases
    1, 2, 3, 7 and 12.
 
+13. compression and the post-training tools, under
+   ``build/chip_smoke_compress/``; ``cli.export --dtype int8``,
+   ``cli.artifact_sizes``, ``cli.decompose_model`` and ``cli.train
+   --use-swa`` run as background jobs from the phase's start. 13.1 the int8
+   product (``ops/int8_conv.py``: NHWC im2col, ``torch._int_mm``) at every
+   distinct quantizable conv shape of yolov5s at bs 32, 640 and at
+   yolov5_v5's Focus conv (cin 12) equal to its plain version (an f64
+   product on the card) exactly; the probe's forms (3x3, 256 -> 256, 80x80,
+   bs 32) timed against the bf16 cuDNN conv. 13.2 the golden checkpoint
+   calibrated on 4 batches of phase 7's set in f32 on the card and on the
+   CPU: stats (absmax 1e-4 relative, p99.9 1e-3), the same quantized convs,
+   int8 raw maps card vs CPU (1e-2 of the peak). 13.3 ``cli.val --int8``
+   (absmax, p999) on phase 7's set: no K1 launch, absmax mAP50 >= bf16
+   cuDNN's - 0.05; serve img/s of int8, bf16 cuDNN and bf16 K1 at bs 32 and
+   128. 13.4 the int8 ``.pt2`` read in a fresh interpreter equal bit for bit
+   to ``make_serving_fn`` of the int8 model rebuilt from its weights,
+   ``cli.val`` of it, and the artifact sizes (int8 < 0.7 x f32). 13.5
+   ``cli.decompose_model`` of the golden checkpoint with rank-8 kernels
+   planted at model_4/m0/cv2, model_6/m0/cv2 and model_8/m0/cv2: the map
+   equal to the port's ``decompose_model`` run in this process, planted and
+   decomposed mAP50 within 0.01, the decomposed checkpoint validated through
+   K1 (one launch a batch), its f32 raw maps card vs CPU (1e-4), ``cli.export``
+   of it; a plant at model_1 serves without K1; the unplanted checkpoint
+   decomposes nothing at the defaults. 13.6 ``cli.val_optimizer`` for 3
+   trials through K1, then ``--load-if-exists`` for a fourth;
+   ``cli.create_swa_model -b 2`` on the 3-epoch ``--use-swa`` run's
+   ``epoch_N.ckpt`` and ``cli.val`` of ``swa.ckpt`` through K1.
+   ``--compress-only`` runs phases 1, 2, 3, 7 and 13.
+
 ``--profile`` adds where the serve call's (yolov5s, and in 12.1 the two zoo
 models') and the augmentation render's device time goes (torch.profiler) and where the kernel's own time goes
 (clock stamps at its layer boundaries, from a second build of the same
@@ -508,7 +537,7 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
                      sizes=VAL_SIZES, per_size: int = 32, bs: int = 32):
     """Phase 7 (see the module docstring). Returns (early_pipeline launches
     in the kernel's validation run, max |kernel - plain| at the rect shapes,
-    the kernel run's mAP50), or None when a gate failed."""
+    the kernel run's mAP50, bf16 cuDNN's mAP50), or None when a gate failed."""
     import torch
 
     from ayolov2_torch.data import DataLoader, DetectionDataset, ImageFolderDataset
@@ -659,7 +688,7 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
         f"f32 cuDNN run (its first pass) {f32['t'][0]:.3f}/{f32['t'][1]:.3f}/{f32['t'][2]:.3f}; "
         f"loader alone "
         f"{loader_ms:.2f} ms per batch of {bs} ({n_batches} batches, 2 threads)")
-    return launches, max_abs, ker["map50"]
+    return launches, max_abs, ker["map50"], cud["map50"]
 
 
 
@@ -2275,6 +2304,626 @@ def zoo_phase(card: str, seed: int, s_rate: float, k1_map50: float,
     return ok, launches
 
 
+# ---- phase 13: compression and the post-training tools -------------------------
+
+COMPRESS_DIR = ROOT / "build/chip_smoke_compress"
+PLANTED = ("model_4/m0/cv2", "model_6/m0/cv2", "model_8/m0/cv2")
+
+
+def plant_low_rank(params, paths, rank: int = 8, seed: int = 0) -> None:
+    """Rank-``rank`` kernels (seeded) at the JAX module ``paths`` of a
+    parameter tree, in place: trained kernels have the low-rank structure
+    that the golden checkpoint's memorised ones lack (EVBMF ranks those at
+    0-1, and rank 2 misses the loss gate)."""
+    rng = np.random.default_rng(seed)
+    for path in paths:
+        sub = params
+        for p in path.split("/"):
+            sub = sub[p]
+        kh, kw, cin, cout = sub["conv"]["kernel"].shape
+        core = rng.standard_normal((kh, kw, rank, rank)) * 0.1
+        u_in = np.linalg.qr(rng.standard_normal((cin, rank)))[0]
+        u_out = np.linalg.qr(rng.standard_normal((cout, rank)))[0]
+        sub["conv"]["kernel"] = np.einsum("hwrs,cr,os->hwco", core, u_in,
+                                          u_out).astype(np.float32)
+
+
+def start_job(name: str, args: list) -> tuple:
+    """A ``python -m`` subprocess in the background, its output to
+    ``COMPRESS_DIR/{name}.log``; returns (name, Popen, log path, start)."""
+    path = COMPRESS_DIR / f"{name}.log"
+    fh = open(path, "w")
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, stdout=fh,
+                            stderr=subprocess.STDOUT, text=True)
+    fh.close()
+    return name, proc, path, time.perf_counter()
+
+
+def finish_job(job, timeout: int = 600) -> tuple:
+    """(ok, log text) of a job from :func:`start_job`, waited for."""
+    name, proc, path, t0 = job
+    rc = proc.wait(timeout=timeout)
+    text = path.read_text()
+    tail = [ln for ln in text.splitlines() if ln.strip()][-2:]
+    log(f"[compress] job {name}: exit {rc}, waited for {time.perf_counter() - t0:.1f} s from its "
+        f"start; "
+        + " | ".join(ln.strip()[:200] for ln in tail))
+    return rc == 0, text
+
+
+def phase7_batches(n: int, bs: int = 32) -> list:
+    """The first ``n`` rect batches (uint8 NHWC) of phase 7's set at 640."""
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+
+    ds = DetectionDataset(str(VAL_DIR / "images"), img_size=640, batch_size=bs, rect=True,
+                          pad=0.5)
+    out = []
+    for batch in DataLoader(ds, batch_size=bs):
+        out.append(batch.images)
+        if len(out) == n:
+            break
+    return out
+
+
+def int8_route(card: str, seed: int) -> bool:
+    """13.1: the int8 product (``ops/int8_conv.py``: im2col and ``_int_mm``)
+    at every distinct quantizable conv of yolov5s at bs 32, 640 and at
+    yolov5_v5's Focus conv: the card's int32 accumulators equal the plain
+    version's (f64 product on the card) exactly. The epilogue's fma on the
+    card against the CPU's (printed)."""
+    import torch
+
+    from ayolov2_torch.models import build_model, yolov5_cfg
+    from ayolov2_torch.models.layers import QuantConv
+    from ayolov2_torch.ops import int8_conv as i8
+
+    shapes = set()
+
+    def record(mod, inp) -> None:
+        shapes.add((tuple(inp[0].shape[1:]), tuple(mod.q_kernel.shape), mod.stride, mod.pad))
+
+    for name, cfg in (("yolov5s", yolov5_cfg("s", nc=80)), ("yolov5_v5", zoo_cfg("yolov5_v5"))):
+        model = build_model(cfg, fused=True, quant=True, device="cuda")
+        hooks = [m.register_forward_pre_hook(record) for mname, m in model.named_modules()
+                 if isinstance(m, QuantConv) and (name == "yolov5s" or mname == "model.0.conv.conv")]
+        with torch.no_grad():
+            model(torch.zeros((1, 3, 640, 640), device="cuda"), training=True)
+        for h in hooks:
+            h.remove()
+        del model
+    rng = np.random.default_rng(seed + 70)
+    ok = True
+    before = i8.int8_matmul.launches
+    for chw, kshape, s, p in sorted(shapes):
+        c, h, w = chw
+        x = torch.from_numpy(rng.integers(-127, 128, (32, h, w, c), dtype=np.int8)).cuda()
+        wq = torch.from_numpy(rng.integers(-127, 128, kshape, dtype=np.int8)).cuda()
+        got = i8.int8_conv(x, wq, s, p)
+        want = i8.int8_conv(x, wq, s, p, matmul=i8.int8_matmul_ref)
+        ok = ok and got.dtype == torch.int32 and torch.equal(got, want)
+        del x, want, got
+    n_launch = i8.int8_matmul.launches - before
+    log(f"[compress] 13.1 int8 route at {len(shapes)} distinct conv shapes (yolov5s's "
+        f"quantizable convs at bs32 640 and yolov5_v5's Focus conv, cin 12 -> K 108 padded "
+        f"to 112): _int_mm accumulators == the plain f64 product exactly "
+        f"{'ok' if ok and n_launch == len(shapes) else 'FAIL'} ({n_launch} _int_mm calls)")
+    acc = torch.from_numpy(rng.integers(-2 ** 22, 2 ** 22, (4096, 256), dtype=np.int32))
+    scale = torch.from_numpy(rng.uniform(1e-5, 1e-3, 256).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=256).astype(np.float32))
+    same = (i8.dequantize(acc.cuda(), scale.cuda(), bias.cuda()).cpu()
+            == i8.dequantize(acc, scale, bias)).float().mean().item()
+    log(f"[compress] 13.1 dequantize epilogue: card addcmul vs CPU fma, {same * 100:.4f}% "
+        f"of 1048576 values bit-equal (printed, not gated)")
+    return ok and n_launch == len(shapes)
+
+
+def ptq_card_vs_cpu() -> bool:
+    """13.2: the golden checkpoint calibrated on 4 batches of phase 7's set
+    in f32 (TF32 off) on the card and on the CPU: stats (absmax within 1e-4
+    relative, p99.9 within 1e-3) and the same quantized convs. Then the
+    card's int8 model (the card's int8 tree) on 8 images: each int8 conv's
+    output equal bit for bit to the same conv on the CPU given the card's
+    input to it, and the raw maps card vs CPU end to end, gated on 1e-2 of
+    the peak or twice what a one-ulp change of the input moves them on the
+    CPU, whichever is larger: the int8 net turns float rounding into
+    whole-step flips, which grow through its depth."""
+    import torch
+
+    from ayolov2_torch.compress.quantize import (
+        collect_activation_stats,
+        fuse_variables,
+        quantize_params,
+    )
+    from ayolov2_torch.models import build_model
+    from ayolov2_torch.models.layers import QuantConv
+    from ayolov2_torch.utils.checkpoint import load_variables
+    from ayolov2_torch.utils.weights import load_flax_variables
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    variables, meta = load_variables(GOLDEN)
+    cfg = json.loads(meta["model_cfg"])
+    fused = fuse_variables(variables)
+    batches = phase7_batches(4)
+    stats, qvars, t = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        calib = build_model(cfg, nc=20, fused=True, quant="calib", device=dev)
+        xs = [torch.from_numpy(b).to(dev).permute(0, 3, 1, 2).float() / 255.0 for b in batches]
+        stats[dev] = collect_activation_stats(calib, fused, xs)
+        qvars[dev] = quantize_params(fused, stats[dev])
+        t[dev] = time.perf_counter() - t0
+        del calib, xs
+
+    def leaves(tree, prefix=()):
+        out = {}
+        for k, v in tree.items():
+            out.update(leaves(v, prefix + (k,)) if isinstance(v, dict) else {prefix + (k,): v})
+        return out
+
+    g, w = leaves(stats["cuda"]), leaves(stats["cpu"])
+    err = {"in_absmax": 0.0, "in_p999": 0.0}
+    for key in w:
+        err[key[-1]] = max(err[key[-1]], abs(float(g[key]) - float(w[key])) / float(w[key]))
+    quant = [{k[:-1] for k in leaves(q["params"]) if k[-1] == "q_kernel"} for q in qvars.values()]
+    ok_stats = (g.keys() == w.keys() and err["in_absmax"] <= 1e-4 and err["in_p999"] <= 1e-3
+                and quant[0] == quant[1] and len(quant[0]) > 40)
+    log(f"[compress] 13.2 PTQ of the golden checkpoint on 4 batches of 32 of phase 7's set, "
+        f"f32: {len(w) // 2} convs' stats card vs CPU, max rel |d| absmax "
+        f"{err['in_absmax']:.2e} (gate 1e-4) p99.9 {err['in_p999']:.2e} (gate 1e-3); "
+        f"quantized convs {len(quant[0])} card / {len(quant[1])} CPU, same set "
+        f"{'yes' if quant[0] == quant[1] else 'NO'}; calibration {t['cuda']:.1f} s card, "
+        f"{t['cpu']:.1f} s CPU {'ok' if ok_stats else 'FAIL'}")
+
+    models = {dev: load_flax_variables(build_model(cfg, nc=20, fused=True, quant=True,
+                                                   device=dev), qvars["cuda"])
+              for dev in ("cuda", "cpu")}
+    floats = {dev: load_flax_variables(build_model(cfg, nc=20, fused=True, device=dev), fused)
+              for dev in ("cuda", "cpu")}
+    seen = {}
+
+    def keep(name):
+        def hook(mod, inp, out) -> None:
+            seen[name] = (inp[0].cpu(), out.cpu())
+        return hook
+
+    hooks = [m.register_forward_hook(keep(n)) for n, m in models["cuda"].named_modules()
+             if isinstance(m, QuantConv)]
+    x = torch.from_numpy(batches[0][:8]).permute(0, 3, 1, 2).float() / 255.0
+    x_ulp = torch.nextafter(x, torch.full_like(x, 2.0))
+    with torch.no_grad():
+        raw_c = [r.cpu() for r in models["cuda"](x.cuda(), training=True)]
+        for h in hooks:
+            h.remove()
+        cpu_mods = dict(models["cpu"].named_modules())
+        exact, odd = 0, []
+        for n, (inp, out) in seen.items():
+            got = cpu_mods[n](inp)
+            if torch.equal(got, out):
+                exact += 1
+            else:
+                d = got != out
+                odd.append(f"{n}: {int(d.sum())} of {d.numel()} differ, max|d| "
+                           f"{(got - out).abs().max().item():.3e}")
+        raw_h = models["cpu"](x, training=True)
+        raw_u = models["cpu"](x_ulp, training=True)
+        f_err = max(rel_err(a.cpu(), b)[0] for a, b in zip(
+            floats["cuda"](x.cuda(), training=True), floats["cpu"](x, training=True)))
+    card = [rel_err(a, b) for a, b in zip(raw_c, raw_h)]
+    ulp = [rel_err(a, b) for a, b in zip(raw_u, raw_h)]
+    bound = max(1e-2, 2 * max(u[0] for u in ulp))
+    ok_raw = exact == len(seen) == len(quant[0]) and max(c[0] for c in card) <= bound
+    log(f"[compress] 13.2 int8 convs given the card's inputs: {exact} of {len(seen)} outputs "
+        f"on the CPU equal to the card's bit for bit; int8 raw maps of 8 images card vs CPU "
+        f"max|d|/peak {' '.join(f'{c[0]:.2e}' for c in card)} p99.9 "
+        f"{' '.join(f'{c[1]:.2e}' for c in card)} (gate {bound:.2e}); the CPU against itself "
+        f"with the input one ulp up: max|d|/peak {' '.join(f'{u[0]:.2e}' for u in ulp)} p99.9 "
+        f"{' '.join(f'{u[1]:.2e}' for u in ulp)}; the f32 float model card vs CPU "
+        f"{f_err:.2e} {'ok' if ok_raw else 'FAIL'}" + "".join(f"; {o}" for o in odd))
+    return ok_stats and ok_raw
+
+
+INT8_MAP50_LOSS = 0.30  # bf16 cuDNN's mAP50 less int8 absmax's on phase 7's set, at most
+
+
+def int8_validation(card: str, cudnn_map50: float) -> bool:
+    """13.3: ``cli.val --int8`` (absmax, p999) on phase 7's set in-process:
+    no early-network launch (``serve.early`` False), the int8 product
+    launched, absmax mAP50 >= bf16 cuDNN's - INT8_MAP50_LOSS (the JAX
+    package's own int8 loses 0.26 of its bf16 mAP50 on this set: its labels
+    are the f32 model's detections above one score cut, and this
+    memorised checkpoint's int8 scores move across it)."""
+    from ayolov2_torch.cli import val
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.ops import int8_conv as i8
+
+    ok = True
+    for method in ("absmax", "p999"):
+        early.early_pipeline.launches = 0
+        i8.int8_matmul.launches = 0
+        t0 = time.perf_counter()
+        r = val.main(["--weights", str(GOLDEN), "--data-cfg", str(VAL_DIR / "data.json"), "-iw",
+                      "640", "--batch-size", "32", "--int8", "--calib-method", method])
+        k1, n8 = early.early_pipeline.launches, i8.int8_matmul.launches
+        ok_m = k1 == 0 and n8 > 0 and r["seen"] == len(VAL_SIZES) * 32
+        if method == "absmax":
+            ok_m = ok_m and r["map50"] >= cudnn_map50 - INT8_MAP50_LOSS
+        log(f"[compress] 13.3 cli.val --int8 --calib-method {method} on phase 7's set: mAP50 "
+            f"{r['map50']:.5f} mAP50-95 {r['map50_95']:.5f} (bf16 cuDNN {cudnn_map50:.5f}, "
+            f"{r['map50'] - cudnn_map50:+.5f}; gate -{INT8_MAP50_LOSS} for absmax); "
+            f"early_pipeline launches {k1} (serve.early False), _int_mm calls {n8}; "
+            f"{time.perf_counter() - t0:.1f} s "
+            f"{'ok' if ok_m else 'FAIL'}")
+        ok = ok and ok_m
+    return ok
+
+
+def int8_times(card: str) -> bool:
+    """13.7, after every other part of the phase (nothing else on the card
+    or the host): the probe's forms (3x3, 256 -> 256, 80x80, bs 32; CUDA
+    events) and the serve img/s of int8, bf16 cuDNN and bf16 K1 at bs 32
+    and 128, 640 (host clock)."""
+    import torch
+
+    from ayolov2_torch.cli.probe_int8_conv import probe
+    from ayolov2_torch.compress.quantize import quantize_model
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.utils.checkpoint import load_model
+    from ayolov2_torch.utils.weights import flax_from_state_dict
+
+    rows = probe(device="cuda")
+    ms = {r["metric"]: r["ms"] for r in rows}
+    log(f"[time] {card}: int8 probe 3x3 cin=cout=256 80x80 bs32: bf16 cuDNN "
+        f"{ms['conv_bf16xbf16_cudnn']:.4f} ms; s8 im2col + _int_mm "
+        f"{ms['conv_s8xs8_s32acc_im2col_int_mm']:.4f} ms (the product alone "
+        f"{ms['int_mm_s8xs8_s32acc_product_only']:.4f}); the int8 layer (quantize, conv, "
+        f"dequantize) {ms['conv_ptq_chain_quant_conv_dequant']:.4f} ms")
+    model = load_model(GOLDEN, nc=20, device="cuda")
+    xs = [torch.from_numpy(b).cuda().permute(0, 3, 1, 2).to(torch.bfloat16) / 255.0
+          for b in phase7_batches(4)]
+    qmodel, _ = quantize_model(model.cfg, flax_from_state_dict(model.state_dict()), xs, nc=20,
+                               device="cuda")
+    serves = {"int8": make_serving_fn(qmodel), "bf16 cuDNN": make_serving_fn(
+        model, early_pipeline=False), "bf16 K1": make_serving_fn(model)}
+    ok = not serves["int8"].early and serves["bf16 K1"].early
+    line = []
+    for bs in (32, 128):
+        batch = images_on_card((bs, 640, 640, 3), 80 + bs)
+        rates = {k: serve_rate(s, batch, 10 if bs == 32 else 4) for k, s in serves.items()}
+        line.append(f"bs{bs}: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+        del batch
+    log(f"[time] {card}: serve yolov5s golden 640 uint8 -> (bs, 100, 6), img/s, " +
+        "; ".join(line))
+    del serves, model, qmodel, xs
+    torch.cuda.empty_cache()
+    return ok
+
+
+def int8_artifact_check(pt2: str, seed: int) -> int:
+    """13.4, run as ``python3 -c`` in a fresh interpreter: the int8 ``.pt2``
+    on a batch against ``make_serving_fn`` of the int8 model rebuilt from
+    the artifact's own weights (bit for bit), and the ``_int_mm`` calls in
+    its graph. Prints one ``ARTIFACT {json}`` line."""
+    import torch
+
+    from ayolov2_torch.export import load_exported, make_serving_fn
+    from ayolov2_torch.models import build_model
+    from ayolov2_torch.utils.checkpoint import load_variables
+
+    program = torch.export.load(pt2)
+    call = load_exported(pt2)
+    imgs = images_on_card((32, 640, 640, 3), seed + 60)
+    got = call(imgs)
+    _, meta = load_variables(GOLDEN)
+    model = build_model(json.loads(meta["model_cfg"]), nc=20, fused=True, quant=True,
+                        device="cuda")
+    state = {k[len("model."):]: v for k, v in program.state_dict.items()
+             if k.startswith("model.")}
+    model.load_state_dict(state, strict=True)
+    serve = make_serving_fn(model)
+    want = serve(imgs)
+    out = {"equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
+           "mean_count": got[1].float().mean().item(),
+           "int_mm_nodes": sum(1 for n in program.graph.nodes if "_int_mm" in str(n.target)),
+           "int8_tensors": sum(1 for t in program.state_dict.values() if t.dtype == torch.int8),
+           "rate": serve_rate(call, imgs, 10), "rate_in_process": serve_rate(serve, imgs, 10)}
+    print("ARTIFACT " + json.dumps(out), flush=True)
+    return 0
+
+
+def int8_export(card: str, seed: int, export_job, sizes_job) -> bool:
+    """13.4: ``cli.export --dtype int8 --calib-dir`` (bs 32, 640, phase 7's
+    images; run in the background since the phase began), its artifact
+    checked in a fresh interpreter, ``cli.val`` of the ``.pt2``, and
+    ``cli.artifact_sizes`` (int8 < 0.7 x f32)."""
+    ok, _ = finish_job(export_job)
+    pt2 = COMPRESS_DIR / "golden_int8.pt2"
+    if not ok:
+        return False
+    side = json.loads(pt2.with_suffix(".yaml").read_text())
+    out = COMPRESS_DIR / "val_int8_pt2.json"
+    check = start_job("int8_artifact_check", [
+        "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.int8_artifact_check({str(pt2)!r}, "
+              f"{seed}))"])
+    val_job = start_job("val_int8_pt2", [
+        "-m", "ayolov2_torch.cli.val", "--weights", str(pt2), "--data-cfg",
+        str(VAL_DIR / "data.json"), "--json-path", str(out)])
+    ok_c, text = finish_job(check)
+    lines = [ln for ln in text.splitlines() if ln.startswith("ARTIFACT ")]
+    if not ok_c or not lines:
+        return False
+    a = json.loads(lines[-1][len("ARTIFACT "):])
+    ok_a = (a["equal"] and side["quant"] is True and not side["early_pipeline"]
+            and a["int_mm_nodes"] > 40 and a["int8_tensors"] > 40)
+    log(f"[compress] 13.4 {pt2.name} ({pt2.stat().st_size / 1e6:.2f} MB, sidecar quant "
+        f"{side['quant']}, early_pipeline {side['early_pipeline']}) read in a fresh "
+        f"interpreter: equal to make_serving_fn of the int8 model bit for bit "
+        f"{'yes' if a['equal'] else 'NO'} (mean count {a['mean_count']:.2f}); _int_mm nodes "
+        f"{a['int_mm_nodes']}, int8 tensors {a['int8_tensors']} {'ok' if ok_a else 'FAIL'}")
+    log(f"[time] {card}: the int8 artifact {a['rate']:.1f} img/s vs in-process int8 serving "
+        f"{a['rate_in_process']:.1f} img/s, bs32 640")
+    ok_v, _ = finish_job(val_job)
+    ok_v = ok_v and json.loads(out.read_text())["seen"] == len(VAL_SIZES) * 32
+    if ok_v:
+        r = json.loads(out.read_text())
+        log(f"[compress] 13.4 cli.val --weights {pt2.name} on phase 7's set (square 640, "
+            f"bs 32): mAP50 {r['map50']:.5f} mAP50-95 {r['map50_95']:.5f} ok")
+    ok_s, _ = finish_job(sizes_job)
+    sizes = json.loads((COMPRESS_DIR / "artifact_sizes.json").read_text()) if ok_s else None
+    ok_s = ok_s and sizes["pt2"]["int8"] < 0.7 * sizes["pt2"]["fp32"]
+    if sizes:
+        log(f"[compress] 13.4 cli.artifact_sizes (yolov5s golden, 320 px, bs 1, cuda): .pt2 "
+            f"bytes f32 {sizes['pt2']['fp32']}, bf16 {sizes['pt2']['bf16']}, int8 "
+            f"{sizes['pt2']['int8']}; int8/f32 {sizes['ratios']['int8_vs_fp32']:.4f} "
+            f"(gate < 0.7) {'ok' if ok_s else 'FAIL'}")
+    return ok_a and ok_v and ok_s
+
+
+def host_decompositions(planted_params) -> dict:
+    """13.5's host side, in a thread from the phase's start: the port's
+    ``decompose_model`` at the defaults on the planted tree and on the
+    unplanted golden one, and on a plant at ``model_1`` alone."""
+    import copy
+
+    from ayolov2_torch.compress import decompose_model
+    from ayolov2_torch.utils.checkpoint import load_variables
+
+    out = {}
+    t0 = time.perf_counter()
+    out["cpu_map"], _, _ = decompose_model(planted_params)
+    out["t_cpu"] = time.perf_counter() - t0
+    golden_vars, meta = load_variables(GOLDEN)
+    t0 = time.perf_counter()
+    out["none_map"], _, out["report"] = decompose_model(golden_vars["params"])
+    out["t_none"] = time.perf_counter() - t0
+    p1 = copy.deepcopy(golden_vars)
+    plant_low_rank(p1["params"], ("model_1",), seed=1)
+    out["map1"], sub1, _ = decompose_model({"model_1": p1["params"]["model_1"]})
+    p1["params"]["model_1"] = sub1["model_1"]
+    out["p1"], out["cfg"] = p1, json.loads(meta["model_cfg"])
+    return out
+
+
+def decomposition(card: str, host, decompose_job) -> tuple:
+    """13.5: ``cli.decompose_model`` of the golden checkpoint with rank-8
+    kernels planted at PLANTED (in the background since the phase began):
+    its map equal to the port's ``decompose_model`` on the CPU side of this
+    process, planted and decomposed mAP50 within 0.01, the decomposed
+    checkpoint validated in-process through K1 (one launch per batch), its
+    raw maps card vs CPU in f32 (1e-4 of the peak) and ``cli.export`` of it;
+    a plant at ``model_1`` serves without K1; the unplanted checkpoint
+    decomposes nothing at the defaults. Returns (ok, K1 launches)."""
+    import torch
+
+    from ayolov2_torch.cli import val
+    from ayolov2_torch.data import DetectionDataset
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.models import build_model
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_checkpoint, load_model
+    from ayolov2_torch.utils.weights import load_flax_variables
+
+    h = host.result()
+    cpu_map, none_map, report, map1, p1 = (h["cpu_map"], h["none_map"], h["report"], h["map1"],
+                                            h["p1"])
+    t_cpu, t_none = h["t_cpu"], h["t_none"]
+    m1 = load_flax_variables(build_model(h["cfg"], nc=20, device="cuda", decompose_map=map1),
+                             p1).fuse()
+    serve1 = make_serving_fn(m1)
+    det1, cnt1 = serve1(images_on_card((32, 640, 640, 3), 90))
+    ok_1 = (set(map1) == {"model_1"} and not serve1.early and bool(torch.isfinite(det1).all()))
+    log(f"[compress] 13.5 the port's decompose_model on this host: planted map {cpu_map} "
+        f"({t_cpu:.1f} s); the unplanted golden checkpoint at the defaults: map {none_map}, "
+        f"{sum(bool(x.get('skipped')) for x in report['layers'])} of {len(report['layers'])} "
+        f"convs skipped ({t_none:.1f} s); a plant at model_1: map {map1}, serve.early "
+        f"{serve1.early}, detections {tuple(det1.shape)} mean count "
+        f"{cnt1.float().mean().item():.2f} {'ok' if ok_1 and none_map == {} else 'FAIL'}")
+    del m1, serve1
+    ok, text = finish_job(decompose_job)
+    dec = COMPRESS_DIR / "decomposed.ckpt"
+    ok_e = ok and "dry run OK" in text and (COMPRESS_DIR / "decomposed_tpu_nms.pt2").exists()
+    if not ok:
+        return False, 0
+    cli_map = {k: tuple(v) for k, v in
+               json.loads(load_checkpoint(dec)["meta"]["decompose_map"]).items()}
+    summary = json.loads(dec.with_suffix(".args.yaml").read_text())
+    d = abs(summary["map50_after"] - summary["map50_before"])
+    ok_map = cli_map == cpu_map and set(cli_map) == set(PLANTED) and d <= 0.01
+    log(f"[compress] 13.5 cli.decompose_model: map {cli_map} (== this host's "
+        f"{'yes' if cli_map == cpu_map else 'NO'}), params {summary['params_before']:,} -> "
+        f"{summary['params_after']:,}, mAP50 planted {summary['map50_before']:.5f} decomposed "
+        f"{summary['map50_after']:.5f} |d| {d:.5f} (gate 0.01) {'ok' if ok_map else 'FAIL'}")
+    ds = DetectionDataset(str(VAL_DIR / "images"), img_size=640, batch_size=32, rect=True,
+                          pad=0.5)
+    early.early_pipeline.launches = 0  # the decomposed model's in-process validation
+    r = val.main(["--weights", str(dec), "--data-cfg", str(VAL_DIR / "data.json"), "-iw", "640",
+                  "--batch-size", "32"])
+    launches = early.early_pipeline.launches
+    ok_k1 = launches == len(ds.batch_shapes) and abs(r["map50"] - summary["map50_after"]) <= 1e-3
+    x = torch.from_numpy(phase7_batches(1)[0][:4]).permute(0, 3, 1, 2).float() / 255.0
+    raw = {}
+    for dev in ("cuda", "cpu"):
+        model = load_model(dec, nc=20, device=dev)
+        with torch.no_grad():
+            raw[dev] = [t.cpu() for t in model(x.to(dev), training=True)]
+    errs = [rel_err(a, b)[0] for a, b in zip(raw["cuda"], raw["cpu"])]
+    ok_raw = max(errs) <= 1e-4
+    log(f"[compress] 13.5 cli.val of the decomposed checkpoint in-process: mAP50 "
+        f"{r['map50']:.5f} (cli.decompose_model's {summary['map50_after']:.5f}, gate 1e-3), "
+        f"early_pipeline launches {launches} in {len(ds.batch_shapes)} "
+        f"batches {'ok' if ok_k1 else 'FAIL'}; f32 raw maps of 4 images card vs CPU max|d|/peak "
+        f"{' '.join(f'{e:.2e}' for e in errs)} (gate 1e-4) {'ok' if ok_raw else 'FAIL'}")
+    log(f"[compress] 13.5 cli.export of the decomposed checkpoint (bs 32, 640, after "
+        f"cli.decompose_model in its process): {'ok' if ok_e else 'FAIL'}")
+    return ok_1 and none_map == {} and ok_map and ok_k1 and ok_raw and ok_e, launches
+
+
+def search_and_swa(card: str, train_job) -> tuple:
+    """13.6: ``cli.val_optimizer`` for 3 trials on phase 7's set through K1
+    (its study under ``COMPRESS_DIR``), then ``--load-if-exists`` for one
+    more; ``cli.create_swa_model -b 2`` on the ``epoch_N.ckpt`` files of the
+    3-epoch ``cli.train --use-swa`` run (in the background since the phase
+    began) and ``cli.val`` of ``swa.ckpt`` through K1. Returns (ok, K1
+    launches)."""
+    import re
+
+    from ayolov2_torch.cli import create_swa_model, val, val_optimizer
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_checkpoint
+
+    store = COMPRESS_DIR / "val_optimizer_study.json"
+    store.unlink(missing_ok=True)
+    common = ["--weights", str(GOLDEN), "--data-cfg", str(VAL_DIR / "data.json"),
+              "--optim-cfg", str(ROOT / "res/configs/cfg/val_optimizer.yaml"),
+              "--batch-size", "32", "--storage", str(store)]
+    early.early_pipeline.launches = 0  # the search, the SWA validation: counts from here
+    t0 = time.perf_counter()
+    study = val_optimizer.main(common + ["--n-trials", "3"])
+    wall = time.perf_counter() - t0
+    launches = early.early_pipeline.launches
+    best = study.best_trial
+    t0 = time.perf_counter()
+    more = val_optimizer.main(common + ["--n-trials", "1", "--load-if-exists", "--base-map50",
+                                        "0.5", "--base-time", "1.0"])
+    saved = json.loads(store.read_text())
+    launches2 = early.early_pipeline.launches - launches
+    ok_s = (len(study.completed) == 3 and len(saved["trials"]) == len(more.trials) == 4
+            and launches > 0 and launches2 > 0)
+    log(f"[compress] 13.6 cli.val_optimizer 3 trials on phase 7's set in {wall:.1f} s (with the "
+        f"baseline): " + "; ".join(
+            f"w {t['params']['img_width']} conf {t['params']['conf_thr']:.3f} iou "
+            f"{t['params']['iou_thr']:.3f}: mAP50 {t['user_attrs']['map50']:.4f} in "
+            f"{t['user_attrs']['time_s']:.3f} s, score {t['value']:.4f}" for t in study.trials)
+        + f"; best trial {best['number']}; --load-if-exists: {len(saved['trials'])} trials in "
+        f"{store.name} ({time.perf_counter() - t0:.1f} s); early_pipeline launches {launches} + "
+        f"{launches2} {'ok' if ok_s else 'FAIL'}")
+    ok, text = finish_job(train_job, timeout=900)
+    run_dir = re.search(r"Run dir: (\S+)", text)
+    if not ok or not run_dir:
+        return False, launches + launches2
+    wdir = Path(run_dir.group(1)) / "weights"
+    epochs = sorted(p.name for p in wdir.glob("epoch_*.ckpt"))
+    swa = Path(create_swa_model.main(["-d", str(wdir), "-b", "2"]))
+    meta = load_checkpoint(swa)["meta"]
+    before = early.early_pipeline.launches
+    r = val.main(["--weights", str(swa), "--data-cfg", str(VAL_DIR / "data.json"), "-iw", "320",
+                  "--batch-size", "16"])
+    k1 = early.early_pipeline.launches - before
+    ok_w = len(epochs) == 3 and k1 > 0 and 0.0 <= r["map50"] <= 1.0
+    log(f"[compress] 13.6 cli.train --use-swa (3 epochs, 320, from the golden checkpoint) wrote "
+        f"{epochs}; cli.create_swa_model -b 2 -> {swa.name} (mean stored mAP50 "
+        f"{meta['map50']:.5f}); cli.val of it at 320: mAP50 {r['map50']:.5f} mAP50-95 "
+        f"{r['map50_95']:.5f}, early_pipeline launches {k1} {'ok' if ok_w else 'FAIL'}")
+    return ok_s and ok_w, launches + launches2 + k1
+
+
+def relay_job(job) -> bool:
+    """A job running a phase's function: waited for, its own log lines
+    printed here; ok when it exited 0."""
+    ok, text = finish_job(job)
+    for line in text.splitlines():
+        if line.startswith(("[compress]", "[time]")):
+            log(line)
+    return ok
+
+
+def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
+    """Phase 13 (see the module docstring). Its longest parts start
+    together at the phase's start and run beside 13.1 and 13.3: as
+    background processes 13.2 (``ptq_card_vs_cpu``), ``cli.export --dtype
+    int8``, ``cli.artifact_sizes``, ``cli.decompose_model`` of the planted
+    checkpoint followed by ``cli.export`` of its result, and ``cli.train
+    --use-swa``; 13.5's host decompositions in a thread. Returns (ok,
+    early_pipeline launches of the decomposed and search paths)."""
+    import concurrent.futures
+    import copy
+
+    import torch
+
+    from ayolov2_torch.utils.checkpoint import load_variables, write_checkpoint
+
+    t0 = time.perf_counter()
+    shutil.rmtree(COMPRESS_DIR, ignore_errors=True)
+    COMPRESS_DIR.mkdir(parents=True)
+    golden_vars, meta = load_variables(GOLDEN)
+    planted = copy.deepcopy(golden_vars)
+    plant_low_rank(planted["params"], PLANTED)
+    planted_ckpt = COMPRESS_DIR / "planted.ckpt"
+    write_checkpoint(planted_ckpt, {"meta": meta, "model": planted, "ema": planted})
+    data, cfg3 = write_train_files(COMPRESS_DIR / "swa", VAL_DIR / "images", 3, 320, 16)
+    decomposed = COMPRESS_DIR / "decomposed.ckpt"
+    decompose_args = ["--weights", str(planted_ckpt), "--data-cfg", str(VAL_DIR / "data.json"),
+                      "-iw", "640", "--batch-size", "32", "--out", str(decomposed)]
+    export_args = ["--weights", str(decomposed), "--nc", "20", "--batch-size", "32", "-iw", "640",
+                   "--out", str(COMPRESS_DIR / "decomposed_tpu_nms")]
+    jobs = {
+        "ptq": start_job("ptq_card_vs_cpu", [
+            "-c", "import sys, chip_smoke; sys.exit(0 if chip_smoke.ptq_card_vs_cpu() else 1)"]),
+        "export": start_job("export_int8", [
+            "-m", "ayolov2_torch.cli.export", "--weights", str(GOLDEN), "--nc", "20",
+            "--batch-size", "32", "-iw", "640", "--dtype", "int8", "--calib-dir",
+            str(VAL_DIR / "images"), "--calib-batches", "4", "--out",
+            str(COMPRESS_DIR / "golden_int8")]),
+        "sizes": start_job("artifact_sizes", [
+            "-m", "ayolov2_torch.cli.artifact_sizes", "--out",
+            str(COMPRESS_DIR / "artifact_sizes.json")]),
+        # cli.decompose_model, then cli.export of what it wrote, in one process
+        "decompose": start_job("decompose_model", ["-c", (
+            "import logging, sys; logging.basicConfig(level=logging.INFO, format='%(message)s', "
+            "stream=sys.stdout); from ayolov2_torch.cli import decompose_model, export; "
+            f"decompose_model.main({decompose_args!r}); export.main({export_args!r})")]),
+        "train": start_job("train_swa", [
+            "-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--cfg", str(cfg3),
+            "--data", str(data), "--log-dir", str(COMPRESS_DIR / "runs"), "--use-swa"]),
+    }
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    host = pool.submit(host_decompositions, planted["params"])
+    steps = [("13.1 int8 route", lambda: int8_route(card, seed)),
+             ("13.3 int8 validation", lambda: int8_validation(card, cudnn_map50)),
+             ("13.4 int8 export", lambda: int8_export(card, seed, jobs["export"], jobs["sizes"])),
+             ("13.5 decomposition", lambda: decomposition(card, host, jobs["decompose"])),
+             ("13.2 PTQ card vs CPU", lambda: relay_job(jobs["ptq"])),
+             ("13.6 search and SWA", lambda: search_and_swa(card, jobs["train"])),
+             ("13.7 times", lambda: int8_times(card))]
+    ok, launches = True, 0
+    for name, step in steps:
+        t1 = time.perf_counter()
+        out = step()
+        if isinstance(out, tuple):
+            out, n = out
+            launches += n
+        torch.cuda.empty_cache()
+        log(f"[compress] {name}: {'ok' if out else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
+        ok = ok and bool(out)  # the steps are independent: each runs, any failure fails
+    pool.shutdown(wait=True)
+    for _, proc, _, _ in jobs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[compress] phase 13 {'ok' if ok else 'FAIL'} in {time.perf_counter() - t0:.1f} s")
+    return ok, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2289,6 +2938,9 @@ def main() -> int:
     ap.add_argument("--zoo-only", action="store_true",
                     help="phases 1, 2, 3, 7 and 12 only (the model zoo and export; 12.4 "
                          "validates on phase 7's set)")
+    ap.add_argument("--compress-only", action="store_true",
+                    help="phases 1, 2, 3, 7 and 13 only (compression and the post-training "
+                         "tools; they validate on phase 7's set)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -2363,6 +3015,15 @@ def main() -> int:
             f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
         if not ok:
             return 1
+    if args.compress_only:
+        val = validation_phase(args.seed, card)
+        if val is None or not compress_phase(card, args.seed, val[3])[0]:
+            log("[compress] FAIL")
+            return 1
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if args.zoo_only:
         val = validation_phase(args.seed, card)
         if val is None or not zoo_phase(card, args.seed, float("nan"), val[2],
@@ -2611,6 +3272,14 @@ def main() -> int:
         log("[zoo] FAIL")
         return 1
     launches += zoo_launches
+
+    # ---- 13. compression and the post-training tools ---------------------------
+    torch.cuda.empty_cache()
+    ok13, compress_launches = compress_phase(card, args.seed, val[3])
+    if not ok13:
+        log("[compress] FAIL")
+        return 1
+    launches += compress_launches
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

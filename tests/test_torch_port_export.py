@@ -176,25 +176,19 @@ def test_device_letterbox_equals_jax(raw_hw):
 
 
 def test_export_refuses_what_is_not_ported(tmp_path):
-    """``quant`` and ``decompose_map`` name the compression slice; an
-    artifact is made for one device; ``cli.export`` exits on ``--platforms
-    tpu`` and on int8 with a calibrator, and int8 without one falls back to
-    float as JAX's entry point does."""
+    """An artifact is made for one device; ``cli.export`` exits on
+    ``--platforms tpu``, and int8 without a calibrator falls back to float
+    as JAX's entry point does (int8 and decomposed export:
+    test_torch_port_quant.py, test_torch_port_decompose.py)."""
     from ayolov2_torch.cli import export as cli_export
     from ayolov2_torch.export import export_serving
 
     _, v = jax_zoo_variables("yolov5n", seed=35)
-    for kw in ({"quant": True}, {"decompose_map": {"model_1": (4, 4)}}):
-        with pytest.raises(NotImplementedError, match="compression slice"):
-            export_serving(zoo_cfg("yolov5n"), v, str(tmp_path / "m"), platforms=("cpu",), **kw)
     with pytest.raises(ValueError, match="one device"):
         export_serving(zoo_cfg("yolov5n"), v, str(tmp_path / "m"), platforms=("cpu", "cuda"))
     weights = str(GOLDEN / "weights/best.ckpt")
     with pytest.raises(SystemExit, match="--platforms tpu"):
         cli_export.main(["--weights", weights, "--platforms", "tpu"])
-    with pytest.raises(SystemExit, match="int8 export .* compression slice"):
-        cli_export.main(["--weights", weights, "--platforms", "cpu", "--dtype", "int8",
-                         "--calib-dir", str(tmp_path)])
     paths = cli_export.main(["--weights", weights, "--platforms", "cpu", "--dtype", "int8",
                              "--nc", "20", "-iw", "64", "--batch-size", "1", "--out",
                              str(tmp_path / "fallback"), "--no-dry-run"])

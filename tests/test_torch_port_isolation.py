@@ -23,9 +23,12 @@ def test_import_pulls_in_no_jax():
         "ayolov2_torch.utils.weights, ayolov2_torch.data.image_ops, ayolov2_torch.data.augment, "
         "ayolov2_torch.data.datasets, ayolov2_torch.data.loader, ayolov2_torch.utils.plots, "
         "ayolov2_torch.utils.png, ayolov2_torch.utils.profiling, ayolov2_torch.ops.tta, "
-        "ayolov2_torch.cli.export\n"
+        "ayolov2_torch.cli.export, ayolov2_torch.compress, ayolov2_torch.ops.int8_conv, "
+        "ayolov2_torch.search, ayolov2_torch.cli.decompose_model, "
+        "ayolov2_torch.cli.val_optimizer, ayolov2_torch.cli.create_swa_model, "
+        "ayolov2_torch.cli.probe_int8_conv, ayolov2_torch.cli.artifact_sizes\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu', 'cv2', "
-        "'PIL', 'matplotlib')]\n"
+        "'PIL', 'matplotlib', 'scipy')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -35,10 +38,13 @@ def test_import_pulls_in_no_jax():
 
 def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
     """Each module imports with JAX, flax, the JAX package, cv2, PIL, PyYAML,
-    msgpack and matplotlib blocked: the card's machine has none of them."""
+    msgpack and matplotlib blocked: the card's machine has none of them;
+    and without scipy, which only the decomposition's and the auto-anchor's
+    functions import."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for name in ('jax', 'flax', 'ayolov2_tpu', 'cv2', 'PIL', 'yaml', 'msgpack', 'matplotlib'):\n"
+        "for name in ('jax', 'flax', 'ayolov2_tpu', 'cv2', 'PIL', 'yaml', 'msgpack', 'matplotlib',\n"
+        "             'scipy'):\n"
         "    sys.modules[name] = None\n"
         "import ayolov2_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(ayolov2_torch.__path__, 'ayolov2_torch.')]\n"
@@ -50,13 +56,18 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     names = set(r.stdout.split())
-    assert len(names) >= 43
+    assert len(names) >= 53
     assert {"ayolov2_torch.cli.train", "ayolov2_torch.cli.export", "ayolov2_torch.train.optimizer",
             "ayolov2_torch.train.train_state", "ayolov2_torch.train.trainer",
             "ayolov2_torch.utils.anchors", "ayolov2_torch.data.augment",
             "ayolov2_torch.data.device_augment", "ayolov2_torch.data.image_ops",
             "ayolov2_torch.data.loader", "ayolov2_torch.data.datasets", "ayolov2_torch.utils.plots",
-            "ayolov2_torch.utils.png", "ayolov2_torch.utils.profiling", "ayolov2_torch.ops.tta"} <= names
+            "ayolov2_torch.utils.png", "ayolov2_torch.utils.profiling", "ayolov2_torch.ops.tta",
+            "ayolov2_torch.compress.quantize", "ayolov2_torch.compress.decomposition",
+            "ayolov2_torch.ops.int8_conv", "ayolov2_torch.search.study",
+            "ayolov2_torch.cli.decompose_model", "ayolov2_torch.cli.val_optimizer",
+            "ayolov2_torch.cli.create_swa_model", "ayolov2_torch.cli.probe_int8_conv",
+            "ayolov2_torch.cli.artifact_sizes"} <= names
 
 
 def test_no_file_names_jax():
