@@ -128,7 +128,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, str]:
     LOGGER.info("--opset %d and --gpu-mem %d are not used by a torch.export artifact",
                 args.opset, args.gpu_mem)
 
-    variables, meta = load_variables(args.weights, prefer_ema=True)
+    variables, meta = load_variables(args.weights, prefer_ema=True,
+                                     model_cfg=args.model_cfg or None, nc=args.nc)
     model_cfg = json.loads(meta["model_cfg"]) if meta.get("model_cfg") else None
     if args.model_cfg:
         model_cfg = parse_model_config(args.model_cfg)

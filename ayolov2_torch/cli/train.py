@@ -2,7 +2,10 @@
 
 The counterpart of ``cli/train.py`` on one device: the model from
 ``--model`` (a YAML, or a ``.ckpt`` whose embedded config rebuilds the
-graph and whose EMA weights are transferred where names and shapes match),
+graph and whose EMA weights are transferred where names and shapes match,
+or the reference's ``.pt`` with its model YAML saved beside it as
+``x.yaml``; ``train.weights`` may be a ``.pt`` too, read into ``--model``'s
+graph),
 the shuffled train loader and the validation loaders of
 ``train.val_geometry`` (``rect``, ``train`` or ``both``), weights from
 ``init_model`` (seed 0), ``YoloTrainer``, and ``metrics.json`` in the run
@@ -24,7 +27,7 @@ Usage:
         --cfg res/configs/cfg/train_golden_memorize.yaml [--device cpu]
 
 Not ported yet, and refused with a message: more than one device or
-process, the reference's ``.pt`` weights, wandb (``--wlog`` only warns, as
+process, wandb (``--wlog`` only warns, as
 the JAX entry point does without wandb), and the train options that
 ``train/trainer.py`` refuses.
 """
@@ -107,11 +110,20 @@ def main(argv: Optional[Sequence[str]] = None) -> YoloTrainer:
     names = data_cfg.get("names") or [str(i) for i in range(nc)]
 
     init_weights = None
-    if args.model.endswith(".pt"):
-        raise SystemExit(f"--model {args.model}: the reference's .pt weights are not read by "
-                         "the port yet (a later slice); pass a model YAML or a .ckpt")
-    if args.model.endswith(".ckpt"):
-        init_weights, meta = load_variables(args.model, prefer_ema=True)
+    if args.model.endswith((".ckpt", ".pt")):
+        pt_cfg = None
+        if args.model.endswith(".pt"):
+            # a torch pickle holds no model config: the graph is the config
+            # saved beside it (x.yaml next to x.pt)
+            pt_cfg = Path(args.model).with_suffix(".yaml")
+            if not pt_cfg.exists():
+                raise SystemExit(
+                    f"--model {args.model}: reference .pt weights can't define the graph; put "
+                    f"its model YAML beside it as {pt_cfg.name}, or pass --model <model yaml> "
+                    f"and set `weights: {args.model}` in the train config (or convert once "
+                    "with ayolov2_torch.cli.import_torch_weights)")
+        init_weights, meta = load_variables(args.model, prefer_ema=True,
+                                            model_cfg=pt_cfg and str(pt_cfg), nc=nc)
         model_cfg = json.loads(meta["model_cfg"]) if meta.get("model_cfg") else None
         if not model_cfg:
             raise SystemExit(f"{args.model} holds no model config; pass a model YAML")
@@ -181,10 +193,18 @@ def main(argv: Optional[Sequence[str]] = None) -> YoloTrainer:
     if init_weights is not None:
         transfer(model, init_weights, args.model)
     elif tcfg.get("weights"):
-        if str(tcfg["weights"]).endswith(".pt"):
-            raise SystemExit(f"weights {tcfg['weights']}: the reference's .pt weights are not "
-                             "read by the port yet (a later slice)")
-        w, _ = load_variables(tcfg["weights"], prefer_ema=True)
+        # a .pt goes into the graph being trained; its own counts tell a wrong
+        # pairing of weights and config (the transfer from the template is full)
+        w, w_meta = load_variables(tcfg["weights"], prefer_ema=True, model_cfg=model_cfg, nc=nc)
+        t_matched, t_unmatched = w_meta.get("torch_matched"), w_meta.get("torch_unmatched", 0)
+        if t_matched is not None:
+            LOGGER.info("Torch import %s: %d tensors matched, %d unmatched", tcfg["weights"],
+                        t_matched, t_unmatched)
+            if t_unmatched > t_matched:
+                raise SystemExit(
+                    f"weights {tcfg['weights']}: {t_unmatched} of {t_matched + t_unmatched} "
+                    "tensors did not match the --model graph: wrong weights/model-cfg pairing? "
+                    "(pass the YAML the .pt was trained with)")
         transfer(model, w, tcfg["weights"])
 
     trainer = YoloTrainer(

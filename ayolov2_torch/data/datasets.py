@@ -4,8 +4,9 @@ The counterpart of ``ayolov2_tpu/data/datasets.py``: recursive glob over
 ``IMG_EXTS``, the shape scan cached beside the images, rect batches
 (aspect-ratio buckets rounded up to stride multiples), ``letterbox`` with
 the same padding split and fill, label files (boxes or segment polygons)
-and the ``mem`` image cache. Items are HWC BGR uint8 and (n, 5) [cls,
-xywh-normalised] labels, as in the JAX package.
+and the image caches (``mem``, ``dynamic_mem``, and ``disk`` /
+``dynamic_disk`` in the JAX package's ``.ayolo.npy`` files). Items are HWC
+BGR uint8 and (n, 5) [cls, xywh-normalised] labels, as in the JAX package.
 
 Images are read and resized by ``data/image_io.py`` (no OpenCV for .bmp).
 ``get_item(index, salt)`` is the loader's entry, ``labels`` / ``segments``
@@ -155,9 +156,6 @@ class ImageFolderDataset:
         cache_images: Optional[str] = None,
         scale_up: bool = False,
     ) -> None:
-        if cache_images not in (None, "mem"):
-            raise NotImplementedError(
-                f"cache_images={cache_images!r}: only the 'mem' cache is ported so far")
         self.img_size = img_size
         self.stride = stride
         self.rect = rect
@@ -234,14 +232,41 @@ class ImageFolderDataset:
             im = resize_area(im, size) if (r < 1 and not self.scale_up) else resize_linear(im, size)
         return im, (h0, w0), im.shape[:2]
 
+    def _npy_path(self, index: int) -> Path:
+        return Path(self.img_files[index]).with_suffix(".ayolo.npy")
+
     def load_image(self, index: int, copy: bool = True):
         """(image, (h0, w0) native, (h1, w1) after the resize to img_size).
         ``copy=False`` hands out the cached array itself: only for readers
-        that never write to it."""
+        that never write to it.
+
+        ``cache_images``: ``mem`` loads every image at construction,
+        ``dynamic_mem`` keeps each one once loaded; ``disk`` and
+        ``dynamic_disk`` write ``<image>.ayolo.npy`` (``np.save`` of
+        ``{"im", "orig", "resized"}``, the JAX package's file, so either
+        package reads the other's) and read it on later loads; a file that
+        does not load is deleted and written anew."""
         if index in self._img_cache:
             im, orig, resized = self._img_cache[index]
             return (im.copy() if copy else im), orig, resized
-        return self._load_image_nocache(index)
+        if self.cache_images in ("disk", "dynamic_disk"):
+            npy = self._npy_path(index)
+            if npy.exists():
+                try:
+                    data = np.load(npy, allow_pickle=True).item()
+                    return data["im"], tuple(data["orig"]), tuple(data["resized"])
+                except Exception:  # stale or corrupt: rebuilt below
+                    npy.unlink(missing_ok=True)
+        item = self._load_image_nocache(index)
+        if self.cache_images == "dynamic_mem":
+            self._img_cache[index] = item
+        elif self.cache_images in ("disk", "dynamic_disk"):
+            try:
+                np.save(self._npy_path(index), {"im": item[0], "orig": item[1],
+                                                "resized": item[2]})
+            except OSError:
+                pass
+        return item
 
     def __len__(self) -> int:
         return len(self.img_files)

@@ -7,6 +7,8 @@
 - :func:`image_size` reads a ``.bmp``'s (w, h) from its header, and asks
   ``cv2`` for other formats (the ``exif_size`` of a file without an EXIF
   rotation).
+- :func:`imwrite` writes a ``.bmp`` itself (24-bit, bottom-up) and gives
+  every other format to ``cv2``.
 - :func:`resize_linear` is ``cv2.resize(..., INTER_LINEAR)`` on uint8: the
   same source positions, 11-bit fixed-point weights and integer rounding.
   :func:`resize_area` is ``INTER_AREA`` for shrinking: per axis the overlap
@@ -74,6 +76,27 @@ def imread(path: str) -> np.ndarray:
     if im is None:
         raise OSError(f"Image read failed: {path}")
     return im
+
+
+def write_bmp(path: str, im: np.ndarray) -> None:
+    """(h, w, 3) BGR uint8 as a 24-bit bottom-up BMP, rows padded to 4 bytes
+    (what :func:`imread` decodes)."""
+    h, w, _ = im.shape
+    pitch = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, pitch), np.uint8)
+    rows[:, : w * 3] = np.ascontiguousarray(im[::-1]).reshape(h, w * 3)
+    head = struct.pack("<2sIHHI", b"BM", 54 + pitch * h, 0, 0, 54)
+    head += struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, pitch * h, 2835, 2835, 0, 0)
+    Path(path).write_bytes(head + rows.tobytes())
+
+
+def imwrite(path: str, im: np.ndarray) -> None:
+    """``cv2.imwrite(path, im)`` of a BGR uint8 image: a ``.bmp`` is written
+    by :func:`write_bmp`, any other format needs cv2."""
+    if Path(path).suffix.lower() == ".bmp":
+        write_bmp(path, im)
+    elif not _cv2(path, "encoding this image").imwrite(str(path), im):
+        raise OSError(f"Image write failed: {path}")
 
 
 def image_size(path: str) -> Tuple[int, int]:

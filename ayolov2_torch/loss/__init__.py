@@ -1,1 +1,2 @@
-"""Losses (so far only the target padding that the loader needs)."""
+"""Losses: the detection loss (with the target padding the loader needs) and the
+representation-learning losses."""

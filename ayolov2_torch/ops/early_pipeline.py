@@ -120,12 +120,17 @@ def can_fuse_early(specs) -> bool:
 
 
 def can_fuse_early_model(model) -> bool:
-    """:func:`can_fuse_early` of the model's specs, and every conv of layers
-    0..3 a plain float conv: none int8, recording for calibration or
+    """:func:`can_fuse_early` of the model's specs, widths the kernel is
+    built for (a stem of 16, 32, 48, 64 or 80 channels, a C3 of depth 1-4;
+    narrower models, e.g. width 0.125, run on cuDNN), and every conv of
+    layers 0..3 a plain float conv: none int8, recording for calibration or
     decomposed (``layers.ConvBnAct.plain``). An int8 model (its layers 1-3
     are int8) and a decomposed one whose map names a layer below 4 serve
     without the kernel."""
     if not can_fuse_early(model.specs):
+        return False
+    c0, n = model.model[0].conv.out_channels, len(model.model[2].m)
+    if c0 not in (16, 32, 48, 64, 80) or not 1 <= n <= 4:
         return False
     return all(getattr(m, "plain", True) for i in range(4) for m in model.model[i].modules())
 

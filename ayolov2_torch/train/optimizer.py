@@ -181,6 +181,78 @@ class Optimizer:
             p.grad = None if g is None else torch.as_tensor(np.array(g)).to(p.device)
 
 
+    # -- a JAX run's optax state ------------------------------------------------
+    def load_optax_state(self, opt: Dict[str, Any], source: str = "checkpoint") -> None:
+        """Take the state of the JAX package's optimizer (its checkpoint's
+        ``optimizer`` section, read as nested dicts): ``optax.MultiSteps``
+        (``mini_step``, ``gradient_step``, ``acc_grads``: the running mean of
+        the window's gradients) around ``multi_transform`` of the groups
+        (``inner_states/{weight,bias,bn_scale}/inner_state``), each SGD
+        (``momentum`` trace, ``step``) or Adam (``adam/{count, mu, nu}``,
+        ``step``); without accumulation there is no ``MultiSteps`` level.
+
+        The traces become torch's per-parameter slots under the port's
+        names (HWIO kernels as OIHW); the groups' ``step`` becomes
+        ``updates``, so the schedules go on at the same update; a window in
+        progress becomes ``mini_step`` and the gradients summed so far
+        (mean x mini_step), to which the next backward adds."""
+        from ayolov2_torch.utils.weights import state_dict_from_flax
+
+        def port_names(tree) -> Dict[str, torch.Tensor]:
+            # optax's masked leaves are empty dicts: they hold no tensor
+            return state_dict_from_flax({"params": tree})
+
+        if "inner_opt_state" in opt:
+            inner, mini_step = opt["inner_opt_state"], int(np.asarray(opt["mini_step"]))
+            acc = opt.get("acc_grads")
+        else:
+            inner, mini_step, acc = opt, 0, None
+        groups = inner.get("inner_states") if isinstance(inner, dict) else None
+        if not isinstance(groups, dict) or set(groups) - set(GROUPS):
+            raise ValueError(f"{source}: its optimizer state is neither the port's nor the JAX "
+                             f"package's (optax) layout; found keys {sorted(opt)}"
+                             + (f", groups {sorted(groups)}" if isinstance(groups, dict) else ""))
+        slots: Dict[str, Dict[str, torch.Tensor]] = {}
+        steps = set()
+        for g, st in groups.items():
+            st = st.get("inner_state", st)
+            if "momentum" in st:
+                kind, names = "sgd", {"momentum_buffer": st["momentum"]}
+            elif "adam" in st:
+                kind = "adam"
+                names = {"exp_avg": st["adam"]["mu"], "exp_avg_sq": st["adam"]["nu"]}
+                count = float(np.asarray(st["adam"]["count"]))
+            else:
+                raise ValueError(f"{source}: group {g!r} holds {sorted(st)}, neither SGD's "
+                                 "momentum trace nor Adam's moments")
+            if kind != self.kind:
+                raise ValueError(f"{source}: optimizer state is {kind!r}, this optimizer "
+                                 f"{self.kind!r}")
+            steps.add(int(np.asarray(st["step"])))
+            for slot, tree in names.items():
+                for name, t in port_names(tree).items():
+                    slots.setdefault(name, {})[slot] = t
+                    if kind == "adam":
+                        slots[name]["step"] = torch.tensor(count)
+        if len(steps) != 1:
+            raise ValueError(f"{source}: the groups' step counts differ: {sorted(steps)}")
+        missing = [n for n in self.names if n not in slots]
+        if missing:
+            raise ValueError(f"{source}: no optimizer state for {len(missing)} parameters "
+                             f"(first: {missing[:3]})")
+        def like(p, t):  # in the parameter's dtype, device and memory layout
+            return torch.empty_like(p).copy_(t.reshape(p.shape))
+
+        grads = port_names(acc) if acc is not None and mini_step else {}
+        for name, p in zip(self.names, self.params):
+            self.opt.state[p] = {k: v if k == "step" else like(p, v)
+                                 for k, v in slots[name].items()}
+            g = grads.get(name)
+            p.grad = None if g is None else like(p, g * mini_step)
+        self.updates = steps.pop()
+        self.mini_step = mini_step
+
+
 def build_optimizer(model: torch.nn.Module, hyp: Dict[str, Any], epochs: int,
                     steps_per_epoch: int, batch_size: int, accumulate: int = 1,
                     optimizer: str = "SGD", linear_lr: bool = False,

@@ -12,9 +12,11 @@ The counterpart of ``ayolov2_tpu/train/trainer.py`` on one device:
   validation protocol (``val_loader_aux``, logged as ``mAP50_aux``),
   best / last / ``save_period`` / SWA ``epoch_N.ckpt`` checkpoints in the
   JAX package's format, early stopping on mAP50, resume with a backup of
-  the previous run's weights, ``async_ckpt``, and SIGTERM preemption: the
-  loop stops at the next batch and ``last.ckpt`` is stamped with the
-  previous epoch, so a resume re-runs the interrupted one;
+  the previous run's weights (from a checkpoint of either package: a JAX
+  run's optax state is mapped onto the port's optimizer), ``async_ckpt``,
+  and SIGTERM preemption: the loop stops at the next batch and
+  ``last.ckpt`` is stamped with the previous epoch, so a resume re-runs the
+  interrupted one;
 - ``device_aug``: the loader yields plans (``PlanBatch``) and
   ``training_step`` renders them on the trainer's device
   (``data/device_augment.py``, operands in ``device_aug_dtype``); the

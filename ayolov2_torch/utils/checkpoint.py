@@ -18,11 +18,16 @@ reads it. A decomposed model's map is ``meta["decompose_map"]`` (JSON of
 {JAX module path: [rank_in, rank_out]}), as the JAX package writes and
 reads it; :func:`load_model` rebuilds the decomposed graph from it. The
 ``optimizer`` section is the port's own layout (keyed by the port's
-parameter names): only the port resumes from it.
+parameter names). :func:`restore_train_state` resumes from it and from a
+JAX run's optax state (``optax.MultiSteps`` over ``multi_transform`` of the
+three groups, SGD momentum or Adam), mapped onto the port's optimizer.
+
+``.pt`` paths are the reference's torch checkpoints: :func:`load_variables`
+maps them into a template built from the model config it is given
+(``utils/torch_import.py``), as the JAX package's ``load_torch_variables``.
 
 Not read: flax's chunked form of arrays above 1 GiB and any other extension
-type (both raise), the reference's ``.pt`` checkpoints, and a JAX run's
-optimizer state (resuming one raises; a later slice).
+type (both raise).
 """
 
 from __future__ import annotations
@@ -142,17 +147,56 @@ def _as_f32(tree: Any) -> Any:
     return arr.astype(np.float32) if np.issubdtype(arr.dtype, np.floating) else arr
 
 
-def load_variables(path: Union[str, Path], prefer_ema: bool = True
+def load_torch_variables(path: Union[str, Path], model_cfg: Union[str, Dict[str, Any], None],
+                         prefer_ema: bool = True, nc: Optional[int] = None
+                         ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A reference ``.pt`` checkpoint -> (unfused f32 variables, meta).
+
+    The tensors go by name and shape into a template built from
+    ``model_cfg`` with ``nc`` classes and ``init_model`` weights (seed 0);
+    what does not match keeps the template's value. ``meta`` holds
+    ``model_cfg`` (JSON, with the class count used), ``torch_import``,
+    ``torch_matched`` and ``torch_unmatched``."""
+    from ayolov2_torch.models import build_model, init_model
+    from ayolov2_torch.models.builder import parse_model_config
+    from ayolov2_torch.utils.torch_import import load_torch_checkpoint, transfer_state_dict
+    from ayolov2_torch.utils.weights import flax_from_state_dict
+
+    if not model_cfg:
+        # a torch pickle carries no model config that can be trusted
+        raise ValueError(f"loading {path}: reference .pt weights need --model-cfg")
+    cfg = parse_model_config(model_cfg)
+    template = init_model(build_model(cfg, nc=nc, device="cpu"), seed=0)
+    sd = load_torch_checkpoint(str(path), prefer_ema=prefer_ema)
+    merged, n_matched, unmatched = transfer_state_dict(sd, template.state_dict())
+    if unmatched:
+        LOGGER.warning("torch import %s: %d matched, %d unmatched (first: %s)",
+                       path, n_matched, len(unmatched), unmatched[:5])
+    tree = flax_from_state_dict(merged)
+    variables = {"params": _as_f32(tree["params"]),
+                 "batch_stats": _as_f32(tree.get("batch_stats", {}))}
+    meta = {
+        "model_cfg": json.dumps({**cfg, "n_classes": int(template.nc)}),
+        "torch_import": str(path),
+        "torch_matched": int(n_matched),
+        "torch_unmatched": len(unmatched),
+    }
+    return variables, meta
+
+
+def load_variables(path: Union[str, Path], prefer_ema: bool = True,
+                   model_cfg: Union[str, Dict[str, Any], None] = None, nc: Optional[int] = None
                    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
     """Checkpoint -> ({'params', 'batch_stats'} as f32 numpy trees, meta).
 
     Takes the ``ema`` branch when there is one and ``prefer_ema``, else
     ``model``; ``meta['model_cfg']`` is the model config as a JSON string.
+    A ``.pt`` path is the reference's torch checkpoint, mapped into
+    ``model_cfg``'s graph with ``nc`` classes (:func:`load_torch_variables`);
+    a ``.ckpt`` ignores both.
     """
     if str(path).endswith(".pt"):
-        raise NotImplementedError(
-            f"{path}: the reference's .pt checkpoints are not read yet (a later slice of the "
-            "port); convert it with the JAX package or pass a .ckpt")
+        return load_torch_variables(path, model_cfg, prefer_ema=prefer_ema, nc=nc)
     raw = load_checkpoint(path)
     branch = raw.get("ema") if prefer_ema and raw.get("ema") else raw["model"]
     variables = {"params": _as_f32(branch["params"]),
@@ -170,7 +214,7 @@ def load_model(path: Union[str, Path], model_cfg: Union[str, Dict[str, Any], Non
     from ayolov2_torch.models.builder import parse_model_config
     from ayolov2_torch.utils.weights import load_flax_variables
 
-    variables, meta = load_variables(path)
+    variables, meta = load_variables(path, model_cfg=model_cfg, nc=nc)
     cfg = parse_model_config(model_cfg) if model_cfg else json.loads(meta.get("model_cfg") or "{}")
     if not cfg:
         raise ValueError(f"{path} holds no model config; pass one")
@@ -398,8 +442,10 @@ def _load_into(model: torch.nn.Module, branch: Dict[str, Any]) -> None:
 
 
 def restore_train_state(path: Union[str, Path], state) -> Tuple[Any, Dict[str, Any]]:
-    """Resume a ``TrainState`` in place from a checkpoint the port wrote:
-    model, EMA, counters and the optimizer's state. Returns (state, meta)."""
+    """Resume a ``TrainState`` in place from a checkpoint of either package:
+    model, EMA, counters and the optimizer's state (the port's layout, or a
+    JAX run's optax state, ``Optimizer.load_optax_state``). Returns (state,
+    meta)."""
     raw = load_checkpoint(path)
     meta = raw["meta"]
     _load_into(state.model, raw["model"])
@@ -408,11 +454,10 @@ def restore_train_state(path: Union[str, Path], state) -> Tuple[Any, Dict[str, A
     state.step = int(meta["step"])
     opt = raw.get("optimizer")
     if opt:
-        if "kind" not in opt:
-            raise NotImplementedError(
-                f"{path}: its optimizer state is the JAX package's (optax) layout; resuming a "
-                "JAX run's optimizer is not ported yet (a later slice of the port)")
-        state.optimizer.load_state_dict(opt)
+        if "kind" in opt:
+            state.optimizer.load_state_dict(opt)
+        else:
+            state.optimizer.load_optax_state(opt, source=str(path))
     return state, meta
 
 

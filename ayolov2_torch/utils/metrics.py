@@ -9,8 +9,11 @@ unique per detection and per label), ``check_correct_prediction_by_iou``,
 without pycocotools, and the per-class report). With ``plot=True``
 ``ap_per_class`` writes the PR, F1, P and R curves, and an evaluator with
 ``export_root`` writes them and its confusion matrix there
-(``utils/plots.py``). The evaluator's pred-vs-GT renders of source images
-(JAX's ``img_root``, which no entry point passes) are left out.
+(``utils/plots.py``). With ``img_root`` too, ``evaluate_per_class(debug=
+True)`` renders each image's predictions beside its labels
+(``{img_id:012d}.jpg`` of ``img_root``; reading and writing a ``.jpg``
+needs cv2, as ``image_io.imread`` says) into ``export_root``, never over a
+source image.
 """
 
 from __future__ import annotations
@@ -216,7 +219,7 @@ class COCOmAPEvaluator:
     }
 
     def __init__(self, gt_path: Union[str, Path, Dict], cat_from_yolo: bool = False,
-                 export_root: Optional[str] = None) -> None:
+                 img_root: Optional[str] = None, export_root: Optional[str] = None) -> None:
         gt = gt_path if isinstance(gt_path, dict) else json.loads(Path(gt_path).read_text())
         self.cat_ids = [c["id"] for c in gt.get("categories", [])] or COCO_CATEGORY_IDS
         self.names = [c.get("name", str(c["id"])) for c in gt.get("categories", [])] or [
@@ -225,6 +228,7 @@ class COCOmAPEvaluator:
         self.fix_label = {cid: i for i, cid in enumerate(self.cat_ids)}
         self.img_ids = sorted({im["id"] for im in gt["images"]})
         self.cat_from_yolo = cat_from_yolo
+        self.img_root = img_root  # the source images of the debug renders
         self.export_root = export_root  # where evaluate_per_class writes its plots
         if export_root is not None:
             Path(export_root).mkdir(parents=True, exist_ok=True)
@@ -346,9 +350,8 @@ class COCOmAPEvaluator:
         check_correct_prediction_by_iou, then the ap_per_class rollup.
         Complements :meth:`evaluate`, which is the COCOeval protocol. With
         ``export_root`` the curves and the confusion matrix are written
-        there. ``debug`` asks for the pred-vs-GT renders of the source
-        images, which need JAX's ``img_root`` and are not ported: it draws
-        nothing, as JAX's does without ``img_root``."""
+        there. ``debug`` draws each image's pred-vs-GT render
+        (:meth:`_draw_result`; nothing without ``img_root``)."""
         preds = (
             pred_path if isinstance(pred_path, list)
             else json.loads(Path(pred_path).read_text())
@@ -382,6 +385,8 @@ class COCOmAPEvaluator:
             corrects.append((correct, label_pred[:, 4], label_pred[:, 5], label_gt[:, 0]))
             if confusion is not None:
                 confusion.process_batch(label_pred, label_gt)
+            if debug:
+                self._draw_result(img_id, label_pred, label_gt)
 
         c = [np.concatenate(x, 0) for x in zip(*corrects)]
         precision, recall, ap, f1, ap_class = ap_per_class(
@@ -414,6 +419,33 @@ class COCOmAPEvaluator:
         }
         self.print_result(result)
         return result
+
+    def _draw_result(self, img_id: int, label_pred: np.ndarray, label_gt: np.ndarray) -> None:
+        """The image ``img_root/{img_id:012d}.jpg`` with its predictions drawn,
+        a grey divider 3% of its width, and the image with its labels, side
+        by side, written under the same name into ``export_root``; nothing
+        without ``img_root`` or the file, and never into ``img_root``."""
+        if self.img_root is None:
+            return
+        from ayolov2_torch.data.image_io import imread, imwrite
+        from ayolov2_torch.utils.plots import draw_labels
+
+        img_path = Path(self.img_root) / f"{img_id:012d}.jpg"
+        if not img_path.is_file():
+            return
+        try:
+            img = imread(str(img_path))
+        except OSError:  # unreadable: as cv2.imread's None
+            return
+        img_pred = draw_labels(img, np.concatenate((label_pred[:, 5:6], label_pred[:, :4]), 1),
+                               self.names, norm_xywh=False)
+        img_gt = draw_labels(img, label_gt, self.names, norm_xywh=False)
+        divider = np.full((img_gt.shape[0], int(img_gt.shape[1] * 0.03), 3), 127, np.uint8)
+        img_merge = np.concatenate((img_pred, divider, img_gt), 1)
+        if self.export_root is not None:
+            if Path(self.export_root).resolve() == Path(self.img_root).resolve():
+                return  # never overwrite source images
+            imwrite(str(Path(self.export_root) / f"{img_id:012d}.jpg"), img_merge)
 
     @staticmethod
     def print_result(result: Dict) -> None:

@@ -176,6 +176,33 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``epoch_N.ckpt`` and ``cli.val`` of ``swa.ckpt`` through K1.
    ``--compress-only`` runs phases 1, 2, 3, 7 and 13.
 
+14. the secondary trainers and tools, under ``build/chip_smoke_secondary/``:
+   14.1 the golden checkpoint saved as the reference's ``.pt`` (a bare
+   kindle state_dict and ``{"ema": sd, "model": sd}``), ``cli.
+   import_torch_weights`` of each equal to the golden variables bit for bit,
+   ``cli.val --weights x.pt --model-cfg model.yaml`` on phase 7's set
+   through K1 (one launch a batch) to the golden checkpoint's mAP50; 14.2
+   the golden checkpoint's optax state (a JAX run) resumed into the port's
+   TrainState (update 2250, step 9000, nonzero momentum, the schedule's lr),
+   then 2 micro-steps at 320, bs 8, f32, card vs CPU (phase 8's gate); 14.3
+   phase 7's validation with ``cache_images: disk`` twice, detections equal
+   to the uncached pass's, each pass's wall time; 14.4 ``cli.crop_bboxes``
+   of phase 7's labelled BMPs, ``cli.train_repr`` 1 epoch with
+   ``train_config_simclr.yaml`` on ``simclr.yaml`` and
+   ``train_config_repr.yaml`` on ``yolov5s_repr.yaml`` (finite losses,
+   ``best_e000.ckpt``, ``last.ckpt``, views/s), one step of each loss card vs
+   CPU; 14.5 ``cli.distillation`` with ``distillation.yaml`` (1 epoch) from
+   the golden teacher to a yolov5s student at 640, bs 16 on phase 7's set
+   (unlabeled: the same images, or, when the teacher keeps no box above 0.9
+   there, synthetic images moved by gradient ascent on the pixels until the
+   f32 teacher is sure of them): finite losses, step = ema_updates = the
+   micro-steps, one K1 launch per pseudo batch, pseudo-labels above 0.9, the
+   K1 teacher's pseudo-labels against cuDNN's (IoU >= 0.9, same class,
+   except within 0.01 of the score cut or 1 px of the size cut), ``cli.val``
+   of its ``best.ckpt`` through K1, one KD step card vs CPU, and the
+   teacher's pseudo batch with and without K1, the KD micro-step and the
+   run's img/s timed. ``--secondary-only`` runs phases 1, 2, 3, 7 and 14.
+
 ``--profile`` adds where the serve call's (yolov5s, and in 12.1 the two zoo
 models') and the augmentation render's device time goes (torch.profiler) and where the kernel's own time goes
 (clock stamps at its layer boundaries, from a second build of the same
@@ -206,6 +233,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "runs/golden_r4_mem/train/2026_0818_runs/weights/best.ckpt"
 VAL_DIR = ROOT / "build/chip_smoke_val"
@@ -2924,6 +2952,595 @@ def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
     return ok, launches
 
 
+# ---- phase 14: the secondary trainers and tools ---------------------------------
+
+SEC_DIR = ROOT / "build/chip_smoke_secondary"
+GOLDEN_CFG = GOLDEN.parent.parent / "model.yaml"
+SEC_BUDGET_S = 120.0
+
+
+def flat_leaves(tree, prefix=()) -> dict:
+    """{path: array} of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat_leaves(v, prefix + (k,)))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def pt_weights(card: str, k1_map50: float, device: str = "cuda", img: int = 640,
+               bs: int = 32) -> tuple:
+    """14.1: the golden checkpoint saved as the reference's ``.pt`` (a bare
+    kindle state_dict, and ``{"ema": sd, "model": sd}``); ``cli.
+    import_torch_weights`` of each gives the golden variables bit for bit;
+    ``cli.val --weights x.pt --model-cfg`` runs through K1, one launch a
+    batch, to the golden checkpoint's mAP50. Returns (ok, launches)."""
+    import torch
+
+    from ayolov2_torch.cli import import_torch_weights, val
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_variables
+    from ayolov2_torch.utils.weights import state_dict_from_flax
+
+    golden, _ = load_variables(GOLDEN)
+    want = flat_leaves(golden)
+    sd = state_dict_from_flax(golden)
+    pts = {"state_dict": SEC_DIR / "golden_sd.pt", "ema/model dict": SEC_DIR / "golden_dict.pt"}
+    torch.save(sd, pts["state_dict"])
+    torch.save({"epoch": 1499, "ema": sd, "model": sd}, pts["ema/model dict"])
+    ok = True
+    for name, pt in pts.items():
+        out = import_torch_weights.main(["--weights", str(pt), "--model-cfg", str(GOLDEN_CFG),
+                                         "--nc", "20", "--out", str(pt.with_suffix(".ckpt"))])
+        got = flat_leaves(load_variables(out)[0])
+        same = got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
+        ok = ok and same
+        log(f"[secondary] 14.1 {name} .pt ({pt.stat().st_size / 1e6:.1f} MB) -> "
+            f"cli.import_torch_weights -> {Path(out).name}: {len(got)} arrays, "
+            f"{'equal to the golden checkpoint bit for bit' if same else 'FAIL: differ'}")
+    early.early_pipeline.launches = 0  # the .pt validation: counts from here
+    args = ["--weights", str(pts["state_dict"]), "--model-cfg", str(GOLDEN_CFG), "--data-cfg",
+            str(VAL_DIR / "data.json"), "-iw", str(img), "--batch-size", str(bs)]
+    t0 = time.perf_counter()
+    r = val.main(args + (["--device", device] if device != "cuda" else []))
+    launches = early.early_pipeline.launches
+    batches = -(-r["seen"] // bs)
+    same = abs(r["map50"] - k1_map50) <= 1e-9
+    ok = ok and same and (launches == batches or device != "cuda")
+    log(f"[secondary] 14.1 cli.val --weights golden_sd.pt --model-cfg model.yaml: mAP50 "
+        f"{r['map50']:.6f} vs the golden .ckpt's {k1_map50:.6f} ({'equal' if same else 'FAIL'}), "
+        f"early_pipeline launches {launches} in {batches} batches, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ok, launches
+
+
+def jax_resume(card: str, seed: int, card_device: str = "cuda") -> bool:
+    """14.2: the golden checkpoint's optax state (MultiSteps at accumulate 4)
+    resumed into the port's TrainState: counters, nonzero momentum traces,
+    the lr and momentum of update 2250; then 2 micro-steps at 320, bs 8, f32
+    from that state on the card and on the CPU (the gradients accumulate:
+    the window's update comes at the fourth), phase 8's gate on the loss
+    items, the summed gradients, the BN statistics and the EMA."""
+    import copy
+
+    import torch
+
+    from ayolov2_torch.models import build_model, init_model
+    from ayolov2_torch.train.optimizer import make_group_schedules
+    from ayolov2_torch.train.train_state import make_train_step
+    from ayolov2_torch.train.trainer import scale_hyp_gains
+    from ayolov2_torch.utils.checkpoint import load_checkpoint, restore_train_state
+    from ayolov2_torch.utils.config import load_yaml
+
+    gcfg = load_yaml(GOLDEN.parent.parent / "cfg.yaml")
+    hyp = scale_hyp_gains(dict(gcfg["hyper_params"], label_smoothing=0.0), 3, 20, 320)
+    raw = load_checkpoint(GOLDEN)
+    inner = raw["optimizer"]["inner_opt_state"]["inner_states"]
+    jax_step = int(inner["weight"]["inner_state"]["step"])
+    base = init_model(build_model(str(GOLDEN_CFG), nc=20, device="cpu"), seed)
+    batch = drawn_batch(np.random.default_rng(seed + 14), 8, 320, 20)
+    runs = {}
+    for dev in (card_device, "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        if dev == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        state, loss = train_setup(model, hyp, 20, 16, 4, epochs=1500, steps_per_epoch=6)
+        state, meta = restore_train_state(GOLDEN, state)
+        opt = state.optimizer
+        nonzero = sum(int(opt.opt.state[p]["momentum_buffer"].abs().sum() > 0)
+                      for p in opt.params)
+        start = [t.detach().clone().cpu() for t in ema_parts(state)]
+        counters = (opt.updates, opt.mini_step, state.step, state.ema_updates)
+        lr_fn, mom_fn = make_group_schedules(
+            lr0=0.01, lrf=float(hyp["lrf"]), epochs=1500, steps_per_epoch=1,
+            warmup_epochs=3.0, warmup_bias_lr=0.1, warmup_momentum=0.8, momentum=0.937,
+            warmup_min_iters=max(60 // 4, 1))
+        sched = [(float(opt.lr_fn(opt.updates, g)), float(lr_fn(jax_step, g)))
+                 for g in ("weight", "bias", "bn_scale")]
+        step = make_train_step(loss, image_dtype=torch.float32)
+        data = [torch.from_numpy(a).to(dev) for a in batch]
+        items = [step(state, *data).cpu().numpy() for _ in range(2)]
+        grads = [p.grad.detach().clone().cpu() for p in opt.params]
+        runs[dev] = (state, items, grads, start, counters, nonzero, sched,
+                     float(opt.mom_fn(jax_step)))
+    (sg, ig, gg, st, cg, nzg, schg, momg), (sc, ic, gc, _, cc, nzc, _, _) = (
+        runs[card_device], runs["cpu"])
+    item_err = max(float(np.abs(a - b).max() / np.abs(b).max()) for a, b in zip(ig, ic))
+    errs = {"summed gradients": tree_delta_err(gg, gc, [torch.zeros_like(g) for g in gc]),
+            "BN statistics and EMA": tree_delta_err(ema_parts(sg), ema_parts(sc), st)}
+    n_params = len(sg.optimizer.params)
+    ok = (cg == cc == (jax_step, 0, int(raw["meta"]["step"]), int(raw["meta"]["ema_updates"]))
+          and jax_step == 2250 and nzg == nzc == n_params
+          and all(a == b for a, b in schg) and item_err < 1e-4
+          and all(e < 1e-2 for e in errs.values())
+          and sg.optimizer.mini_step == sc.optimizer.mini_step == 2)
+    log(f"[secondary] 14.2 the golden JAX run's optax state resumed: updates {cg[0]} "
+        f"(optax step {jax_step}), mini_step {cg[1]}, step {cg[2]}, ema_updates {cg[3]}; "
+        f"nonzero momentum traces {nzg}/{n_params}; lr at update {jax_step} "
+        + ", ".join(f"{g} {a:.8f}" for g, (a, _) in zip(("weight", "bias", "bn_scale"), schg))
+        + f" (the schedule's: equal), momentum {momg:.4f}; 2 micro-steps at 320 bs 8 f32 card "
+        f"vs CPU: loss items max rel {item_err:.2e} (gate 1e-4), "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (gate 1e-2), mini_step "
+        f"{sg.optimizer.mini_step} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def ema_parts(state) -> list:
+    """The BN running statistics of the model, then every float tensor of
+    the EMA copy."""
+    sd = state.model.state_dict()
+    stats = [t for k, t in sd.items() if k.endswith(("running_mean", "running_var"))]
+    return stats + [t for t in state.ema_model.state_dict().values() if t.is_floating_point()]
+
+
+def disk_caches(card: str, device: str = "cuda", img_size: int = 640, bs: int = 32) -> tuple:
+    """14.3: phase 7's validation with ``cache_images: disk``, twice: the
+    first pass writes ``<image>.ayolo.npy``, the second reads them (the
+    files' times do not change); both passes' detections equal the uncached
+    pass's exactly (cuDNN deterministic). Returns (ok, launches of the two
+    cached passes)."""
+    import torch
+
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.eval import YoloValidator
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    images = VAL_DIR / "images"
+    for f in images.glob("*.ayolo.npy"):
+        f.unlink()
+    model = load_model(GOLDEN, nc=20, device=device)
+    torch.backends.cudnn.deterministic = True
+    passes, launches, mtimes = {}, 0, None
+    try:
+        for name, cache in (("uncached", None), ("disk 1", "disk"), ("disk 2", "disk")):
+            ds = DetectionDataset(str(images), img_size=img_size, batch_size=bs, rect=True,
+                                  pad=0.5, cache_images=cache)
+            v = YoloValidator(model, DataLoader(ds, batch_size=bs), device=device)
+            early.early_pipeline.launches = 0
+            t0 = time.perf_counter()
+            r = v.validation()
+            wall = time.perf_counter() - t0
+            if cache:
+                launches += early.early_pipeline.launches
+            dets = [tuple(t.cpu() for t in v.detect(b.images))
+                    for b in DataLoader(ds, batch_size=bs)]
+            npys = sorted(images.glob("*.ayolo.npy"))
+            if name == "disk 1":
+                mtimes = [f.stat().st_mtime_ns for f in npys]
+            passes[name] = (r, wall, dets, len(npys))
+            log(f"[time] {card}: 14.3 validation {name}: {wall:.2f} s for {r['seen']} images "
+                f"({r['seen'] / wall:.1f} img/s), mAP50 {r['map50']:.6f}, {len(npys)} .ayolo.npy "
+                "files")
+        unchanged = mtimes == [f.stat().st_mtime_ns for f in sorted(images.glob("*.ayolo.npy"))]
+    finally:
+        torch.backends.cudnn.deterministic = False
+        for f in images.glob("*.ayolo.npy"):
+            f.unlink()
+    ref = passes["uncached"]
+    ok = unchanged and all(
+        p[3] == ref[0]["seen"] and p[0]["map50"] == ref[0]["map50"]
+        and all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) for a, b in zip(p[2], ref[2]))
+        for p in (passes["disk 1"], passes["disk 2"]))
+    log(f"[secondary] 14.3 cache_images disk: {passes['disk 1'][3]} files written, read back "
+        f"unchanged {unchanged}; detections of both passes equal to the uncached pass's "
+        f"{'exactly' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def repr_learning(card: str, seed: int, card_device: str = "cuda", img: int = 320) -> bool:
+    """14.4: ``cli.crop_bboxes`` of phase 7's labelled BMPs, then
+    ``cli.train_repr`` for 1 epoch with ``train_config_simclr.yaml`` (simclr)
+    on ``simclr.yaml`` and ``train_config_repr.yaml`` (base) on
+    ``yolov5s_repr.yaml``, as shipped otherwise (320 px; bs 32 and 16);
+    finite losses, ``best_e000.ckpt`` and ``last.ckpt``; one step of each
+    loss card vs CPU in f32 (phase 8's gate), its views/s."""
+    import copy
+
+    import torch
+
+    from ayolov2_torch.cli import crop_bboxes, train_repr
+    from ayolov2_torch.models import build_model, init_model
+    from ayolov2_torch.train.repr_trainer import RepresentationLearningTrainer
+    from ayolov2_torch.utils.config import load_yaml
+
+    crops = SEC_DIR / "crops" / "images"
+    t0 = time.perf_counter()
+    n = crop_bboxes.main(["--img-dir", str(VAL_DIR / "images"), "--save-dir", str(crops)])
+    log(f"[secondary] 14.4 cli.crop_bboxes of phase 7's labelled BMPs: {n} crops of 32 px or "
+        f"more ({time.perf_counter() - t0:.1f} s)")
+    data = SEC_DIR / "repr_data.json"
+    data.write_text(json.dumps({"train_path": str(crops), "val_path": str(crops), "nc": 20}))
+    ok = n > 0
+    for cfg_name, model_name in (("train_config_simclr.yaml", "simclr.yaml"),
+                                 ("train_config_repr.yaml", "yolov5s_repr.yaml")):
+        text = (ROOT / "res/configs/cfg" / cfg_name).read_text()
+        for a in ("epochs: 30", "epochs: 20"):
+            text = text.replace(a, "epochs: 1")
+        cfg = SEC_DIR / cfg_name
+        cfg.write_text(text)
+        t0 = time.perf_counter()
+        tr = train_repr.main(["--model", str(ROOT / "res/configs/model" / model_name), "--data",
+                              str(data), "--cfg", str(cfg), "--log-dir", str(SEC_DIR / "runs")]
+                             + (["--device", card_device] if card_device != "cuda" else []))
+        files = sorted(p.name for p in tr.wdir.iterdir())
+        good = (files == ["best_e000.ckpt", "last.ckpt"] and np.isfinite(tr.last_items).all()
+                and np.isfinite(tr.state_dict.get("val_loss", np.nan)))
+        ok = ok and good
+        log(f"[time] {card}: 14.4 cli.train_repr {tr.rl_type} ({cfg_name}, {model_name}, bs "
+            f"{tr.tcfg['batch_size']} x {tr.tcfg.get('n_trans', 2)} views at "
+            f"{tr.tcfg['image_size']}, n_skip {tr.tcfg.get('n_skip', 0)}): "
+            f"{tr.state.optimizer.updates} updates, first loss {float(tr.last_items[0]):.5f}, val "
+            f"loss {tr.state_dict.get('val_loss', float('nan')):.5f}, {tr.views_per_s:.1f} "
+            f"views/s, {time.perf_counter() - t0:.1f} s, {files} {'ok' if good else 'FAIL'}")
+    # one step of each loss, card against CPU, f32. AdamW's first update is
+    # lr * g / (|g| + eps) per element: the sign of the gradient wherever it
+    # is far above eps, so a gradient near 0 moves its parameter by +-lr on
+    # one device and -+lr on the other. Its gate is on the gradients; SGD's
+    # on the parameters too.
+    model_cfg = load_yaml(ROOT / "res/configs/model/simclr.yaml")
+    base = init_model(build_model(model_cfg, device="cpu"), seed)
+    views = np.random.default_rng(seed + 44).integers(0, 256, (16, img, img, 3), dtype=np.uint8)
+    for rl_type in ("simclr", "base"):
+        cfg = {"train": {"epochs": 1, "batch_size": 8, "n_trans": 2, "temperature": 0.07},
+               "hyper_params": {"optimizer_params": {"lr": 0.01, "momentum": 0.937}}}
+        runs = {}
+        for dev in (card_device, "cpu"):
+            tr = RepresentationLearningTrainer(copy.deepcopy(base), cfg, [None] * 4,
+                                               rl_type=rl_type, log_dir=str(SEC_DIR / "step"),
+                                               device=dev)
+            grads = {}
+            for i, p in enumerate(tr.model.parameters()):  # the gradients the step takes
+                p.register_post_accumulate_grad_hook(
+                    lambda q, i=i: grads.__setitem__(i, q.grad.detach().clone().cpu()))
+            items = tr.train_step(torch.from_numpy(views).to(dev)).cpu().numpy()
+            runs[dev] = (items, [p.detach().cpu() for p in tr.model.parameters()],
+                         [grads[i] for i in sorted(grads)])
+        (ig, pg, gg), (ic, pc, gc) = runs[card_device], runs["cpu"]
+        item_err = float(np.abs(ig - ic).max() / np.abs(ic).max())
+        g_err = tree_delta_err(gg, gc, [torch.zeros_like(g) for g in gc])
+        p_err = tree_delta_err(pg, pc, [p.detach() for p in base.parameters()])
+        good = item_err < 1e-4 and g_err < 1e-2 and (rl_type == "simclr" or p_err < 1e-2)
+        ok = ok and good
+        log(f"[secondary] 14.4 one {rl_type} step, simclr.yaml full width, 8 images x 2 views at "
+            f"{img}, f32 card vs CPU: loss {float(ig[0]):.6f} vs {float(ic[0]):.6f} (rel "
+            f"{item_err:.2e}, gate 1e-4), gradients max|card - cpu| / max|g| {g_err:.2e} (gate "
+            f"1e-2), params max|card - cpu| / max|delta| {p_err:.2e} ("
+            + ("gate 1e-2" if rl_type == "base" else "AdamW's first step: not gated")
+            + f") {'ok' if good else 'FAIL'}")
+    return ok
+
+
+def kept_boxes(dets, score_thr: float = 0.9, min_size: float = 20.0) -> list:
+    """The pseudo-labels' cut (the KD trainer's): score above 0.9, both
+    sides above 20 px."""
+    return [d[(d[:, 4] > score_thr) & (d[:, 2] - d[:, 0] > min_size)
+              & (d[:, 3] - d[:, 1] > min_size)] for d in dets]
+
+
+def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """(len(a), len(b)) IoU of xyxy boxes."""
+    lt = np.maximum(a[:, None, :2], b[None, :, :2])
+    rb = np.minimum(a[:, None, 2:4], b[None, :, 2:4])
+    inter = np.prod(np.clip(rb - lt, 0, None), -1)
+    area = lambda x: np.prod(x[:, 2:4] - x[:, :2], -1)  # noqa: E731
+    return inter / (area(a)[:, None] + area(b)[None, :] - inter)
+
+
+def near_cut(d: np.ndarray, other: np.ndarray, score_thr: float = 0.9, min_size: float = 20.0,
+             nms_iou: float = 0.7) -> np.ndarray:
+    """Boxes within 0.01 of the score cut, 1 px of the size cut, or 0.02 of
+    the NMS cut (an IoU with another box of their class, in their own set or
+    ``other``, between 0.68 and 0.72: which of the two NMS keeps turns on
+    the last bits of the boxes)."""
+    near = ((np.abs(d[:, 4] - score_thr) < 0.01) | (np.abs(d[:, 2] - d[:, 0] - min_size) < 1)
+            | (np.abs(d[:, 3] - d[:, 1] - min_size) < 1))
+    both = np.concatenate([d, other])
+    if len(d) and len(both):
+        iou = box_iou(d, both)
+        iou[np.arange(len(d)), np.arange(len(d))] = 0.0  # not against itself
+        same = d[:, None, 5] == both[None, :, 5]
+        near |= (same & (np.abs(iou - nms_iou) < 0.02)).any(1)
+    return near
+
+
+def matched(a: np.ndarray, b: np.ndarray, iou_min: float = 0.9) -> bool:
+    """Every box of ``a`` has one in ``b`` of its class with IoU >= iou_min."""
+    for box in a:
+        same = b[b[:, 5] == box[5]]
+        if not len(same):
+            return False
+        lt = np.maximum(box[:2], same[:, :2])
+        rb = np.minimum(box[2:4], same[:, 2:4])
+        inter = np.prod(np.clip(rb - lt, 0, None), 1)
+        union = np.prod(box[2:4] - box[:2]) + np.prod(same[:, 2:4] - same[:, :2], 1) - inter
+        if (inter / union).max() < iou_min:
+            return False
+    return True
+
+
+def teacher_fn(model, early_on: bool, device: str = "cuda"):
+    """The KD trainer's teacher (bf16), with K1 or without."""
+    from ayolov2_torch.train.kd_trainer import make_teacher
+
+    return make_teacher(model, device, early_pipeline=early_on)
+
+
+def detections(serve, images) -> list:
+    import torch
+
+    from ayolov2_torch.ops.nms import detections_to_list
+
+    det, n = serve(torch.from_numpy(np.ascontiguousarray(images)).to(serve.device))
+    return detections_to_list(det.float().cpu().numpy(), n.cpu().numpy())
+
+
+def confident_images(model, n: int, seed: int, size: int = 640, device: str = "cuda",
+                     steps: int = 200) -> np.ndarray:
+    """n synthetic images (``synthetic_image`` from ``seed``) moved by Adam
+    on the pixels (lr 4 grey levels) so that the f32 teacher is sure of one
+    box of one class on each (class i mod nc for image i): its best
+    stride-32 anchor's objectness x that class's probability up, every other
+    class's probability there down (sigmoid classes can all saturate, and a
+    tie makes the best class a coin toss between two paths), until each
+    image's best passes 0.97 with no other class above 0.5, or ``steps``
+    end; uint8, rounded. One anchor, not several: neighbouring confident
+    boxes overlap near the NMS threshold (IoU 0.7), where two paths may
+    keep different ones."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x0 = np.stack([synthetic_image(rng, size, size) for _ in range(n)]).astype(np.float32)
+    x = torch.tensor(x0, device=device, requires_grad=True)
+    opt = torch.optim.Adam([x], lr=4.0)
+    n_last = 3 * (size // 32) ** 2
+    nc = model.nc
+    target = torch.nn.functional.one_hot(torch.arange(n, device=device) % nc, nc).bool()
+    for i in range(steps):
+        decoded, _ = model(x.clamp(0, 255).permute(0, 3, 1, 2) / 255.0, training=False)
+        last = decoded[:, -n_last:]
+        cls = last[..., 5:]
+        score = last[..., 4] * cls[target[:, None, :].expand_as(cls)].view(n, -1)
+        top, idx = score.topk(1, dim=1)
+        others = cls.masked_fill(target[:, None, :], 0.0).amax(-1).gather(1, idx)
+        if i % 10 == 0 and top[:, 0].min().item() > 0.97 and others.max().item() < 0.5:
+            break
+        opt.zero_grad(set_to_none=True)
+        (others.mean() - top.mean()).backward()
+        opt.step()
+    log(f"[secondary] 14.5 confident inputs: {n} synthetic images at {size} moved by Adam on "
+        f"the pixels for {i} steps, each toward one class: best score per image min "
+        f"{top[:, 0].min().item():.4f}, other classes at those anchors max "
+        f"{others.max().item():.4f}")
+    return x.detach().clamp(0, 255).round().to(torch.uint8).cpu().numpy()
+
+
+def unmatched(a: np.ndarray, b: np.ndarray, iou_min: float = 0.9) -> list:
+    """The boxes of ``a`` without a box of their class in ``b`` at IoU >=
+    iou_min, each with its best IoU in ``b`` over any class."""
+    out = []
+    for box in a:
+        if not matched(box[None], b, iou_min):
+            lt = np.maximum(box[:2], b[:, :2])
+            rb = np.minimum(box[2:4], b[:, 2:4])
+            inter = np.prod(np.clip(rb - lt, 0, None), 1)
+            union = np.prod(box[2:4] - box[:2]) + np.prod(b[:, 2:4] - b[:, :2], 1) - inter
+            out.append((box.round(3).tolist(), float((inter / union).max()) if len(b) else 0.0))
+    return out
+
+
+def distillation_run(card: str, seed: int, device: str = "cuda", img: int = 640,
+                     bs: int = 16) -> tuple:
+    """14.5: ``cli.distillation`` with ``distillation.yaml`` as shipped but
+    ``epochs: 1``: the golden teacher (yolov5s nc 20, ``--teacher-cfg
+    model.yaml``), a yolov5s student at 640, bs 16; labelled and validation
+    set phase 7's, unlabeled the same images (or confident inputs drawn for
+    the teacher when it keeps none there). Gates, then times. A rehearsal on
+    the CPU passes a smaller ``img`` and ``bs``, which the config then
+    takes. Returns (ok, early_pipeline launches of the run and of cli.val of
+    its best.ckpt)."""
+    import copy
+
+    import torch
+
+    from ayolov2_torch.cli import distillation, val
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.models import build_model, init_model, yolov5_cfg
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.train.kd_trainer import make_kd_step
+    from ayolov2_torch.utils.checkpoint import load_checkpoint, load_model
+
+    teacher = load_model(GOLDEN, nc=20, device=device)
+    k1_teacher, cudnn_teacher = teacher_fn(teacher, True, device), teacher_fn(teacher, False,
+                                                                             device)
+    ds = DetectionDataset(str(VAL_DIR / "images"), img_size=img, batch_size=bs)
+    phase7 = [b.images for b in DataLoader(ds, batch_size=bs)]
+    on_phase7 = sum(len(k) for b in phase7 for k in kept_boxes(detections(k1_teacher, b)))
+    unlabeled = ""
+    if on_phase7 == 0:
+        unl = SEC_DIR / "unlabeled" / "images"
+        unl.mkdir(parents=True, exist_ok=True)
+        f32 = load_model(GOLDEN, nc=20, device=device).requires_grad_(False)
+        for i, im in enumerate(confident_images(f32, 2 * bs, seed + 45, img, device)):
+            write_bmp(unl / f"{i:06d}.bmp", np.ascontiguousarray(im))
+        del f32
+        unlabeled = str(unl)
+    log(f"[secondary] 14.5 the golden teacher (bf16, K1) keeps {on_phase7} pseudo-labels above "
+        f"0.9 on phase 7's {len(ds)} images; unlabeled set: "
+        f"{unlabeled or 'phase 7s images'}")
+    text = (ROOT / "res/configs/cfg/distillation.yaml").read_text()
+    assert "epochs: 10" in text
+    cfg = SEC_DIR / "distillation.yaml"
+    text = text.replace("epochs: 10", "epochs: 1")
+    if (img, bs) != (640, 16):
+        text = text.replace("image_size: 640", f"image_size: {img}").replace(
+            "batch_size: 16", f"batch_size: {bs}")
+    cfg.write_text(text)
+    data = SEC_DIR / "kd_data.json"
+    data.write_text(json.dumps({"train_path": str(VAL_DIR / "images"),
+                                "val_path": str(VAL_DIR / "images"), "nc": 20,
+                                "names": [f"class{i}" for i in range(20)]}))
+    args = ["--model", str(ROOT / "res/configs/model/yolov5s.yaml"), "--teacher", str(GOLDEN),
+            "--teacher-cfg", str(GOLDEN_CFG), "--data", str(data), "--cfg", str(cfg),
+            "--log-dir", str(SEC_DIR / "runs")] + (["--unlabeled-path", unlabeled]
+                                                   if unlabeled else [])
+    early.early_pipeline.launches = 0  # the KD path: counts from here
+    t0 = time.perf_counter()
+    tr = distillation.main(args + (["--device", "cpu"] if device == "cpu" else []))
+    wall = time.perf_counter() - t0
+    launches = early.early_pipeline.launches
+    meta = load_checkpoint(tr.wdir / "last.ckpt")["meta"]
+    n_steps = len(ds) // bs
+    gates = {
+        "finite losses": bool(np.isfinite(tr.mean_items).all()),
+        f"step = ema_updates = {n_steps} micro-steps": (
+            tr.state.step == tr.state.ema_updates == meta["step"] == meta["ema_updates"]
+            == n_steps),
+        "one K1 launch per pseudo batch": (device != "cuda" or (
+            tr.pseudo_launches == [1] * len(tr.pseudo_launches)
+            and launches == len(tr.pseudo_launches))),
+        "pseudo-labels above 0.9 > 0": sum(tr.pseudo_counts) > 0,
+        "best.ckpt and last.ckpt": (tr.wdir / "best.ckpt").exists(),
+    }
+    log(f"[secondary] 14.5 cli.distillation: {len(tr.pseudo_counts)} pseudo batches made "
+        f"(the producer runs ahead), pseudo-labels above 0.9 per batch {tr.pseudo_counts}, "
+        f"early_pipeline launches per batch {tr.pseudo_launches} ({launches} in all), mean loss "
+        f"labeled {tr.mean_items[3]:.4f} pseudo {tr.mean_items[7]:.4f}, {wall:.1f} s")
+    log(f"[time] {card}: 14.5 cli.distillation yolov5s student at {img}, bs {bs}, bf16 teacher "
+        f"with K1: {tr.img_per_s:.1f} labelled img/s in its epoch ({n_steps} steps); the "
+        f"producer thread made a pseudo batch (teacher, cuts, strong augmentation) in "
+        f"{np.median(tr.pseudo_seconds):.3f} s (median; {min(tr.pseudo_seconds):.3f}-"
+        f"{max(tr.pseudo_seconds):.3f})")
+    # K1 against cuDNN: the unlabeled batches, and (when the teacher keeps
+    # few boxes there) confident inputs, so that the comparison has boxes
+    unl_ds = DetectionDataset(unlabeled or str(VAL_DIR / "images"), img_size=img, batch_size=bs)
+    batches = [b.images for b in DataLoader(unl_ds, batch_size=bs)][:4]
+    if on_phase7 < 4 * bs and not unlabeled:
+        f32 = load_model(GOLDEN, nc=20, device=device).requires_grad_(False)
+        batches.append(confident_images(f32, bs, seed + 47, img, device))
+        del f32
+    agree, n_boxes = True, 0
+    for b in batches:
+        a, c = kept_boxes(detections(k1_teacher, b)), kept_boxes(detections(cudnn_teacher, b))
+        n_boxes += sum(len(x) for x in a)
+        for x, y in zip(a, c):
+            lost = unmatched(x[~near_cut(x, y)], y) + unmatched(y[~near_cut(y, x)], x)
+            if lost:
+                agree = False
+                log(f"[secondary] 14.5 unmatched pseudo-labels (box, best IoU): {lost[:3]}")
+    gates["K1 teacher = cuDNN teacher (IoU >= 0.9, same class; score, size and NMS cut "
+          "margins)"] = (
+        agree and n_boxes > 0)
+    log(f"[secondary] 14.5 pseudo-labels with K1 vs without on {len(batches)} batches of {bs} "
+        f"(the unlabeled set's{' and one of confident inputs' if len(batches) > 4 else ''}): "
+        f"{n_boxes} boxes kept with K1, every box matched outside the cut margins "
+        f"{'ok' if agree and n_boxes else 'FAIL'}")
+    early.early_pipeline.launches = 0
+    r = val.main(["--weights", str(tr.wdir / "best.ckpt"), "--data-cfg",
+                  str(VAL_DIR / "data.json"), "-iw", str(img), "--batch-size", "32"]
+                 + (["--device", "cpu"] if device == "cpu" else []))
+    val_launches = early.early_pipeline.launches
+    gates["cli.val of best.ckpt through K1, mAP50 in [0, 1]"] = (
+        0.0 <= r["map50"] <= 1.0 and (device != "cuda" or val_launches == -(-r["seen"] // 32)))
+    log(f"[secondary] 14.5 cli.val of the run's best.ckpt: mAP50 {r['map50']:.5f}, "
+        f"early_pipeline launches {val_launches}")
+    # one KD step at 320, bs 4, f32, card against CPU
+    _, hyp = memorize_hyp(20, 320)
+    base = init_model(build_model(yolov5_cfg("s", nc=20), nc=20, device="cpu"), seed)
+    rng = np.random.default_rng(seed + 46)
+    lab, pse = drawn_batch(rng, 4, 320, 20), drawn_batch(rng, 4, 320, 20)
+    runs = {}
+    for dev in (device, "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        state, loss = train_setup(model, hyp, 20, 4, 1, epochs=300, steps_per_epoch=100)
+        start = [t.detach().clone().cpu() for t in ema_parts(state)]
+        params0 = [p.detach().clone().cpu() for p in state.model.parameters()]
+        step = make_kd_step(loss, 0.5, image_dtype=torch.float32)
+        items = step(state, *(torch.from_numpy(a).to(dev) for a in lab + pse))
+        runs[dev] = (np.concatenate([i.cpu().numpy() for i in items]),
+                     [p.detach().cpu() for p in state.model.parameters()], ema_parts(state),
+                     start, params0)
+    (ig, pg, eg, st, p0), (ic, pc, ec, _, _) = runs[device], runs["cpu"]
+    item_err = float(np.abs(ig - ic).max() / np.abs(ic).max())
+    errs = {"params": tree_delta_err(pg, pc, p0), "BN statistics and EMA":
+            tree_delta_err(eg, ec, st)}
+    gates["one KD step card = CPU (f32)"] = item_err < 1e-4 and all(
+        e < 1e-2 for e in errs.values())
+    log(f"[secondary] 14.5 one KD step (labelled + 0.5 pseudo) yolov5s nc 20 at 320, bs 4, f32 "
+        f"card vs CPU: loss items max rel {item_err:.2e} (gate 1e-4), "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (gate 1e-2)")
+    if device == "cuda":
+        batch = torch.from_numpy(phase7[0]).cuda()
+        k1_ms = time_ms(lambda: k1_teacher(batch), 10)
+        cudnn_ms = time_ms(lambda: cudnn_teacher(batch), 10)
+        student = init_model(build_model(yolov5_cfg("s", nc=20), nc=20, device="cpu"), seed)
+        student = student.cuda().to(memory_format=torch.channels_last)
+        state, loss = train_setup(student, tr.hyp, 20, bs, tr.accumulate, epochs=1,
+                                  steps_per_epoch=n_steps)
+        step = make_kd_step(loss, 0.5)
+        lab16, pse16 = drawn_batch(rng, bs, img, 20), drawn_batch(rng, bs, img, 20)
+        data = [torch.from_numpy(a).cuda() for a in lab16 + pse16]
+        step_ms = time_ms(lambda: step(state, *data), 8)
+        log(f"[time] {card}: 14.5 teacher pseudo batch (bs {bs}, {img}, bf16, NMS to 64) with K1 "
+            f"{k1_ms:.3f} ms, without (cuDNN) {cudnn_ms:.3f} ms; KD micro-step (labelled + "
+            f"pseudo forward, backward, optimizer at accumulate {tr.accumulate}, EMA; bf16, bs "
+            f"{bs} + {bs} at {img}) {step_ms:.3f} ms")
+    log("[secondary] 14.5 gates: " + "; ".join(f"{k} {'ok' if v else 'FAIL'}"
+                                              for k, v in gates.items()))
+    return all(gates.values()), launches + val_launches
+
+
+def secondary_phase(card: str, seed: int, k1_map50: float) -> tuple:
+    """Phase 14 (see the module docstring): 14.1-14.5 in order, each run
+    whatever the others gave. Returns (ok, early_pipeline launches of the
+    .pt validation, the cached validations, the KD run and its cli.val)."""
+    import torch
+
+    t0 = time.perf_counter()
+    shutil.rmtree(SEC_DIR, ignore_errors=True)
+    SEC_DIR.mkdir(parents=True)
+    ok, launches = True, 0
+    steps = [("14.1 .pt weights", lambda: pt_weights(card, k1_map50)),
+             ("14.2 JAX run resumed", lambda: jax_resume(card, seed)),
+             ("14.3 disk caches", lambda: disk_caches(card)),
+             ("14.4 representation learning", lambda: repr_learning(card, seed)),
+             ("14.5 distillation", lambda: distillation_run(card, seed))]
+    for name, step in steps:
+        t1 = time.perf_counter()
+        out = step()
+        if isinstance(out, tuple):
+            out, n = out
+            launches += n
+        torch.cuda.empty_cache()
+        log(f"[secondary] {name}: {'ok' if out else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
+        ok = ok and bool(out)
+    log(f"[secondary] phase 14 {'ok' if ok else 'FAIL'} in {time.perf_counter() - t0:.1f} s "
+        f"(budget {SEC_BUDGET_S:.0f} s)")
+    return ok, launches
+
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2941,6 +3558,9 @@ def main() -> int:
     ap.add_argument("--compress-only", action="store_true",
                     help="phases 1, 2, 3, 7 and 13 only (compression and the post-training "
                          "tools; they validate on phase 7's set)")
+    ap.add_argument("--secondary-only", action="store_true",
+                    help="phases 1, 2, 3, 7 and 14 only (the secondary trainers and tools; "
+                         "they read phase 7's set)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -3015,6 +3635,15 @@ def main() -> int:
             f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
         if not ok:
             return 1
+    if args.secondary_only:
+        val = validation_phase(args.seed, card)
+        if val is None or not secondary_phase(card, args.seed, val[2])[0]:
+            log("[secondary] FAIL")
+            return 1
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if args.compress_only:
         val = validation_phase(args.seed, card)
         if val is None or not compress_phase(card, args.seed, val[3])[0]:
@@ -3280,6 +3909,15 @@ def main() -> int:
         log("[compress] FAIL")
         return 1
     launches += compress_launches
+
+    # ---- 14. the secondary trainers and tools ---------------------------------
+    torch.cuda.empty_cache()
+    ok14, secondary_launches = secondary_phase(card, args.seed, val[2])
+    if not ok14:
+        log("[secondary] FAIL")
+        return 1
+    launches += secondary_launches
+    log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "early_pipeline",

@@ -102,7 +102,18 @@ def test_reader_refuses_what_it_does_not_take(tmp_path):
         (tmp_path / name).write_bytes(data)
         with pytest.raises(ValueError, match=messages[name]):
             port_ckpt.load_checkpoint(tmp_path / name)
-    with pytest.raises(NotImplementedError, match=r"\.pt checkpoints"):
+    # a reference .pt is read into the model config's graph, and needs one
+    import torch
+
+    from _torch_port_common import CFG
+    from ayolov2_torch.models import build_model
+
+    sd = build_model(CFG["n"], nc=3, device="cpu").state_dict()
+    torch.save({"ema": sd}, tmp_path / "best.pt")
+    variables, meta = port_ckpt.load_variables(tmp_path / "best.pt", model_cfg=CFG["n"], nc=3)
+    assert meta["torch_matched"] == sum(not k.endswith("num_batches_tracked") for k in sd)
+    assert meta["torch_unmatched"] == 0 and "kernel" in variables["params"]["model_0"]["conv"]
+    with pytest.raises(ValueError, match="need --model-cfg"):
         port_ckpt.load_variables(tmp_path / "best.pt")
 
 

@@ -221,8 +221,10 @@ def test_load_image_copy_matches_jax(val_images):
 
 
 def test_unported_options_raise(val_images):
-    """The disk caches raise; the host path of training augmentation, which
-    raised before it was ported, runs and gives the JAX package's labels."""
+    """The disk caches, which raised before they were ported, write and read
+    ``.ayolo.npy`` beside the images; the host path of training
+    augmentation, which raised before it was ported, runs and gives the JAX
+    package's labels."""
     from ayolov2_tpu.data import DetectionDataset as JaxDataset
     from ayolov2_torch.data import DetectionDataset, ImageFolderDataset
 
@@ -232,8 +234,15 @@ def test_unported_options_raise(val_images):
         port, ref = (cls(str(val_images), **kw)[0] for cls in (DetectionDataset, JaxDataset))
         np.testing.assert_array_equal(port[1], ref[1])
         assert port[0].shape == ref[0].shape and port[2:] == ref[2:]
-    with pytest.raises(NotImplementedError, match="cache"):
-        ImageFolderDataset(str(val_images), cache_images="disk")
+    cached = ImageFolderDataset(str(val_images), cache_images="disk")
+    plain = ImageFolderDataset(str(val_images))
+    try:
+        for _ in range(2):  # written, then read back
+            np.testing.assert_array_equal(cached.load_image(0)[0], plain.load_image(0)[0])
+        assert cached._npy_path(0).exists()
+    finally:
+        for f in val_images.glob("*.ayolo.npy"):
+            f.unlink()
 
 
 @pytest.mark.parametrize("rect,kw", [(True, dict()), (True, dict(shard=(1, 2))),

@@ -26,7 +26,12 @@ def test_import_pulls_in_no_jax():
         "ayolov2_torch.cli.export, ayolov2_torch.compress, ayolov2_torch.ops.int8_conv, "
         "ayolov2_torch.search, ayolov2_torch.cli.decompose_model, "
         "ayolov2_torch.cli.val_optimizer, ayolov2_torch.cli.create_swa_model, "
-        "ayolov2_torch.cli.probe_int8_conv, ayolov2_torch.cli.artifact_sizes\n"
+        "ayolov2_torch.cli.probe_int8_conv, ayolov2_torch.cli.artifact_sizes, "
+        "ayolov2_torch.utils.torch_import, ayolov2_torch.loss.losses_repr, "
+        "ayolov2_torch.data.datasets_repr, ayolov2_torch.train.repr_trainer, "
+        "ayolov2_torch.train.kd_trainer, ayolov2_torch.cli.distillation, "
+        "ayolov2_torch.cli.train_repr, ayolov2_torch.cli.crop_bboxes, "
+        "ayolov2_torch.cli.import_torch_weights\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu', 'cv2', "
         "'PIL', 'matplotlib', 'scipy')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -56,7 +61,7 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
                        timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
     names = set(r.stdout.split())
-    assert len(names) >= 53
+    assert len(names) >= 67
     assert {"ayolov2_torch.cli.train", "ayolov2_torch.cli.export", "ayolov2_torch.train.optimizer",
             "ayolov2_torch.train.train_state", "ayolov2_torch.train.trainer",
             "ayolov2_torch.utils.anchors", "ayolov2_torch.data.augment",
@@ -67,7 +72,11 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
             "ayolov2_torch.ops.int8_conv", "ayolov2_torch.search.study",
             "ayolov2_torch.cli.decompose_model", "ayolov2_torch.cli.val_optimizer",
             "ayolov2_torch.cli.create_swa_model", "ayolov2_torch.cli.probe_int8_conv",
-            "ayolov2_torch.cli.artifact_sizes"} <= names
+            "ayolov2_torch.cli.artifact_sizes", "ayolov2_torch.utils.torch_import",
+            "ayolov2_torch.loss.losses_repr", "ayolov2_torch.data.datasets_repr",
+            "ayolov2_torch.train.repr_trainer", "ayolov2_torch.train.kd_trainer",
+            "ayolov2_torch.cli.distillation", "ayolov2_torch.cli.train_repr",
+            "ayolov2_torch.cli.crop_bboxes", "ayolov2_torch.cli.import_torch_weights"} <= names
 
 
 def test_no_file_names_jax():
