@@ -134,6 +134,7 @@ class ServingModule(nn.Module):
         if use_early:
             self.ep = early.extract_early_params(fuse_params(
                 {k: v.float() for k, v in model.state_dict().items()})).to(device)
+            early.tile_for(self.ep)  # raises on widths the kernel is not built for
             self.register_buffer("k1_weights", early.pack_weights(self.ep))
             self.ep._packed[str(device)] = self.k1_weights
         self.model = copy.deepcopy(model).to(device=device, dtype=image_dtype,

@@ -120,17 +120,14 @@ def can_fuse_early(specs) -> bool:
 
 
 def can_fuse_early_model(model) -> bool:
-    """:func:`can_fuse_early` of the model's specs, widths the kernel is
-    built for (a stem of 16, 32, 48, 64 or 80 channels, a C3 of depth 1-4;
-    narrower models, e.g. width 0.125, run on cuDNN), and every conv of
-    layers 0..3 a plain float conv: none int8, recording for calibration or
+    """:func:`can_fuse_early` of the model's specs, and every conv of layers
+    0..3 a plain float conv: none int8, recording for calibration or
     decomposed (``layers.ConvBnAct.plain``). An int8 model (its layers 1-3
     are int8) and a decomposed one whose map names a layer below 4 serve
-    without the kernel."""
+    without the kernel. The widths are not looked at: the kernel's weights
+    are packed only for widths it is built for (:func:`plan_early`), and
+    others raise there, naming the width."""
     if not can_fuse_early(model.specs):
-        return False
-    c0, n = model.model[0].conv.out_channels, len(model.model[2].m)
-    if c0 not in (16, 32, 48, 64, 80) or not 1 <= n <= 4:
         return False
     return all(getattr(m, "plain", True) for i in range(4) for m in model.model[i].modules())
 
@@ -361,7 +358,9 @@ def plan_early(c0: int, n: int) -> EarlyPlan:
     rows (any band height for the smallest tile), in as few bands as fit, of
     even height. Raises if no tile fits."""
     if c0 not in (16, 32, 48, 64, 80) or not 1 <= n <= 4:
-        raise ValueError(f"no kernel for widths c0={c0} c1={2 * c0} ch={c0} c2={4 * c0} n={n}")
+        raise ValueError(f"no kernel for widths c0={c0} c1={2 * c0} ch={c0} c2={4 * c0} n={n}: "
+                         "it is built for stems of 16, 32, 48, 64 or 80 channels and C3 depths "
+                         "1-4; run layers 0..3 on cuDNN (early_pipeline=False) instead")
     for th, tw in sorted(TILES, key=lambda t: halo_factor(c0, n, *t, row_tile=64)):
         r1 = 2 * th + 1 + 2 * n
         for rb in range(r1, 0, -1):

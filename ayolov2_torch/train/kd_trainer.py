@@ -21,11 +21,15 @@ The counterpart of ``ayolov2_tpu/train/kd_trainer.py`` on one device:
   the thread and joins it with a bound, which closes the unlabeled loader's
   iterator and so its workers. (The JAX package's producer dies silently on
   an error, and its trainer then waits forever.) K1's library is loaded on
-  the main thread before the thread starts. Teacher and student take turns
-  on the device: the teacher's call, the student's step and the validation
-  each hold one lock (they share the default stream anyway), so no two
-  threads run torch work at once; the strong augmentation, the producer's
-  host work, runs beside the step.
+  the main thread before the thread starts. The two threads share the
+  device's default stream, so their kernels never overlap anyway; besides,
+  every torch call of either thread runs under one lock (the teacher's
+  call on the producer's side; the step and its loss sums, the epoch's
+  mean, the validation and the checkpoint payloads on the main thread).
+  The lock guards a hazard that is not confirmed: a CPU test run stalled
+  once with both threads alive and was not reproduced. The producer's
+  host work (the cuts, the strong augmentation, the padding) runs beside
+  the step.
 - **Student step.** In ``train()`` mode the labelled forward, then the
   pseudo forward (BatchNorm's running statistics move twice, in that
   order), one backward of ``loss_l + 0.5 * loss_u`` (each ``ComputeLoss``
@@ -127,6 +131,10 @@ class SoftTeacherTrainer(AbstractTrainer):
             (detection batches whose labels are not read).
         val_loader: optional; each epoch's validation picks ``best.ckpt``.
         device: default the card (raises without CUDA); "cpu" explicitly.
+        early_pipeline: the teacher's layers 0-3 as the early-network
+            kernel where ``can_fuse_early_model`` holds (a teacher of a
+            width the kernel is not built for raises; pass False to run it
+            on cuDNN).
 
     ``self.teacher`` is :func:`make_teacher`'s serving module (bf16, K1).
     """
@@ -143,7 +151,7 @@ class SoftTeacherTrainer(AbstractTrainer):
                  val_loader=None, log_dir: str = "runs/distill/exp",
                  model_cfg_dict: Optional[Dict[str, Any]] = None,
                  n_devices: Optional[int] = None, class_names: Optional[list] = None,
-                 device=None) -> None:
+                 device=None, early_pipeline: bool = True) -> None:
         tcfg = cfg["train"]
         refuse_unported(tcfg)
         if n_devices is not None and n_devices > 1:
@@ -184,12 +192,12 @@ class SoftTeacherTrainer(AbstractTrainer):
         self._student_step = make_kd_step(self.loss_fn, self.PSEUDO_LOSS_WEIGHT,
                                           image_dtype=self.image_dtype)
 
-        self.teacher = make_teacher(teacher, self.device)
+        self.teacher = make_teacher(teacher, self.device, early_pipeline=early_pipeline)
         sa = cfg.get("strong_augmentation")
         self.strong_aug = MultiAugmentationPolicies(sa) if sa else None
         self.rng = np.random.default_rng(int(tcfg.get("seed", 0)))
 
-        self._device_lock = threading.Lock()  # one thread's torch work at a time
+        self._device_lock = threading.RLock()  # one thread's torch work at a time
         self._pseudo_q: "queue.Queue" = queue.Queue(maxsize=self.QUEUE_SIZE)
         self._stop = threading.Event()
         self._producer: Optional[threading.Thread] = None
@@ -332,18 +340,21 @@ class SoftTeacherTrainer(AbstractTrainer):
                 host_to_device(batch.targets, dev), host_to_device(batch.target_mask, dev),
                 torch.from_numpy(imgs_u).to(dev, non_blocking=True), host_to_device(tgt_u, dev),
                 host_to_device(mask_u, dev))
-        self._loss_sum += torch.cat([items_l, items_u])
+            self._loss_sum += torch.cat([items_l, items_u])
+            if batch_idx % 20 == 0:
+                self.last_items = items_l.cpu().numpy()
+                pseudo_loss = float(items_u[3])
         self.n_steps += 1
         if batch_idx % 20 == 0:
-            self.last_items = items_l.cpu().numpy()
             LOGGER.info("epoch %3d step %4d  labeled %.4f  pseudo %.4f  pseudo-labels %d",
-                        self.current_epoch, batch_idx, float(self.last_items[3]),
-                        float(items_u[3]), self.pseudo_counts[-1] if self.pseudo_counts else 0)
+                        self.current_epoch, batch_idx, float(self.last_items[3]), pseudo_loss,
+                        self.pseudo_counts[-1] if self.pseudo_counts else 0)
         return {}
 
     def on_epoch_end(self, epoch: int) -> None:
         dt = time.perf_counter() - self._t_epoch
-        self.mean_items = (self._loss_sum / max(self.n_steps, 1)).cpu().numpy()
+        with self._device_lock:
+            self.mean_items = (self._loss_sum / max(self.n_steps, 1)).cpu().numpy()
         self.img_per_s = self.n_steps * self.batch_size / max(dt, 1e-9)
         LOGGER.info("epoch %3d done in %.1fs (%.1f img/s): %d steps, mean labeled loss %.4f, "
                     "pseudo %.4f", epoch, dt, self.img_per_s, self.n_steps,
@@ -358,15 +369,15 @@ class SoftTeacherTrainer(AbstractTrainer):
             return
         from ayolov2_torch.eval import YoloValidator
 
-        if getattr(self, "_validator", None) is None:
-            # cuDNN for the student: K1 is the teacher's alone on this path
-            self._validator = YoloValidator(
-                self.state.ema_model, self.val_loader, class_names=self.class_names,
-                cfg={"half": bool(self.tcfg.get("half", True)), "early_pipeline": False},
-                device=self.device)
-        else:
-            self._validator.update_weights(self.state.ema_model)
         with self._device_lock:
+            if getattr(self, "_validator", None) is None:
+                # cuDNN for the student: K1 is the teacher's alone on this path
+                self._validator = YoloValidator(
+                    self.state.ema_model, self.val_loader, class_names=self.class_names,
+                    cfg={"half": bool(self.tcfg.get("half", True)), "early_pipeline": False},
+                    device=self.device)
+            else:
+                self._validator.update_weights(self.state.ema_model)
             result = self._validator.validation()
         map50 = result["map50"]
         self.log_dict({"mAP50": map50, "mAP50_95": result["map50_95"]})
@@ -393,8 +404,9 @@ class SoftTeacherTrainer(AbstractTrainer):
 
     def _save_weights(self, name: str, map50: Optional[float] = None) -> None:
         epoch = self.current_epoch - 1 if self.partial_epoch else self.current_epoch
-        payload = checkpoint_payload(self.state, epoch, best_score=self.best_score, map50=map50,
-                                     model_cfg=self.model_cfg_dict)
+        with self._device_lock:
+            payload = checkpoint_payload(self.state, epoch, best_score=self.best_score,
+                                         map50=map50, model_cfg=self.model_cfg_dict)
         path = self.wdir / name
         if self._ckpt_writer is not None:
             self._ckpt_writer.submit(lambda: write_checkpoint(path, payload))

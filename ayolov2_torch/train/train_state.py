@@ -71,9 +71,13 @@ def create_train_state(model: torch.nn.Module, optimizer: Optimizer) -> TrainSta
 
 
 def to_input(images: torch.Tensor, image_dtype: torch.dtype) -> torch.Tensor:
-    """uint8 NHWC -> ``image_dtype`` NCHW (a channels_last view) / 255, the
-    division in ``image_dtype``."""
-    return images.permute(0, 3, 1, 2).to(image_dtype) / 255.0
+    """uint8 NHWC -> ``image_dtype`` NCHW (a channels_last view) / 255,
+    rounded as XLA rounds the JAX package's steps: in f32 (and f64) it
+    computes ``x / 255`` as ``x * (1 / 255)``, a product with the rounded
+    reciprocal (one ulp from the quotient on 126 of the 256 values); in bf16
+    it rounds the quotient, as this division does."""
+    x = images.permute(0, 3, 1, 2).to(image_dtype)
+    return x / 255.0 if image_dtype == torch.bfloat16 else x * (1.0 / 255)
 
 
 def train_forward(model: torch.nn.Module, loss_fn: ComputeLoss, images: torch.Tensor,

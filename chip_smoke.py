@@ -3251,17 +3251,21 @@ def box_iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
 def near_cut(d: np.ndarray, other: np.ndarray, score_thr: float = 0.9, min_size: float = 20.0,
              nms_iou: float = 0.7) -> np.ndarray:
     """Boxes within 0.01 of the score cut, 1 px of the size cut, or 0.02 of
-    the NMS cut (an IoU with another box of their class, in their own set or
-    ``other``, between 0.68 and 0.72: which of the two NMS keeps turns on
-    the last bits of the boxes)."""
+    the NMS cut: a box of their class at IoU 0.68-0.72 in their own set, or
+    in ``other`` where that box itself matches one of ``d`` (same class, IoU
+    >= 0.9). Which of two such boxes NMS keeps turns on the last bits of the
+    boxes; a box of ``other`` that matches none of ``d`` excuses nothing, as
+    a box that the kernel had shifted would match none."""
     near = ((np.abs(d[:, 4] - score_thr) < 0.01) | (np.abs(d[:, 2] - d[:, 0] - min_size) < 1)
             | (np.abs(d[:, 3] - d[:, 1] - min_size) < 1))
-    both = np.concatenate([d, other])
-    if len(d) and len(both):
-        iou = box_iou(d, both)
-        iou[np.arange(len(d)), np.arange(len(d))] = 0.0  # not against itself
-        same = d[:, None, 5] == both[None, :, 5]
-        near |= (same & (np.abs(iou - nms_iou) < 0.02)).any(1)
+    if len(d) > 1:
+        iou = box_iou(d, d)
+        np.fill_diagonal(iou, 0.0)  # not against itself
+        near |= ((d[:, None, 5] == d[None, :, 5]) & (np.abs(iou - nms_iou) < 0.02)).any(1)
+    if len(d) and len(other):
+        mirrored = np.array([matched(o[None], d) for o in other])
+        near |= ((d[:, None, 5] == other[None, :, 5]) & mirrored[None, :]
+                 & (np.abs(box_iou(d, other) - nms_iou) < 0.02)).any(1)
     return near
 
 
@@ -3440,22 +3444,34 @@ def distillation_run(card: str, seed: int, device: str = "cuda", img: int = 640,
         f32 = load_model(GOLDEN, nc=20, device=device).requires_grad_(False)
         batches.append(confident_images(f32, bs, seed + 47, img, device))
         del f32
-    agree, n_boxes = True, 0
+    # every box is matched first; a box without a match is excused only
+    # within a cut margin (near_cut), and at most a tenth of them may be
+    agree, n_boxes, n_kept, n_missed, n_excused = True, 0, 0, 0, 0
     for b in batches:
         a, c = kept_boxes(detections(k1_teacher, b)), kept_boxes(detections(cudnn_teacher, b))
         n_boxes += sum(len(x) for x in a)
         for x, y in zip(a, c):
-            lost = unmatched(x[~near_cut(x, y)], y) + unmatched(y[~near_cut(y, x)], x)
+            n_kept += len(x) + len(y)
+            lost = []
+            for p, q in ((x, y), (y, x)):
+                miss = np.array([not matched(box[None], q) for box in p], bool)
+                excused = miss & near_cut(p, q)
+                n_missed += int(miss.sum())
+                n_excused += int(excused.sum())
+                lost += unmatched(p[miss & ~excused], q)
             if lost:
                 agree = False
                 log(f"[secondary] 14.5 unmatched pseudo-labels (box, best IoU): {lost[:3]}")
-    gates["K1 teacher = cuDNN teacher (IoU >= 0.9, same class; score, size and NMS cut "
-          "margins)"] = (
-        agree and n_boxes > 0)
+    compared = n_kept - n_excused
+    good = agree and n_boxes > 0 and compared >= 0.9 * n_kept
+    gates["K1 teacher = cuDNN teacher (IoU >= 0.9, same class; a box without a match only "
+          "within a score, size or NMS cut margin; 90% of the boxes compared)"] = good
     log(f"[secondary] 14.5 pseudo-labels with K1 vs without on {len(batches)} batches of {bs} "
         f"(the unlabeled set's{' and one of confident inputs' if len(batches) > 4 else ''}): "
-        f"{n_boxes} boxes kept with K1, every box matched outside the cut margins "
-        f"{'ok' if agree and n_boxes else 'FAIL'}")
+        f"{n_boxes} boxes kept with K1, {n_kept - n_boxes} without; {n_missed} of the "
+        f"{n_kept} without a match in the other set, {n_excused} of them within a cut margin "
+        f"(excused); {compared} compared (gate 90%), every compared box matched "
+        f"{'ok' if good else 'FAIL'}")
     early.early_pipeline.launches = 0
     r = val.main(["--weights", str(tr.wdir / "best.ckpt"), "--data-cfg",
                   str(VAL_DIR / "data.json"), "-iw", str(img), "--batch-size", "32"]

@@ -89,7 +89,8 @@ def _trainers(bs: int, tmp: str, teacher_vars, student_vars, dtype=None):
     teacher = load_flax_variables(build_model(tiny_cfg(), device="cpu"),
                                   teacher_vars).fuse()
     port = SoftTeacherTrainer(student.double() if dtype is not None else student, teacher, cfg,
-                              loader, loader, log_dir=tmp + "/port", device="cpu")
+                              loader, loader, log_dir=tmp + "/port", device="cpu",
+                              early_pipeline=False)
     # the reference teacher: f32, no early-network kernel
     port.teacher = make_teacher(teacher, "cpu", torch.float32, early_pipeline=False)
     return ref, port
@@ -116,26 +117,34 @@ def test_pseudo_batches_match_jax():
         assert port.pseudo_launches == [0, 0, 0]  # the f32 teacher runs no kernel
 
 
+def at_update(opt_state, k: int):
+    """JAX's 3-group optimizer state (``optax.multi_transform``; at
+    accumulate 1 there is no ``MultiSteps`` around it) with every group's
+    schedule counter at update ``k``."""
+    import jax.numpy as jnp
+
+    states = {g: st._replace(inner_state=dict(st.inner_state, step=jnp.asarray(k, jnp.int32)))
+              for g, st in opt_state.inner_states.items()}
+    return opt_state._replace(inner_states=states)
+
+
 def test_kd_step_matches_jax():
     """One KD micro-step at bs 64 (accumulate 1, so the optimizer updates),
     labelled then pseudo forward in train mode, one backward of loss_l + 0.5
-    loss_u, the 3-group SGD at update 0 of its warmup (the biases move) and
-    the EMA, against JAX's jitted
-    ``_make_step`` from the same weights and batches. Both sides in f64
-    (images /255 in f32 first, as in both steps; the loss in f32 in both):
-    in f32 BatchNorm over the 2x2 maps moves both about 1e-3 of a step's
-    change. XLA computes the f32 ``x / 255`` as ``x * (1 / 255)``, so the
-    pixels are drawn from the 130 values where the two agree."""
+    loss_u, the 3-group SGD at update 300 of its 1000-update warmup (every
+    group's lr above 0, so kernels, BN scales and biases all move) and the
+    EMA, against JAX's jitted ``_make_step`` from the same weights and
+    batches, pixels over all 256 values (the port's ``to_input`` rounds
+    ``x / 255`` as XLA does). Both sides in f64 (images /255 in f32 first,
+    as in both steps; the loss in f32 in both): in f32 BatchNorm over the
+    2x2 maps moves both about 1e-3 of a step's change."""
     import jax
     import jax.numpy as jnp
 
     from ayolov2_torch.utils.weights import flax_from_state_dict
 
-    levels = np.arange(256, dtype=np.float32)
-    exact = np.flatnonzero(levels / np.float32(255) == levels * np.float32(1 / 255))
     rng = np.random.default_rng(41)
-    imgs = [exact[rng.integers(0, len(exact), (64, IMG, IMG, 3))].astype(np.uint8)
-            for _ in range(2)]
+    imgs = [_images(64, 41 + i) for i in range(2)]
     targets = []
     for _ in range(2):
         t = np.zeros((64 * 2, 6), np.float32)
@@ -148,6 +157,10 @@ def test_kd_step_matches_jax():
         student = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), _variables(8))
         ref, port = _trainers(64, tmp, _variables(5), student, dtype=jnp.float64)
         assert ref.accumulate == port.accumulate == 1
+        ref.state = ref.state.replace(opt_state=at_update(ref.state.opt_state, 300))
+        port.state.optimizer.updates = 300
+        opt = port.state.optimizer
+        assert min(opt.lr_fn(300, g) for g in ("weight", "bias", "bn_scale")) > 0
         state, items_l, items_u = ref._student_step(
             ref.state, jnp.asarray(imgs[0]), *map(jnp.asarray, targets[0]),
             jnp.asarray(imgs[1]), *map(jnp.asarray, targets[1]))
@@ -156,7 +169,7 @@ def test_kd_step_matches_jax():
             torch.from_numpy(imgs[1]), *map(torch.from_numpy, targets[1]))
         np.testing.assert_allclose(got_l.numpy(), np.asarray(items_l), rtol=1e-5)
         np.testing.assert_allclose(got_u.numpy(), np.asarray(items_u), rtol=1e-5)
-        assert port.state.step == int(state.step) == 1 and port.state.optimizer.updates == 1
+        assert port.state.step == int(state.step) == 1 and port.state.optimizer.updates == 301
         pairs = {
             "params": (flax_from_state_dict(port.state.model.state_dict()), state.params),
             "ema": (flax_from_state_dict(port.state.ema_model.state_dict()), state.ema_params),
@@ -166,10 +179,9 @@ def test_kd_step_matches_jax():
             for part, w in (("params", want), ("batch_stats", state.batch_stats if name ==
                                                 "params" else state.ema_batch_stats)):
                 errs += _delta_errs(got[part], jax.device_get(w), student[part], f"{name}/{part}")
-    # update 0 of the warmup moves the biases only (the other groups' lr
-    # starts at 0); the BN statistics move in both forwards
-    assert all(e[2] > 0 for e in errs if "batch_stats" in e[0] or e[0].endswith("/bias")
-               and "/bn/" not in e[0])
+    # every tensor moves: kernels, BN scales and biases by the optimizer,
+    # the BN statistics in both forwards, the EMA after them
+    assert len(errs) > 100 and all(e[2] > 0 for e in errs), [e for e in errs if e[2] == 0][:3]
     # 1e-4 of the change, and 1e-7 of the scale: JAX's EMA rate is an f32
     worst = max(errs, key=lambda e: e[1] / (1e-4 * e[2] + 1e-7 * e[3]))
     assert worst[1] <= 1e-4 * worst[2] + 1e-7 * worst[3], worst
@@ -184,6 +196,28 @@ def _delta_errs(got, want, start, path):
         return out
     g, w, s = (np.asarray(x, np.float64) for x in (got, want, start))
     return [(path, np.abs(g - w).max(), np.abs(w - s).max(), np.abs(w).max())]
+
+
+def test_teacher_of_a_width_without_kernel_raises():
+    """The early-network kernel is built for stems of 16, 32, 48, 64 or 80
+    channels. ``can_fuse_early_model`` does not look at widths (the shipped
+    ``yolov5_depth1.5_width1.05_800.yaml``, a stem of 72, passes it), so a
+    teacher of another width asked to run with the kernel raises, naming
+    the width, and runs on cuDNN with ``early_pipeline=False``."""
+    from ayolov2_torch.models import build_model
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.train.kd_trainer import make_teacher
+    from ayolov2_torch.utils.config import load_yaml
+
+    big = build_model(load_yaml(ROOT / "res/configs/model/yolov5_depth1.5_width1.05_800.yaml"),
+                      nc=NC, device="meta")
+    assert early.can_fuse_early_model(big) and big.model[0].conv.out_channels == 72
+    teacher = build_model(tiny_cfg(), device="cpu").fuse()
+    with pytest.raises(ValueError, match="c0=8 .*16, 32, 48, 64 or 80 channels"):
+        make_teacher(teacher, "cpu")
+    serve = make_teacher(teacher, "cpu", early_pipeline=False)
+    det, n = serve(torch.from_numpy(_images(2, 3)))
+    assert not serve.early and det.shape[0] == 2 and n.shape == (2,)
 
 
 def test_producer_error_reaches_train_and_nothing_hangs():
