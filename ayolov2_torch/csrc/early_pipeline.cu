@@ -13,11 +13,19 @@
 //
 // in:  (bs, H, W, 3) uint8, H and W multiples of 8
 // out: (bs, H/8, W/8, c2) bf16, NHWC
-// widths: c1 = 2 c0, ch = c0, c2 = 4 c0, c0 in {16, 32, 48, 64, 80}
+// widths: any c0, c1, ch, c2 whose padded forms (below) are at most 80, 160,
+// 80 and 320, as a v6 model of width_multiple 0.125 to 1.25 has them
 //
 // No intermediate is written to device memory. A persistent grid of one
 // block per SM walks the TH x TW tiles of the /8 output; a block recomputes
 // a tile's receptive field at every level in shared memory.
+//
+// Every width is held padded: c0, c1 and ch to multiples of 16 (so that a
+// tap's channels are whole k16 steps and a pixel pitch is an odd multiple of
+// 16 bytes), c2 to a multiple of its N tile (a multiple of 8, below). The
+// host packs zero weight rows and columns and zero biases for the padded
+// channels, so each is SiLU(0) = 0 wherever it is stored and adds nothing
+// where it is read; conv2 stores only the true c2 channels.
 //
 // Numerics follow K1: uint8 pixels convert exactly to bf16, products are
 // bf16 x bf16 with f32 accumulation, bias and SiLU are applied in f32 and
@@ -95,8 +103,9 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-// One library per stem width: build with -DEARLY_C0=16, 32, 48, 64 or 80
-// (ops/_build.py starts the five compilers together). -DEARLY_PROFILE adds
+// One library per padded width set: build with -DEARLY_C0, -DEARLY_C1,
+// -DEARLY_CH and -DEARLY_C2 (ops/early_pipeline.py: kernel_defines; ops/_build.py
+// starts one compiler per set, all together). -DEARLY_PROFILE adds
 // clock stamps at the layer boundaries (see early_pipeline_profile_slots).
 // -DEARLY_ABLATE=k takes one part out, for timing only (the results are wrong):
 // 1 the SiLU arithmetic, 2 the wgmmas, 3 the ldmatrix loads, 4 the epilogue's
@@ -105,11 +114,9 @@
 #ifndef EARLY_ABLATE
 #define EARLY_ABLATE 0
 #endif
-#ifndef EARLY_C0
-#error "build with -DEARLY_C0=<stem width: 16, 32, 48, 64 or 80>"
+#if !defined(EARLY_C0) || !defined(EARLY_C1) || !defined(EARLY_CH) || !defined(EARLY_C2)
+#error "build with -DEARLY_C0, -DEARLY_C1, -DEARLY_CH and -DEARLY_C2 (the padded widths)"
 #endif
-static_assert(EARLY_C0 == 16 || EARLY_C0 == 32 || EARLY_C0 == 48 || EARLY_C0 == 64 || EARLY_C0 == 80,
-              "EARLY_C0 must be one of 16, 32, 48, 64, 80");
 
 namespace {
 
@@ -129,6 +136,16 @@ constexpr int kMaxStages = 4;
 constexpr int kMaxNT = 80;       // widest N tile: its accumulators must leave the wgmmas their registers
 constexpr int kMaxLayers = 16;   // 5 + 2 n layers, n <= 4
 constexpr int kSmemLimit = 232448;
+// the padded widths of this build: stem, conv1 (and cv3), the C3's hidden, conv2
+constexpr int kC0 = EARLY_C0, kC1 = EARLY_C1, kCH = EARLY_CH, kC2 = EARLY_C2;
+static_assert(kC0 % 16 == 0 && kC1 % 16 == 0 && kCH % 16 == 0 && kC2 % 16 == 0,
+              "widths are padded to multiples of 16");
+static_assert(kC0 >= 16 && kC0 <= 80 && kCH >= 16 && kCH <= 80 && kC1 >= 16 && kC1 <= 160
+              && kC2 >= 16 && kC2 <= 320, "widths beyond what the N tiles cover");
+// Rows of 128 bytes in one ring stage: the widest product's chunk, and the
+// stem's three chunks, which its nine wgmmas read from one stage.
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
+constexpr int kStageRows = cmax(cmax(3 * kC0, kC1), cmax(2 * kCH, kC2));
 
 // The host's plan (ops/early_pipeline.py: PLAN_FIELDS, same order).
 struct Plan {
@@ -180,24 +197,24 @@ __host__ __device__ constexpr int steps_per_chunk(int ksteps) {
   return ksteps % 4 == 0 ? 4 : ksteps % 3 == 0 ? 3 : ksteps % 2 == 0 ? 2 : 1;
 }
 
-// Chunks per ring stage: a stage holds c2 = 4 c0 rows of 128 bytes, so as many
+// Chunks per ring stage: a stage holds kStageRows rows of 128 bytes, so as many
 // whole chunks of co rows as fit and divide the layer's chunk count.
-__host__ __device__ constexpr int group_of(int c0, int co, int nchunks) {
-  int group = 4 * c0 / co;
+__host__ __device__ constexpr int group_of(int co, int nchunks) {
+  int group = kStageRows / co;
   while (nchunks % group) --group;
   return group;
 }
 
 // Layer order: 0 stem, 1 conv1, 2 cv1|cv2, 3+2i m[i].cv1, 4+2i m[i].cv2,
 // 3+2n cv3, 4+2n conv2. Returns the bytes of all chunks (the biases follow).
-__host__ __device__ inline int fill_layers(LayerW* tab, int c0, int n) {
-  const int c1 = 2 * c0, ch = c0, c2 = 4 * c0;
+__host__ __device__ inline int fill_layers(LayerW* tab, int n) {
+  const int c0 = kC0, c1 = kC1, ch = kCH, c2 = kC2;
   int goff = 0, boff = 0, l = 0;
   auto add = [&](int co, int ksteps) {
     tab[l].goff = goff;  tab[l].co = co;  tab[l].ksteps = ksteps;  tab[l].boff = boff;
     tab[l].kpc = steps_per_chunk(ksteps);
-    // a stage holds c2 rows of 128 bytes: as many whole chunks as fit and divide the count
-    tab[l].group = group_of(c0, co, ksteps / tab[l].kpc);
+    // a stage holds kStageRows rows of 128 bytes: as many whole chunks as fit and divide the count
+    tab[l].group = group_of(co, ksteps / tab[l].kpc);
     goff += (ksteps / tab[l].kpc) * co * 128;
     boff += co;
     ++l;
@@ -214,13 +231,14 @@ __host__ __device__ inline int fill_layers(LayerW* tab, int c0, int n) {
   return goff;
 }
 
-__host__ __device__ inline int total_bias(int c0, int n) { return c0 * (1 + 2 + 2 + 2 * n + 2 + 4); }
+__host__ __device__ inline int total_bias(int n) { return kC0 + kC1 + 2 * kCH + n * 2 * kCH + kC1 + kC2; }
 
 // How a layer's M x N outputs are dealt to the warpgroups. An item is a
 // 64-pixel row tile by NT channels; every round gives each warpgroup at most
 // one item and streams the layer's weights once. NT is the widest of co,
 // co / 2, co / 4 that is at most kMaxNT: a wgmma costs about the same at any
-// N this narrow, so fewer and wider ones win.
+// N this narrow, so fewer and wider ones win. With co padded to a multiple of
+// 16 (of 32 above 160) it is a multiple of 8, as a wgmma's N must be.
 __host__ __device__ constexpr int nt_of(int co) {
   return co <= kMaxNT ? co : co / 2 <= kMaxNT ? co / 2 : co / 4;
 }
@@ -354,6 +372,19 @@ template <> __device__ __forceinline__ void wgmma_rs<48>(float (&d)[24], const u
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
+template <> __device__ __forceinline__ void wgmma_rs<56>(float (&d)[28], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "{%28, %29, %30, %31}, %32, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
 template <> __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -365,6 +396,21 @@ template <> __device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const u
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+template <> __device__ __forceinline__ void wgmma_rs<72>(float (&d)[36], const uint32_t (&a)[4], uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35}, "
+      "{%36, %37, %38, %39}, %40, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 template <> __device__ __forceinline__ void wgmma_rs<80>(float (&d)[40], const uint32_t (&a)[4], uint64_t desc) {
@@ -417,6 +463,19 @@ template <> __device__ __forceinline__ void wgmma_ss<48>(float (&d)[24], uint64_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
+template <> __device__ __forceinline__ void wgmma_ss<56>(float (&d)[28], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %30, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27}, "
+      "%28, %29, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
 template <> __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -428,6 +487,21 @@ template <> __device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+template <> __device__ __forceinline__ void wgmma_ss<72>(float (&d)[36], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35}, "
+      "%36, %37, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "l"(desc_a), "l"(desc_b), "r"(1));
 }
 template <> __device__ __forceinline__ void wgmma_ss<80>(float (&d)[40], uint64_t desc_a, uint64_t desc_b) {
@@ -476,6 +550,7 @@ struct Conv {
   int v_cols;                  // output columns kept (the stem's rows carry 2 more)
   uint8_t* dst;                // shared (or, kGlobal, device) address of out pixel (0, 0)
   int d_cols, d_pitch;         // columns (of one parity plane if split), bytes per pixel
+  int co_store;                // kGlobal: channels stored (the true c2; the rest are padding)
   int layer;                   // index into the layer table
   int g_r0, g_c0, g_h, g_w;    // image coordinates of out pixel (0, 0); image size at this level
 };
@@ -511,7 +586,9 @@ __device__ __forceinline__ void conv_layer(const Conv& cv_in, Pipe& pipe_io, con
   // all fixed by the kind of product and the width: N tile, k16 steps per chunk
   // and per tap, chunks, chunks per ring stage, bytes of a chunk
   constexpr int NT = nt_of(CO), KPC = steps_per_chunk(KSTEPS), CPK = KSTEPS / (KS * KS);
-  constexpr int nchunks = KSTEPS / KPC, group = group_of(EARLY_C0, CO, nchunks), chunk_bytes = CO * 128;
+  constexpr int nchunks = KSTEPS / KPC, group = group_of(CO, nchunks), chunk_bytes = CO * 128;
+  static_assert(NT % 8 == 0 && CO % NT == 0 && NT <= kMaxNT, "an N tile a wgmma takes");
+  static_assert(!STEM || group == nchunks, "the stem's chunks share one stage");
   const Conv cv = cv_in;   // registers, not the caller's stack
   Pipe pipe = pipe_io;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -692,9 +769,11 @@ __device__ __forceinline__ void conv_layer(const Conv& cv_in, Pipe& pipe_io, con
       } else {
         #pragma unroll
         for (int j = 0; j < NT / 8; ++j) {
+          // the padded channels of the output (a pair is wholly in or out: c2 is even)
+          const bool stored = MODE != kGlobal || ni * NT + 8 * j + 2 * t < cv.co_store;
           #pragma unroll
           for (int h = 0; h < 2; ++h)
-            if (valid[h] && (EARLY_ABLATE != 4 || y[j][h] == 0x12345678u))
+            if (valid[h] && stored && (EARLY_ABLATE != 4 || y[j][h] == 0x12345678u))
               *reinterpret_cast<uint32_t*>(row[h] + 16 * j) = y[j][h];
         }
       }
@@ -711,7 +790,7 @@ struct Args {
   bf16* out;
   const uint8_t* wpack;
   long long* prof;
-  int bs, H, W, n, tiles_x, tiles_y;
+  int bs, H, W, n, c2, tiles_x, tiles_y;   // c2: the true output channels (at most kC2)
   Plan p;
 };
 
@@ -826,11 +905,10 @@ constexpr int kProfSlots = 0;
 #define TIMED_SYNC() consumer_sync()
 #endif
 
-template <int C0>
 __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args a) {
   extern __shared__ uint8_t smem_raw_base[];
   __shared__ Shared sh;
-  constexpr int c0 = C0, c1 = 2 * C0, ch = C0, c2 = 4 * C0;
+  constexpr int c0 = kC0, c1 = kC1, ch = kCH, c2 = kC2;
   constexpr int p0 = (c0 + kPad) * 2, p1 = (c1 + kPad) * 2, pc = (2 * ch + kPad) * 2,
                 ph = (ch + kPad) * 2;   // pixel pitches in bytes
   const Plan& P = a.p;
@@ -849,7 +927,7 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
       mbar_init(smem_u32(&sh.full[s]), 1);
       mbar_init(smem_u32(&sh.empty[s]), kConsumerThreads / 32);
     }
-    fill_layers(sh.tab, c0, n);
+    fill_layers(sh.tab, n);
 #ifdef EARLY_PROFILE
     for (int k = 0; k < 20; ++k) sh.wg_clocks[k / 5][k % 5] = 0;
 #endif
@@ -913,7 +991,7 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
   {
     const bf16* gb = reinterpret_cast<const bf16*>(a.wpack + sh.tab[layers - 1].goff
         + (sh.tab[layers - 1].ksteps / sh.tab[layers - 1].kpc) * sh.tab[layers - 1].co * 128);
-    for (int i = threadIdx.x; i < total_bias(c0, n); i += kConsumerThreads) s_bias[i] = gb[i];
+    for (int i = threadIdx.x; i < total_bias(n); i += kConsumerThreads) s_bias[i] = gb[i];
   }
 #ifdef EARLY_PROFILE
   long long prof_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
@@ -1029,8 +1107,8 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
         cv.tap_a = 2 * geo.half3 * p1;  cv.tap_b = geo.half3 * p1;  cv.tap_c = p1;
         cv.o_rows = t.rows8;  cv.o_cols = t.cols8;  cv.cols_magic = t.m_cols8;  cv.v_cols = t.cols8;
         cv.dst = reinterpret_cast<uint8_t*>(
-            a.out + (((size_t)t.b * (a.H / 8) + t.z0) * (a.W / 8) + t.x0) * c2);
-        cv.d_cols = a.W / 8;  cv.d_pitch = c2 * 2;
+            a.out + (((size_t)t.b * (a.H / 8) + t.z0) * (a.W / 8) + t.x0) * a.c2);
+        cv.d_cols = a.W / 8;  cv.d_pitch = a.c2 * 2;  cv.co_store = a.c2;
         cv.layer = layers - 1;
         cv.g_r0 = t.z0;  cv.g_c0 = t.x0;  cv.g_h = a.H / 8;  cv.g_w = a.W / 8;
         slot = 7;
@@ -1072,12 +1150,12 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
 
 // The bytes the kernel touches under this plan, or -1 if two buffers that are
 // live together overlap or an offset is not aligned.
-int plan_extent(const Plan& P, int c0, int n) {
-  const int c1 = 2 * c0, ch = c0, c2 = 4 * c0;
+int plan_extent(const Plan& P, int n) {
+  constexpr int c0 = kC0, c1 = kC1, ch = kCH;
   const Geo g = make_geo(n, P.th, P.tw);
   const int p0 = (c0 + kPad) * 2, p1 = (c1 + kPad) * 2, pc = (2 * ch + kPad) * 2, ph = (ch + kPad) * 2;
   if (P.rb < 1 || P.rb > g.r1 || P.stages < 2 || P.stages > kMaxStages || n < 1
-      || 5 + 2 * n > kMaxLayers || P.stage_bytes < c2 * 128)
+      || 5 + 2 * n > kMaxLayers || P.stage_bytes < kStageRows * 128)
     return -1;
   const int s2d_rows = 2 * P.rb + 3;
   const int size[8] = {
@@ -1088,7 +1166,7 @@ int plan_extent(const Plan& P, int c0, int n) {
       (2 * P.rb + 1) * 2 * g.half0 * p0,
       g.r1 * g.c1 * pc,
       g.r1 * g.c1 * ph,
-      total_bias(c0, n) * 2};
+      total_bias(n) * 2};
   const int off[8] = {P.off_ring, P.off_c1, P.off_raw, P.off_s2d, P.off_stem, P.off_mcat,
                       P.off_mt, P.off_bias};
   // live together: everything, except that {s2d, stem} and {mcat, mt} share their space
@@ -1106,34 +1184,36 @@ int plan_extent(const Plan& P, int c0, int n) {
   return end;
 }
 
-template <int C0>
 int launch(const Args& a, cudaStream_t stream, int grid) {
-  cudaError_t err = cudaFuncSetAttribute(early_pipeline_kernel<C0>,
+  cudaError_t err = cudaFuncSetAttribute(early_pipeline_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, a.p.total);
   if (err != cudaSuccess) return (int)err;
-  early_pipeline_kernel<C0><<<grid, kThreads, a.p.total, stream>>>(a);
+  early_pipeline_kernel<<<grid, kThreads, a.p.total, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launches on `stream`. `plan` holds the 14 ints of `Plan`; `prof` is null or,
-// in a build with -DEARLY_PROFILE, room for 28 clock sums per block. Returns
-// cudaGetLastError() (0 on success), -1 for a width other than this build's,
-// -2 for a plan that does not cover what the kernel uses.
+// Launches on `stream`. c0, c1, ch, c2 are the padded widths of the packed
+// weights, c2_out the output's true channels; `plan` holds the 14 ints of
+// `Plan`; `prof` is null or, in a build with -DEARLY_PROFILE, room for 28 clock
+// sums per block. Returns cudaGetLastError() (0 on success), -1 for widths other
+// than this build's, -2 for a plan that does not cover what the kernel uses.
 extern "C" int early_pipeline_launch(const void* img, void* out, const void* wpack, void* prof,
-                                     int bs, int H, int W, int c0, int n, const int* plan,
-                                     void* stream) {
+                                     int bs, int H, int W, int c0, int c1, int ch, int c2,
+                                     int c2_out, int n, const int* plan, void* stream) {
   Args a;
   a.img = (const uint8_t*)img;  a.out = (bf16*)out;  a.wpack = (const uint8_t*)wpack;
   a.prof = (long long*)prof;
-  a.bs = bs;  a.H = H;  a.W = W;  a.n = n;
+  a.bs = bs;  a.H = H;  a.W = W;  a.n = n;  a.c2 = c2_out;
   a.p = Plan{plan[0], plan[1], plan[2], plan[3], plan[4], plan[5], plan[6], plan[7], plan[8],
              plan[9], plan[10], plan[11], plan[12], plan[13]};
   a.tiles_x = (W / 8 + a.p.tw - 1) / a.p.tw;
   a.tiles_y = (H / 8 + a.p.th - 1) / a.p.th;
-  if (c0 != EARLY_C0) return -1;
-  const int extent = plan_extent(a.p, c0, n);
+  if (c0 != kC0 || c1 != kC1 || ch != kCH || c2 != kC2 || c2_out < 2 || c2_out > kC2
+      || c2_out % 2)
+    return -1;
+  const int extent = plan_extent(a.p, n);
   // 1024 bytes of the total are slack for aligning the ring; the barriers and
   // the layer table are static shared memory beside it
   if (extent < 0 || extent + 1024 > a.p.total || a.p.total + (int)sizeof(Shared) > kSmemLimit)
@@ -1144,7 +1224,7 @@ extern "C" int early_pipeline_launch(const void* img, void* out, const void* wpa
   if (err != cudaSuccess) return (int)err;
   const int ntiles = bs * a.tiles_x * a.tiles_y;
   const int grid = ntiles < sms ? ntiles : sms;
-  return launch<EARLY_C0>(a, (cudaStream_t)stream, grid);
+  return launch(a, (cudaStream_t)stream, grid);
 }
 
 extern "C" int early_pipeline_profile_slots() { return kProfSlots; }

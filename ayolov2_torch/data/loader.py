@@ -84,10 +84,11 @@ class DataLoader:
         pad_final_batch: pad a short final batch (``n_real`` counts the real
             items).
         shuffle, drop_last, seed: the training order (see above).
-        timeout: seconds the consumer waits for the next batch from the
-            process pool while a worker is alive, as in torch's
-            ``DataLoader``; then the workers are terminated and a
-            ``RuntimeError`` names them. 0 waits without a bound.
+        timeout: seconds the consumer waits for the next batch, as in
+            torch's ``DataLoader``: from the process pool while a worker is
+            alive (then the workers are terminated), or from the worker
+            threads; then a ``RuntimeError`` names the batch. 0 waits
+            without a bound.
 
     Yields ``Batch`` (detection=True) or (images, metas, indices, n_real)
     with metas and indices cut to the real items (detection=False).
@@ -219,7 +220,7 @@ class DataLoader:
                         return
                 try:
                     built = self._build(batches[i], n_real[i], self._pos0(i))
-                except Exception as e:  # raised again in the consumer
+                except BaseException as e:  # raised again in the consumer
                     with cond:
                         errors.append(e)
                         stop.set()
@@ -235,11 +236,21 @@ class DataLoader:
         ]
         for t in threads:
             t.start()
+        stalled = False  # a worker built nothing within the timeout: not joined
         try:
             for i in range(n_batches):
+                since = time.monotonic()
                 with cond:
                     while i not in results and not errors:
                         cond.wait(0.1)
+                        waited = time.monotonic() - since
+                        if self.timeout and waited >= self.timeout and i not in results:
+                            alive = sum(t.is_alive() for t in threads)
+                            stalled = True
+                            raise RuntimeError(
+                                f"no batch from the loader's worker threads ({alive} of "
+                                f"{len(threads)} alive) in {waited:.1f} s; waited for batch "
+                                f"{i} of {n_batches}")
                     if errors:
                         raise errors[0]
                     item = results.pop(i)
@@ -250,7 +261,7 @@ class DataLoader:
             with cond:
                 cond.notify_all()
             for t in threads:
-                t.join(timeout=60)
+                t.join(timeout=0 if stalled else 60)
 
     def _iter_processes(self, batches: List[np.ndarray], n_real: List[int]) -> Iterator:
         """One epoch on a forked pool: the workers take batch numbers from a

@@ -134,7 +134,8 @@ class ServingModule(nn.Module):
         if use_early:
             self.ep = early.extract_early_params(fuse_params(
                 {k: v.float() for k, v in model.state_dict().items()})).to(device)
-            early.tile_for(self.ep)  # raises on widths the kernel is not built for
+            if device.type == "cuda":
+                early.tile_for(self.ep)  # raises on widths the kernel does not take
             self.register_buffer("k1_weights", early.pack_weights(self.ep))
             self.ep._packed[str(device)] = self.k1_weights
         self.model = copy.deepcopy(model).to(device=device, dtype=image_dtype,
@@ -164,8 +165,9 @@ class ServingModule(nn.Module):
                                  dtype=self.image_dtype)
             return self.model(x / 255.0, training=True)
         if self.early:
-            act = early.early_pipeline_op(images.contiguous(), self.k1_weights, self.ep.c0,
-                                          self.ep.n)
+            c0, c1, ch, c2, n = self.ep.widths
+            act = early.early_pipeline_op(images.contiguous(), self.k1_weights, c0, n, c1,
+                                          ch, c2)
             # a contiguous NHWC tensor viewed as NCHW is channels_last already
             return self.model(act.permute(0, 3, 1, 2), training=True, start_layer=4)
         x = images.permute(0, 3, 1, 2).to(self.image_dtype) / 255.0

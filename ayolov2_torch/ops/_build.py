@@ -27,10 +27,18 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# The early-network kernel's padded width sets (c0, c1, ch, c2) of the shipped
+# configs: stem 8 (width_multiple 0.125), n, s, m, l, l_0.5 and x, and the
+# width-1.05 config (stem 72, conv1 136, C3 68, conv2 272).
+EARLY_SETS = ((16, 16, 16, 32), (16, 32, 16, 64), (32, 64, 32, 128), (48, 96, 48, 192),
+              (64, 128, 64, 256), (80, 160, 80, 320), (80, 144, 80, 288))
+
 # Sources that are built once per -D set and never bare: name -> the sets that
 # build_all() compiles by default (each its own nvcc process and library).
+# Other width sets are built at first use (``load``).
 VARIANTS: Dict[str, List[Tuple[str, ...]]] = {
-    "early_pipeline": [(f"EARLY_C0={c0}",) for c0 in (16, 32, 48, 64, 80)],
+    "early_pipeline": [tuple(f"EARLY_{k}={c}" for k, c in zip(("C0", "C1", "CH", "C2"), s))
+                       for s in EARLY_SETS],
 }
 
 _LIBS: Dict[Tuple[str, Tuple[str, ...]], ctypes.CDLL] = {}

@@ -13,15 +13,23 @@ continues with ``forward(..., start_layer=4)``.
   with the same bf16 rounding points; the CPU tests and the on-card check
   use it.
 - :func:`early_pipeline` is the wrapper: on a CPU tensor it runs the plain
-  version, on a CUDA tensor it launches the kernel or raises. It calls the
-  operator ``torch.ops.ayolov2.early_pipeline(images, packed, c0, n)``
-  (:func:`early_pipeline_op`), whose arguments are the uint8 images, the
-  kernel's packed weight buffer (:func:`pack_weights`) and the two ints
-  that fix the widths, so that ``torch.export`` records it in a graph with
-  the packed weights as a buffer of the exported module. Its CPU
-  implementation unpacks the weights and runs the plain version; its CUDA
-  implementation launches the kernel; a fake implementation gives the
-  output's shape to the tracer. Importing this module registers it.
+  version at any widths, on a CUDA tensor it launches the kernel or raises.
+  It calls the operator ``torch.ops.ayolov2.early_pipeline(images, packed,
+  c0, n, c1, ch, c2)`` (:func:`early_pipeline_op`), whose arguments are the
+  uint8 images, the kernel's packed weight buffer (:func:`pack_weights`) and
+  the ints that fix the widths, so that ``torch.export`` records it in a
+  graph with the packed weights as a buffer of the exported module. c1, ch
+  and c2 may be left out: they then follow the v6 ratios of c0 (2 c0, c0,
+  4 c0), the only widths of the operator's first form, so artifacts written
+  with that form still load. Its CPU implementation unpacks the weights and
+  runs the plain version; its CUDA implementation launches the kernel; a
+  fake implementation gives the output's shape to the tracer. Importing
+  this module registers it.
+
+The kernel holds every width padded (:func:`padded_widths`): c0, c1 and ch
+to multiples of 16 and c2 to a multiple of its N tile, with zero weights and
+biases, so that every padded channel is exactly 0 after SiLU; it stores only
+the true c2 channels. One library is built per padded width set.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +45,7 @@ import torch.nn.functional as F
 from ayolov2_torch.ops import _build
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+Widths = Tuple[int, int, int, int, int]  # (c0, c1, ch, c2, n)
 
 
 @dataclasses.dataclass
@@ -45,19 +54,19 @@ class EarlyParams:
 
     w_stem: torch.Tensor                # (c0, 112)  K = 108 = 3x3 x 12 planes
     b_stem: torch.Tensor
-    w_c1: torch.Tensor                  # (c1, 9*c0)
+    w_c1: torch.Tensor                  # (c1, 9*c0 up to a multiple of 16)
     b_c1: torch.Tensor
     w_cv1: torch.Tensor                 # (ch, c1)
     b_cv1: torch.Tensor
     w_m_cv1: Tuple[torch.Tensor, ...]   # n x (ch, ch)
     b_m_cv1: Tuple[torch.Tensor, ...]
-    w_m_cv2: Tuple[torch.Tensor, ...]   # n x (ch, 9*ch)
+    w_m_cv2: Tuple[torch.Tensor, ...]   # n x (ch, 9*ch up to a multiple of 16)
     b_m_cv2: Tuple[torch.Tensor, ...]
     w_cv2: torch.Tensor                 # (ch, c1)
     b_cv2: torch.Tensor
-    w_cv3: torch.Tensor                 # (c1, 2*ch)
+    w_cv3: torch.Tensor                 # (c1, 2*ch up to a multiple of 16)
     b_cv3: torch.Tensor
-    w_c2: torch.Tensor                  # (c2, 9*c1)
+    w_c2: torch.Tensor                  # (c2, 9*c1 up to a multiple of 16)
     b_c2: torch.Tensor
     # the packed buffer of each device, made on the first call of the wrapper
     _packed: Dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
@@ -81,6 +90,11 @@ class EarlyParams:
     @property
     def n(self) -> int:
         return len(self.w_m_cv1)
+
+    @property
+    def widths(self) -> "Widths":
+        """(c0, c1, ch, c2, n), read from the weight shapes as JAX reads them."""
+        return self.c0, self.c1, self.ch, self.c2, self.n
 
     def segments(self) -> List[torch.Tensor]:
         """Every weight and bias tensor, layer by layer (their bytes are what
@@ -196,10 +210,13 @@ def _check(images: torch.Tensor, ep: EarlyParams) -> None:
                          "multiples of 8")
     if not images.is_contiguous():
         raise ValueError("images must be contiguous")
-    if (ep.w_stem.shape[1] != 112 or ep.n < 1 or ep.ch * 2 != ep.w_cv3.shape[1]
-            or any(c % 16 for c in (ep.c0, ep.c1, ep.ch, ep.c2))):
-        raise ValueError(f"unsupported widths c0={ep.c0} c1={ep.c1} ch={ep.ch} "
-                         f"c2={ep.c2} n={ep.n}")
+    c0, c1, ch, c2, n = ep.widths
+    if (ep.w_stem.shape[1] != 112 or n < 1 or ep.w_c1.shape[1] < 9 * c0
+            or ep.w_cv1.shape[1] != c1 or ep.w_cv3.shape[1] < 2 * ch
+            or ep.w_c2.shape[1] < 9 * c1):
+        raise ValueError(f"inconsistent early-network weights: widths c0={c0} c1={c1} ch={ch} "
+                         f"c2={c2} n={n}, stem K {ep.w_stem.shape[1]}, conv1 K "
+                         f"{ep.w_c1.shape[1]}, cv3 K {ep.w_cv3.shape[1]}")
 
 
 def _conv_silu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, k: int,
@@ -288,12 +305,55 @@ def tile_geometry(n: int, th: int, tw: int) -> Dict[str, int]:
                 half3=(c3 + 1) // 2, raw_pitch=(6 * cs + 14) // 8 * 8)
 
 
-def halo_factor(c0: int, n: int, th: int, tw: int, row_tile: int = 1) -> float:
-    """MACs a tile computes (its whole receptive field, true K) over the MACs
-    of its own th x tw output. With ``row_tile=64`` every product's pixels are
-    rounded up to whole 64-row tiles, as the kernel's wgmmas compute them:
-    the factor the tiles are ranked by."""
-    c1, ch, c2 = 2 * c0, c0, 4 * c0
+MAX_C0, MAX_CH, MAX_C1, MAX_C2 = 80, 80, 160, 320  # padded widths the kernel's N tiles cover
+
+
+def widths_of(c0: int, n: int, c1: Optional[int] = None, ch: Optional[int] = None,
+              c2: Optional[int] = None) -> Widths:
+    """(c0, c1, ch, c2, n); c1, ch and c2 left out follow the v6 ratios of the
+    stem width c0: 2 c0, c0, 4 c0."""
+    return (c0, 2 * c0 if c1 is None else c1, c0 if ch is None else ch,
+            4 * c0 if c2 is None else c2, n)
+
+
+def padded_width(c: int) -> int:
+    """A width as the kernel holds it: a multiple of 16 (one k16 step, and an
+    N tile of a multiple of 8 where a product of up to 160 channels is cut
+    in two), of 32 above 160 (cut in four)."""
+    return -(-c // 16) * 16 if c <= 160 else -(-c // 32) * 32
+
+
+def padded_widths(c0: int, c1: int, ch: int, c2: int) -> Tuple[int, int, int, int]:
+    return padded_width(c0), padded_width(c1), padded_width(ch), padded_width(c2)
+
+
+def stage_rows(c0p: int, c1p: int, chp: int, c2p: int) -> int:
+    """Rows of 128 bytes in one stage of the weight ring: the widest product,
+    and the stem's three chunks, which its nine wgmmas read from one stage."""
+    return max(3 * c0p, c1p, 2 * chp, c2p)
+
+
+def kernel_defines(c0: int, c1: int, ch: int, c2: int) -> Tuple[str, ...]:
+    """The -D switches of the kernel's library for these (true) widths: one
+    library per padded width set."""
+    p0, p1, ph, p2 = padded_widths(c0, c1, ch, c2)
+    return (f"EARLY_C0={p0}", f"EARLY_C1={p1}", f"EARLY_CH={ph}", f"EARLY_C2={p2}")
+
+
+def _width_text(c0: int, c1: int, ch: int, c2: int, n: int) -> str:
+    return f"widths c0={c0} c1={c1} ch={ch} c2={c2} n={n}"
+
+
+def halo_factor(c0: int, n: int, th: int, tw: int, row_tile: int = 1,
+                c1: Optional[int] = None, ch: Optional[int] = None,
+                c2: Optional[int] = None) -> float:
+    """MACs a tile computes (its whole receptive field, at the padded widths
+    the kernel computes) over the MACs of its own th x tw output. With
+    ``row_tile=64`` every product's pixels are rounded up to whole 64-row
+    tiles, as the kernel's wgmmas compute them: the factor the tiles are
+    ranked by."""
+    c0, c1, ch, c2, n = widths_of(c0, n, c1, ch, c2)
+    c0, c1, ch, c2 = padded_widths(c0, c1, ch, c2)
     g = tile_geometry(n, th, tw)
 
     def up(pixels):
@@ -315,20 +375,28 @@ def _align(x: int, a: int = 128) -> int:
     return -(-x // a) * a
 
 
-def _plan_for(c0: int, n: int, th: int, tw: int, stages: int, rb: int) -> EarlyPlan:
-    c1, ch, c2 = 2 * c0, c0, 4 * c0
+def total_bias(c0p: int, c1p: int, chp: int, c2p: int, n: int) -> int:
+    """Biases of every product, padded: stem, conv1, cv1|cv2, n x [m.cv1,
+    m.cv2], cv3, conv2 (the kernel's ``total_bias``)."""
+    return c0p + c1p + 2 * chp + n * 2 * chp + c1p + c2p
+
+
+def _plan_for(widths: Widths, th: int, tw: int, stages: int, rb: int) -> EarlyPlan:
+    c0, c1, ch, c2, n = widths
+    p0w, p1w, phw, p2w = padded_widths(c0, c1, ch, c2)
     g = tile_geometry(n, th, tw)
-    p0, p1, pc, ph = ((c + PAD) * 2 for c in (c0, c1, 2 * ch, ch))
+    p0, p1, pc, ph = ((c + PAD) * 2 for c in (p0w, p1w, 2 * phw, phw))
     s2d_rows = 2 * rb + 3
+    stage_bytes = stage_rows(p0w, p1w, phw, p2w) * 128
     sizes = dict(
-        ring=stages * c2 * 128,
+        ring=stages * stage_bytes,
         c1=max(g["r1"] * g["c1"], g["r3"] * 2 * g["half3"]) * p1,  # conv1 out, then C3 out
         raw=2 * s2d_rows * g["raw_pitch"],
         s2d=s2d_rows * g["cs"] * S2D_BYTES,
         stem=(2 * rb + 1) * 2 * g["half0"] * p0,
         mcat=g["r1"] * g["c1"] * pc,
         mt=g["r1"] * g["c1"] * ph,
-        bias=c0 * (11 + 2 * n) * 2,
+        bias=total_bias(p0w, p1w, phw, p2w, n) * 2,
     )
     off, pos = {}, 0
     for name in ("ring", "c1", "raw", "bias"):
@@ -338,9 +406,10 @@ def _plan_for(c0: int, n: int, th: int, tw: int, stages: int, rb: int) -> EarlyP
     off["s2d"], off["stem"] = pos, pos + _align(sizes["s2d"])
     off["mcat"], off["mt"] = pos, pos + _align(sizes["mcat"])
     pos = max(off["stem"] + _align(sizes["stem"]), off["mt"] + _align(sizes["mt"]))
-    return EarlyPlan(th, tw, rb, stages, c2 * 128, off["ring"], off["c1"], off["raw"],
+    return EarlyPlan(th, tw, rb, stages, stage_bytes, off["ring"], off["c1"], off["raw"],
                      off["s2d"], off["stem"], off["mcat"], off["mt"], off["bias"],
-                     pos + 1024, sizes, halo_factor(c0, n, th, tw))
+                     pos + 1024, sizes,
+                     halo_factor(c0, n, th, tw, c1=c1, ch=ch, c2=c2))
 
 
 # Stages of the weight ring. Measured on an H100, a third stage bought yolov5s nothing
@@ -349,34 +418,48 @@ RING_STAGES = 2
 STATIC_SMEM = 1024  # the kernel's barriers and tables (static shared memory), rounded up
 
 
-@functools.lru_cache(maxsize=None)  # on the launch path: the search runs once per width
-def plan_early(c0: int, n: int) -> EarlyPlan:
-    """The kernel's plan for widths c0 (c1 = 2 c0, ch = c0, c2 = 4 c0) and C3
-    depth n: the tile of least halo factor (counted in whole 64-row tiles:
-    measured, yolov5s is faster at 8x8, where conv2 is one full row tile, than
-    at 8x10) that fits a block's shared memory with bands of at least 4 conv1
-    rows (any band height for the smallest tile), in as few bands as fit, of
-    even height. Raises if no tile fits."""
-    if c0 not in (16, 32, 48, 64, 80) or not 1 <= n <= 4:
-        raise ValueError(f"no kernel for widths c0={c0} c1={2 * c0} ch={c0} c2={4 * c0} n={n}: "
-                         "it is built for stems of 16, 32, 48, 64 or 80 channels and C3 depths "
-                         "1-4; run layers 0..3 on cuDNN (early_pipeline=False) instead")
-    for th, tw in sorted(TILES, key=lambda t: halo_factor(c0, n, *t, row_tile=64)):
+def plan_early(c0: int, n: int, c1: Optional[int] = None, ch: Optional[int] = None,
+               c2: Optional[int] = None) -> EarlyPlan:
+    """The kernel's plan for widths c0, c1, ch, c2 (c1 = 2 c0, ch = c0, c2 =
+    4 c0 where left out) and C3 depth n: the tile of least halo factor
+    (counted in whole 64-row tiles: measured, yolov5s is faster at 8x8, where
+    conv2 is one full row tile, than at 8x10) that fits a block's shared
+    memory, sized from the padded widths, with bands of at least 4 conv1 rows
+    (any band height for the smallest tile), in as few bands as fit, of even
+    height. Raises, naming the widths, where the kernel does not take them
+    or no tile fits."""
+    return _plan_early(widths_of(c0, n, c1, ch, c2))
+
+
+@functools.lru_cache(maxsize=None)  # on the launch path: the search runs once per width set
+def _plan_early(widths: Widths) -> EarlyPlan:
+    c0, c1, ch, c2, n = widths
+    p0, p1, ph, p2 = padded_widths(c0, c1, ch, c2)
+    if (min(c0, c1, ch, c2) < 1 or p0 > MAX_C0 or p1 > MAX_C1 or ph > MAX_CH or p2 > MAX_C2
+            or c2 % 2 or not 1 <= n <= 4):
+        raise ValueError(
+            f"no kernel for {_width_text(*widths)}: it takes stems of 1-{MAX_C0} channels, "
+            f"conv1 up to {MAX_C1}, a C3 hidden width up to {MAX_CH}, an even conv2 width up "
+            f"to {MAX_C2} and C3 depths 1-4; run layers 0..3 on cuDNN "
+            "(early_pipeline=False) instead")
+    for th, tw in sorted(TILES, key=lambda t: halo_factor(c0, n, *t, row_tile=64, c1=c1,
+                                                          ch=ch, c2=c2)):
         r1 = 2 * th + 1 + 2 * n
         for rb in range(r1, 0, -1):
-            plan = _plan_for(c0, n, th, tw, RING_STAGES, rb)
+            plan = _plan_for(widths, th, tw, RING_STAGES, rb)
             if rb < min(4, r1) and (th, tw) != TILES[-1]:
                 break  # bands this short cost more than the next tile's halo
             if plan.total + STATIC_SMEM <= SMEM_LIMIT:
                 # as few bands as fit, of even height: a short last band wastes row tiles
                 bands = -(-r1 // rb)
-                return _plan_for(c0, n, th, tw, RING_STAGES, -(-r1 // bands))
-    raise ValueError(f"no tile fits widths c0={c0} c1={2 * c0} ch={c0} c2={4 * c0} n={n}")
+                return _plan_for(widths, th, tw, RING_STAGES, -(-r1 // bands))
+    raise ValueError(f"no tile fits {_width_text(*widths)} in {SMEM_LIMIT} bytes of shared "
+                     "memory; run layers 0..3 on cuDNN (early_pipeline=False) instead")
 
 
 def tile_for(ep: EarlyParams) -> Tuple[int, int]:
     """The /8-output tile the kernel takes for these widths."""
-    plan = _kernel_plan(ep)
+    plan = kernel_plan(ep)
     return plan.th, plan.tw
 
 
@@ -389,15 +472,56 @@ def stem_k144(w_stem: torch.Tensor) -> torch.Tensor:
     return F.pad(w_stem[:, :108].reshape(c0, 9, 12), (0, 4)).reshape(c0, STEM_K)
 
 
+def _ceil16(k: int) -> int:
+    return -(-k // 16) * 16
+
+
+def _layers(widths: Widths) -> List[Tuple[int, int, int, int, int, int]]:
+    """(taps, cin, co, cin_p, co_p, K of the true matrix) of every product the
+    kernel runs, in its order: stem (its K = 144 layout is already 9 taps of
+    16 planes), conv1, cv1 and cv2 (one product in the kernel), n x [m.cv1,
+    m.cv2], cv3 (a 1x1 over the two halves of the concat, two "taps" of ch
+    channels each), conv2. The true matrices' K is what
+    :func:`extract_early_params` gives: a 1x1 on one input keeps its K, the
+    others are padded to a multiple of 16 (the stem's is its K = 144 form)."""
+    c0, c1, ch, c2, n = widths
+    p0, p1, ph, p2 = padded_widths(c0, c1, ch, c2)
+    out = [(9, 16, c0, 16, p0, STEM_K), (9, c0, c1, p0, p1, _ceil16(9 * c0)),
+           (1, c1, ch, p1, ph, c1), (1, c1, ch, p1, ph, c1)]
+    out += [(1, ch, ch, ph, ph, ch), (9, ch, ch, ph, ph, _ceil16(9 * ch))] * n
+    return out + [(2, ch, c1, ph, p1, _ceil16(2 * ch)), (9, c1, c2, p1, p2, _ceil16(9 * c1))]
+
+
+def _pad_conv(w: torch.Tensor, b: torch.Tensor, taps: int, cin: int, cin_p: int,
+              co_p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(co, K >= taps cin), (co,) -> (co_p, taps cin_p), (co_p,): each tap's
+    cin columns followed by zeros up to cin_p, zero rows and biases past co."""
+    co = w.shape[0]
+    w = F.pad(w[:, :taps * cin].reshape(co, taps, cin), (0, cin_p - cin, 0, 0, 0, co_p - co))
+    return w.reshape(co_p, taps * cin_p), F.pad(b, (0, co_p - co))
+
+
+def _unpad_conv(w: torch.Tensor, b: torch.Tensor, taps: int, cin: int, co: int,
+                k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse of :func:`_pad_conv`: the true (co, k) matrix, zero past
+    taps cin, and its (co,) bias."""
+    w = w[:co].reshape(co, taps, -1)[:, :, :cin].reshape(co, taps * cin)
+    return F.pad(w, (0, k - taps * cin)), b[:co]
+
+
 def layer_matrices(ep: EarlyParams) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """(W (co, K), b (co,)) of every product the kernel runs, in its order:
-    stem (K = 144), conv1, cv1|cv2 as one (2 ch, c1), n x [m.cv1, m.cv2],
-    cv3, conv2."""
-    out = [(stem_k144(ep.w_stem), ep.b_stem), (ep.w_c1, ep.b_c1),
-           (torch.cat([ep.w_cv1, ep.w_cv2]), torch.cat([ep.b_cv1, ep.b_cv2]))]
+    """(W (co_p, K_p), b (co_p,)) of every product the kernel runs, in its
+    order, at the padded widths: stem (K = 144), conv1, cv1|cv2 as one
+    (2 ch_p, c1_p), n x [m.cv1, m.cv2], cv3, conv2."""
+    true = [(stem_k144(ep.w_stem), ep.b_stem), (ep.w_c1, ep.b_c1), (ep.w_cv1, ep.b_cv1),
+            (ep.w_cv2, ep.b_cv2)]
     for i in range(ep.n):
-        out += [(ep.w_m_cv1[i], ep.b_m_cv1[i]), (ep.w_m_cv2[i], ep.b_m_cv2[i])]
-    return out + [(ep.w_cv3, ep.b_cv3), (ep.w_c2, ep.b_c2)]
+        true += [(ep.w_m_cv1[i], ep.b_m_cv1[i]), (ep.w_m_cv2[i], ep.b_m_cv2[i])]
+    true += [(ep.w_cv3, ep.b_cv3), (ep.w_c2, ep.b_c2)]
+    out = [_pad_conv(w, b, taps, cin, cin_p, co_p)
+           for (w, b), (taps, cin, _, cin_p, co_p, _) in zip(true, _layers(ep.widths))]
+    (w1, b1), (w2, b2) = out[2], out[3]
+    return out[:2] + [(torch.cat([w1, w2]), torch.cat([b1, b2]))] + out[4:]
 
 
 def steps_per_chunk(k: int) -> int:
@@ -445,26 +569,31 @@ def pack_weights(ep: EarlyParams) -> torch.Tensor:
     return torch.cat(parts)
 
 
-def packed_layout(c0: int, n: int) -> List[Tuple[int, int]]:
-    """(co, K) of every product in :func:`layer_matrices`' order for widths
-    c0 (c1 = 2 c0, ch = c0, c2 = 4 c0) and C3 depth n."""
-    c1, ch, c2 = 2 * c0, c0, 4 * c0
-    return ([(c0, STEM_K), (c1, 9 * c0), (2 * ch, c1)] + [(ch, ch), (ch, 9 * ch)] * n
-            + [(c1, 2 * ch), (c2, 9 * c1)])
+def packed_layout(c0: int, n: int, c1: Optional[int] = None, ch: Optional[int] = None,
+                  c2: Optional[int] = None) -> List[Tuple[int, int]]:
+    """(co_p, K_p) of every product in :func:`layer_matrices`' order for
+    widths c0, c1, ch, c2 (the v6 ratios of c0 where left out) and C3 depth n."""
+    layers = _layers(widths_of(c0, n, c1, ch, c2))
+    out = [(co_p, taps * cin_p) for taps, _, _, cin_p, co_p, _ in layers]
+    return out[:2] + [(2 * out[2][0], out[2][1])] + out[4:]
 
 
-def packed_numel(c0: int, n: int) -> int:
+def packed_numel(c0: int, n: int, c1: Optional[int] = None, ch: Optional[int] = None,
+                 c2: Optional[int] = None) -> int:
     """Elements of the buffer :func:`pack_weights` makes for these widths."""
-    return sum(co * 64 * (k // (16 * steps_per_chunk(k))) + co for co, k in packed_layout(c0, n))
+    return sum(co * 64 * (k // (16 * steps_per_chunk(k))) + co
+               for co, k in packed_layout(c0, n, c1, ch, c2))
 
 
-def unpack_weights(wpack: torch.Tensor, c0: int, n: int) -> EarlyParams:
-    """The inverse of :func:`pack_weights`: the packed buffer of widths c0
-    and depth n -> EarlyParams (bit for bit: both are bf16)."""
-    if wpack.dim() != 1 or wpack.numel() != packed_numel(c0, n):
-        raise ValueError(f"packed weights of {tuple(wpack.shape)} elements do not hold widths "
-                         f"c0={c0} n={n} ({packed_numel(c0, n)} elements)")
-    layout = packed_layout(c0, n)
+def unpack_weights(wpack: torch.Tensor, c0: int, n: int, c1: Optional[int] = None,
+                   ch: Optional[int] = None, c2: Optional[int] = None) -> EarlyParams:
+    """The inverse of :func:`pack_weights`: the packed buffer of these widths
+    -> EarlyParams at the true widths (bit for bit: both are bf16)."""
+    widths = widths_of(c0, n, c1, ch, c2)
+    if wpack.dim() != 1 or wpack.numel() != packed_numel(c0, n, c1, ch, c2):
+        raise ValueError(f"packed weights of {tuple(wpack.shape)} elements do not hold "
+                         f"{_width_text(*widths)} ({packed_numel(c0, n, c1, ch, c2)} elements)")
+    layout = packed_layout(c0, n, c1, ch, c2)
     mats, pos = [], 0
     for co, k in layout:
         size = co * 64 * (k // (16 * steps_per_chunk(k)))
@@ -474,14 +603,19 @@ def unpack_weights(wpack: torch.Tensor, c0: int, n: int) -> EarlyParams:
     for co, _ in layout:
         biases.append(wpack[pos:pos + co])
         pos += co
-    ch = c0
-    w_stem = F.pad(mats[0].reshape(c0, 9, 16)[:, :, :12].reshape(c0, 108), (0, 4))
-    m = range(3, 3 + 2 * n, 2)
+    half = layout[2][0] // 2  # cv1 | cv2: two halves of ch_p rows
+    mats[2:3] = [mats[2][:half], mats[2][half:]]
+    biases[2:3] = [biases[2][:half], biases[2][half:]]
+    true = [_unpad_conv(w, b, taps, cin, co, k)
+            for w, b, (taps, cin, co, _, _, k) in zip(mats, biases, _layers(widths))]
+    stem = true[0][0].reshape(widths[0], 9, 16)[:, :, :12].reshape(widths[0], 108)
+    true[0] = (F.pad(stem, (0, 4)), true[0][1])
+    m = range(4, 4 + 2 * n, 2)
     return EarlyParams(
-        w_stem, biases[0], mats[1], biases[1], mats[2][:ch], biases[2][:ch],
-        tuple(mats[i] for i in m), tuple(biases[i] for i in m),
-        tuple(mats[i + 1] for i in m), tuple(biases[i + 1] for i in m),
-        mats[2][ch:], biases[2][ch:], mats[-2], biases[-2], mats[-1], biases[-1])
+        *true[0], *true[1], *true[2],
+        tuple(true[i][0] for i in m), tuple(true[i][1] for i in m),
+        tuple(true[i + 1][0] for i in m), tuple(true[i + 1][1] for i in m),
+        *true[3], *true[-2], *true[-1])
 
 
 def _packed(ep: EarlyParams, device: torch.device) -> torch.Tensor:
@@ -494,14 +628,15 @@ def _packed(ep: EarlyParams, device: torch.device) -> torch.Tensor:
 
 # ---- the wrapper -----------------------------------------------------------------
 
-def _lib_with(c0: int, extra: Tuple[str, ...] = (), source: str = "early_pipeline") -> ctypes.CDLL:
-    """The kernel's library for stem width c0 (one build per width), built
-    with the ``extra`` -D switches; ``source`` may be the path of another
-    version of the kernel's source with the same C interface."""
-    lib = _build.load(source, defines=(f"EARLY_C0={c0}",) + tuple(extra))
+def _lib_with(widths: Widths, extra: Tuple[str, ...] = (),
+              source: str = "early_pipeline") -> ctypes.CDLL:
+    """The kernel's library for the padded set of these widths (one build per
+    set), built with the ``extra`` -D switches; ``source`` may be the path of
+    another version of the kernel's source with the same C interface."""
+    lib = _build.load(source, defines=kernel_defines(*widths[:4]) + tuple(extra))
     if not getattr(lib, "_typed", False):
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.early_pipeline_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i,
+        lib.early_pipeline_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
                                               ctypes.POINTER(ctypes.c_int), vp]
         lib.early_pipeline_launch.restype = i
         lib.early_pipeline_profile_slots.argtypes = []
@@ -510,38 +645,36 @@ def _lib_with(c0: int, extra: Tuple[str, ...] = (), source: str = "early_pipelin
     return lib
 
 
-def _lib(c0: int, profile: bool = False) -> ctypes.CDLL:
-    return _lib_with(c0, ("EARLY_PROFILE",) if profile else ())
+def _lib(widths: Widths, profile: bool = False) -> ctypes.CDLL:
+    return _lib_with(widths, ("EARLY_PROFILE",) if profile else ())
 
 
-def _kernel_plan(ep: EarlyParams) -> EarlyPlan:
+def kernel_plan(ep: EarlyParams) -> EarlyPlan:
     """The plan for these weights; raises on widths the kernel does not take."""
-    if (ep.c1, ep.ch, ep.c2) != (2 * ep.c0, ep.c0, 4 * ep.c0):
-        raise ValueError(f"no kernel for widths c0={ep.c0} c1={ep.c1} ch={ep.ch} c2={ep.c2}")
-    return plan_early(ep.c0, ep.n)
+    return plan_early(ep.c0, ep.n, ep.c1, ep.ch, ep.c2)
 
 
-def _launch(lib: ctypes.CDLL, images: torch.Tensor, wpack: torch.Tensor, c0: int, n: int,
+def _launch(lib: ctypes.CDLL, images: torch.Tensor, wpack: torch.Tensor, widths: Widths,
             prof: torch.Tensor = None) -> torch.Tensor:
-    plan = plan_early(c0, n)
+    c0, c1, ch, c2, n = widths
+    plan = plan_early(c0, n, c1, ch, c2)
     bs, h, w, _ = images.shape
-    out = torch.empty((bs, h // 8, w // 8, 4 * c0), dtype=torch.bfloat16, device=images.device)
+    out = torch.empty((bs, h // 8, w // 8, c2), dtype=torch.bfloat16, device=images.device)
     ints = (ctypes.c_int * len(PLAN_FIELDS))(*plan.as_ints())
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
         err = lib.early_pipeline_launch(
             images.data_ptr(), out.data_ptr(), wpack.data_ptr(),
             prof.data_ptr() if prof is not None else None,
-            bs, h, w, c0, n, ints, stream)
+            bs, h, w, *padded_widths(c0, c1, ch, c2), c2, n, ints, stream)
     if err != 0:
-        raise RuntimeError(f"early_pipeline kernel launch failed: error {err} (widths "
-                           f"c0={c0} c1={2 * c0} ch={c0} c2={4 * c0} n={n}, tile "
-                           f"{plan.th}x{plan.tw})")
+        raise RuntimeError(f"early_pipeline kernel launch failed: error {err} "
+                           f"({_width_text(*widths)}, tile {plan.th}x{plan.tw})")
     early_pipeline.launches += 1
     return out
 
 
-def _check_op(images: torch.Tensor, wpack: torch.Tensor, c0: int, n: int) -> None:
+def _check_op(images: torch.Tensor, wpack: torch.Tensor, widths: Widths) -> None:
     if images.dtype != torch.uint8 or images.dim() != 4 or images.shape[-1] != 3:
         raise ValueError(f"expected (bs, H, W, 3) uint8 images, got {tuple(images.shape)} "
                          f"{images.dtype}")
@@ -551,49 +684,61 @@ def _check_op(images: torch.Tensor, wpack: torch.Tensor, c0: int, n: int) -> Non
     if wpack.dtype != torch.bfloat16 or wpack.device != images.device:
         raise ValueError(f"packed weights {wpack.dtype} on {wpack.device}: need bf16 on "
                          f"{images.device}")
-    if wpack.numel() != packed_numel(c0, n):
-        raise ValueError(f"packed weights of {wpack.numel()} elements do not hold widths "
-                         f"c0={c0} n={n}")
+    c0, c1, ch, c2, n = widths
+    if wpack.numel() != packed_numel(c0, n, c1, ch, c2):
+        raise ValueError(f"packed weights of {wpack.numel()} elements do not hold "
+                         f"{_width_text(*widths)}")
 
 
 @torch.library.custom_op("ayolov2::early_pipeline", mutates_args=(), device_types="cpu")
-def early_pipeline_op(images: torch.Tensor, wpack: torch.Tensor, c0: int,
-                      n: int) -> torch.Tensor:
+def early_pipeline_op(images: torch.Tensor, wpack: torch.Tensor, c0: int, n: int,
+                      c1: Optional[int] = None, ch: Optional[int] = None,
+                      c2: Optional[int] = None) -> torch.Tensor:
     """The operator: (bs, H, W, 3) uint8, the packed bf16 weights of widths
-    c0 and C3 depth n -> (bs, H/8, W/8, 4 c0) bf16. This body is the CPU
-    implementation: the plain version on the unpacked weights."""
-    _check_op(images, wpack, c0, n)
-    return early_pipeline_ref(images, unpack_weights(wpack, c0, n))
+    c0, c1, ch, c2 (the v6 ratios of c0 where left out) and C3 depth n ->
+    (bs, H/8, W/8, c2) bf16. This body is the CPU implementation: the plain
+    version on the unpacked weights, at any widths."""
+    widths = widths_of(c0, n, c1, ch, c2)
+    _check_op(images, wpack, widths)
+    return early_pipeline_ref(images, unpack_weights(wpack, c0, n, c1, ch, c2))
 
 
 @early_pipeline_op.register_kernel("cuda")
-def _early_pipeline_cuda(images: torch.Tensor, wpack: torch.Tensor, c0: int,
-                         n: int) -> torch.Tensor:
-    _check_op(images, wpack, c0, n)
-    plan_early(c0, n)  # raises before any build is tried
-    return _launch(_lib(c0), images, wpack, c0, n)
+def _early_pipeline_cuda(images: torch.Tensor, wpack: torch.Tensor, c0: int, n: int,
+                         c1: Optional[int] = None, ch: Optional[int] = None,
+                         c2: Optional[int] = None) -> torch.Tensor:
+    widths = widths_of(c0, n, c1, ch, c2)
+    _check_op(images, wpack, widths)
+    plan_early(c0, n, c1, ch, c2)  # raises before any build is tried
+    return _launch(_lib(widths), images, wpack, widths)
 
 
 @early_pipeline_op.register_fake
-def _early_pipeline_fake(images: torch.Tensor, wpack: torch.Tensor, c0: int,
-                         n: int) -> torch.Tensor:
+def _early_pipeline_fake(images: torch.Tensor, wpack: torch.Tensor, c0: int, n: int,
+                         c1: Optional[int] = None, ch: Optional[int] = None,
+                         c2: Optional[int] = None) -> torch.Tensor:
     bs, h, w, _ = images.shape
-    return images.new_empty((bs, h // 8, w // 8, 4 * c0), dtype=torch.bfloat16)
+    c2 = widths_of(c0, n, c1, ch, c2)[3]
+    return images.new_empty((bs, h // 8, w // 8, c2), dtype=torch.bfloat16)
 
 
 def early_pipeline(images: torch.Tensor, ep: EarlyParams) -> torch.Tensor:
     """Fused stem/conv1/C3/conv2: (bs, H, W, 3) uint8 raw pixels ->
     (bs, H/8, W/8, c2) bf16 NHWC, through the operator. CPU tensors take the
-    plain version; CUDA tensors launch the kernel (counted in
-    ``early_pipeline.launches``); other devices raise."""
+    plain version at any widths; CUDA tensors launch the kernel (counted in
+    ``early_pipeline.launches``), or raise where it does not take the widths;
+    other devices raise."""
     _check(images, ep)
     if images.device.type not in ("cpu", "cuda"):
         raise ValueError(f"early_pipeline runs on cpu or cuda, not {images.device}")
-    _kernel_plan(ep)  # raises before any build is tried
-    return early_pipeline_op(images, _packed(ep, images.device), ep.c0, ep.n)
+    if images.device.type == "cuda":
+        kernel_plan(ep)  # raises before any build is tried
+    c0, c1, ch, c2, n = ep.widths
+    return early_pipeline_op(images, _packed(ep, images.device), c0, n, c1, ch, c2)
 
 
 early_pipeline.launches = 0
+
 
 PROFILE_SLOTS = ("wait for raw rows", "convert to s2d", "stem", "conv1", "cv1|cv2",
                  "bottlenecks", "cv3", "conv2")
@@ -607,11 +752,11 @@ def early_pipeline_profile(images: torch.Tensor, ep: EarlyParams) -> Dict[str, f
     with clock stamps at each layer boundary (``-DEARLY_PROFILE``); returns
     each phase's share of the stamped clocks, summed over all blocks."""
     _check(images, ep)
-    _kernel_plan(ep)
-    lib = _lib(ep.c0, profile=True)
+    kernel_plan(ep)
+    lib = _lib(ep.widths, profile=True)
     slots = lib.early_pipeline_profile_slots()
     prof = torch.zeros((4096, slots), dtype=torch.int64, device=images.device)
-    _launch(lib, images, _packed(ep, images.device), ep.c0, ep.n, prof)
+    _launch(lib, images, _packed(ep, images.device), ep.widths, prof)
     torch.cuda.synchronize(images.device)
     total = prof.sum(0).double()
     layers, inner = total[:len(PROFILE_SLOTS)], total[len(PROFILE_SLOTS):].view(4, -1).sum(0)

@@ -295,7 +295,7 @@ class SoftTeacherTrainer(AbstractTrainer):
 
     def _start_producer(self) -> None:
         if self.device.type == "cuda" and self.teacher.early:
-            early._lib(self.teacher.ep.c0)  # built and loaded once, on this thread
+            early._lib(self.teacher.ep.widths)  # built and loaded once, on this thread
         self._stop.clear()
         self._producer_error = None
         self._producer = threading.Thread(target=self._pseudo_producer, daemon=True,

@@ -10,13 +10,16 @@ Phases, each printing its own lines; any failure exits non-zero:
 1. environment: torch/CUDA versions, the card's name and power limit; TF32
    is switched off for every comparison;
 2. build: nvcc compiles every ``ayolov2_torch/csrc/*.cu`` (in parallel; the
-   early-network kernel once per stem width);
+   early-network kernel once per padded width set of the shipped configs
+   and the stem-8 one, ``ops/_build.EARLY_SETS``);
 3. kernel: the fused early-network kernel against its plain torch version
    (``early_pipeline_ref``) on seeded full-width weights: yolov5s at bs 4,
    640x640 and 384x640, yolov5m at bs 2, 640x640, l and x at bs 1, 640x640,
    plus shapes that leave a ragged last tile in each direction at each
    model's tile, an image smaller than one tile, and yolov5m (depth 2) at a
-   ragged size; gate max|d|/peak < 0.03 and p99.9 < 0.015;
+   ragged size; yolov5l_0.5 and the width-1.05 config at bs 1, 640x640 and
+   the stem-8 model at bs 2, 320x320; gate max|d|/peak < 0.03 and p99.9 <
+   0.015;
 4. slice: yolov5s (nc=80, full width) served at bs 32, 640x640 through
    ``make_serving_fn``: detections (32, 100, 6) and counts (32,), finite,
    one kernel launch per call; raw maps of the kernel path against the
@@ -202,6 +205,28 @@ Phases, each printing its own lines; any failure exits non-zero:
    of its ``best.ckpt`` through K1, one KD step card vs CPU, and the
    teacher's pseudo batch with and without K1, the KD micro-step and the
    run's img/s timed. ``--secondary-only`` runs phases 1, 2, 3, 7 and 14.
+15. K1 at every width, under ``build/chip_smoke_widths/``: the shipped
+   ``yolov5_depth1.5_width1.05_800.yaml`` (stem 72, conv1 136, C3 68 x 4,
+   conv2 272, padded in the kernel to 80/144/80/288) and yolov5s at width
+   0.125 (stem 8: 8/16/8/32, padded to 16/16/16/32), nc 80, seeded weights
+   with the residual branches damped (:func:`damp_residuals`) and the head
+   shaped as a trained detector's (:func:`shape_head`).
+   15.1 K1 against its plain version (phase 3's gate): the 1.05 config at
+   bs 4, 800 and 640 and ragged at its tile, the stem-8 model at bs 4, 640
+   and ragged; 15.2 ``make_serving_fn`` of the 1.05 config at bs 16,
+   800x800 and of the stem-8 model at bs 4, 640: (bs, 100, 6) and counts,
+   one launch a call, the raw maps per level against the cuDNN path in
+   bf16 and with the rest of the network in f32 (max|d|/peak < 0.03 each;
+   each bf16 path's distance from the f32 path printed beside); 15.3 phase 7's 128 BMPs validated at -iw 800
+   on a checkpoint of the 1.05 model, labelled by its f32 plain path, under
+   phase 7's gates, and ``python -m ayolov2_torch.cli.val`` equal to the
+   in-process run; 15.4 ``cli.export`` of that checkpoint (bs 16, 800): the
+   operator in the ``.pt2`` with the widths, read back in a fresh
+   interpreter equal bit for bit to ``make_serving_fn`` of the model the
+   exporter builds, one launch a call; 15.5 K1 timed at bs 16, 800 and bs
+   8, 640 (the 1.05 set) and bs 8, 640 (stem 8), each beside its bound,
+   tile, plain version and cuDNN chain, and the 1.05 config's serve rate at
+   bs 16, 800. ``--widths-only`` runs phases 1, 2, 3 and 15.
 
 ``--profile`` adds where the serve call's (yolov5s, and in 12.1 the two zoo
 models') and the augmentation render's device time goes (torch.profiler) and where the kernel's own time goes
@@ -241,6 +266,34 @@ VAL_SIZES = ((640, 640), (480, 640), (640, 480), (360, 640))  # native (h, w), 3
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_HBM_BYTES = 3.35e12   # H100 SXM HBM3 rate
 TOL_PEAK, TOL_P999 = 0.03, 0.015
+# models by the short names the phases use, beside yolov5 n/s/m/l/x
+NAMED_CFGS = {"l_0.5": "res/configs/model/yolov5l_0.5.yaml",
+              "1.05": "res/configs/model/yolov5_depth1.5_width1.05_800.yaml"}
+STEM8 = "w0.125"  # yolov5s at width_multiple 0.125: stem 8, conv1 16, C3 8, conv2 32
+
+
+def model_name(variant: str) -> str:
+    if variant in NAMED_CFGS:
+        return Path(NAMED_CFGS[variant]).stem
+    return "yolov5s at width 0.125 (stem 8)" if variant == STEM8 else f"yolov5{variant}"
+
+
+def named_cfg(variant: str, nc: int = 80):
+    """The model config of a short name (yolov5 n/s/m/l/x, ``l_0.5``,
+    ``1.05``, ``w0.125``), or ``variant`` itself (a config path)."""
+    from ayolov2_torch.models import yolov5_cfg
+    from ayolov2_torch.models.configs import MULTIPLES
+    from ayolov2_torch.utils.config import load_yaml
+
+    if variant in MULTIPLES:
+        return yolov5_cfg(variant, nc=nc)
+    if variant in NAMED_CFGS:
+        return load_yaml(ROOT / NAMED_CFGS[variant])
+    if variant == STEM8:
+        cfg = yolov5_cfg("s", nc=nc)
+        cfg["width_multiple"] = 0.125
+        return cfg
+    return variant
 
 
 def log(msg: str) -> None:
@@ -273,8 +326,8 @@ def rel_err(got, want):
 
 
 def seeded_model(variant: str, seed: int, nc: int = 80, fuse: bool = True):
-    """yolov5{variant} (or the model config at the path ``variant``) with
-    random weights from numpy: He-scaled convs, BN statistics that make
+    """The model of a short name (:func:`named_cfg`) or of the config at the
+    path ``variant``, with random weights from numpy: He-scaled convs, BN statistics that make
     folding matter, dense layers with variance 1/fan_in, the head's prior
     bias; fused unless ``fuse`` is false.
 
@@ -285,12 +338,10 @@ def seeded_model(variant: str, seed: int, nc: int = 80, fuse: bool = True):
     work to do."""
     import torch
 
-    from ayolov2_torch.models import build_model, yolov5_cfg
-    from ayolov2_torch.models.configs import MULTIPLES
+    from ayolov2_torch.models import build_model
     from ayolov2_torch.models.layers import ConvBnAct
 
-    cfg = yolov5_cfg(variant, nc=nc) if variant in MULTIPLES else variant
-    model = build_model(cfg, nc=nc, device="cuda")
+    model = build_model(named_cfg(variant, nc), nc=nc, device="cuda")
     rng = np.random.default_rng(seed)
 
     def put(t, arr):
@@ -341,15 +392,18 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def early_work(ep, bs, h, w):
-    """(flops, bytes) the early network needs: each conv's true MACs x 2
-    (no halo recompute); the uint8 input and bf16 output once, weights once."""
-    c0, c1, ch, c2, n = ep.c0, ep.c1, ep.ch, ep.c2, ep.n
+    """(flops, bytes) the early network needs at its true widths (the JAX
+    function's work; the kernel's padding counts as lost time, not work):
+    each conv's MACs x 2 (no halo recompute); the uint8 input and bf16
+    output once, the bf16 weights and biases once."""
+    c0, c1, ch, c2, n = ep.widths
     p2, p4, p8 = (h // 2) * (w // 2), (h // 4) * (w // 4), (h // 8) * (w // 8)
     macs = (p2 * c0 * 108 + p4 * c1 * 9 * c0 + p4 * ch * c1
             + n * (p4 * ch * ch + p4 * ch * 9 * ch) + p4 * ch * c1 + p4 * c1 * 2 * ch
             + p8 * c2 * 9 * c1)
-    weights = sum(t.numel() * 2 for t in ep.segments())
-    return 2.0 * bs * macs, bs * h * w * 3 + bs * p8 * c2 * 2 + weights
+    params = (c0 * 109 + c1 * (9 * c0 + 1) + 2 * ch * (c1 + 1) + n * ch * (10 * ch + 2)
+              + c1 * (2 * ch + 1) + c2 * (9 * c1 + 1))
+    return 2.0 * bs * macs, bs * h * w * 3 + bs * p8 * c2 * 2 + 2 * params
 
 
 def bound_of(ep, shape):
@@ -499,9 +553,11 @@ def write_bmp(path: Path, img: np.ndarray) -> None:
     path.write_bytes(head + rows.tobytes())
 
 
-def write_val_set(root: Path, seed: int, sizes=VAL_SIZES, per_size: int = 32) -> Path:
+def write_val_set(root: Path, seed: int, sizes=VAL_SIZES, per_size: int = 32,
+                  nc: int = 20) -> Path:
     """``root/images`` (the sizes in a seeded order, numeric stems, so the
-    rect sort has work to do), an empty ``root/labels`` and ``root/data.json``."""
+    rect sort has work to do), an empty ``root/labels`` and ``root/data.json``
+    (``nc`` classes)."""
     shutil.rmtree(root, ignore_errors=True)
     (root / "images").mkdir(parents=True)
     (root / "labels").mkdir()
@@ -510,8 +566,8 @@ def write_val_set(root: Path, seed: int, sizes=VAL_SIZES, per_size: int = 32) ->
     for i, k in enumerate(order):
         write_bmp(root / "images" / f"{i + 1:06d}.bmp", synthetic_image(rng, *sizes[k]))
     cfg = root / "data.json"
-    cfg.write_text(json.dumps({"val_path": str(root / "images"), "nc": 20, "dataset": "VOC",
-                               "names": [f"class{i}" for i in range(20)]}))
+    cfg.write_text(json.dumps({"val_path": str(root / "images"), "nc": nc, "dataset": "VOC",
+                               "names": [f"class{i}" for i in range(nc)]}))
     return cfg
 
 
@@ -562,10 +618,15 @@ def write_labels(found, cut: float, top: int = 50):
 
 
 def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int = 640,
-                     sizes=VAL_SIZES, per_size: int = 32, bs: int = 32):
-    """Phase 7 (see the module docstring). Returns (early_pipeline launches
-    in the kernel's validation run, max |kernel - plain| at the rect shapes,
-    the kernel run's mAP50, bf16 cuDNN's mAP50), or None when a gate failed."""
+                     sizes=VAL_SIZES, per_size: int = 32, bs: int = 32, weights: Path = GOLDEN,
+                     nc: int = 20, root: Path = VAL_DIR, name: str = "yolov5s",
+                     tag: str = "val", entry_points=("val", "val2")):
+    """Phase 7 (see the module docstring), on the golden checkpoint; phase
+    15.3 runs it on another checkpoint (``weights``, ``nc``, ``name``) under
+    ``root`` with only ``cli.val`` as its entry point, its lines tagged
+    ``tag``. Returns (early_pipeline launches in the kernel's validation run,
+    max |kernel - plain| at the rect shapes, the kernel run's mAP50, bf16
+    cuDNN's mAP50), or None when a gate failed."""
     import torch
 
     from ayolov2_torch.data import DataLoader, DetectionDataset, ImageFolderDataset
@@ -573,19 +634,22 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
     from ayolov2_torch.ops import early_pipeline as early
     from ayolov2_torch.utils.checkpoint import load_model
 
+    def log(msg: str) -> None:
+        print(msg.replace("[val]", f"[{tag}]", 1), flush=True)
+
     t0 = time.perf_counter()
-    data_cfg = write_val_set(VAL_DIR, seed, sizes, per_size)
+    data_cfg = write_val_set(root, seed, sizes, per_size, nc)
     log(f"[val] wrote {len(sizes) * per_size} BMPs ({per_size} at each of {list(sizes)}) "
         f"in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    model = load_model(GOLDEN, nc=20, device=device)
-    log(f"[val] golden checkpoint read by the port's reader, loaded strict, BN folded: "
-        f"yolov5s nc {model.nc}, {sum(p.numel() for p in model.parameters()):,} params, "
+    model = load_model(weights, nc=nc, device=device)
+    log(f"[val] {weights.name} read by the port's reader, loaded strict, BN folded: "
+        f"{name} nc {model.nc}, {sum(p.numel() for p in model.parameters()):,} params, "
         f"{time.perf_counter() - t0:.1f} s")
 
     # the kernel at the rect shapes the validator feeds it, bs 32
     ep = early.extract_early_params(model.state_dict()).to(device)
-    images_dir = str(VAL_DIR / "images")
+    images_dir = str(root / "images")
     folder = ImageFolderDataset(images_dir, img_size=img_size, batch_size=bs, rect=True, pad=0.5)
     shapes = sorted({tuple(int(v) for v in s) for s in folder.batch_shapes}, reverse=True)
     max_abs = 0.0
@@ -600,8 +664,8 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
               and peak < TOL_PEAK and p999 < TOL_P999)
         ms = time_ms(lambda: early.early_pipeline(imgs, ep), 20)
         bound, by, _, _ = bound_of(ep, (bs, h, w))
-        plan = early.plan_early(ep.c0, ep.n)
-        log(f"[val] {card}: early_pipeline yolov5s bs{bs} {h}x{w} (/8: {h // 8}x{w // 8}, tile "
+        plan = early.kernel_plan(ep)
+        log(f"[val] {card}: early_pipeline {name} bs{bs} {h}x{w} (/8: {h // 8}x{w // 8}, tile "
             f"{plan.th}x{plan.tw}) vs plain: max|d|/peak {peak:.5f} p99.9 {p999:.5f} max|d| "
             f"{mx:.4f} (gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
             f"bound {bound:.4f} ms ({by}), {ms / bound:.1f}x")
@@ -671,12 +735,14 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
     launches = ker["launches"]
 
     # the entry points, as a user runs them
-    out = VAL_DIR / "val.json"
-    sheet = VAL_DIR / "answersheet.json"
-    common = ["--weights", str(GOLDEN), "--data-cfg", str(data_cfg), "-iw", str(img_size),
+    out = root / "val.json"
+    sheet = root / "answersheet.json"
+    common = ["--weights", str(weights), "--data-cfg", str(data_cfg), "-iw", str(img_size),
               "--batch-size", str(bs)] + (["--device", device] if device != "cuda" else [])
     for module, extra in (("val", ["--json-path", str(out)]),
                           ("val2", ["--json-path", str(sheet), "--check-map", "0.5"])):
+        if module not in entry_points:
+            continue
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", f"ayolov2_torch.cli.{module}", *common, *extra],
                               cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -690,16 +756,19 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
             and all(abs(cli[k] - ker[k]) <= 1e-9 for k in ("mp", "mr", "map50", "map50_95")))
     log(f"[val] cli.val result vs the kernel run: mAP50 {cli['map50']:.6f} vs {ker['map50']:.6f}, "
         f"mAP50-95 {cli['map50_95']:.6f} vs {ker['map50_95']:.6f} {'equal' if same else 'FAIL'}")
-    from ayolov2_torch.utils.metrics import COCOmAPEvaluator
-    from ayolov2_torch.utils.result_writer import yolo_labels_to_coco_json
-
-    preds = json.loads(sheet.read_text())
-    coco = COCOmAPEvaluator(yolo_labels_to_coco_json(DetectionDataset(
-        images_dir, img_size=img_size))).evaluate(preds)
-    log(f"[val] cli.val2 answersheet: {len(preds)} predictions, COCO eval "
-        + ", ".join(f"{k} {v:.5f}" for k, v in coco.items()))
-    if not same or not preds or not np.isfinite(list(coco.values())).all():
+    if not same:
         return None
+    if "val2" in entry_points:
+        from ayolov2_torch.utils.metrics import COCOmAPEvaluator
+        from ayolov2_torch.utils.result_writer import yolo_labels_to_coco_json
+
+        preds = json.loads(sheet.read_text())
+        coco = COCOmAPEvaluator(yolo_labels_to_coco_json(DetectionDataset(
+            images_dir, img_size=img_size))).evaluate(preds)
+        log(f"[val] cli.val2 answersheet: {len(preds)} predictions, COCO eval "
+            + ", ".join(f"{k} {v:.5f}" for k, v in coco.items()))
+        if not preds or not np.isfinite(list(coco.values())).all():
+            return None
 
     # times: a second, warm pass of the kernel's run; the loader alone
     v, ds = run({})
@@ -710,7 +779,7 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
     t0 = time.perf_counter()
     n_batches = sum(1 for _ in DataLoader(ds, batch_size=bs))
     loader_ms = (time.perf_counter() - t0) / n_batches * 1e3
-    log(f"[time] {card}: validation yolov5s bs{bs} rect, kernel path, warm pass: "
+    log(f"[time] {card}: validation {name} bs{bs} rect at {img_size}, kernel path, warm pass: "
         f"{r['seen'] / wall:.1f} img/s ({wall:.3f} s for {r['seen']} images); validator "
         f"pre/inference/NMS {r['t'][0]:.3f}/{r['t'][1]:.3f}/{r['t'][2]:.3f} ms per image; "
         f"f32 cuDNN run (its first pass) {f32['t'][0]:.3f}/{f32['t'][1]:.3f}/{f32['t'][2]:.3f}; "
@@ -2356,24 +2425,24 @@ def plant_low_rank(params, paths, rank: int = 8, seed: int = 0) -> None:
                                           u_out).astype(np.float32)
 
 
-def start_job(name: str, args: list) -> tuple:
+def start_job(name: str, args: list, root: Path = COMPRESS_DIR, tag: str = "compress") -> tuple:
     """A ``python -m`` subprocess in the background, its output to
-    ``COMPRESS_DIR/{name}.log``; returns (name, Popen, log path, start)."""
-    path = COMPRESS_DIR / f"{name}.log"
+    ``root/{name}.log``; returns (name, Popen, log path, start, tag)."""
+    path = root / f"{name}.log"
     fh = open(path, "w")
     proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, stdout=fh,
                             stderr=subprocess.STDOUT, text=True)
     fh.close()
-    return name, proc, path, time.perf_counter()
+    return name, proc, path, time.perf_counter(), tag
 
 
 def finish_job(job, timeout: int = 600) -> tuple:
     """(ok, log text) of a job from :func:`start_job`, waited for."""
-    name, proc, path, t0 = job
+    name, proc, path, t0, tag = job
     rc = proc.wait(timeout=timeout)
     text = path.read_text()
     tail = [ln for ln in text.splitlines() if ln.strip()][-2:]
-    log(f"[compress] job {name}: exit {rc}, waited for {time.perf_counter() - t0:.1f} s from its "
+    log(f"[{tag}] job {name}: exit {rc}, waited for {time.perf_counter() - t0:.1f} s from its "
         f"start; "
         + " | ".join(ln.strip()[:200] for ln in tail))
     return rc == 0, text
@@ -2944,7 +3013,7 @@ def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
         log(f"[compress] {name}: {'ok' if out else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
         ok = ok and bool(out)  # the steps are independent: each runs, any failure fails
     pool.shutdown(wait=True)
-    for _, proc, _, _ in jobs.values():
+    for _, proc, *_ in jobs.values():
         if proc.poll() is None:
             proc.kill()
             proc.wait()
@@ -3557,6 +3626,353 @@ def secondary_phase(card: str, seed: int, k1_map50: float) -> tuple:
 
 
 
+# ---- phase 15: K1 at every width: the width-1.05 config on the card -------------
+
+WIDTHS_DIR = ROOT / "build/chip_smoke_widths"
+WIDE = "1.05"
+
+
+def damp_residuals(model, factor: float = 0.3) -> int:
+    """Scale the BN of the last conv of every residual bottleneck branch of
+    a seeded, unfused ``model`` by ``factor``: x + f(x) then adds about
+    ``factor``^2 of x's variance, not as much again. A trained network's BN
+    keeps its activations bounded; a seeded one of depth 1.5 (27 residual
+    blocks before the head) otherwise doubles their variance a block, to an
+    rms near 1e6 with heavy tails at the head, whose logits then saturate
+    (boxes of no size and full confidence). Returns the branches damped."""
+    import torch
+
+    from ayolov2_torch.models.layers import Bottleneck
+
+    n = 0
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Bottleneck) and m.add:
+                m.cv2.bn.weight.mul_(factor)
+                m.cv2.bn.bias.mul_(factor)
+                n += 1
+    return n
+
+
+def shape_head(model, seed: int, size: int = 800, per_level: float = 2.0) -> list:
+    """Shape the head of a seeded, unfused ``model`` as a trained detector's
+    is shaped, measured on 2 seeded images at ``size``: each level's
+    objectness has its drawn spread and a bias that leaves about
+    ``per_level`` boxes an image above a score of 0.06; one class is sure
+    (its logits centred on 2, sigmoid 0.88) and the others keep their prior,
+    their logits spread a third as much; box sizes 1.4-2.7 anchors (their logits +1).
+    A random head ranks boxes by objectness times a class score of no
+    meaning, puts as many confident boxes wholly in the letterbox's padding
+    as anywhere and sizes them at random: the self-labelling of phase 7 then
+    finds no score cut, and the objectness prefilter of the fused path drops
+    boxes that the plain path keeps. Returns each level's feature rms."""
+    import statistics
+
+    import torch
+
+    head = model.head
+    feats = []
+    hook = head.register_forward_pre_hook(lambda mod, args: feats.append(args[0]))
+    with torch.no_grad():
+        model(images_on_card((2, size, size, 3), seed).permute(0, 3, 1, 2).float() / 255.0,
+              training=True)
+        hook.remove()
+        found = []
+        for conv, f, stride in zip(head.m, feats[0], head.strides):
+            rms = float(f.float().pow(2).mean().sqrt())
+            found.append(rms)
+            conv.weight.mul_(0.1 / rms)
+            w = conv.weight.view(head.na, head.no, -1)
+            b = conv.bias.view(head.na, head.no)
+            w[:, 5:] *= 1.0 / 3.0
+            b[:, 5] = 2.0 - float(torch.nn.functional.conv2d(
+                f.float(), conv.weight.float()).view(f.shape[0], head.na, head.no, -1)[:, :, 5]
+                .mean())
+            b[:, 2:4] += 1.0
+            obj = torch.nn.functional.conv2d(f.float(), conv.weight.float()).view(
+                f.shape[0], head.na, head.no, -1)[:, :, 4]
+            n_boxes = head.na * (size // int(stride)) ** 2
+            z = statistics.NormalDist().inv_cdf(1.0 - per_level / n_boxes)
+            target = float(np.log(0.06 / 0.88 / (1 - 0.06 / 0.88)))  # obj of a 0.06 score
+            b[:, 4] = target - float(obj.mean()) - z * float(obj.std())
+    return found
+
+
+def wide_checkpoint(model, path: Path) -> Path:
+    """``model`` (unfused, seeded) as a checkpoint of its config, params in
+    bf16 as the trainer writes them, so that the entry points read it."""
+    from ayolov2_torch.utils.checkpoint import _variables, write_checkpoint
+
+    v = _variables(model, True)
+    meta = {"model_cfg": json.dumps(named_cfg(WIDE)), "epoch": 0, "step": 0, "ema_updates": 0}
+    write_checkpoint(path, {"meta": meta, "model": v, "ema": v})
+    return path
+
+
+def wide_artifact_check(pt2: str, ckpt: str, seed: int) -> int:
+    """15.4, run as ``python3 -c`` in a fresh interpreter: the width-1.05
+    checkpoint's ``.pt2`` read back by ``load_exported`` against
+    ``make_serving_fn`` of the model the exporter builds from the checkpoint
+    (its variables, BN folded on the CPU) on one bs 16, 800x800 batch, the
+    operator's calls and widths in its graph, and the kernel's launches a
+    call. Prints one ``ARTIFACT {json}`` line."""
+    import torch
+
+    from ayolov2_torch.export import load_exported, make_serving_fn
+    from ayolov2_torch.models import build_model
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_variables
+    from ayolov2_torch.utils.weights import state_dict_from_flax
+
+    program = torch.export.load(pt2)
+    calls = [n for n in program.graph.nodes
+             if n.target == torch.ops.ayolov2.early_pipeline.default]
+    call = load_exported(pt2)
+    imgs = images_on_card((16, 800, 800, 3), seed + 70)
+    early.early_pipeline.launches = 0
+    got = call(imgs)
+    torch.cuda.synchronize()
+    launches = early.early_pipeline.launches
+    # the model as the exporter builds it (the checkpoint's variables, BN folded on the CPU)
+    variables, meta = load_variables(ckpt, prefer_ema=True)
+    model = build_model(json.loads(meta["model_cfg"]), device="cpu")
+    model.load_state_dict(state_dict_from_flax(variables), strict=True)
+    want = make_serving_fn(model.fuse(), device="cuda")(imgs)
+    (dg, ng), (dw, nw) = got, want
+    peak = max(dw.abs().max().item(), 1e-3)
+    det_err = (max((dg[i, :n] - dw[i, :n]).abs().max().item() if n else 0.0
+                   for i, n in enumerate(nw.tolist())) / peak
+               if torch.equal(ng, nw) else float("inf"))
+    out = {"op_calls": len(calls), "op_args": [a for a in calls[0].args[2:]] if calls else [],
+           "launches_per_call": launches, "counts_equal": bool(torch.equal(ng, nw)),
+           "det_err": det_err, "equal": bool(torch.equal(dg, dw) and torch.equal(ng, nw)),
+           "mean_count": ng.float().mean().item()}
+    print("ARTIFACT " + json.dumps(out), flush=True)
+    return 0
+
+
+def k1_against_plain(variant: str, ep, bs: int, h: int, w: int, seed: int) -> tuple:
+    """The kernel against its plain version at one shape: (ok, max|d|)."""
+    import torch
+
+    from ayolov2_torch.ops import early_pipeline as early
+
+    imgs = images_on_card((bs, h, w, 3), seed + h + w)
+    before = early.early_pipeline.launches
+    got = early.early_pipeline(imgs, ep)
+    torch.cuda.synchronize()
+    want = early.early_pipeline_ref(imgs, ep)
+    peak, p999, mx = rel_err(got, want)
+    ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+          and peak < TOL_PEAK and p999 < TOL_P999 and early.early_pipeline.launches == before + 1)
+    plan = early.kernel_plan(ep)
+    log(f"[widths] 15.1 {model_name(variant)} {ep.widths[:4]} n {ep.n} (padded "
+        f"{early.padded_widths(*ep.widths[:4])}) bs{bs} {h}x{w} tile {plan.th}x{plan.tw} "
+        f"bands of {plan.rb} smem {plan.total} B: max|d|/peak {peak:.5f} p99.9 {p999:.5f} "
+        f"max|d| {mx:.4f} (gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
+    return ok, mx
+
+
+def k1_times(card: str, variant: str, ep, fused_state, imgs) -> dict:
+    """The kernel, its plain version and the cuDNN chain of the same layers
+    (the faster stem width, ``cudnn.benchmark``) at one batch, beside the
+    bound and the tile (CUDA events, after warm-up)."""
+    import torch
+
+    from ayolov2_torch.ops import early_pipeline as early
+
+    plan = early.kernel_plan(ep)
+    ms = time_ms(lambda: early.early_pipeline(imgs, ep), 10)
+    plain = time_ms(lambda: early.early_pipeline_ref(imgs, ep), 3, warmup=1)
+    torch.backends.cudnn.benchmark = True
+    try:
+        chain = min(time_ms(lambda: c(imgs), 10) for c in
+                    (cudnn_chain(fused_state, k) for k in (3, 8)))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    bound, by, flops, nbytes = bound_of(ep, imgs.shape[:3])
+    bs, h, w = imgs.shape[:3]
+    log(f"[time] {card}: early_pipeline {model_name(variant)} bs{bs} {h}x{w} tile "
+        f"{plan.th}x{plan.tw} (halo factor {plan.halo:.3f}, bands of {plan.rb}): kernel "
+        f"{ms:.4f} ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP, "
+        f"{nbytes / 1e6:.1f} MB), {ms / bound:.1f}x; plain {plain:.4f} ms; cuDNN chain "
+        f"{chain:.4f} ms (the faster stem width, cudnn.benchmark)")
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": chain}
+
+
+def widths_phase(card: str, seed: int) -> tuple:
+    """Phase 15: K1 at the widths of ``yolov5_depth1.5_width1.05_800.yaml``
+    (stem 72, conv1 136, C3 68 x 4, conv2 272; padded 80/144/80/288) and of a
+    stem of 8 (yolov5s at width 0.125; padded 16/16/16/32), nc 80, seeded
+    weights. 15.1 the kernel against its plain version (phase 3's gate):
+    the 1.05 config at bs 4, 800 and 640, a ragged shape at its 2x2 tile;
+    the stem-8 model at bs 4, 640 and ragged at its tile. 15.2
+    ``make_serving_fn`` of the 1.05 config at bs 16, 800x800: (16, 100, 6)
+    and counts, one launch a call (counted from 0 around 3 calls), raw maps
+    per level against the cuDNN path (max|d|/peak < 0.03); the stem-8 model
+    served at bs 4, 640 the same way (and the same against the f32 path after
+    layer 3). 15.3 phase 7's 128 BMPs at -iw 800,
+    labelled by this checkpoint's f32 plain path, under phase 7's gates
+    (the kernel's bf16 run against bf16 cuDNN, one launch a batch; ``python
+    -m ayolov2_torch.cli.val`` equal to the in-process run). 15.4
+    ``cli.export`` of the checkpoint (bs 16, 800): the operator in the
+    ``.pt2`` with the widths, read back in a fresh interpreter equal bit for
+    bit to ``make_serving_fn`` of the model the exporter builds, one launch
+    a call. 15.5 times: K1 at bs
+    16, 800 and bs 8, 640 for the 1.05 set, bs 8, 640 for stem 8, each beside
+    its bound, tile, plain version and cuDNN chain; the serve rate at bs 16,
+    800. Returns (ok, {set: its kernels-line entry})."""
+    import torch
+
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.ops import early_pipeline as early
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(WIDTHS_DIR, ignore_errors=True)
+    WIDTHS_DIR.mkdir(parents=True)
+    models = {v: seeded_model(v, seed + 15, fuse=False) for v in (WIDE, STEM8)}
+    for v, m in models.items():
+        damped = damp_residuals(m)
+        found = shape_head(m.eval(), seed + 16)
+        log(f"[widths] {model_name(v)}: {damped} residual branches damped x0.3; the head reads "
+            f"features of rms {', '.join(f'{r:.3f}' for r in found)} and is shaped as a "
+            f"trained detector's (shape_head)")
+    ckpt = wide_checkpoint(models[WIDE], WIDTHS_DIR / "wide.ckpt")
+    export_job = start_job("widths_export", [
+        "-m", "ayolov2_torch.cli.export", "--weights", str(ckpt), "--batch-size", "16",
+        "-iw", "800", "--type", "tpu_nms", "--out", str(WIDTHS_DIR / "wide_tpu_nms")],
+        WIDTHS_DIR, "widths")
+    models = {v: m.fuse() for v, m in models.items()}
+    eps = {v: early.extract_early_params(m.state_dict()).to("cuda") for v, m in models.items()}
+    entries = {v: {"max_abs_err": 0.0} for v in (WIDE, STEM8)}
+
+    # 15.1 the kernel against its plain version
+    for variant, bs, h, w in ((WIDE, 4, 800, 800), (WIDE, 4, 640, 640), (WIDE, 3, 152, 216),
+                              (STEM8, 4, 640, 640), (STEM8, 2, 136, 200)):
+        ok, mx = k1_against_plain(variant, eps[variant], bs, h, w, seed)
+        entries[variant]["max_abs_err"] = max(entries[variant]["max_abs_err"], mx)
+        if not ok:
+            return False, entries
+
+    # 15.2 serving: the main path of this slice, counted from 0 around its calls
+    serves = {}
+    for variant, bs, size in ((WIDE, 16, 800), (STEM8, 4, 640)):
+        serve_k = make_serving_fn(models[variant])
+        serve_c = make_serving_fn(models[variant], early_pipeline=False)
+        serves[variant] = serve_k
+        imgs = images_on_card((bs, size, size, 3), seed + 151)
+        serve_k(imgs)  # the first call loads the library
+        torch.cuda.synchronize()
+        early.early_pipeline.launches = 0
+        calls = 3
+        for _ in range(calls):
+            det, cnt = serve_k(imgs)
+        torch.cuda.synchronize()
+        launches = early.early_pipeline.launches
+        entries[variant]["launches"] = launches
+        ok = (serve_k.early and not serve_c.early and tuple(det.shape) == (bs, 100, 6)
+              and tuple(cnt.shape) == (bs,) and bool(torch.isfinite(det).all())
+              and launches == calls and cnt.sum() > 0)
+        log(f"[widths] 15.2 make_serving_fn {model_name(variant)} bs{bs} {size}x{size}: det "
+            f"{tuple(det.shape)} counts {tuple(cnt.shape)} mean count "
+            f"{cnt.float().mean().item():.2f}, early_pipeline launches {launches} in {calls} "
+            f"calls {'ok' if ok else 'FAIL'}")
+        if not ok:
+            return False, entries
+        # The raw maps of the kernel's path against the cuDNN path's, each level,
+        # under phase 4's gate: in bf16, and with the rest of the network in
+        # f32 (TF32 off), where bf16's own noise downstream (each bf16 path's
+        # distance from the f32 path, printed beside) does not hide the kernel's.
+        serve_f = make_serving_fn(models[variant], image_dtype=torch.float32,
+                                  early_pipeline=False)
+        serve_kf = make_serving_fn(models[variant], image_dtype=torch.float32)
+        maps = [m.raw_maps(imgs) for m in (serve_kf, serve_f, serve_k, serve_c)]
+        for lvl, (kf, f, a, b) in enumerate(zip(*maps)):
+            peak, p999, _ = rel_err(kf, f)
+            ok = kf.shape == f.shape and bool(torch.isfinite(a.float()).all()) and peak < TOL_PEAK
+            (e_k, q_k, _), (e_c, q_c, _), (e_kc, q_kc, _) = (rel_err(a, f), rel_err(b, f),
+                                                             rel_err(a, b))
+            ok = ok and e_kc < TOL_PEAK
+            log(f"[widths] 15.2 raw level {lvl} {tuple(a.shape)} kernel vs cuDNN path: bf16 "
+                f"max|d|/peak {e_kc:.5f} p99.9 {q_kc:.5f}, f32 after layer 3 {peak:.5f} "
+                f"({p999:.5f}) (gate {TOL_PEAK} each) {'ok' if ok else 'FAIL'}; against the f32 "
+                f"cuDNN path in bf16: kernel {e_k:.5f} ({q_k:.5f}), cuDNN {e_c:.5f} ({q_c:.5f})")
+            if not ok:
+                return False, entries
+        del serve_c, serve_f, serve_kf, maps
+    torch.cuda.empty_cache()
+
+    # 15.3 validation at -iw 800 through K1, and cli.val
+    val = validation_phase(seed, card, img_size=800, weights=ckpt, nc=80, root=WIDTHS_DIR / "val",
+                           name=model_name(WIDE), tag="widths", entry_points=("val",))
+    if val is None:
+        return False, entries
+    entries[WIDE]["launches"] += val[0]
+    entries[WIDE]["max_abs_err"] = max(entries[WIDE]["max_abs_err"], val[1])
+
+    # 15.4 cli.export (running since the phase began) and the artifact read back
+    ok, _ = finish_job(export_job)
+    pt2 = WIDTHS_DIR / "wide_tpu_nms.pt2"
+    if not ok:
+        return False, entries
+    side = json.loads(pt2.with_suffix(".yaml").read_text())
+    check = start_job("widths_artifact_check", [
+        "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.wide_artifact_check({str(pt2)!r}, "
+              f"{str(ckpt)!r}, {seed}))"], WIDTHS_DIR, "widths")
+    ok_c, text = finish_job(check)
+    lines = [ln for ln in text.splitlines() if ln.startswith("ARTIFACT ")]
+    if not ok_c or not lines:
+        return False, entries
+    a = json.loads(lines[-1][len("ARTIFACT "):])
+    c0, c1, ch, c2, n = eps[WIDE].widths
+    ok = (side["early_pipeline"] and a["op_calls"] == 1 and a["op_args"] == [c0, n, c1, ch, c2]
+          and a["launches_per_call"] == 1 and a["equal"])
+    log(f"[widths] 15.4 cli.export --batch-size 16 -iw 800: {pt2.name} "
+        f"{pt2.stat().st_size / 1e6:.1f} MB, sidecar early_pipeline {side['early_pipeline']}; "
+        f"ayolov2::early_pipeline calls {a['op_calls']} with widths (c0, n, c1, ch, c2) "
+        f"{a['op_args']}; read in a fresh interpreter: launches a call "
+        f"{a['launches_per_call']}, equal to make_serving_fn bit for bit "
+        f"{'yes' if a['equal'] else 'NO'} (counts equal {a['counts_equal']}, boxes and scores "
+        f"within {a['det_err']:.2e} of the peak; mean count {a['mean_count']:.2f}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        return False, entries
+
+    # 15.5 times, with nothing else running
+    states = {v: {k: t.cuda() for k, t in m.state_dict().items()} for v, m in models.items()}
+    big = images_on_card((16, 800, 800, 3), seed + 152)
+    entries[WIDE].update(k1_times(card, WIDE, eps[WIDE], states[WIDE], big))
+    batch8 = images_on_card((8, 640, 640, 3), seed + 153)
+    k1_times(card, WIDE, eps[WIDE], states[WIDE], batch8)
+    entries[STEM8].update(k1_times(card, STEM8, eps[STEM8], states[STEM8], batch8))
+    rate = serve_rate(serves[WIDE], big, 10)
+    log(f"[time] {card}: serve {model_name(WIDE)} bs16 800x800 uint8 -> (16, 100, 6) with K1: "
+        f"{rate:.1f} img/s")
+    log(f"[widths] phase 15 ok in {time.perf_counter() - t_phase:.1f} s")
+    return True, entries
+
+
+def width_entry(variant: str, numbers: dict) -> dict:
+    """Phase 15's entry of the kernels line for one width set."""
+    from ayolov2_torch.models import build_model
+    from ayolov2_torch.ops import early_pipeline as early
+
+    m = build_model(named_cfg(variant), device="meta")
+    widths = (m.model[0].conv.out_channels, m.model[1].conv.out_channels,
+              m.model[2].cv1.conv.out_channels, m.model[3].conv.out_channels)
+    padded = "/".join(str(c) for c in early.padded_widths(*widths))
+    return kernel_entry(f"early_pipeline ({model_name(variant)}, widths "
+                        f"{'/'.join(str(c) for c in widths)} padded to {padded})", **numbers)
+
+
+def kernel_entry(name: str, **numbers) -> dict:
+    """One kernel's entry of the kernels line (every key the line needs)."""
+    return {"name": name, "route": "cuda", "source": "ayolov2_torch/csrc/early_pipeline.cu",
+            "replaces": "ayolov2_tpu/ops/early_pipeline.py:496",
+            **{k: numbers[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3577,6 +3993,9 @@ def main() -> int:
     ap.add_argument("--secondary-only", action="store_true",
                     help="phases 1, 2, 3, 7 and 14 only (the secondary trainers and tools; "
                          "they read phase 7's set)")
+    ap.add_argument("--widths-only", action="store_true",
+                    help="phases 1, 2, 3 and 15 only (the kernel at the width-1.05 config's "
+                         "and the stem-8 widths)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -3610,7 +4029,8 @@ def main() -> int:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.perf_counter()
-    extra = [("early_pipeline", ("EARLY_C0=32", "EARLY_PROFILE"))] if args.profile else []
+    extra = ([("early_pipeline", early.kernel_defines(32, 64, 32, 128) + ("EARLY_PROFILE",))]
+             if args.profile else [])
     built = _build.build_all(variants=extra)
     log(f"[build] {', '.join(f'{k}: {v:.1f} s' for k, v in built.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s)")
@@ -3625,10 +4045,13 @@ def main() -> int:
     # at each model's tile (s 8x8, n 8x16, m 4x8, l 4x4, x 2x2), an image
     # smaller than one tile, and yolov5m (depth 2) ragged. Every tile's conv1
     # rows split into bands whose last one is shorter (19 = 10 + 9 for s).
+    # Then every other shipped config's width set: l_0.5, the width-1.05
+    # config (padded 72/136/68/272) and the stem-8 set (padded 8/16/8/32).
     cases = [("s", 4, 640, 640), ("s", 4, 384, 640), ("m", 2, 640, 640),
              ("l", 1, 640, 640), ("x", 1, 640, 640),
              ("s", 2, 72, 136), ("s", 3, 200, 104), ("s", 1, 40, 56), ("n", 2, 136, 200),
-             ("m", 2, 104, 184), ("l", 1, 264, 328), ("x", 1, 136, 264)]
+             ("m", 2, 104, 184), ("l", 1, 264, 328), ("x", 1, 136, 264),
+             ("l_0.5", 1, 640, 640), ("1.05", 1, 640, 640), (STEM8, 2, 320, 320)]
     models, eps = {}, {}
     for variant, bs, h, w in cases:
         if variant not in models:
@@ -3644,13 +4067,23 @@ def main() -> int:
         ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
               and peak < TOL_PEAK and p999 < TOL_P999
               and early.early_pipeline.launches == before + 1)
-        plan = early.plan_early(ep.c0, ep.n)
-        log(f"[kernel] yolov5{variant} bs{bs} {h}x{w} tile {plan.th}x{plan.tw} bands of "
+        plan = early.kernel_plan(ep)
+        log(f"[kernel] {model_name(variant)} bs{bs} {h}x{w} tile {plan.th}x{plan.tw} bands of "
             f"{plan.rb} ring {plan.stages}x{plan.stage_bytes} B smem {plan.total} B: "
             f"max|d|/peak {peak:.5f} p99.9 {p999:.5f} max|d| {mx:.4f} "
             f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
         if not ok:
             return 1
+    if args.widths_only:
+        ok15, entries = widths_phase(card, args.seed)
+        if not ok15:
+            log("[widths] FAIL")
+            return 1
+        print(json.dumps({"kernels": [width_entry(v, e) for v, e in entries.items()]}))
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     if args.secondary_only:
         val = validation_phase(args.seed, card)
         if val is None or not secondary_phase(card, args.seed, val[2])[0]:
@@ -3812,7 +4245,7 @@ def main() -> int:
     library_ms = min(time_chain(chain, imgs, card) for chain in chains.values())
 
     bound_ms, bound_by, flops, nbytes = bound_of(ep, imgs.shape[:3])
-    plan = early.plan_early(ep.c0, ep.n)
+    plan = early.kernel_plan(ep)
     log(f"[time] {card}: early_pipeline bs32 640x640 tile {plan.th}x{plan.tw} "
         f"(halo factor {plan.halo:.3f}) kernel {kernel_ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, cuDNN chain {library_ms:.4f} ms (the faster stem width, "
@@ -3827,7 +4260,7 @@ def main() -> int:
     batch8 = images_on_card((8, 640, 640, 3), args.seed + 3)
     for variant in "mlx":
         ep_v = eps[variant]
-        plan = early.plan_early(ep_v.c0, ep_v.n)
+        plan = early.kernel_plan(ep_v)
         ms_v = time_ms(lambda: early.early_pipeline(batch8, ep_v), 10)
         b_v, by_v, flops_v, bytes_v = bound_of(ep_v, (8, 640, 640))
         torch.backends.cudnn.benchmark = True
@@ -3933,21 +4366,19 @@ def main() -> int:
         log("[secondary] FAIL")
         return 1
     launches += secondary_launches
+
+    # ---- 15. K1 at every width: the width-1.05 config ---------------------------
+    torch.cuda.empty_cache()
+    ok15, entries = widths_phase(card, args.seed)
+    if not ok15:
+        log("[widths] FAIL")
+        return 1
     log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s")
 
-    print(json.dumps({"kernels": [{
-        "name": "early_pipeline",
-        "route": "cuda",
-        "source": "ayolov2_torch/csrc/early_pipeline.cu",
-        "replaces": "ayolov2_tpu/ops/early_pipeline.py:496",
-        "launches": launches,
-        "max_abs_err": max_abs,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-    }]}))
+    print(json.dumps({"kernels": [kernel_entry(
+        "early_pipeline", launches=launches, max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)]
+        + [width_entry(v, e) for v, e in entries.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -52,9 +52,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = cs.card_line()
     ep = early.extract_early_params(cs.seeded_model(args.variant, args.seed).state_dict()).to("cuda")
-    c0 = f"EARLY_C0={ep.c0}"
-    sets = [(c0,), (c0, "EARLY_PROFILE")]
-    sets += [(c0, f"EARLY_ABLATE={k}") for k in ABLATIONS] if args.ablate else []
+    widths = early.kernel_defines(*ep.widths[:4])
+    sets = [widths, widths + ("EARLY_PROFILE",)]
+    sets += [widths + (f"EARLY_ABLATE={k}",) for k in ABLATIONS] if args.ablate else []
     _build.build_all(names=[], variants=[("early_pipeline", d) for d in sets])
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
@@ -70,7 +70,7 @@ def main() -> int:
                f"{'ok' if ok else 'FAIL'}")
         if not ok:
             return 1
-    plan = early.plan_early(ep.c0, ep.n)
+    plan = early.kernel_plan(ep)
     for bs in (32, 64, 128):
         ms = cs.time_ms(lambda: early.early_pipeline(batch[:bs], ep), 20, warmup=5)
         cs.log(f"[time] {card}: yolov5{args.variant} bs{bs} 640x640 tile {plan.th}x{plan.tw} bands "
@@ -88,10 +88,10 @@ def main() -> int:
         for th, tw, st, rb in sorted(set(tries)):
             if rb > 2 * th + 1 + 2 * ep.n:
                 continue
-            other = early._plan_for(ep.c0, ep.n, th, tw, st, rb)
+            other = early._plan_for(ep.widths, th, tw, st, rb)
             if other.total + early.STATIC_SMEM > early.SMEM_LIMIT:
                 continue
-            early.plan_early = lambda c0, n, other=other: other
+            early.plan_early = lambda *widths, other=other: other
             ms = cs.time_ms(lambda: early.early_pipeline(batch[:64], ep), 10, warmup=3)
             cs.log(f"[plans] {card}: tile {th}x{tw} ring {st} bands of {rb} (halo factor "
                    f"{other.halo:.3f}, {other.total} B): bs64 {ms:.4f} ms")
@@ -99,12 +99,12 @@ def main() -> int:
 
     wpack = early.pack_weights(ep).to(batch.device)
     if args.against:
-        libs = {"this tree": early._lib(ep.c0)}
-        libs.update({path: early._lib_with(ep.c0, source=path) for path in args.against})
+        libs = {"this tree": early._lib(ep.widths)}
+        libs.update({path: early._lib_with(ep.widths, source=path) for path in args.against})
         small = cs.images_on_card((3, 200, 104, 3), args.seed + 5)
         want = early.early_pipeline_ref(small, ep)
         for name, lib in libs.items():
-            peak, p999, _ = cs.rel_err(early._launch(lib, small, wpack, ep.c0, ep.n), want)
+            peak, p999, _ = cs.rel_err(early._launch(lib, small, wpack, ep.widths), want)
             ok = peak < cs.TOL_PEAK and p999 < cs.TOL_P999
             cs.log(f"[against] {name} (3, 200, 104): max|d|/peak {peak:.5f} p99.9 {p999:.5f} "
                    f"{'ok' if ok else 'FAIL'}")
@@ -113,16 +113,16 @@ def main() -> int:
         for turn in range(3):
             for name, lib in libs.items():
                 for bs in (32, 128):
-                    ms = cs.time_ms(lambda: early._launch(lib, batch[:bs], wpack, ep.c0, ep.n), 20, warmup=5)
+                    ms = cs.time_ms(lambda: early._launch(lib, batch[:bs], wpack, ep.widths), 20, warmup=5)
                     cs.log(f"[against] {card}: turn {turn} {name} bs{bs} {ms:.4f} ms")
 
     if args.ablate:
-        libs = {k: early._lib_with(ep.c0, (f"EARLY_ABLATE={k}",)) for k in ABLATIONS}
+        libs = {k: early._lib_with(ep.widths, (f"EARLY_ABLATE={k}",)) for k in ABLATIONS}
         for turn in range(2):
             ms = cs.time_ms(lambda: early.early_pipeline(batch[:64], ep), 20, warmup=5)
             cs.log(f"[ablate] {card}: turn {turn} whole kernel bs64 {ms:.4f} ms")
             for k, what in ABLATIONS.items():
-                ms = cs.time_ms(lambda: early._launch(libs[k], batch[:64], wpack, ep.c0, ep.n), 20, warmup=5)
+                ms = cs.time_ms(lambda: early._launch(libs[k], batch[:64], wpack, ep.widths), 20, warmup=5)
                 cs.log(f"[ablate] {card}: turn {turn} {what} bs64 {ms:.4f} ms")
     return 0
 

@@ -172,6 +172,48 @@ def call_artifacts_fresh(jobs: dict, dst) -> dict:
     return dict(np.load(dst))
 
 
+# run in a fresh interpreter: JAX's early_pipeline in the Mosaic TPU interpreter
+_INTERPRET = """
+import faulthandler, pickle, sys
+faulthandler.dump_traceback_later({limit}, exit=True)
+sys.path.insert(0, {root!r})
+import numpy as np
+import jax
+import jax.numpy as jnp
+from ayolov2_tpu.ops.early_pipeline import early_pipeline, extract_early_params
+with open({src!r}, "rb") as f:
+    jobs = pickle.load(f)
+out = {{}}
+for name, (tree, imgs, strip_h) in jobs.items():
+    ep = extract_early_params(jax.tree_util.tree_map(jnp.asarray, tree))
+    y = early_pipeline(jnp.asarray(imgs), ep, strip_h=strip_h, interpret=True)
+    out[name] = np.asarray(y.astype(jnp.float32))
+np.savez({dst!r}, **out)
+"""
+INTERPRET_LIMIT_S = 300
+
+
+def jax_interpreted(jobs: dict, tmp) -> dict:
+    """JAX's Pallas kernel ``early_pipeline(..., interpret=True)`` for each
+    of ``jobs`` ({name: (fused numpy tree, uint8 images, strip_h)}), in a
+    fresh interpreter with its own time limit: the Mosaic TPU interpreter
+    runs the kernel through host callbacks and was seen to stall a test
+    worker for good, so a stall here fails with every thread's stack
+    (faulthandler) instead. Returns {name: f32 output}."""
+    import pickle
+    import subprocess
+    import sys
+
+    src, dst = Path(tmp) / "interpret_jobs.pkl", Path(tmp) / "interpreted.npz"
+    src.write_bytes(pickle.dumps(jobs))
+    code = _INTERPRET.format(limit=INTERPRET_LIMIT_S - 20, root=str(ROOT), src=str(src),
+                             dst=str(dst))
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                       timeout=INTERPRET_LIMIT_S)
+    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-6000:]
+    return dict(np.load(dst))
+
+
 def seeded_head_variables(name: str, seed: int):
     """Drawn weights whose head gives logits of a few units (no score ties
     at a saturated sigmoid, so the detections' order is defined)."""

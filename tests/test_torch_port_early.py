@@ -17,6 +17,7 @@ from _torch_port_common import (
     images,
     jax_apply,
     jax_init,
+    jax_interpreted,
     jax_model,
     nchw,
     p999_to_peak,
@@ -40,19 +41,18 @@ def golden():
 
 
 @pytest.fixture(scope="module")
-def interpreted(golden):
-    """The JAX kernel in interpret mode, run once per image shape (slow)."""
-    from ayolov2_tpu.ops.early_pipeline import early_pipeline, extract_early_params
-
-    cache = {}
+def interpreted(golden, tmp_path_factory):
+    """The JAX kernel in interpret mode at each image shape the tests use,
+    all in one fresh interpreter with its own time limit (slow)."""
+    shapes = {(64, 64): 4, (64, 96): 8}
+    imgs = {hw: images((2, *hw, 3), seed=hw[1]) for hw in shapes}
+    out = jax_interpreted({f"{h}x{w}": (golden[0], imgs[h, w], strip_h)
+                           for (h, w), strip_h in shapes.items()},
+                          tmp_path_factory.mktemp("interpret"))
 
     def get(hw, strip_h):
-        if hw not in cache:
-            ep = extract_early_params(jax.tree_util.tree_map(jnp.asarray, golden[0]))
-            imgs = images((2, *hw, 3), seed=hw[1])
-            out = early_pipeline(jnp.asarray(imgs), ep, strip_h=strip_h, interpret=True)
-            cache[hw] = (imgs, np.asarray(out.astype(jnp.float32)))
-        return cache[hw]
+        assert shapes[hw] == strip_h
+        return imgs[hw], out[f"{hw[0]}x{hw[1]}"]
 
     return get
 

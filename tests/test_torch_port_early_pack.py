@@ -123,17 +123,18 @@ def test_layer_offsets_follow_the_kernels_table(variant):
 
 def test_build_targets_one_library_per_source_and_define_set(tmp_path):
     """The build helper names a library by its source's bytes and its -D set,
-    builds the early kernel once per stem width, and takes a path to another
-    version of a source."""
+    builds the early kernel once per padded width set, and takes a path to
+    another version of a source."""
     from ayolov2_torch.ops import _build
 
     src = _build._source("early_pipeline")
     assert src == _build.CSRC / "early_pipeline.cu" and src.exists()
     widths = _build.VARIANTS["early_pipeline"]
-    assert widths == [(f"EARLY_C0={c0}",) for c0 in (16, 32, 48, 64, 80)]
+    assert widths == [early.kernel_defines(*s) for s in _build.EARLY_SETS]
+    assert widths[2] == ("EARLY_C0=32", "EARLY_C1=64", "EARLY_CH=32", "EARLY_C2=128")
     targets = {_build._target(src, d) for d in widths}
-    targets.add(_build._target(src, ("EARLY_C0=32", "EARLY_PROFILE")))
-    assert len(targets) == 6 and all(t.parent == _build.BUILD_DIR for t in targets)
+    targets.add(_build._target(src, widths[2] + ("EARLY_PROFILE",)))
+    assert len(targets) == 8 and all(t.parent == _build.BUILD_DIR for t in targets)
     other = tmp_path / "early_pipeline.cu"
     other.write_bytes(src.read_bytes() + b"\n// another version\n")
     assert _build._source(str(other)) == other

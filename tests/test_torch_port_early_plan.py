@@ -106,7 +106,7 @@ def test_band_buffers_cover_every_band(variant):
     assert g["r3"] * 2 * g["half3"] * (2 * c0 + early.PAD) * 2 <= plan.sizes["c1"]
 
 
-@pytest.mark.parametrize("c0,n", [(24, 1), (96, 1), (32, 0), (32, 5)])
+@pytest.mark.parametrize("c0,n", [(88, 1), (96, 1), (32, 0), (32, 5)])
 def test_plan_raises_on_widths_the_kernel_does_not_take(c0, n):
     with pytest.raises(ValueError, match=f"c0={c0}"):
         early.plan_early(c0, n)

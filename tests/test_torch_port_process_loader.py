@@ -225,3 +225,40 @@ def test_process_mode_raises_when_a_worker_stalls():
     pids and the batch it waited for."""
     out = _in_fresh_interpreter("case_stalled_worker", 3.0, timeout=60)
     assert "raised after" in out
+
+
+class _Held(_Pids):
+    """Item ``hold`` is held until ``release`` is set; item ``exit_at``
+    raises ``SystemExit`` (which ends a thread without a word)."""
+
+    def __init__(self, hold=None, exit_at=None):
+        super().__init__()
+        self.hold, self.exit_at = hold, exit_at
+        self.release = threading.Event()
+
+    def get_item(self, i, salt=0):
+        if i == self.hold:
+            self.release.wait(60)
+        if i == self.exit_at:
+            raise SystemExit(f"item {i} ended its thread")
+        return super().get_item(i, salt)
+
+
+def test_thread_mode_raises_when_a_worker_stalls_or_its_thread_ends():
+    """The worker threads are held to the loader's ``timeout`` as the
+    process pool is: a worker that builds nothing within it makes the
+    consumer raise, naming the batch (it waited without a bound before); a
+    worker whose item ends the thread (``SystemExit``) passes that up
+    instead of leaving the consumer waiting."""
+    from ayolov2_torch.data import DataLoader
+
+    held = _Held(hold=4)
+    t0 = time.monotonic()
+    try:
+        with pytest.raises(RuntimeError, match="waited for batch 1 of 3"):
+            list(DataLoader(held, batch_size=4, workers=1, timeout=2.0))
+        assert 2.0 <= time.monotonic() - t0 < 30.0
+    finally:
+        held.release.set()
+    with pytest.raises(SystemExit, match="item 5 ended its thread"):
+        list(DataLoader(_Held(exit_at=5), batch_size=4, workers=2, timeout=30.0))
