@@ -1,8 +1,8 @@
 """Crop labelled boxes into an image set for representation learning.
 
 The counterpart of ``cli/crop_bboxes.py`` (``data/datasets_repr.
-crop_and_save_bboxes``): ``.jpg`` sources need cv2, ``.bmp`` sources are
-read and their crops written as ``.bmp`` by the port itself.
+crop_and_save_bboxes``): ``.jpg`` sources give ``.jpg`` crops and ``.bmp``
+sources ``.bmp`` crops, read and written by the port itself (no cv2).
 
 Usage:
     python -m ayolov2_torch.cli.crop_bboxes --img-dir data/coco/images/train2017 \\

@@ -129,9 +129,9 @@ def crop_and_save_bboxes(img_dir: str, save_dir: str, min_size: int = 32) -> int
 
     The labels are read from ``img_dir`` with ``images`` replaced by
     ``labels``. Box corners are truncated to pixels as the JAX package does.
-    A ``.jpg`` source (read and written through cv2) gives a ``.jpg`` crop;
-    a ``.bmp`` source, which the JAX package does not take, gives a ``.bmp``
-    crop written by the port itself."""
+    A ``.jpg`` source gives a ``.jpg`` crop, read and written by the port's
+    JPEG codec (the bytes ``cv2.imwrite`` writes); a ``.bmp`` source, which
+    the JAX package does not take, gives a ``.bmp`` crop."""
     save = Path(save_dir)
     save.mkdir(parents=True, exist_ok=True)
     label_dir = Path(str(img_dir).replace("images", "labels"))

@@ -1,14 +1,20 @@
 """Host image I/O without OpenCV: reading, shapes and resizes as cv2 does them.
 
-- :func:`imread` decodes 24-bit uncompressed (BI_RGB) ``.bmp`` files itself,
-  bottom-up or top-down, rows padded to 4 bytes, into the BGR uint8 array
-  ``cv2.imread`` gives. Every other file goes to ``cv2``, imported only then;
-  without it the error names the file and the package.
-- :func:`image_size` reads a ``.bmp``'s (w, h) from its header, and asks
-  ``cv2`` for other formats (the ``exif_size`` of a file without an EXIF
-  rotation).
-- :func:`imwrite` writes a ``.bmp`` itself (24-bit, bottom-up) and gives
-  every other format to ``cv2``.
+- :func:`imread` chooses the decoder from the file's first bytes, as cv2
+  does, not from its suffix: JPEG (``FF D8 FF``) and PNG go to the port's
+  own codecs (``data/codecs.py``, a C++ library built at first use), equal
+  to ``cv2.imread`` bit for bit, and are turned by their EXIF orientation as
+  ``cv2.imread`` turns them; a 24-bit uncompressed (BI_RGB) ``BM`` file is
+  decoded here, bottom-up or top-down, rows padded to 4 bytes. TIFF, WebP,
+  DNG and other BMPs go to ``cv2``, imported only then; without it the
+  error names the file and the package.
+- :func:`image_size` reads (w, h) from a JPEG's, PNG's or BMP's header
+  without decoding a pixel, swapped for EXIF orientations 6 and 8 only,
+  as the JAX package's ``exif_size`` swaps them; other formats ask ``cv2``.
+- :func:`imwrite` writes ``.jpg``/``.jpeg`` through the port's encoder
+  (the bytes of ``cv2.imwrite`` at its defaults: quality 95, 4:2:0),
+  ``.png`` through ``utils/png.write_png`` and ``.bmp`` itself (24-bit,
+  bottom-up); every other format needs cv2.
 - :func:`resize_linear` is ``cv2.resize(..., INTER_LINEAR)`` on uint8: the
   same source positions, 11-bit fixed-point weights and integer rounding.
   :func:`resize_area` is ``INTER_AREA`` for shrinking: per axis the overlap
@@ -25,6 +31,9 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import numpy as np
+
+from ayolov2_torch.data import codecs
+from ayolov2_torch.utils.png import write_png
 
 
 def _bmp_header(data: bytes) -> Optional[Tuple[int, int, int, int, int]]:
@@ -45,7 +54,7 @@ def _cv2(path: str, what: str):
     except ImportError as e:
         raise ImportError(
             f"{path}: {what} needs OpenCV (the package 'cv2'), which is not installed; "
-            "the port decodes 24-bit uncompressed .bmp files itself") from e
+            "the port reads JPEG, PNG and 24-bit uncompressed BMP files itself") from e
     return cv2
 
 
@@ -67,11 +76,18 @@ def _read_bmp(data: bytes) -> Optional[np.ndarray]:
 
 
 def imread(path: str) -> np.ndarray:
-    """(h, w, 3) BGR uint8, as ``cv2.imread(path)``; raises if unreadable."""
-    if Path(path).suffix.lower() == ".bmp":
-        im = _read_bmp(Path(path).read_bytes())
-        if im is not None:
-            return im
+    """(h, w, 3) BGR uint8, as ``cv2.imread(path)``; raises ``OSError``
+    where cv2 gives None."""
+    data = Path(path).read_bytes()
+    if data.startswith(codecs.JPEG_SIGNATURE):
+        return codecs.apply_orientation(codecs.decode_jpeg(data, path),
+                                        codecs.exif_orientation(data, name=path))
+    if data.startswith(codecs.PNG_SIGNATURE):
+        return codecs.apply_orientation(codecs.decode_png(data, path),
+                                        codecs.exif_orientation(data, name=path))
+    im = _read_bmp(data) if data[:2] == b"BM" else None
+    if im is not None:
+        return im
     im = _cv2(path, "decoding this image").imread(path)
     if im is None:
         raise OSError(f"Image read failed: {path}")
@@ -91,21 +107,43 @@ def write_bmp(path: str, im: np.ndarray) -> None:
 
 
 def imwrite(path: str, im: np.ndarray) -> None:
-    """``cv2.imwrite(path, im)`` of a BGR uint8 image: a ``.bmp`` is written
-    by :func:`write_bmp`, any other format needs cv2."""
-    if Path(path).suffix.lower() == ".bmp":
+    """``cv2.imwrite(path, im)`` of a BGR uint8 image (or a gray one for
+    ``.jpg`` and ``.png``): ``.jpg``/``.jpeg`` through the port's JPEG
+    encoder at cv2's defaults, ``.png`` by ``write_png``, ``.bmp`` by
+    :func:`write_bmp`; any other format needs cv2."""
+    suffix = Path(path).suffix.lower()
+    if suffix in (".jpg", ".jpeg"):
+        Path(path).write_bytes(codecs.encode_jpeg(im))
+    elif suffix == ".png":
+        write_png(path, im)
+    elif suffix == ".bmp":
         write_bmp(path, im)
     elif not _cv2(path, "encoding this image").imwrite(str(path), im):
         raise OSError(f"Image write failed: {path}")
 
 
 def image_size(path: str) -> Tuple[int, int]:
-    """(w, h) of an image file."""
-    if Path(path).suffix.lower() == ".bmp":
-        with open(path, "rb") as f:
-            head = _bmp_header(f.read(54))
-        if head is not None:
-            return head[1], abs(head[2])
+    """(w, h) of an image file from its header, swapped where the EXIF
+    orientation is 6 or 8 (the JAX package's ``exif_size``: PIL's first
+    ``Exif`` APP1 of a JPEG, the ``eXIf`` chunk of a PNG); raises
+    ``OSError`` for a file whose header cannot be read."""
+    with open(path, "rb") as f:
+        data = f.read(1 << 16)
+    if data.startswith(codecs.PNG_SIGNATURE):
+        data = Path(path).read_bytes()  # eXIf may follow the image data
+    elif data.startswith(codecs.JPEG_SIGNATURE):
+        try:
+            codecs.header_size(data, path)
+        except OSError:  # a header past the first 64 KiB
+            data = Path(path).read_bytes()
+    if data.startswith((codecs.JPEG_SIGNATURE, codecs.PNG_SIGNATURE)):
+        w, h = codecs.header_size(data, path)
+        if codecs.exif_orientation(data, exif_id=True, name=path) in (6, 8):
+            w, h = h, w
+        return w, h
+    head = _bmp_header(data[:54])
+    if head is not None:
+        return head[1], abs(head[2])
     h, w = imread(path).shape[:2]
     return w, h
 

@@ -26,7 +26,8 @@ path and takes and returns (h, w, 3) BGR uint8 unless it says otherwise:
 - The pixel policies' primitives: :func:`box_blur`, :func:`median_blur`,
   :func:`bgr2gray` / :func:`gray2bgr`, :func:`bgr2lab` / :func:`lab2bgr` and
   :func:`clahe`, :func:`convert_scale_abs`, :func:`filter2d`,
-  :func:`add_weighted` and :func:`jpeg_roundtrip`.
+  :func:`add_weighted` and :func:`jpeg_roundtrip` (the port's JPEG codec,
+  ``data/codecs.py``).
 
 The tests hold each against ``cv2`` on seeded images
 (``tests/test_torch_port_image_ops.py``).
@@ -649,155 +650,13 @@ def clahe(gray: np.ndarray, clip_limit: float = 4.0, tiles: Tuple[int, int] = (8
     return out
 
 
-# ---- JPEG round trip (libjpeg's islow path: what decides the pixels) --------------------
-
-_LUMA_Q = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
-                    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
-                    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
-                    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99])
-_CHROMA_Q = np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
-                      24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
-                     + [99] * 32)
-# islow's constants, 13 fractional bits
-_C_0298, _C_0390, _C_0541, _C_0765 = 2446, 3196, 4433, 6270
-_C_0899, _C_1175, _C_1501, _C_1847 = 7373, 9633, 12299, 15137
-_C_1961, _C_2053, _C_2562, _C_3072 = 16069, 16819, 20995, 25172
-_CONST_BITS, _PASS1_BITS = 13, 2
-
-
-def _quant_table(base: np.ndarray, quality: int) -> np.ndarray:
-    """``jpeg_set_quality(quality, force_baseline=TRUE)``'s table (8, 8)."""
-    quality = min(max(int(quality), 1), 100)
-    scale = 5000 // quality if quality < 50 else 200 - quality * 2
-    return np.clip((base * scale + 50) // 100, 1, 255).reshape(8, 8)
-
-
-def _fdct_1d(d, last: bool):
-    """One pass of ``jpeg_fdct_islow`` along the last axis (int64)."""
-    d0, d1, d2, d3, d4, d5, d6, d7 = (d[..., k] for k in range(8))
-    tmp0, tmp7, tmp1, tmp6 = d0 + d7, d0 - d7, d1 + d6, d1 - d6
-    tmp2, tmp5, tmp3, tmp4 = d2 + d5, d2 - d5, d3 + d4, d3 - d4
-    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    out = np.empty_like(d)
-    if last:
-        out[..., 0] = _descale(tmp10 + tmp11, _PASS1_BITS)
-        out[..., 4] = _descale(tmp10 - tmp11, _PASS1_BITS)
-        shift = _CONST_BITS + _PASS1_BITS
-    else:
-        out[..., 0] = (tmp10 + tmp11) << _PASS1_BITS
-        out[..., 4] = (tmp10 - tmp11) << _PASS1_BITS
-        shift = _CONST_BITS - _PASS1_BITS
-    z1 = (tmp12 + tmp13) * _C_0541
-    out[..., 2] = _descale(z1 + tmp13 * _C_0765, shift)
-    out[..., 6] = _descale(z1 - tmp12 * _C_1847, shift)
-    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
-    z5 = (z3 + z4) * _C_1175
-    tmp4, tmp5, tmp6, tmp7 = tmp4 * _C_0298, tmp5 * _C_2053, tmp6 * _C_3072, tmp7 * _C_1501
-    z1, z2, z3, z4 = z1 * -_C_0899, z2 * -_C_2562, z3 * -_C_1961 + z5, z4 * -_C_0390 + z5
-    out[..., 7] = _descale(tmp4 + z1 + z3, shift)
-    out[..., 5] = _descale(tmp5 + z2 + z4, shift)
-    out[..., 3] = _descale(tmp6 + z2 + z3, shift)
-    out[..., 1] = _descale(tmp7 + z1 + z4, shift)
-    return out
-
-
-def _idct_1d(d, shift: int):
-    """One pass of ``jpeg_idct_islow`` along the last axis (int64), each
-    output descaled by ``shift``."""
-    z2, z3 = d[..., 2], d[..., 6]
-    z1 = (z2 + z3) * _C_0541
-    tmp2, tmp3 = z1 - z3 * _C_1847, z1 + z2 * _C_0765
-    tmp0, tmp1 = (d[..., 0] + d[..., 4]) << _CONST_BITS, (d[..., 0] - d[..., 4]) << _CONST_BITS
-    tmp10, tmp13, tmp11, tmp12 = tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2, tmp1 - tmp2
-    tmp0, tmp1, tmp2, tmp3 = d[..., 7], d[..., 5], d[..., 3], d[..., 1]
-    z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
-    z5 = (z3 + z4) * _C_1175
-    tmp0, tmp1, tmp2, tmp3 = tmp0 * _C_0298, tmp1 * _C_2053, tmp2 * _C_3072, tmp3 * _C_1501
-    z1, z2, z3, z4 = z1 * -_C_0899, z2 * -_C_2562, z3 * -_C_1961 + z5, z4 * -_C_0390 + z5
-    tmp0, tmp1, tmp2, tmp3 = tmp0 + z1 + z3, tmp1 + z2 + z4, tmp2 + z2 + z3, tmp3 + z1 + z4
-    out = np.empty_like(d)
-    for k, v in enumerate((tmp10 + tmp3, tmp11 + tmp2, tmp12 + tmp1, tmp13 + tmp0,
-                           tmp13 - tmp0, tmp12 - tmp1, tmp11 - tmp2, tmp10 - tmp3)):
-        out[..., k] = _descale(v, shift)
-    return out
-
-
-def _code_plane(plane: np.ndarray, q: np.ndarray) -> np.ndarray:
-    """A plane whose sides are multiples of 8 through islow's forward DCT,
-    libjpeg's rounding quantisation, dequantisation and islow's inverse:
-    the decoded samples."""
-    h, w = plane.shape
-    blocks = plane.reshape(h // 8, 8, w // 8, 8).transpose(0, 2, 1, 3).astype(np.int64) - 128
-    coef = np.swapaxes(_fdct_1d(np.swapaxes(_fdct_1d(blocks, False), -1, -2), True), -1, -2)
-    div = q.astype(np.int64) << 3  # islow's output is 8 times the coefficient
-    level = np.sign(coef) * ((np.abs(coef) + (div >> 1)) // div)
-    deq = level * q
-    rows = _idct_1d(np.swapaxes(deq, -1, -2), _CONST_BITS - _PASS1_BITS)
-    out = _idct_1d(np.swapaxes(rows, -1, -2), _CONST_BITS + _PASS1_BITS + 3)
-    out = np.clip(out + 128, 0, 255)
-    return out.transpose(0, 2, 1, 3).reshape(h, w)
-
-
-def _pad_edge(a: np.ndarray, h: int, w: int) -> np.ndarray:
-    return np.pad(a, ((0, h - a.shape[0]), (0, w - a.shape[1])), mode="edge")
-
-
-def _fancy_upsample(c: np.ndarray, h: int, w: int) -> np.ndarray:
-    """libjpeg's h2v2 fancy (triangle) upsampling of the (ceil(h/2),
-    ceil(w/2)) real chroma samples, cropped to (h, w); rows of at most two
-    samples are repeated instead, as libjpeg does."""
-    c = c.astype(np.int64)
-    if c.shape[1] <= 2:
-        return np.repeat(np.repeat(c, 2, 0), 2, 1)[:h, :w]
-    above = np.concatenate([c[:1], c[:-1]], 0)
-    below = np.concatenate([c[1:], c[-1:]], 0)
-    out = np.empty((2 * c.shape[0], 2 * c.shape[1]), np.int64)
-    for v, near in ((0, above), (1, below)):
-        col = c * 3 + near  # the column sums of the output row
-        left = np.concatenate([col[:, :1], col[:, :-1]], 1)
-        right = np.concatenate([col[:, 1:], col[:, -1:]], 1)
-        even = (col * 3 + left + 8) >> 4
-        odd = (col * 3 + right + 7) >> 4
-        even[:, 0] = (col[:, 0] * 4 + 8) >> 4
-        odd[:, -1] = (col[:, -1] * 4 + 7) >> 4
-        out[v::2, 0::2], out[v::2, 1::2] = even, odd
-    return out[:h, :w]
-
-
-def _fix(x: float) -> int:
-    return int(x * 65536 + 0.5)
+# ---- JPEG round trip ---------------------------------------------------------------------
 
 
 def jpeg_roundtrip(im: np.ndarray, quality: int) -> np.ndarray:
     """``cv2.imdecode(cv2.imencode('.jpg', im, [IMWRITE_JPEG_QUALITY,
-    quality])[1], IMREAD_COLOR)`` for (h, w, 3) BGR uint8. The entropy
-    coding is lossless, so this computes only what decides the pixels, as
-    libjpeg does: YCbCr in 16-bit fixed point, 4:2:0 by 2x2 means with the
-    alternating bias, edges replicated to whole blocks, the islow forward
-    DCT, quantisation by the quality-scaled tables (rounding), the islow
-    inverse DCT, fancy upsampling and the fixed-point YCbCr -> RGB."""
-    h, w = im.shape[:2]
-    r, g, b = (im[..., k].astype(np.int64) for k in (2, 1, 0))
-    half, offset = 1 << 15, 128 << 16
-    y = (_fix(0.299) * r + _fix(0.587) * g + _fix(0.114) * b + half) >> 16
-    cb = (-_fix(0.16874) * r - _fix(0.33126) * g + _fix(0.5) * b + offset + half - 1) >> 16
-    cr = (_fix(0.5) * r - _fix(0.41869) * g - _fix(0.08131) * b + offset + half - 1) >> 16
+    quality])[1], IMREAD_COLOR)`` for (h, w, 3) BGR uint8, bit for bit:
+    the port's JPEG encoder and decoder (``data/codecs.py``)."""
+    from ayolov2_torch.data.codecs import decode_jpeg, encode_jpeg
 
-    yh, yw = -(-h // 8) * 8, -(-w // 8) * 8
-    ch, cw = -(-h // 2), -(-w // 2)
-    cbw = -(-cw // 8) * 8
-    y_out = _code_plane(_pad_edge(y, yh, yw), _quant_table(_LUMA_Q, quality))[:h, :w]
-    q_chroma = _quant_table(_CHROMA_Q, quality)
-    bias = np.tile([1, 2], cbw // 2)
-    chroma = []
-    for c in (cb, cr):
-        full = _pad_edge(c, 2 * ch, 2 * cbw)
-        down = (full[0::2, 0::2] + full[0::2, 1::2] + full[1::2, 0::2] + full[1::2, 1::2]
-                + bias) >> 2
-        coded = _code_plane(_pad_edge(down, -(-ch // 8) * 8, cbw), q_chroma)[:ch, :cw]
-        chroma.append(_fancy_upsample(coded, h, w) - 128)
-    cb, cr = chroma
-    red = y_out + ((_fix(1.402) * cr + half) >> 16)
-    green = y_out + ((-_fix(0.34414) * cb - _fix(0.71414) * cr + half) >> 16)
-    blue = y_out + ((_fix(1.772) * cb + half) >> 16)
-    return np.clip(np.stack([blue, green, red], -1), 0, 255).astype(np.uint8)
+    return decode_jpeg(encode_jpeg(im, quality))

@@ -1,12 +1,16 @@
-"""Build the CUDA sources under ``csrc/`` at first use and load them.
+"""Build the sources under ``csrc/`` at first use and load them.
 
 Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` process (all started
 together) into ``build/torch_kernels/<name>-<hash>.so`` at the repository
 root, with a plain C interface that ``ctypes`` loads. The hash covers the
 source and the flags, so an edited source builds anew. A source can also be
 built with ``-D`` switches into a second library (``load(name, defines=...)``).
-Nothing here runs at import time: importing the package needs neither nvcc
-nor CUDA.
+A ``csrc/*.cpp`` file is host code (the image codecs), built the same way by
+the host C++ compiler (``$CXX``, else ``c++`` or ``g++``): ``load(name)``,
+or ``build_all(variants=[(name, ())])`` beside the kernels. A library is
+written to a file of the process's own and renamed into place, so
+processes that build it at once do not collide. Nothing here runs at import time: importing the
+package needs neither a compiler nor CUDA.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
+HOST_SOURCES = ("image_codec",)  # csrc/<name>.cpp, which build_all's default leaves out
 
 # The early-network kernel's padded width sets (c0, c1, ch, c2) of the shipped
 # configs: stem 8 (width_multiple 0.125), n, s, m, l, l_0.5 and x, and the
@@ -56,28 +62,41 @@ def _nvcc() -> str:
     return str(path)
 
 
+def _cxx() -> str:
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler found ($CXX, c++, g++)")
+
+
 def _source(name: str) -> Path:
-    """``csrc/<name>.cu``, or ``name`` itself where it is a path to a ``.cu``
-    file (another version of a kernel, built to be timed beside this one)."""
-    return Path(name) if str(name).endswith(".cu") else CSRC / f"{name}.cu"
+    """``csrc/<name>.cu`` (a kernel) or else ``csrc/<name>.cpp`` (host code),
+    or ``name`` itself where it is a path to a ``.cu`` file (another version
+    of a kernel, built to be timed beside this one)."""
+    if str(name).endswith(".cu"):
+        return Path(name)
+    cu = CSRC / f"{name}.cu"
+    return cu if cu.exists() else CSRC / f"{name}.cpp"
 
 
-def _flags(defines: Sequence[str]) -> List[str]:
-    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+def _flags(src: Path, defines: Sequence[str]) -> List[str]:
+    return (CXX_FLAGS if src.suffix == ".cpp" else NVCC_FLAGS) + [f"-D{d}" for d in defines]
 
 
 def _target(src: Path, defines: Sequence[str] = ()) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(src, defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{h}.so"
 
 
 def build_all(names: Optional[List[str]] = None,
               variants: Sequence[Tuple[str, Tuple[str, ...]]] = ()) -> Dict[str, float]:
-    """Compile the named sources (default: all) in parallel, each with every
-    -D set ``VARIANTS`` lists for it (bare where it lists none), plus each
-    (name, defines) of ``variants``; returns seconds per library built (0.0
-    where a current library already existed), keyed by the name, with the
-    defines appended where there are any."""
+    """Compile the named ``.cu`` sources (default: all) in parallel, each
+    with every -D set ``VARIANTS`` lists for it (bare where it lists none),
+    plus each (name, defines) of ``variants`` (a kernel or a host source);
+    returns seconds per library built (0.0 where a current library already
+    existed), keyed by the name, with the defines appended where there are
+    any. Raises with the compiler's output if any build fails."""
     jobs = [(s, defines) for s in sorted(CSRC.glob("*.cu")) if names is None or s.stem in names
             for defines in VARIANTS.get(s.stem, [()])]
     jobs += [(_source(name), tuple(defines)) for name, defines in variants]
@@ -91,16 +110,18 @@ def build_all(names: Optional[List[str]] = None,
             times[key] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(src)]
+        compiler = _cxx() if src.suffix == ".cpp" else _nvcc()
+        cmd = [compiler, *_flags(src, defines), "-o", str(tmp), str(src)]
         procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                       text=True), tmp, out, time.perf_counter())
+                                       text=True), tmp, out, time.perf_counter(), src)
     errors = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for name, (proc, tmp, out, t0, src) in procs.items():
         stdout, stderr = proc.communicate()
         times[name] = time.perf_counter() - t0
         BUILD_LOG[name] = stdout + stderr
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{stderr}")
+            tool = "the host compiler" if src.suffix == ".cpp" else "nvcc"
+            errors.append(f"{tool} failed for {src.name} (exit {proc.returncode}):\n{stderr}")
             continue
         os.replace(tmp, out)
     if errors:
@@ -109,8 +130,9 @@ def build_all(names: Optional[List[str]] = None,
 
 
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (compiled with ``-D`` for
-    each of ``defines``), built alone if needed."""
+    """The loaded library of ``csrc/<name>.cu`` or ``.cpp`` (compiled with
+    ``-D`` for each of ``defines``), built alone if needed; raises with the
+    compiler's output if it does not build."""
     key = (name, tuple(defines))
     lib = _LIBS.get(key)
     if lib is None:
@@ -120,3 +142,4 @@ def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(src, defines)))
         _LIBS[key] = lib
     return lib
+

@@ -11,9 +11,8 @@ without pycocotools, and the per-class report). With ``plot=True``
 ``export_root`` writes them and its confusion matrix there
 (``utils/plots.py``). With ``img_root`` too, ``evaluate_per_class(debug=
 True)`` renders each image's predictions beside its labels
-(``{img_id:012d}.jpg`` of ``img_root``; reading and writing a ``.jpg``
-needs cv2, as ``image_io.imread`` says) into ``export_root``, never over a
-source image.
+(``{img_id:012d}.jpg`` of ``img_root``, read and written by the port's
+JPEG codec) into ``export_root``, never over a source image.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
-"""PNG files without OpenCV or PIL: 8-bit RGB and gray, written and read.
+"""PNG files without OpenCV or PIL: written, and read through the port's codec.
 
 The port's plots are written by :func:`write_png`. Colour arrays are BGR,
 as ``cv2.imwrite`` takes them, and the file stores RGB; so ``cv2.imread``
 of the file gives back the array that was written. :func:`read_png` is the
-inverse (BGR out) for the files ``write_png`` writes (every row unfiltered),
-for the tests and for checking written plots where OpenCV is absent. Only
-the standard library's ``zlib``, ``struct`` and ``binascii`` and numpy are
-used.
+inverse for any PNG: it decodes through ``data/codecs.decode_png`` (every
+colour type and depth, Adam7, as ``cv2.imread``) and gives a gray file's
+one channel as (H, W). Writing uses only the standard library's ``zlib``,
+``struct`` and ``binascii`` and numpy.
 """
 
 from __future__ import annotations
@@ -46,34 +46,10 @@ def write_png(path: Union[str, Path], img: np.ndarray) -> None:
 
 
 def read_png(path: Union[str, Path]) -> np.ndarray:
-    """An 8-bit non-interlaced gray or RGB PNG as (H, W) or (H, W, 3) BGR."""
+    """A PNG as (H, W, 3) BGR uint8, or (H, W) for the gray colour types
+    (0 and 4); raises ``OSError`` where ``cv2.imread`` gives None."""
+    from ayolov2_torch.data.codecs import decode_png
+
     blob = Path(path).read_bytes()
-    if not blob.startswith(_SIGNATURE):
-        raise ValueError(f"{path} is not a PNG file")
-    pos, idat, header = len(_SIGNATURE), [], None
-    while pos < len(blob):
-        (n,) = struct.unpack(">I", blob[pos: pos + 4])
-        kind, data = blob[pos + 4: pos + 8], blob[pos + 8: pos + 8 + n]
-        (crc,) = struct.unpack(">I", blob[pos + 8 + n: pos + 12 + n])
-        if binascii.crc32(kind + data) & 0xFFFFFFFF != crc:
-            raise ValueError(f"{path}: bad CRC in chunk {kind!r}")
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", data)
-        elif kind == b"IDAT":
-            idat.append(data)
-        elif kind == b"IEND":
-            break
-        pos += 12 + n
-    if header is None:
-        raise ValueError(f"{path}: no IHDR chunk")
-    w, h, depth, ctype, _, _, interlace = header
-    if depth != 8 or ctype not in (_GRAY, _RGB) or interlace:
-        raise ValueError(f"{path}: only 8-bit non-interlaced gray or RGB is read "
-                         f"(depth {depth}, colour type {ctype}, interlace {interlace})")
-    ch = 3 if ctype == _RGB else 1
-    data = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, w * ch + 1)
-    if data[:, 0].any():
-        raise ValueError(f"{path}: rows with filters other than None (this reader takes the "
-                         "files write_png writes)")
-    rows = data[:, 1:]
-    return rows.reshape(h, w, 3)[..., ::-1].copy() if ch == 3 else rows.reshape(h, w).copy()
+    img = decode_png(blob, str(path))
+    return img[..., 0].copy() if blob[25:26] in (b"\x00", b"\x04") else img

@@ -11,7 +11,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    is switched off for every comparison;
 2. build: nvcc compiles every ``ayolov2_torch/csrc/*.cu`` (in parallel; the
    early-network kernel once per padded width set of the shipped configs
-   and the stem-8 one, ``ops/_build.EARLY_SETS``);
+   and the stem-8 one, ``ops/_build.EARLY_SETS``), and the host compiler the
+   image codecs (``csrc/image_codec.cpp``) beside them;
 3. kernel: the fused early-network kernel against its plain torch version
    (``early_pipeline_ref``) on seeded full-width weights: yolov5s at bs 4,
    640x640 and 384x640, yolov5m at bs 2, 640x640, l and x at bs 1, 640x640,
@@ -227,6 +228,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    8, 640 (the 1.05 set) and bs 8, 640 (stem 8), each beside its bound,
    tile, plain version and cuDNN chain, and the 1.05 config's serve rate at
    bs 16, 800. ``--widths-only`` runs phases 1, 2, 3 and 15.
+16. image files without OpenCV, under ``build/chip_smoke_images/``: 16.1
+   each fixture of ``tests/res/torch_codec/`` read by the port equal to the
+   digest of ``cv2.imread``'s array in its manifest, and each JPEG
+   fixture's source encoded by the port equal to the digest of
+   ``cv2.imencode``'s bytes; 16.2 phase 7's 128 images written as JPEG by
+   the port's encoder (quality 95, 4:2:0), every eighth as PNG and every
+   sixteenth as a JPEG stored turned with EXIF orientation 6 or 8, labelled
+   by the f32 plain path on the decoded pixels and validated under phase
+   7's gates (bs 32, 640, rect, K1 one launch a batch), ``python -m
+   ayolov2_torch.cli.val`` equal to the in-process run; 16.3 ``cli.train``
+   from the golden checkpoint on that set with ``train_config.yaml`` as
+   shipped (``workers_mode: process``, 1 epoch, 640, bs 32): finite losses,
+   step = ema_updates = the micro-steps, ``cli.val`` of its ``best.ckpt``
+   through K1; 16.4 on the host clock, decode ms per 640x480 image (baseline
+   and progressive JPEG, PNG, BMP), encode ms, the val loader's ms per batch
+   of 32 on JPEG and on BMP with 2 and 4 threads, and the warm validation
+   pass's img/s on JPEG against phase 7's BMPs. ``--images-only`` runs
+   phases 1, 2, 3, 7 and 16.
 
 ``--profile`` adds where the serve call's (yolov5s, and in 12.1 the two zoo
 models') and the augmentation render's device time goes (torch.profiler) and where the kernel's own time goes
@@ -542,6 +561,36 @@ def synthetic_image(rng, h: int, w: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
+def codec_source(seed: int, h: int, w: int, gray: bool = False) -> np.ndarray:
+    """A codec fixture's source image (``tests/res/torch_codec``): a colour
+    gradient with noise, BGR uint8 ((h, w) with ``gray``), from integer
+    draws only, so any numpy makes the same array from ``seed``."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w]
+    base, dx, dy = rng.integers(0, 256, 3), rng.integers(-255, 256, 3), rng.integers(-255, 256, 3)
+    img = (base + x[..., None] * dx // max(w, 1) + y[..., None] * dy // max(h, 1)
+           + rng.integers(-12, 13, (h, w, 3)))
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    return np.ascontiguousarray(img[..., 1]) if gray else img
+
+
+def exif_app1(orientation: int, little: bool = True) -> bytes:
+    """A JPEG APP1 segment holding a TIFF IFD0 with the orientation tag only."""
+    e = "<" if little else ">"
+    tiff = ((b"II" if little else b"MM") + struct.pack(e + "HI", 42, 8) + struct.pack(e + "H", 1)
+            + struct.pack(e + "HHIHH", 0x0112, 3, 1, orientation, 0) + struct.pack(e + "I", 0))
+    body = b"Exif\0\0" + tiff
+    return b"\xff\xe1" + struct.pack(">H", len(body) + 2) + body
+
+
+def with_exif(jpeg: bytes, orientation: int, little: bool = True) -> bytes:
+    """``jpeg`` (a JFIF file) with an EXIF APP1 after its APP0."""
+    if jpeg[2:4] != b"\xff\xe0":
+        raise ValueError("not a JFIF file")
+    at = 4 + struct.unpack(">H", jpeg[4:6])[0]
+    return jpeg[:at] + exif_app1(orientation, little) + jpeg[at:]
+
+
 def write_bmp(path: Path, img: np.ndarray) -> None:
     """(h, w, 3) BGR uint8 as a 24-bit bottom-up BMP (rows padded to 4 bytes)."""
     h, w, _ = img.shape
@@ -553,18 +602,41 @@ def write_bmp(path: Path, img: np.ndarray) -> None:
     path.write_bytes(head + rows.tobytes())
 
 
+def write_image_file(images: Path, stem: str, img: np.ndarray, i: int) -> None:
+    """Phase 16's file for image ``i``: a JPEG from the port's encoder
+    (quality 95, 4:2:0); every eighth a PNG instead, and every sixteenth a
+    JPEG stored turned and tagged with EXIF orientation 6 or 8, which reads
+    upright."""
+    from ayolov2_torch.data.codecs import encode_jpeg
+    from ayolov2_torch.utils.png import write_png
+
+    if i % 16 == 15:
+        o = 6 if (i // 16) % 2 == 0 else 8
+        stored = np.ascontiguousarray(np.rot90(img, 1 if o == 6 else -1))
+        (images / f"{stem}.jpg").write_bytes(with_exif(encode_jpeg(stored), o, little=o == 6))
+    elif i % 8 == 7:
+        write_png(images / f"{stem}.png", img)
+    else:
+        (images / f"{stem}.jpg").write_bytes(encode_jpeg(img))
+
+
 def write_val_set(root: Path, seed: int, sizes=VAL_SIZES, per_size: int = 32,
-                  nc: int = 20) -> Path:
+                  nc: int = 20, files: bool = False) -> Path:
     """``root/images`` (the sizes in a seeded order, numeric stems, so the
-    rect sort has work to do), an empty ``root/labels`` and ``root/data.json``
-    (``nc`` classes)."""
+    rect sort has work to do; BMPs, or with ``files`` the same images as
+    phase 16's JPEG and PNG files, :func:`write_image_file`), an empty
+    ``root/labels`` and ``root/data.json`` (``nc`` classes)."""
     shutil.rmtree(root, ignore_errors=True)
     (root / "images").mkdir(parents=True)
     (root / "labels").mkdir()
     rng = np.random.default_rng(seed)
     order = rng.permutation(np.repeat(np.arange(len(sizes)), per_size))
     for i, k in enumerate(order):
-        write_bmp(root / "images" / f"{i + 1:06d}.bmp", synthetic_image(rng, *sizes[k]))
+        img = synthetic_image(rng, *sizes[k])
+        if files:
+            write_image_file(root / "images", f"{i + 1:06d}", img, i)
+        else:
+            write_bmp(root / "images" / f"{i + 1:06d}.bmp", img)
     cfg = root / "data.json"
     cfg.write_text(json.dumps({"val_path": str(root / "images"), "nc": nc, "dataset": "VOC",
                                "names": [f"class{i}" for i in range(nc)]}))
@@ -620,13 +692,15 @@ def write_labels(found, cut: float, top: int = 50):
 def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int = 640,
                      sizes=VAL_SIZES, per_size: int = 32, bs: int = 32, weights: Path = GOLDEN,
                      nc: int = 20, root: Path = VAL_DIR, name: str = "yolov5s",
-                     tag: str = "val", entry_points=("val", "val2")):
+                     tag: str = "val", entry_points=("val", "val2"), files: bool = False):
     """Phase 7 (see the module docstring), on the golden checkpoint; phase
     15.3 runs it on another checkpoint (``weights``, ``nc``, ``name``) under
     ``root`` with only ``cli.val`` as its entry point, its lines tagged
-    ``tag``. Returns (early_pipeline launches in the kernel's validation run,
-    max |kernel - plain| at the rect shapes, the kernel run's mAP50, bf16
-    cuDNN's mAP50), or None when a gate failed."""
+    ``tag``; phase 16.2 on the same images written as JPEG and PNG files
+    (``files``). Returns (early_pipeline launches in the kernel's validation
+    run, max |kernel - plain| at the rect shapes, the kernel run's mAP50,
+    bf16 cuDNN's mAP50, the warm pass's img/s), or None when a gate
+    failed."""
     import torch
 
     from ayolov2_torch.data import DataLoader, DetectionDataset, ImageFolderDataset
@@ -638,9 +712,13 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
         print(msg.replace("[val]", f"[{tag}]", 1), flush=True)
 
     t0 = time.perf_counter()
-    data_cfg = write_val_set(root, seed, sizes, per_size, nc)
-    log(f"[val] wrote {len(sizes) * per_size} BMPs ({per_size} at each of {list(sizes)}) "
-        f"in {time.perf_counter() - t0:.1f} s")
+    data_cfg = write_val_set(root, seed, sizes, per_size, nc, files)
+    kinds = {}
+    for f in (root / "images").iterdir():
+        kinds[f.suffix] = kinds.get(f.suffix, 0) + 1
+    log(f"[val] wrote {len(sizes) * per_size} images ({per_size} at each of {list(sizes)}; "
+        + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items()))
+        + f") in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     model = load_model(weights, nc=nc, device=device)
     log(f"[val] {weights.name} read by the port's reader, loaded strict, BN folded: "
@@ -785,7 +863,7 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
         f"f32 cuDNN run (its first pass) {f32['t'][0]:.3f}/{f32['t'][1]:.3f}/{f32['t'][2]:.3f}; "
         f"loader alone "
         f"{loader_ms:.2f} ms per batch of {bs} ({n_batches} batches, 2 threads)")
-    return launches, max_abs, ker["map50"], cud["map50"]
+    return launches, max_abs, ker["map50"], cud["map50"], r["seen"] / wall
 
 
 
@@ -1492,26 +1570,38 @@ def write_host_set(root: Path, src: Path) -> Path:
     boxes, every other image's as polygons (a 12-point ellipse in each box),
     so that copy-paste has segments to paste."""
     shutil.rmtree(root, ignore_errors=True)
-    for d in ("images", "labels", "segments"):
-        (root / d).mkdir(parents=True)
-    t = np.linspace(0, 2 * np.pi, 12, endpoint=False)
-    for k, img in enumerate(sorted((src / "images").glob("*.bmp"))):
+    (root / "images").mkdir(parents=True)
+    images = sorted((src / "images").glob("*.bmp"))
+    for img in images:
         (root / "images" / img.name).symlink_to(img)
+    write_segments(src / "labels", [img.stem for img in images],
+                   [root / "labels", root / "segments"])
+    return root / "images"
+
+
+def write_segments(labels: Path, stems, out_dirs) -> None:
+    """Each of ``stems``' box labels from ``labels`` into every dir of
+    ``out_dirs``, every other image's boxes as polygons (a 12-point ellipse
+    in each box)."""
+    t = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+    for d in out_dirs:
+        d.mkdir(parents=True, exist_ok=True)
+    for k, stem in enumerate(stems):
         rows = []
-        for line in (src / "labels" / f"{img.stem}.txt").read_text().splitlines():
+        for line in (labels / f"{stem}.txt").read_text().splitlines():
             c, x, y, w, h = (float(v) for v in line.split())
             if k % 2:
                 poly = np.stack([x + w / 2 * np.cos(t), y + h / 2 * np.sin(t)], 1).clip(0, 1)
                 rows.append(f"{int(c)} " + " ".join(f"{v:.6f}" for v in poly.ravel()))
             else:
                 rows.append(line)
-        for d in ("labels", "segments"):
-            (root / d / f"{img.stem}.txt").write_text("".join(r + "\n" for r in rows))
-    return root / "images"
+        for d in out_dirs:
+            (d / f"{stem}.txt").write_text("".join(r + "\n" for r in rows))
 
 
 def shipped_cfg(recipe: str, epochs: int, workers_mode: str, bs: Optional[int] = None,
-                img: Optional[int] = None, keep_plot: bool = False) -> Path:
+                img: Optional[int] = None, keep_plot: bool = False,
+                out_dir: Path = HOST_DIR) -> Path:
     """The shipped train config with only run-length fields changed: epochs,
     validate_period 1, ``workers_mode``, the batch where given and ``plot:
     false`` unless ``keep_plot`` (and the image size for a rehearsal on the
@@ -1535,7 +1625,7 @@ def shipped_cfg(recipe: str, epochs: int, workers_mode: str, bs: Optional[int] =
         text, n = re.subn(pattern, repl, text, count=1)
         if n != 1:
             raise ValueError(f"{src} has no line {pattern!r}")
-    out = HOST_DIR / f"cfg_{recipe}_{workers_mode}.yaml"
+    out = out_dir / f"cfg_{recipe}_{workers_mode}.yaml"
     out.write_text(text)
     new, old = load_yaml(out), load_yaml(src)
     for section in ("yolo_augmentation", "augmentation"):
@@ -3952,6 +4042,184 @@ def widths_phase(card: str, seed: int) -> tuple:
     return True, entries
 
 
+# ---- phase 16: image files (JPEG and PNG) without OpenCV ---------------------------
+
+IMAGES_DIR = ROOT / "build/chip_smoke_images"
+CODEC_FIXTURES = ROOT / "tests/res/torch_codec"
+
+
+def sha256_of(data) -> str:
+    import hashlib
+
+    return hashlib.sha256(bytes(data)).hexdigest()
+
+
+def codec_fixtures() -> bool:
+    """16.1: each committed fixture read by the port gives the digest of
+    ``cv2.imread``'s array that the manifest records, and each JPEG
+    fixture's source, encoded by the port, the digest of ``cv2.imencode``'s
+    bytes."""
+    from ayolov2_torch.data.codecs import encode_jpeg
+    from ayolov2_torch.data.image_io import imread
+
+    t0 = time.perf_counter()
+    manifest = json.loads((CODEC_FIXTURES / "manifest.json").read_text())
+    bad, n_enc = [], 0
+    for name, entry in sorted(manifest["files"].items()):
+        im = imread(str(CODEC_FIXTURES / name))
+        if list(im.shape) != entry["shape"] or sha256_of(im.tobytes()) != entry["sha256"]:
+            bad.append(name)
+        src = entry.get("source")
+        if src:
+            n_enc += 1
+            data = encode_jpeg(codec_source(src["seed"], src["h"], src["w"], src["gray"]),
+                               src["quality"])
+            if sha256_of(data) != src["imencode_sha256"]:
+                bad.append(f"{name} (encoded)")
+    log(f"[images] 16.1 the {len(manifest['files'])} fixtures of tests/res/torch_codec read by the "
+        f"port: each equal to the digest of {manifest['reference']}'s imread; the {n_enc} JPEG "
+        f"sources encoded by the port: each equal to the digest of its imencode "
+        f"({time.perf_counter() - t0:.1f} s) {'ok' if not bad else 'FAIL: ' + ', '.join(bad)}")
+    return not bad
+
+
+def images_train(device: str = "cuda", bs: int = 32, img: Optional[int] = None) -> tuple:
+    """16.3: ``cli.train`` from the golden checkpoint on phase 16's set with
+    ``train_config.yaml`` as shipped (processes, 1 epoch), then ``cli.val``
+    (K1) on its best.ckpt. Returns (ok, early_pipeline launches of that
+    ``cli.val``)."""
+    import re
+
+    from ayolov2_torch.cli import val
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_checkpoint
+    from ayolov2_torch.utils.config import load_yaml
+
+    images = IMAGES_DIR / "images"
+    files = sorted(f for f in images.iterdir() if f.suffix in (".jpg", ".png"))
+    write_segments(IMAGES_DIR / "labels", [f.stem for f in files], [IMAGES_DIR / "segments"])
+    cfg_path = shipped_cfg("a", 1, "process", bs, img, out_dir=IMAGES_DIR)
+    tcfg = load_yaml(cfg_path)["train"]
+    img, bs = int(tcfg["image_size"]), int(tcfg["batch_size"])
+    data = IMAGES_DIR / "train.json"
+    data.write_text(json.dumps({"train_path": str(images), "val_path": str(images), "nc": 20,
+                                "names": [f"class{i}" for i in range(20)]}))
+    dev = [] if device == "cuda" else ["--device", device]
+    proc, wall = run_logged(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
+                             str(data), "--cfg", str(cfg_path), "--log-dir",
+                             str(IMAGES_DIR / "runs"), *dev])
+    out = proc.stdout + proc.stderr
+    (IMAGES_DIR / "train.log").write_text(out)
+    rows = re.findall(EPOCH_ROW, out)
+    path = re.search(r"training images: (.*)", out)
+    run_dir = re.search(r"Run dir: (\S+)", out)
+    log(f"[images] 16.3 python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
+        f"{RECIPES['a'].name} as shipped on the JPEG/PNG set ({img} px, bs {bs}, 1 epoch, "
+        f"workers_mode process): exit {proc.returncode} in {wall:.1f} s; training images "
+        f"{path.group(1) if path else '?'}")
+    for r in rows:
+        log(f"[images]   epoch {r[0]}: {r[1]} s, {r[2]} img/s, {r[3]} steps, mean loss box {r[4]} "
+            f"obj {r[5]} cls {r[6]} total {r[7]}")
+    if proc.returncode != 0 or not run_dir:
+        log("[images] " + " | ".join(out.strip().splitlines()[-8:]))
+        return False, 0
+    wdir = Path(run_dir.group(1)) / "weights"
+    meta = load_checkpoint(wdir / "last.ckpt")["meta"]
+    finite = all(np.isfinite(float(v)) for r in rows for v in r[4:])
+    ok = (len(rows) == 1 and finite and (wdir / "best.ckpt").exists()
+          and meta["step"] == meta["ema_updates"] == len(files) // bs)
+    vargs = ["--weights", str(wdir / "best.ckpt"), "--data-cfg", str(data), "-iw", str(img),
+             "--batch-size", str(bs), *dev]
+    with captured_log():
+        early.early_pipeline.launches = 0  # main path (cli.val in this process): counts from here
+        t0 = time.perf_counter()
+        result = val.main(vargs)
+        launches = early.early_pipeline.launches
+    ok = ok and launches > 0 and 0.0 <= result["map50"] <= 1.0
+    log(f"[images] last.ckpt: step {meta['step']}, ema_updates {meta['ema_updates']} (micro-steps "
+        f"{len(files) // bs}), losses finite {finite}; python -m ayolov2_torch.cli.val on its "
+        f"best.ckpt (K1, rect): seen {result['seen']} mAP50 {result['map50']:.5f} mAP50-95 "
+        f"{result['map50_95']:.5f} in {time.perf_counter() - t0:.1f} s, early_pipeline launches "
+        f"{launches} {'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def host_ms(fn, n: int) -> float:
+    """Mean ms of ``fn()`` on the host clock over ``n`` calls after one."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def codec_times(card: str, bs: int = 32, img_size: int = 640) -> None:
+    """16.4, on the host clock: decode and encode ms per 640x480 image; the
+    val loader's ms per batch on phase 16's files and on phase 7's BMPs with
+    2 and 4 threads."""
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.data.codecs import encode_jpeg
+    from ayolov2_torch.data.image_io import imread
+    from ayolov2_torch.utils.png import write_png
+
+    tdir = IMAGES_DIR / "timing"
+    tdir.mkdir(exist_ok=True)
+    src = codec_source(112, 480, 640)  # the source of the fixture jprog640.jpg
+    scene = synthetic_image(np.random.default_rng(0), 480, 640)  # a phase 7 image
+    (tdir / "noisy.jpg").write_bytes(encode_jpeg(src))
+    (tdir / "scene.jpg").write_bytes(encode_jpeg(scene))
+    write_png(tdir / "scene.png", scene)
+    write_bmp(tdir / "scene.bmp", scene)
+    files = {"JPEG baseline 4:2:0 q95, phase 16's kind of image": tdir / "scene.jpg",
+             "JPEG baseline 4:2:0 q95, gradient with noise": tdir / "noisy.jpg",
+             "JPEG progressive 4:2:0 q75 (fixture jprog640.jpg)": CODEC_FIXTURES / "jprog640.jpg",
+             "PNG 8-bit RGB (write_png)": tdir / "scene.png",
+             "BMP 24-bit (phase 7's kind)": tdir / "scene.bmp"}
+    parts = [f"{k} ({f.stat().st_size} B) {host_ms(lambda f=f: imread(str(f)), 20):.3f}"
+             for k, f in files.items()]
+    log(f"[time] {card}: 16.4 host decode ms per 640x480 image (imread, one thread, mean of 20): "
+        + "; ".join(parts))
+    log(f"[time] {card}: 16.4 host encode ms per 640x480 image (encode_jpeg q95 4:2:0, mean of "
+        f"20): phase 16's kind {host_ms(lambda: encode_jpeg(scene), 20):.3f}, gradient with noise "
+        f"{host_ms(lambda: encode_jpeg(src), 20):.3f}")
+    rows = []
+    for name, images in (("JPEG/PNG", IMAGES_DIR / "images"), ("BMP", VAL_DIR / "images")):
+        if not images.is_dir():
+            continue
+        ds = DetectionDataset(str(images), img_size=img_size, batch_size=bs, rect=True, pad=0.5)
+        for workers in (2, 4):
+            loader = DataLoader(ds, batch_size=bs, workers=workers)
+            sum(1 for _ in loader)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader)
+            rows.append(f"{name} {workers} threads {(time.perf_counter() - t0) / n * 1e3:.2f}")
+    log(f"[time] {card}: 16.4 val loader ms per batch of {bs} (rect, {img_size}, a whole pass "
+        f"after a first one): " + "; ".join(rows))
+
+
+def images_phase(card: str, seed: int, bmp_img_s: float, device: str = "cuda",
+                 img_size: int = 640, bs: int = 32, sizes=VAL_SIZES, per_size: int = 32,
+                 train_img: Optional[int] = None) -> tuple:
+    """Phase 16 (see the module docstring). Returns (ok, K1 launches of its
+    validation and ``cli.val`` runs). ``device``, ``img_size``, ``bs``,
+    ``sizes``, ``per_size`` and ``train_img`` shrink it for a rehearsal on
+    the CPU."""
+    t0 = time.perf_counter()
+    ok = codec_fixtures()
+    val = validation_phase(seed, card, device=device, img_size=img_size, sizes=sizes,
+                           per_size=per_size, bs=bs, root=IMAGES_DIR, tag="images",
+                           entry_points=("val",), files=True)
+    if val is None:
+        return False, 0
+    log(f"[time] {card}: 16.2 warm validation pass on the JPEG/PNG files {val[4]:.1f} img/s, on "
+        f"phase 7's BMPs {bmp_img_s:.1f} img/s")
+    ok_train, train_launches = images_train(device, bs, train_img)
+    codec_times(card, bs, img_size)
+    log(f"[images] phase 16 {'ok' if ok and ok_train else 'FAIL'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return ok and ok_train, val[0] + train_launches
+
+
 def width_entry(variant: str, numbers: dict) -> dict:
     """Phase 15's entry of the kernels line for one width set."""
     from ayolov2_torch.models import build_model
@@ -3996,6 +4264,9 @@ def main() -> int:
     ap.add_argument("--widths-only", action="store_true",
                     help="phases 1, 2, 3 and 15 only (the kernel at the width-1.05 config's "
                          "and the stem-8 widths)")
+    ap.add_argument("--images-only", action="store_true",
+                    help="phases 1, 2, 3, 7 and 16 only (JPEG and PNG files through the "
+                         "port's codecs)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -4031,7 +4302,7 @@ def main() -> int:
     t0 = time.perf_counter()
     extra = ([("early_pipeline", early.kernel_defines(32, 64, 32, 128) + ("EARLY_PROFILE",))]
              if args.profile else [])
-    built = _build.build_all(variants=extra)
+    built = _build.build_all(variants=extra + [(name, ()) for name in _build.HOST_SOURCES])
     log(f"[build] {', '.join(f'{k}: {v:.1f} s' for k, v in built.items())} "
         f"(wall {time.perf_counter() - t0:.1f} s)")
     for name, text in _build.BUILD_LOG.items():
@@ -4080,6 +4351,15 @@ def main() -> int:
             log("[widths] FAIL")
             return 1
         print(json.dumps({"kernels": [width_entry(v, e) for v, e in entries.items()]}))
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if args.images_only:
+        val = validation_phase(args.seed, card)
+        if val is None or not images_phase(card, args.seed, val[4])[0]:
+            log("[images] FAIL")
+            return 1
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -4373,6 +4653,14 @@ def main() -> int:
     if not ok15:
         log("[widths] FAIL")
         return 1
+
+    # ---- 16. image files: JPEG and PNG through the port's codecs ----------------
+    torch.cuda.empty_cache()
+    ok16, images_launches = images_phase(card, args.seed, val[4])
+    if not ok16:
+        log("[images] FAIL")
+        return 1
+    launches += images_launches
     log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s")
 
     print(json.dumps({"kernels": [kernel_entry(

@@ -62,13 +62,15 @@ def test_top_down_bmp(tmp_path):
 def test_other_formats_go_through_cv2_and_name_what_is_missing(tmp_path, monkeypatch):
     from ayolov2_torch.data.image_io import image_size, imread
 
+    """TIFF (like WebP and DNG) is still read through cv2; JPEG and PNG no
+    longer are (``test_torch_port_image_files.py``)."""
     img = np.random.default_rng(4).integers(0, 256, (9, 11, 3), dtype=np.uint8)
-    path = str(tmp_path / "a.png")
+    path = str(tmp_path / "a.tif")
     cv2.imwrite(path, img)
     np.testing.assert_array_equal(imread(path), img)
     assert image_size(path) == (11, 9)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match=r"a\.png.*'cv2'"):
+    with pytest.raises(ImportError, match=r"a\.tif.*'cv2'"):
         imread(path)
 
 

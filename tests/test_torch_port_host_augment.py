@@ -28,7 +28,7 @@ from _torch_port_common import LABELLED_IMG, ROOT, labelled_set
 torch.set_num_threads(1)
 
 CFGS = ROOT / "res/configs/cfg"
-GATES = {"float": (1, 0.005), "jpeg": (2, 0.01)}
+GATES = {"float": (1, 0.005), "exact": (0, 0.0)}
 AFFINE = {"scale": [0.9, 1.1], "translate_percent": {"x": [-0.1, 0.1], "y": [-0.1, 0.1]},
           "rotate": [-10, 10], "shear": [-5, 5]}
 
@@ -150,7 +150,7 @@ def test_pixel_transforms_equal_jax(name):
         ra, rb = np.random.default_rng(seed), np.random.default_rng(seed)
         a = ja._PIXEL_TRANSFORMS[name](im.copy(), ra)
         b = pa.PIXEL_TRANSFORMS[name](im.copy(), rb)
-        _pixels(b, a, "jpeg" if name == "ImageCompression" else "float")
+        _pixels(b, a, "exact" if name == "ImageCompression" else "float")
         _next(ra, rb)
 
 
@@ -262,7 +262,7 @@ def test_get_item_equals_jax(images, case, monkeypatch):
     if kw.get("label_type") == "segments":
         _with_segments(images)
     jax_ds, port_ds = JaxDataset(str(images), **kw), DetectionDataset(str(images), **kw)
-    gate = "jpeg" if case == "policy_ImageCompression" else "float"
+    gate = "exact" if case == "policy_ImageCompression" else "float"
     n = len(port_ds) if case in ("train_config", "finetune", "train_golden", "rect_augment",
                                  "mixup") else 4
     for epoch in (0, 1):
