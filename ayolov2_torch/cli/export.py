@@ -22,7 +22,9 @@ logged and ignored, as the JAX entry point does. ``--dtype int8
 letterboxed square, /255 in f32, then the compute dtype) by
 ``--calib-method``; without ``--calib-dir`` int8 falls back to float, as in
 the JAX entry point. A decomposed checkpoint (meta ``decompose_map``) is
-exported decomposed.
+exported decomposed. ``--aoti``: also compile the artifact into an
+AOTInductor package ``{out}.aoti.pt2`` for the native runner
+(``export/aoti.py``, ``csrc/aoti_runner.cpp``).
 """
 
 from __future__ import annotations
@@ -85,6 +87,11 @@ def get_parser() -> argparse.ArgumentParser:
                         metavar=("H", "W"),
                         help="native H x W uint8 frames in, letterboxed in the graph, "
                              "boxes in the frames' coordinates")
+    parser.add_argument("--aoti", action="store_true",
+                        help="also write {out}.aoti.pt2, an AOTInductor package the native "
+                             "runner (csrc/aoti_runner.cpp) serves without Python. Off by "
+                             "default: the inductor compile takes a minute or more, where the "
+                             "JAX exporter's .stablehlo is compiled by its runner instead")
     parser.add_argument("--verbose", type=int, nargs="?", const=1, default=1)
     return parser
 
@@ -173,6 +180,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, str]:
         outs = call(np.zeros((args.batch_size, in_h, in_w, 3), np.uint8))
         outs = outs if isinstance(outs, tuple) else (outs,)
         LOGGER.info("dry run OK: %s", [tuple(o.shape) for o in outs])
+    if args.aoti:
+        from ayolov2_torch.export.aoti import package_serving
+
+        paths["aoti"] = package_serving(paths["pt2"])["aoti"]
     LOGGER.info("artifacts: %s", paths)
     return paths
 

@@ -291,6 +291,7 @@ def export_serving(
     decompose_map: Any = (),
     quant: bool = False,
     raw_hw: Optional[Tuple[int, int]] = None,
+    early_pipeline: Optional[bool] = None,
 ) -> Dict[str, str]:
     """Export the serving graph; returns the written files' paths.
 
@@ -304,7 +305,9 @@ def export_serving(
     greedy loop as a ``while_loop`` operator), for one batch size and image
     size, on one device (``platforms``: None = the card, or ("cpu",)).
     On the card with a model that allows it, layers 0..3 are the operator
-    ``ayolov2::early_pipeline`` with its packed weights in the artifact. With
+    ``ayolov2::early_pipeline`` with its packed weights in the artifact
+    (``early_pipeline``: None = so on the card and not on the CPU; True puts
+    the operator in a CPU artifact too, where it runs its plain version). With
     ``quant`` the int8 weights are in the artifact as int8 and the scales as
     f32 under either ``half``; the sidecar's ``quant`` is true.
     ``raw_hw``: the raw-frame graph of :func:`make_raw_serving_fn` (requires
@@ -329,7 +332,8 @@ def export_serving(
                                     keep_top_k, image_dtype=dtype, device=device)
         in_hw = (int(raw_hw[0]), int(raw_hw[1]))
     else:
-        use_early = device.type == "cuda" and early.can_fuse_early_model(model)
+        wanted = device.type == "cuda" if early_pipeline is None else early_pipeline
+        use_early = wanted and early.can_fuse_early_model(model)
         serve = ServingModule(model, device, dtype, conf_thres, iou_thres, top_k, keep_top_k,
                               DEFAULT_NMS_BOX, include_nms, include_nms, use_early, False,
                               False, "nms", img_hw=img_hw)

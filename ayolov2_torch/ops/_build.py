@@ -7,7 +7,12 @@ source and the flags, so an edited source builds anew. A source can also be
 built with ``-D`` switches into a second library (``load(name, defines=...)``).
 A ``csrc/*.cpp`` file is host code (the image codecs), built the same way by
 the host C++ compiler (``$CXX``, else ``c++`` or ``g++``): ``load(name)``,
-or ``build_all(variants=[(name, ())])`` beside the kernels. A library is
+or ``build_all(variants=[(name, ())])`` beside the kernels. The host sources
+of ``TORCH_SOURCES`` link libtorch instead: the C++ registration of the
+early-network operator (a library, never loaded into a process that has
+imported the Python operator) and the native runner (an executable, built
+with the registration's path); ``path(name)`` builds one and returns its
+file, and their hash also covers ``torch.__version__``. A library is
 written to a file of the process's own and renamed into place, so
 processes that build it at once do not collide. Nothing here runs at import time: importing the
 package needs neither a compiler nor CUDA.
@@ -32,6 +37,8 @@ NVCC_FLAGS = [
 ]
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 HOST_SOURCES = ("image_codec",)  # csrc/<name>.cpp, which build_all's default leaves out
+# csrc/<name>.cpp built against libtorch: name -> "library" or "executable"
+TORCH_SOURCES = {"early_pipeline_op": "library", "aoti_runner": "executable"}
 
 # The early-network kernel's padded width sets (c0, c1, ch, c2) of the shipped
 # configs: stem 8 (width_multiple 0.125), n, s, m, l, l_0.5 and x, and the
@@ -80,13 +87,70 @@ def _source(name: str) -> Path:
     return cu if cu.exists() else CSRC / f"{name}.cpp"
 
 
+def _cuda_include() -> Optional[Path]:
+    """The CUDA toolkit's headers where the torch build has CUDA, else None;
+    raises where torch has CUDA and the headers are missing."""
+    import torch
+
+    if torch.version.cuda is None:
+        return None
+    home = Path(os.environ.get("CUDA_HOME") or "/usr/local/cuda")
+    if not (home / "include" / "cuda_runtime_api.h").exists():
+        raise RuntimeError(f"torch {torch.__version__} has CUDA but {home}/include has no "
+                           "cuda_runtime_api.h; set CUDA_HOME to the CUDA toolkit")
+    return home / "include"
+
+
+def _torch_flags(name: str) -> List[str]:
+    """Compile flags of a ``TORCH_SOURCES`` source: libtorch's headers and
+    ABI, the CUDA parts where torch has CUDA, and for the runner the path of
+    the registration it opens."""
+    import torch
+    from torch.utils.cpp_extension import include_paths
+
+    flags = ["-O2", "-std=c++20", "-fPIC",
+             f"-D_GLIBCXX_USE_CXX11_ABI={int(torch.compiled_with_cxx11_abi())}"]
+    flags += [f"-I{p}" for p in include_paths()]
+    cuda = _cuda_include()
+    if cuda is not None:
+        flags += ["-DAYOLOV2_WITH_CUDA", f"-I{cuda}"]
+    if TORCH_SOURCES[name] == "library":
+        return flags + ["-shared"]
+    return flags + [f"-DAYOLOV2_OP_LIBRARY=\"{_target(_source('early_pipeline_op'))}\""]
+
+
+def _link_flags(src: Path) -> List[str]:
+    """Flags after the source on the command line: libtorch's libraries for a
+    ``TORCH_SOURCES`` source (kept with --no-as-needed: the CUDA ones register
+    CUDA's hooks and the runner of a CUDA package finds no device without
+    them), nothing for the others."""
+    if src.stem not in TORCH_SOURCES or src.suffix != ".cpp":
+        return []
+    import torch
+
+    lib = Path(torch.__file__).resolve().parent / "lib"
+    cuda = ["-lc10_cuda", "-ltorch_cuda"] if torch.version.cuda is not None else []
+    return [f"-L{lib}", f"-Wl,-rpath,{lib}", "-Wl,--no-as-needed", "-lc10", "-ltorch_cpu",
+            "-ltorch", *cuda, "-Wl,--as-needed", "-ldl"]
+
+
 def _flags(src: Path, defines: Sequence[str]) -> List[str]:
-    return (CXX_FLAGS if src.suffix == ".cpp" else NVCC_FLAGS) + [f"-D{d}" for d in defines]
+    if src.suffix == ".cpp" and src.stem in TORCH_SOURCES:
+        base = _torch_flags(src.stem)
+    else:
+        base = CXX_FLAGS if src.suffix == ".cpp" else NVCC_FLAGS
+    return base + [f"-D{d}" for d in defines]
 
 
 def _target(src: Path, defines: Sequence[str] = ()) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(src, defines)).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{h}.so"
+    flags = _flags(src, defines) + _link_flags(src)
+    if src.suffix == ".cpp" and src.stem in TORCH_SOURCES:
+        import torch
+
+        flags.append(torch.__version__)
+    h = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    executable = TORCH_SOURCES.get(src.stem) == "executable" and src.suffix == ".cpp"
+    return BUILD_DIR / f"{src.stem}-{h}{'' if executable else '.so'}"
 
 
 def build_all(names: Optional[List[str]] = None,
@@ -111,7 +175,7 @@ def build_all(names: Optional[List[str]] = None,
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         compiler = _cxx() if src.suffix == ".cpp" else _nvcc()
-        cmd = [compiler, *_flags(src, defines), "-o", str(tmp), str(src)]
+        cmd = [compiler, *_flags(src, defines), "-o", str(tmp), str(src), *_link_flags(src)]
         procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                        text=True), tmp, out, time.perf_counter(), src)
     errors = []
@@ -129,6 +193,16 @@ def build_all(names: Optional[List[str]] = None,
     return times
 
 
+def path(name: str, defines: Sequence[str] = ()) -> Path:
+    """The file of ``csrc/<name>`` built with ``defines`` (a library, or the
+    runner's executable), built alone if needed; raises with the compiler's
+    output if it does not build."""
+    src = _source(name)
+    if not _target(src, defines).exists():
+        build_all([], [(name, tuple(defines))])
+    return _target(src, defines)
+
+
 def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` or ``.cpp`` (compiled with
     ``-D`` for each of ``defines``), built alone if needed; raises with the
@@ -136,10 +210,9 @@ def load(name: str, defines: Sequence[str] = ()) -> ctypes.CDLL:
     key = (name, tuple(defines))
     lib = _LIBS.get(key)
     if lib is None:
-        src = _source(name)
-        if not _target(src, defines).exists():
-            build_all([], [key])
-        lib = ctypes.CDLL(str(_target(src, defines)))
+        if name in TORCH_SOURCES:
+            raise ValueError(f"{name} links libtorch and is not loaded here: use path()")
+        lib = ctypes.CDLL(str(path(name, defines)))
         _LIBS[key] = lib
     return lib
 

@@ -64,10 +64,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    scratch on 16 drawn images at 320 (the memorisation recipe), gated on the
    last 20 steps' mean loss <= 0.7 x the first 20's; and the entry point:
    ``python -m ayolov2_torch.cli.train`` from the golden checkpoint on
-   phase 7's set (train = val, YAML configs read by the port's reader, 3
+   phase 7's set (train = val, YAML configs read by the port's reader, 2
    epochs, under ``build/chip_smoke_train/``), ``cli.val`` on its
    ``best.ckpt`` through K1 within 0.02 mAP50 of the trainer's own
-   validation of that epoch, and ``--resume`` to 4 epochs, which must run
+   validation of that epoch, and ``--resume`` to 3 epochs, which must run
    one epoch and advance ``step`` and ``ema_updates`` by its micro-steps.
 
 9. device augmentation: phase 7's 128 BMPs at 640 as a resident store,
@@ -176,7 +176,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    of it; a plant at model_1 serves without K1; the unplanted checkpoint
    decomposes nothing at the defaults. 13.6 ``cli.val_optimizer`` for 3
    trials through K1, then ``--load-if-exists`` for a fourth;
-   ``cli.create_swa_model -b 2`` on the 3-epoch ``--use-swa`` run's
+   ``cli.create_swa_model -b 2`` on the 2-epoch ``--use-swa`` run's
    ``epoch_N.ckpt`` and ``cli.val`` of ``swa.ckpt`` through K1.
    ``--compress-only`` runs phases 1, 2, 3, 7 and 13.
 
@@ -246,6 +246,30 @@ Phases, each printing its own lines; any failure exits non-zero:
    of 32 on JPEG and on BMP with 2 and 4 threads, and the warm validation
    pass's img/s on JPEG against phase 7's BMPs. ``--images-only`` runs
    phases 1, 2, 3, 7 and 16.
+17. the native runner and the measurement CLIs, under
+   ``build/chip_smoke_tools/``: 17.1, started in the background right after
+   phase 2, ``cli.export --aoti`` of seeded yolov5s (nc 80, bf16, bs 32,
+   640, K1 in the graph: an AOTInductor package) and the build of the C++
+   registration of ``ayolov2::early_pipeline`` and the runner; 17.2 the
+   runner (no Python) on phase 7's first 32 images at 640 (137 timed calls
+   after 3 warm-up and 1 verification call) against ``load_exported`` of
+   the same ``.pt2``: equal counts in at least 31 of 32 images, a runner
+   detection of the same class at IoU >= 0.99 for at least 99% of the
+   artifact's detections of score >= 0.25, the registration's K1 launches
+   equal to the runner's calls; its img/s beside the ``.pt2``'s and
+   ``make_serving_fn``'s on the same batch, in turns of as many calls; then
+   the registration's CUDA body in a fresh interpreter that never imports
+   the Python operator, configured from the sidecar, on the same batch
+   against ``early_pipeline_ref`` at phase 3's tolerance, its launches
+   counted by the registration (its time, the plain version's and the cuDNN
+   chain's make the runner's entry of the kernels line); 17.3
+   ``cli.bench_matrix --configs serve int8 tta decomposed train latency sweep
+   h2d --iters 5 --sweep-prefilters exact`` (every row finite, the serve
+   row's K1 launches 1 a call); 17.4
+   ``cli.profile_train`` at 640 with ``--bs-sweep 16 64`` (every number
+   finite, every time, rate and MFU positive) and ``cli.bench_loader`` on
+   phase 7's images and labels with ``train_config.yaml`` (``--batches
+   5``). ``--tools-only`` runs phases 1, 2, 3, 7 and 17.
 
 ``--profile`` adds where the serve call's (yolov5s, and in 12.1 the two zoo
 models') and the augmentation render's device time goes (torch.profiler) and where the kernel's own time goes
@@ -262,10 +286,13 @@ from ``--seed`` too.
 from __future__ import annotations
 
 import argparse
+import atexit
+import concurrent.futures
 import contextlib
 import json
 import os
 import shutil
+import signal
 import struct
 import subprocess
 import sys
@@ -817,16 +844,17 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
     sheet = root / "answersheet.json"
     common = ["--weights", str(weights), "--data-cfg", str(data_cfg), "-iw", str(img_size),
               "--batch-size", str(bs)] + (["--device", device] if device != "cuda" else [])
-    for module, extra in (("val", ["--json-path", str(out)]),
-                          ("val2", ["--json-path", str(sheet), "--check-map", "0.5"])):
-        if module not in entry_points:
-            continue
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", f"ayolov2_torch.cli.{module}", *common, *extra],
-                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+    pool = concurrent.futures.ThreadPoolExecutor(2)  # both entry points at once
+    runs = {module: pool.submit(run_logged, ["-m", f"ayolov2_torch.cli.{module}", *common,
+                                             *extra], 600)
+            for module, extra in (("val", ["--json-path", str(out)]),
+                                  ("val2", ["--json-path", str(sheet), "--check-map", "0.5"]))
+            if module in entry_points}
+    for module, run_ in runs.items():
+        proc, wall = run_.result()
         tail = [ln for ln in (proc.stdout + proc.stderr).splitlines() if ln.strip()][-3:]
-        log(f"[val] python -m ayolov2_torch.cli.{module}: exit {proc.returncode} in "
-            f"{time.perf_counter() - t0:.1f} s; " + " | ".join(ln.strip()[:160] for ln in tail))
+        log(f"[val] python -m ayolov2_torch.cli.{module}: exit {proc.returncode} in {wall:.1f} s "
+            f"(the entry points at once); " + " | ".join(ln.strip()[:160] for ln in tail))
         if proc.returncode != 0:
             return None
     cli = json.loads(out.read_text())
@@ -1188,12 +1216,12 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
     from ayolov2_torch.utils.checkpoint import load_checkpoint
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    data, cfg3 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 3, img, bs)
-    _, cfg4 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 4, img, bs)
+    data, cfg2 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 2, img, bs)
+    _, cfg3 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 3, img, bs)
     dev = [] if device == "cuda" else ["--device", device]
     common = ["-m", "ayolov2_torch.cli.train", "--data", str(data), "--log-dir",
               str(TRAIN_DIR / "runs"), *dev]
-    proc, wall = run_logged([*common, "--model", str(GOLDEN), "--cfg", str(cfg3)])
+    proc, wall = run_logged([*common, "--model", str(GOLDEN), "--cfg", str(cfg2)])
     out = proc.stdout + proc.stderr
     (TRAIN_DIR / "train.log").write_text(out)
     epochs = re.findall(r"epoch +(\d+) done in ([\d.]+)s \(([\d.]+) img/s\): \d+ steps, mean loss "
@@ -1201,7 +1229,7 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
     vals = re.findall(r"epoch +(\d+) validation: mAP50 ([\d.]+) mAP50-95 ([\d.]+)", out)
     run_dir = re.search(r"Run dir: (\S+)", out)
     log(f"[train] python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
-        f"{cfg3.name} (memorisation recipe, 3 epochs): exit {proc.returncode} in {wall:.1f} s")
+        f"{cfg2.name} (memorisation recipe, 2 epochs): exit {proc.returncode} in {wall:.1f} s")
     for e, v in zip(epochs, vals):
         log(f"[train]   epoch {e[0]}: {e[2]} img/s, mean loss box {e[3]} obj {e[4]} cls {e[5]} "
             f"total {e[6]}; validation mAP50 {v[1]} mAP50-95 {v[2]}")
@@ -1210,9 +1238,12 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
         return False, 0
     wdir = Path(run_dir.group(1)) / "weights"
     best, last = wdir / "best.ckpt", wdir / "last.ckpt"
-    ok = best.exists() and last.exists() and len(epochs) == 3 and len(vals) == 3
+    ok = best.exists() and last.exists() and len(epochs) == 2 and len(vals) == 2
     meta_best, meta_last = load_checkpoint(best)["meta"], load_checkpoint(last)["meta"]
 
+    # the resume reads last.ckpt and writes a run of its own: it runs beside cli.val
+    resume = concurrent.futures.ThreadPoolExecutor(1).submit(
+        run_logged, [*common, "--model", str(GOLDEN), "--cfg", str(cfg3), "--resume", str(last)])
     val_json = TRAIN_DIR / "val.json"
     vargs = ["--weights", str(best), "--data-cfg", str(data), "-iw", str(img), "--batch-size",
              str(bs), "--no-rect", *dev, "--json-path", str(val_json)]
@@ -1233,8 +1264,7 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
         f"mAP50 {inproc['map50']:.5f}, early_pipeline launches {launches} "
         f"{'ok' if ok else 'FAIL'}")
 
-    proc, wall = run_logged([*common, "--model", str(GOLDEN), "--cfg", str(cfg4), "--resume",
-                             str(last)])
+    proc, wall = resume.result()
     out2 = proc.stdout + proc.stderr
     (TRAIN_DIR / "resume.log").write_text(out2)
     epochs2 = re.findall(r"epoch +(\d+) done in .*?: (\d+) steps", out2)
@@ -1244,12 +1274,13 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
         return False, launches
     meta2 = load_checkpoint(Path(run2.group(1)) / "weights/last.ckpt")["meta"]
     n_steps = int(epochs2[0][1]) if len(epochs2) == 1 else -1
-    ok_resume = (len(epochs2) == 1 and epochs2[0][0] == "3"
+    ok_resume = (len(epochs2) == 1 and epochs2[0][0] == "2"
                  and meta2["step"] == meta_last["step"] + n_steps
                  and meta2["ema_updates"] == meta_last["ema_updates"] + n_steps)
     log(f"[train] --resume last.ckpt (epoch {meta_last['epoch']}, step {meta_last['step']}, "
-        f"ema_updates {meta_last['ema_updates']}) to 4 epochs: exit {proc.returncode} in "
-        f"{wall:.1f} s, ran epochs {[e[0] for e in epochs2]} of {n_steps} micro-steps; the new "
+        f"ema_updates {meta_last['ema_updates']}) to 3 epochs: exit {proc.returncode} in "
+        f"{wall:.1f} s (beside cli.val), ran epochs {[e[0] for e in epochs2]} of {n_steps} "
+        f"micro-steps; the new "
         f"last.ckpt: epoch {meta2['epoch']}, step {meta2['step']}, ema_updates "
         f"{meta2['ema_updates']} {'ok' if ok_resume else 'FAIL'}")
     return ok and ok_resume, launches
@@ -2515,13 +2546,15 @@ def plant_low_rank(params, paths, rank: int = 8, seed: int = 0) -> None:
                                           u_out).astype(np.float32)
 
 
-def start_job(name: str, args: list, root: Path = COMPRESS_DIR, tag: str = "compress") -> tuple:
+def start_job(name: str, args: list, root: Path = COMPRESS_DIR, tag: str = "compress",
+              group: bool = False) -> tuple:
     """A ``python -m`` subprocess in the background, its output to
-    ``root/{name}.log``; returns (name, Popen, log path, start, tag)."""
+    ``root/{name}.log``; returns (name, Popen, log path, start, tag). With
+    ``group`` it leads a process group of its own (see :func:`stop_jobs`)."""
     path = root / f"{name}.log"
     fh = open(path, "w")
     proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, stdout=fh,
-                            stderr=subprocess.STDOUT, text=True)
+                            stderr=subprocess.STDOUT, text=True, start_new_session=group)
     fh.close()
     return name, proc, path, time.perf_counter(), tag
 
@@ -2969,7 +3002,7 @@ def search_and_swa(card: str, train_job) -> tuple:
     """13.6: ``cli.val_optimizer`` for 3 trials on phase 7's set through K1
     (its study under ``COMPRESS_DIR``), then ``--load-if-exists`` for one
     more; ``cli.create_swa_model -b 2`` on the ``epoch_N.ckpt`` files of the
-    3-epoch ``cli.train --use-swa`` run (in the background since the phase
+    2-epoch ``cli.train --use-swa`` run (in the background since the phase
     began) and ``cli.val`` of ``swa.ckpt`` through K1. Returns (ok, K1
     launches)."""
     import re
@@ -3016,8 +3049,8 @@ def search_and_swa(card: str, train_job) -> tuple:
     r = val.main(["--weights", str(swa), "--data-cfg", str(VAL_DIR / "data.json"), "-iw", "320",
                   "--batch-size", "16"])
     k1 = early.early_pipeline.launches - before
-    ok_w = len(epochs) == 3 and k1 > 0 and 0.0 <= r["map50"] <= 1.0
-    log(f"[compress] 13.6 cli.train --use-swa (3 epochs, 320, from the golden checkpoint) wrote "
+    ok_w = len(epochs) == 2 and k1 > 0 and 0.0 <= r["map50"] <= 1.0
+    log(f"[compress] 13.6 cli.train --use-swa (2 epochs, 320, from the golden checkpoint) wrote "
         f"{epochs}; cli.create_swa_model -b 2 -> {swa.name} (mean stored mAP50 "
         f"{meta['map50']:.5f}); cli.val of it at 320: mAP50 {r['map50']:.5f} mAP50-95 "
         f"{r['map50_95']:.5f}, early_pipeline launches {k1} {'ok' if ok_w else 'FAIL'}")
@@ -3057,7 +3090,7 @@ def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
     plant_low_rank(planted["params"], PLANTED)
     planted_ckpt = COMPRESS_DIR / "planted.ckpt"
     write_checkpoint(planted_ckpt, {"meta": meta, "model": planted, "ema": planted})
-    data, cfg3 = write_train_files(COMPRESS_DIR / "swa", VAL_DIR / "images", 3, 320, 16)
+    data, cfg2 = write_train_files(COMPRESS_DIR / "swa", VAL_DIR / "images", 2, 320, 16)
     decomposed = COMPRESS_DIR / "decomposed.ckpt"
     decompose_args = ["--weights", str(planted_ckpt), "--data-cfg", str(VAL_DIR / "data.json"),
                       "-iw", "640", "--batch-size", "32", "--out", str(decomposed)]
@@ -3080,7 +3113,7 @@ def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
             "stream=sys.stdout); from ayolov2_torch.cli import decompose_model, export; "
             f"decompose_model.main({decompose_args!r}); export.main({export_args!r})")]),
         "train": start_job("train_swa", [
-            "-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--cfg", str(cfg3),
+            "-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--cfg", str(cfg2),
             "--data", str(data), "--log-dir", str(COMPRESS_DIR / "runs"), "--use-swa"]),
     }
     pool = concurrent.futures.ThreadPoolExecutor(1)
@@ -3788,13 +3821,14 @@ def shape_head(model, seed: int, size: int = 800, per_level: float = 2.0) -> lis
     return found
 
 
-def wide_checkpoint(model, path: Path) -> Path:
-    """``model`` (unfused, seeded) as a checkpoint of its config, params in
-    bf16 as the trainer writes them, so that the entry points read it."""
+def wide_checkpoint(model, path: Path, variant: str = WIDE) -> Path:
+    """``model`` (unfused, seeded) as a checkpoint of its config (``variant``'s),
+    params in bf16 as the trainer writes them, so that the entry points read it."""
     from ayolov2_torch.utils.checkpoint import _variables, write_checkpoint
 
     v = _variables(model, True)
-    meta = {"model_cfg": json.dumps(named_cfg(WIDE)), "epoch": 0, "step": 0, "ema_updates": 0}
+    meta = {"model_cfg": json.dumps(named_cfg(variant)), "epoch": 0, "step": 0,
+            "ema_updates": 0}
     write_checkpoint(path, {"meta": meta, "model": v, "ema": v})
     return path
 
@@ -4219,6 +4253,350 @@ def images_phase(card: str, seed: int, bmp_img_s: float, device: str = "cuda",
         f"{time.perf_counter() - t0:.1f} s")
     return ok and ok_train, val[0] + train_launches
 
+# ---- phase 17: the native runner and the measurement CLIs -------------------------
+
+TOOLS_DIR = ROOT / "build/chip_smoke_tools"
+RUNNER_ITERS, RUNNER_WARMUP = 137, 3
+TOOLS_CONFIGS = ("serve", "int8", "tta", "decomposed", "train", "latency", "sweep", "h2d")
+
+
+def start_tools_jobs(seed: int) -> dict:
+    """17.1, started right after phase 2 and left to run in the background:
+    seeded yolov5s (nc 80, its head shaped by :func:`shape_head`) written as
+    a checkpoint, ``python -m
+    ayolov2_torch.cli.export --aoti`` of it (bf16, bs 32, 640, K1 in the
+    graph) and the build of the C++ registration and the runner
+    (``_build.TORCH_SOURCES``), each a job whose log lands in
+    ``build/chip_smoke_tools/``."""
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    TOOLS_DIR.mkdir(parents=True)
+    # a seeded head puts full-confidence boxes of no size everywhere (every score 1.0 ties,
+    # and the kept set then follows rounding): shaped as phase 15's, the scores spread
+    model = seeded_model("s", seed + 17, fuse=False)
+    shape_head(model, seed + 17, size=640, per_level=4.0)
+    ckpt = wide_checkpoint(model, TOOLS_DIR / "yolov5s.ckpt", "s")
+    export = start_job("export_aoti", [
+        "-m", "ayolov2_torch.cli.export", "--weights", str(ckpt), "--nc", "80",
+        "--batch-size", "32", "-iw", "640", "--aoti", "--no-dry-run",
+        "--out", str(TOOLS_DIR / "yolov5s_tpu_nms")], root=TOOLS_DIR, tag="tools", group=True)
+    build = start_job("build_runner", [
+        "-c", "from ayolov2_torch.ops import _build; "
+              "print(_build.build_all([], [(n, ()) for n in _build.TORCH_SOURCES]))"],
+        root=TOOLS_DIR, tag="tools", group=True)
+    atexit.register(stop_jobs, (export, build))
+    return {"export": export, "build": build, "ckpt": ckpt}
+
+
+def stop_jobs(jobs) -> None:
+    """Kill the process group of each job still running (the inductor
+    compile's workers with the export), as the script exits early."""
+    for _, proc, *_ in jobs:
+        if proc.poll() is None:
+            with contextlib.suppress(OSError):
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def runner_output(text: str) -> dict:
+    """The numbers of the runner's lines: img/s, ms/img, the K1 launches."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("total "):
+            parts = line.replace(",", "").split()
+            out["ms_per_img"], out["img_s"] = float(parts[3]), float(parts[5])
+        elif line.startswith("early_pipeline launches:"):
+            out["launches"] = int(line.split()[2])
+    return out
+
+
+def runner_matches(det_r, n_r, det_p, n_p, score_min: float = 0.25, iou_min: float = 0.99):
+    """(images with equal counts, detections of score >= ``score_min`` of the
+    Python artifact, those with a runner detection of the same class at IoU
+    >= ``iou_min``, max box |d| over the images of equal counts)."""
+    same = int((n_r == n_p).sum())
+    wanted = found = 0
+    max_box = 0.0
+    for i in range(len(n_p)):
+        p, r = det_p[i, :n_p[i]], det_r[i, :n_r[i]]
+        if n_r[i] == n_p[i] and len(p):
+            max_box = max(max_box, float(np.abs(p[:, :4] - r[:, :4]).max()))
+        keep = p[p[:, 4] >= score_min]
+        wanted += len(keep)
+        if len(keep) and len(r):
+            iou = box_iou(keep[:, :4], r[:, :4])
+            iou[keep[:, 5][:, None] != r[:, 5][None, :]] = 0
+            found += int((iou.max(1) >= iou_min).sum())
+    return same, wanted, found, max_box
+
+
+REGISTRATION_CALL = """
+import ctypes, json, sys, numpy as np, torch
+op, src, dst, iters = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+torch.ops.load_library(op)
+lib = ctypes.CDLL(op)
+lib.ayolov2_early_pipeline_error.restype = ctypes.c_char_p
+lib.ayolov2_early_pipeline_launches.restype = ctypes.c_int64
+d = np.load(src)
+widths, plan = [int(v) for v in d["widths"]], [int(v) for v in d["plan"]]
+if lib.ayolov2_early_pipeline_configure(str(d["library"]).encode(),
+        (ctypes.c_int64 * 5)(*widths), (ctypes.c_int * 14)(*plan)):
+    sys.exit(lib.ayolov2_early_pipeline_error().decode())
+x = torch.from_numpy(d["x"]).cuda()
+w = torch.from_numpy(d["w"]).view(torch.bfloat16).cuda()
+c0, c1, ch, c2, n = widths
+call = lambda: torch.ops.ayolov2.early_pipeline(x, w, c0, n, c1, ch, c2)
+y = call()
+for _ in range(3):
+    call()
+torch.cuda.synchronize()
+start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+start.record()
+for _ in range(iters):
+    call()
+end.record()
+torch.cuda.synchronize()
+np.save(dst, y.view(torch.int16).cpu().numpy())
+print(json.dumps({"ms": start.elapsed_time(end) / iters,
+                  "launches": lib.ayolov2_early_pipeline_launches(),
+                  "modules": sorted(m for m in sys.modules if m.startswith("ayolov2"))}))
+"""
+
+
+def registration_check(card: str, model, ep, imgs, call: dict) -> tuple:
+    """17.2's second half: the C++ registration's CUDA body on the card, in a
+    fresh interpreter that never imports the Python operator:
+    ``torch.ops.load_library`` of it, configured with the sidecar's kernel
+    library and plan, called as ``torch.ops.ayolov2.early_pipeline`` on the
+    runner's batch (bs 32, 640) with the packaged model's weights, against
+    ``early_pipeline_ref`` on the same inputs at phase 3's tolerance; its
+    launches counted by the registration (1 + 3 warm-up + 20 timed). Its
+    time (CUDA events, in that interpreter), the plain version's, the
+    cuDNN chain's and the bound make the runner's entry of the kernels line.
+    Returns (ok, those numbers)."""
+    import torch
+
+    from ayolov2_torch.ops import _build
+    from ayolov2_torch.ops import early_pipeline as early
+
+    iters = 20
+    src, dst = TOOLS_DIR / "registration_in.npz", TOOLS_DIR / "registration_out.npy"
+    np.savez(src, x=imgs.cpu().numpy(), w=early.pack_weights(ep).view(torch.int16).cpu().numpy(),
+             widths=np.array(call["widths"]), plan=np.array(call["plan"]),
+             library=np.array(call["library"]))
+    proc = subprocess.run([sys.executable, "-c", REGISTRATION_CALL,
+                           str(_build.path("early_pipeline_op")), str(src), str(dst),
+                           str(iters)], cwd=TOOLS_DIR, capture_output=True, text=True,
+                          timeout=300)
+    (TOOLS_DIR / "registration.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        log(f"[tools] the registration on the card: exit {proc.returncode}; "
+            + " | ".join((proc.stdout + proc.stderr).strip().splitlines()[-6:]))
+        return False, {}
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    got = torch.from_numpy(np.load(dst)).view(torch.bfloat16).cuda()
+    want = early.early_pipeline_ref(imgs, ep)
+    peak, p999, mx = rel_err(got, want)
+    ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+          and peak < TOL_PEAK and p999 < TOL_P999 and rep["modules"] == []
+          and rep["launches"] == 1 + 3 + iters)
+    plain_ms = time_ms(lambda: early.early_pipeline_ref(imgs, ep), 5, warmup=1)
+    fused_state = model.state_dict()
+    torch.backends.cudnn.benchmark = True
+    try:
+        chain_ms = min(time_ms(lambda: chain(imgs), 20) for chain in
+                       (cudnn_chain(fused_state, c) for c in (3, 8)))
+    finally:
+        torch.backends.cudnn.benchmark = False
+    bound_ms, bound_by, _, _ = bound_of(ep, imgs.shape[:3])
+    log(f"[tools] {card}: 17.2 the C++ registration's CUDA body in a fresh interpreter (port "
+        f"modules imported: {rep['modules']}), configured from the sidecar, on the runner's "
+        f"batch (yolov5s bs32 640) vs early_pipeline_ref: max|d|/peak {peak:.5f} p99.9 "
+        f"{p999:.5f} max|d| {mx:.4f} (gate {TOL_PEAK}/{TOL_P999}); launches counted by the "
+        f"registration {rep['launches']} (gate {1 + 3 + iters}) {'ok' if ok else 'FAIL'}")
+    log(f"[time] {card}: early_pipeline through the C++ registration {rep['ms']:.4f} ms "
+        f"(CUDA events, {iters} calls), plain {plain_ms:.4f} ms, cuDNN chain {chain_ms:.4f} ms "
+        f"(the faster stem width, cudnn.benchmark), bound {bound_ms:.4f} ms ({bound_by})")
+    return ok, dict(max_abs_err=mx, ms=rep["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=chain_ms)
+
+
+def runner_check(card: str, jobs: dict, serve_img_s: float) -> tuple:
+    """17.1-17.2: the package and the runner from :func:`start_tools_jobs`;
+    the runner (``--iters 137 --warmup 3``) on the first 32 of phase 7's
+    images (square 640) against ``load_exported`` of the same ``.pt2`` on
+    the same batch: equal counts in at least 31 of 32 images, and a runner
+    detection of the same class at IoU >= 0.99 for at least 99% of the
+    artifact's detections of score >= 0.25; the registration's K1 launches
+    equal to the warm-up, verification and timed calls. The runner's img/s
+    beside the ``.pt2``'s and ``make_serving_fn``'s on the same batch, in
+    turns, each over as many calls as the runner's; then
+    :func:`registration_check`. Returns (ok, the runner's K1 launches, the
+    numbers of the runner's entry of the kernels line)."""
+    import torch
+
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.export import load_exported, make_serving_fn
+    from ayolov2_torch.ops import _build
+    from ayolov2_torch.utils.checkpoint import load_model
+
+    ok_b, _ = finish_job(jobs["build"], timeout=900)
+    ok_e, _ = finish_job(jobs["export"], timeout=900)
+    if not (ok_b and ok_e):
+        return False, 0, {}
+    side = json.loads((TOOLS_DIR / "yolov5s_tpu_nms.yaml").read_text())
+    aoti = side["aoti"]
+    package = TOOLS_DIR / aoti["package"]
+    calls = aoti["early_pipeline"]
+    ok_pkg = (side["early_pipeline"] and len(calls) == 1 and bool(calls[0].get("library"))
+              and aoti["device"] == "cuda")
+    log(f"[tools] {card}: 17.1 cli.export --aoti of seeded yolov5s (nc 80, bf16, bs32 640): "
+        f"inductor compile {aoti['compile_s']:.1f} s, {package.name} "
+        f"{package.stat().st_size / 1e6:.1f} MB, torch {aoti['torch']}; early_pipeline calls "
+        f"{[(c['widths'], c.get('tile')) for c in calls]} {'ok' if ok_pkg else 'FAIL'}")
+    if not ok_pkg:
+        return False, 0, {}
+
+    ds = DetectionDataset(str(VAL_DIR / "images"), img_size=640, batch_size=32, rect=False,
+                          stride=32)
+    batch = next(iter(DataLoader(ds, batch_size=32))).images
+    raw = TOOLS_DIR / "input.bin"
+    raw.write_bytes(np.ascontiguousarray(batch).tobytes())
+    t0 = time.perf_counter()
+    proc = subprocess.run([str(_build.path("aoti_runner")), "--program", str(package),
+                           "--batch", "32", "--height", "640", "--width", "640",
+                           "--iters", str(RUNNER_ITERS), "--warmup", str(RUNNER_WARMUP),
+                           "--input", str(raw), "--dump-output", str(TOOLS_DIR / "runner")],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    (TOOLS_DIR / "runner.log").write_text(proc.stdout + proc.stderr)
+    r = runner_output(proc.stdout)
+    if proc.returncode != 0 or "img_s" not in r or "launches" not in r:
+        log(f"[tools] runner: exit {proc.returncode}; "
+            + " | ".join((proc.stdout + proc.stderr).strip().splitlines()[-6:]))
+        return False, 0, {}
+    det_r = np.fromfile(TOOLS_DIR / "runner.out0.bin", np.float32).reshape(32, 100, 6)
+    n_r = np.fromfile(TOOLS_DIR / "runner.out1.bin", np.int32)
+    call = load_exported(str(TOOLS_DIR / "yolov5s_tpu_nms.pt2"))
+    imgs = torch.from_numpy(np.ascontiguousarray(batch)).cuda()
+    det_p, n_p = (t.cpu().numpy() for t in call(imgs))
+    same, wanted, found, max_box = runner_matches(det_r, n_r, det_p, n_p)
+    want_launches = RUNNER_WARMUP + 1 + RUNNER_ITERS
+    ok = (same >= 31 and wanted >= 16 and found >= 0.99 * wanted
+          and r["launches"] == want_launches)
+    log(f"[tools] 17.2 the runner (no Python; {wall:.1f} s with its start) on phase 7's first 32 "
+        f"images at 640 vs load_exported of the same .pt2: equal counts in {same}/32 images "
+        f"(gate 31), detections of score >= 0.25 matched at IoU >= 0.99 and the same class "
+        f"{found}/{wanted} (gate 99% of at least 16), max box |d| {max_box:.4f} px (printed, "
+        f"not gated); K1 launches counted by the C++ registration {r['launches']} (gate "
+        f"{RUNNER_WARMUP} warm-up + 1 verification + {RUNNER_ITERS} timed = {want_launches}) "
+        f"{'ok' if ok else 'FAIL'}")
+    model = load_model(jobs["ckpt"], nc=80, device="cuda")
+    serve = make_serving_fn(model)
+    rates = {"artifact": [], "make_serving_fn": []}
+    for name in ("artifact", "make_serving_fn", "make_serving_fn", "artifact"):
+        rates[name].append(serve_rate(call if name == "artifact" else serve, imgs, RUNNER_ITERS))
+    art, msf = np.mean(rates["artifact"]), np.mean(rates["make_serving_fn"])
+    log(f"[time] {card}: the native runner {r['img_s']:.1f} img/s ({r['ms_per_img']:.5f} ms/img, "
+        f"{RUNNER_ITERS} calls, yolov5s bs32 640, K1 inside) vs in this process on the same "
+        f"batch, in turns of {RUNNER_ITERS} calls each: the .pt2 {art:.1f} img/s "
+        f"({' '.join(f'{v:.1f}' for v in rates['artifact'])}), make_serving_fn {msf:.1f} "
+        f"({' '.join(f'{v:.1f}' for v in rates['make_serving_fn'])}); runner / .pt2 "
+        f"{r['img_s'] / art:.3f}, runner / make_serving_fn {r['img_s'] / msf:.3f}; phase 6's "
+        f"make_serving_fn {serve_img_s:.1f}, runner / it {r['img_s'] / serve_img_s:.3f} (nan "
+        "where not run)")
+    ok_k, numbers = registration_check(card, model, serve.ep, imgs, calls[0])
+    del serve, call, imgs, model
+    torch.cuda.empty_cache()
+    return ok and ok_k, r["launches"], numbers
+
+
+def run_cli(name: str, args: list, timeout: int = 600) -> tuple:
+    """``python -m ayolov2_torch.cli.<name>`` in a subprocess; (exit code,
+    seconds, output), the output also in ``build/chip_smoke_tools/``."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", f"ayolov2_torch.cli.{name}", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=timeout)
+    (TOOLS_DIR / f"{name}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        log(f"[tools] {name}: exit {proc.returncode}; "
+            + " | ".join((proc.stdout + proc.stderr).strip().splitlines()[-6:]))
+    return proc.returncode, time.perf_counter() - t0, proc.stdout
+
+
+def tools_clis(card: str, serve_img_s: float) -> bool:
+    """17.3-17.4: ``cli.bench_matrix --configs serve int8 tta decomposed train
+    latency sweep h2d --iters 5 --sweep-prefilters exact`` (every row finite,
+    the serve row's K1 launches 1 per call); ``cli.profile_train`` at 640
+    with ``--bs-sweep 16 64`` (every number finite, every time, rate and MFU
+    positive; the
+    stage sum beside the full step); ``cli.bench_loader`` on phase 7's
+    images and labels with ``train_config.yaml``'s augmentation at bs 32,
+    ``--batches 5`` (both worker modes)."""
+    from ayolov2_torch.cli.bench_matrix import rows_finite
+
+    rc, secs, _ = run_cli("bench_matrix", ["--configs", *TOOLS_CONFIGS, "--iters", "5",
+                                           "--sweep-prefilters", "exact",
+                                           "--out", str(TOOLS_DIR / "bench_matrix.json")])
+    if rc != 0:
+        return False
+    rows = json.loads((TOOLS_DIR / "bench_matrix.json").read_text())["rows"]
+    serve = next(r for r in rows if r["metric"].endswith("_640_bs32_serve"))
+    ok_m = (rows_finite(rows) and serve["k1_launches_per_call"] == 1
+            and {r["metric"].split("_640_")[1] for r in rows if "_640_" in r["metric"]}
+            >= {"bs32_serve", "bs32_serve_int8", "bs32_tta_serve", "bs32_decomposed_serve",
+                "bs32_train_step", "bs1_p50_latency_ms"})
+    log(f"[tools] {card}: 17.3 cli.bench_matrix ({secs:.1f} s, {len(rows)} rows, --iters 5): "
+        + "; ".join(f"{r['metric']} {r['value']} {r['unit']}" for r in rows)
+        + f"; serve K1 launches per call {serve['k1_launches_per_call']} (gate 1); every row "
+        f"finite {'ok' if ok_m else 'FAIL'}")
+    log(f"[time] {card}: bench_matrix's serve {serve['value']} img/s beside phase 6's "
+        f"make_serving_fn {serve_img_s:.1f} img/s (nan where not run)")
+
+    rc, secs, _ = run_cli("profile_train", ["--img-size", "640", "--bs-sweep", "16", "64",
+                                            "--iters", "5",
+                                            "--out", str(TOOLS_DIR / "profile_train.json")])
+    if rc != 0:
+        return False
+    rows = json.loads((TOOLS_DIR / "profile_train.json").read_text())["rows"]
+    timed = [v for row in rows for k, v in row.items()
+             if k in ("fwd_ms", "opt_ema_direct_ms", "full_ms", "ms_per_step", "baseline_ms",
+                      "img_per_s", "mfu_pct")]
+    ok_p = (rows_finite(rows) and not any("error" in r for r in rows)
+            and all(v is not None and v > 0 for v in timed))
+    bd = rows[0]
+    stage_sum = bd["fwd_ms"] + bd["loss_ms"] + bd["bwd_ms"] + bd["opt_ema_direct_ms"]
+    log(f"[tools] {card}: 17.4 cli.profile_train ({secs:.1f} s, 640, --iters 5): "
+        + "; ".join(json.dumps(r) for r in rows)
+        + f"; stages fwd + loss + bwd + opt_ema_direct {stage_sum:.2f} ms beside the full step "
+        f"{bd['full_ms']} ms; every number finite, every time, rate and MFU positive "
+        f"{'ok' if ok_p else 'FAIL'}")
+
+    data = TOOLS_DIR / "loader_data.json"
+    data.write_text(json.dumps({"train_path": str(VAL_DIR / "images"), "nc": 20,
+                                "dataset": "VOC"}))
+    rc, secs, out = run_cli("bench_loader", ["--data", str(data), "--batches", "5",
+                                             "--batch-size", "32"])
+    if rc != 0:
+        return False
+    rep = json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+    ok_l = (rep["loader_img_s"] > 0 and rep["step_img_s"] > 0
+            and set(rep["loader_by_mode_img_s"]) == {"thread", "process"})
+    log(f"[tools] {card}: 17.4 cli.bench_loader ({secs:.1f} s) on phase 7's images with "
+        f"train_config.yaml: {json.dumps(rep)} {'ok' if ok_l else 'FAIL'}")
+    return ok_m and ok_p and ok_l
+
+
+def tools_phase(card: str, jobs: dict, serve_img_s: float = float("nan")) -> tuple:
+    """Phase 17 (see the module docstring). Returns (ok, the runner's K1
+    launches, the numbers of the runner's entry of the kernels line)."""
+    t0 = time.perf_counter()
+    ok_r, launches, numbers = runner_check(card, jobs, serve_img_s)
+    ok_t = ok_r and tools_clis(card, serve_img_s)
+    log(f"[tools] phase 17 {'ok' if ok_t else 'FAIL'} in {time.perf_counter() - t0:.1f} s of "
+        "foreground time")
+    return ok_t, launches, numbers
+
+
 
 def width_entry(variant: str, numbers: dict) -> dict:
     """Phase 15's entry of the kernels line for one width set."""
@@ -4267,6 +4645,9 @@ def main() -> int:
     ap.add_argument("--images-only", action="store_true",
                     help="phases 1, 2, 3, 7 and 16 only (JPEG and PNG files through the "
                          "port's codecs)")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="phases 1, 2, 3, 7 and 17 only (the native runner against the "
+                         ".pt2 on phase 7's images, and the measurement CLIs)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -4310,6 +4691,13 @@ def main() -> int:
             if ("registers" in line or "spill" in line or "error" in line.lower()
                     or "Performance Loss" in line):
                 log(f"[build] {name}: {line.strip()[:240]}")
+    tools_jobs = None
+    if args.tools_only or not (args.check_only or args.train_only or args.host_only
+                               or args.zoo_only or args.compress_only or args.secondary_only
+                               or args.widths_only or args.images_only):
+        tools_jobs = start_tools_jobs(args.seed)  # 17.1 in the background
+        log("[tools] 17.1 started in the background: cli.export --aoti of seeded yolov5s and "
+            "the build of the C++ registration and the runner")
 
     # ---- 3. the kernel against its plain version -------------------------
     # full-size shapes, then the risky ones: a ragged last tile in each direction
@@ -4351,6 +4739,15 @@ def main() -> int:
             log("[widths] FAIL")
             return 1
         print(json.dumps({"kernels": [width_entry(v, e) for v, e in entries.items()]}))
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if args.tools_only:
+        val = validation_phase(args.seed, card)
+        if val is None or not tools_phase(card, tools_jobs)[0]:
+            log("[tools] FAIL")
+            return 1
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -4661,12 +5058,23 @@ def main() -> int:
         log("[images] FAIL")
         return 1
     launches += images_launches
+
+    # ---- 17. the native runner and the measurement CLIs -------------------------
+    torch.cuda.empty_cache()
+    ok17, runner_launches, runner_numbers = tools_phase(card, tools_jobs, rates[32])
+    if not ok17:
+        log("[tools] FAIL")
+        return 1
     log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s")
 
-    print(json.dumps({"kernels": [kernel_entry(
-        "early_pipeline", launches=launches, max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)]
-        + [width_entry(v, e) for v, e in entries.items()]}))
+    k1 = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+              bound_by=bound_by, library_ms=library_ms)
+    print(json.dumps({"kernels": [kernel_entry("early_pipeline", launches=launches, **k1)]
+                      + [width_entry(v, e) for v, e in entries.items()]
+                      + [kernel_entry("early_pipeline (yolov5s bs32 640, inside the native "
+                                      "runner's AOTInductor package, launched by the C++ "
+                                      "registration)", launches=runner_launches,
+                                      **runner_numbers)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

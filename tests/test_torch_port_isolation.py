@@ -31,7 +31,9 @@ def test_import_pulls_in_no_jax():
         "ayolov2_torch.data.datasets_repr, ayolov2_torch.train.repr_trainer, "
         "ayolov2_torch.train.kd_trainer, ayolov2_torch.cli.distillation, "
         "ayolov2_torch.cli.train_repr, ayolov2_torch.cli.crop_bboxes, "
-        "ayolov2_torch.cli.import_torch_weights\n"
+        "ayolov2_torch.cli.import_torch_weights, ayolov2_torch.cli.bench_matrix, "
+        "ayolov2_torch.cli.profile_train, ayolov2_torch.cli.bench_loader, "
+        "ayolov2_torch.export.aoti\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu', 'cv2', "
         "'PIL', 'matplotlib', 'scipy')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -76,7 +78,9 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
             "ayolov2_torch.loss.losses_repr", "ayolov2_torch.data.datasets_repr",
             "ayolov2_torch.train.repr_trainer", "ayolov2_torch.train.kd_trainer",
             "ayolov2_torch.cli.distillation", "ayolov2_torch.cli.train_repr",
-            "ayolov2_torch.cli.crop_bboxes", "ayolov2_torch.cli.import_torch_weights"} <= names
+            "ayolov2_torch.cli.crop_bboxes", "ayolov2_torch.cli.import_torch_weights",
+            "ayolov2_torch.cli.bench_matrix", "ayolov2_torch.cli.profile_train",
+            "ayolov2_torch.cli.bench_loader", "ayolov2_torch.export.aoti"} <= names
 
 
 def test_no_file_names_jax():
