@@ -1,6 +1,6 @@
 """Soft-teacher knowledge distillation.
 
-The counterpart of ``cli/distillation.py`` on one device: the teacher from
+The counterpart of ``cli/distillation.py``: the teacher from
 ``--teacher`` (a ``.ckpt``, or the reference's ``.pt`` read into
 ``--teacher-cfg``'s graph, else ``--model``'s; a ``.pt`` of which more than a
 quarter of the tensors do not match that graph stops the run), its graph
@@ -12,7 +12,10 @@ labelled ``train_path``, the unlabeled ``--unlabeled-path`` (default the
 same images) and the ``val_path`` validation; ``SoftTeacherTrainer``.
 ``--device`` and ``--teacher-device`` are the reference's GPU ids; as in the
 JAX entry point they are logged only, and teacher and student share one
-device: the card, or the CPU when ``--device cpu`` is given.
+device: the card, or the CPU when ``--device cpu`` is given. On several
+ranks (``--n-devices N``, or either env contract: ``parallel/launch.py``)
+each rank has a teacher on its device and loads its shard of both loaders;
+rank 0 makes the run dir, validates and writes the checkpoints.
 
 Usage:
     python -m ayolov2_torch.cli.distillation --model res/configs/model/yolov5s.yaml \\
@@ -31,6 +34,8 @@ from typing import Optional, Sequence
 from ayolov2_torch.data import DataLoader, DetectionDataset
 from ayolov2_torch.models import build_model, init_model
 from ayolov2_torch.models.builder import parse_model_config
+from ayolov2_torch.parallel.launch import join_or_launch, leave
+from ayolov2_torch.parallel.mesh import broadcast_object, is_main_process, rank, world_size
 from ayolov2_torch.train.kd_trainer import SoftTeacherTrainer
 from ayolov2_torch.utils.checkpoint import intersect_trees, load_variables
 from ayolov2_torch.utils.config import load_yaml, make_run_dir
@@ -64,12 +69,23 @@ def get_parser() -> argparse.ArgumentParser:
                              "share one device")
     parser.add_argument("--wlog", action="store_true", help="(wandb is not used by the port)")
     parser.add_argument("--wlog-name", "--wlog_name", type=str, default="", help="wandb run name")
+    parser.add_argument("--n-devices", type=int, default=0,
+                        help="ranks: N > 1 starts N local ranks (0 = the ranks the env names)")
     return parser
 
 
 def main(argv: Optional[Sequence[str]] = None) -> SoftTeacherTrainer:
     args = get_parser().parse_args(argv)
-    device = resolve_device("cpu" if args.device == "cpu" else None)
+    rank_device = join_or_launch("ayolov2_torch.cli.distillation", argv, args.n_devices,
+                                 "cpu" if args.device == "cpu" else "")
+    try:
+        return _main(args, rank_device)
+    finally:
+        leave()
+
+
+def _main(args, rank_device) -> SoftTeacherTrainer:
+    device = rank_device or resolve_device("cpu" if args.device == "cpu" else None)
     if (args.device and args.device != "cpu") or args.teacher_device:
         LOGGER.info("--device/--teacher-device accepted as the reference's GPU ids and logged "
                     "only: teacher and student run on %s", device)
@@ -116,27 +132,32 @@ def main(argv: Optional[Sequence[str]] = None) -> SoftTeacherTrainer:
     labeled = DetectionDataset(data_cfg["train_path"], yolo_augmentation=cfg.get("yolo_augmentation"),
                                augmentation=cfg.get("augmentation"), **common)
     unlabeled = DetectionDataset(args.unlabeled_path or data_cfg["train_path"], **common)
+    shard = (rank(), world_size())  # each rank's rows of every batch
     labeled_loader = DataLoader(labeled, batch_size=int(tcfg["batch_size"]), shuffle=True,
-                                drop_last=True, workers=workers, max_labels_per_image=max_labels)
+                                drop_last=True, workers=workers, max_labels_per_image=max_labels,
+                                shard=shard)
     unlabeled_loader = DataLoader(unlabeled, batch_size=int(tcfg["batch_size"]), shuffle=True,
                                   drop_last=True, workers=workers,
-                                  max_labels_per_image=max_labels)
+                                  max_labels_per_image=max_labels, shard=shard)
     val_loader = None
-    if data_cfg.get("val_path"):
+    if data_cfg.get("val_path") and is_main_process():
         val_ds = DetectionDataset(data_cfg["val_path"], **common)
         val_loader = DataLoader(val_ds, batch_size=int(tcfg["batch_size"]), workers=workers,
                                 max_labels_per_image=max_labels)
 
-    log_dir = make_run_dir(args.log_dir, "distill")
-    LOGGER.info("Run dir: %s", log_dir)
+    log_dir = make_run_dir(args.log_dir, "distill") if is_main_process() else None
+    log_dir = broadcast_object(str(log_dir) if log_dir else None)
+    LOGGER.info("Run dir: %s (rank %d of %d)", log_dir, rank(), world_size())
     trainer = SoftTeacherTrainer(
         student, teacher, cfg, labeled_loader, unlabeled_loader, val_loader=val_loader,
         log_dir=str(log_dir), model_cfg_dict=model_cfg, class_names=data_cfg.get("names"),
-        device=device)
+        n_devices=args.n_devices or None, device=device)
     trainer.train()
     return trainer
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
+    from ayolov2_torch.utils.logger import rank_level
+
+    logging.basicConfig(level=rank_level(logging.INFO), format="%(message)s", stream=sys.stdout)
     main()

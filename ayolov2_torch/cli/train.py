@@ -1,6 +1,6 @@
 """Train a model from the config triple (model / data / train cfg).
 
-The counterpart of ``cli/train.py`` on one device: the model from
+The counterpart of ``cli/train.py``: the model from
 ``--model`` (a YAML, or a ``.ckpt`` whose embedded config rebuilds the
 graph and whose EMA weights are transferred where names and shapes match,
 or the reference's ``.pt`` with its model YAML saved beside it as
@@ -26,10 +26,15 @@ Usage:
         --data res/configs/data/voc_fixture_memorize.yaml \\
         --cfg res/configs/cfg/train_golden_memorize.yaml [--device cpu]
 
-Not ported yet, and refused with a message: more than one device or
-process, wandb (``--wlog`` only warns, as
-the JAX entry point does without wandb), and the train options that
-``train/trainer.py`` refuses.
+On several ranks: ``--n-devices N`` starts N local ranks (``--device cpu``:
+on the CPU over gloo; else one card each over NCCL), or the caller starts
+them under JAX's env contract (``AYOLO_NUM_PROCS``, ``AYOLO_PROC_ID``,
+``AYOLO_COORDINATOR``) or torchrun's; ``--local_rank`` names the rank's card
+where ``LOCAL_RANK`` does not. ``train.batch_size`` is the global batch; each
+rank loads its shard of every batch, rank 0 makes the run dir, writes the
+checkpoints and ``metrics.json`` and validates; ``train.fsdp`` and
+``train.tp`` split the state (``train/trainer.py``). wandb is not used
+(``--wlog`` only warns, as the JAX entry point does without wandb).
 """
 
 from __future__ import annotations
@@ -37,7 +42,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import os
 import sys
 from pathlib import Path
 from typing import Optional, Sequence
@@ -48,7 +52,9 @@ from ayolov2_torch.cli.val import device_of
 from ayolov2_torch.data import DataLoader, DetectionDataset
 from ayolov2_torch.models import build_model, init_model
 from ayolov2_torch.models.builder import parse_model_config
-from ayolov2_torch.train.trainer import YoloTrainer, refuse_unported
+from ayolov2_torch.parallel.launch import join_or_launch, leave
+from ayolov2_torch.parallel.mesh import broadcast_object, is_main_process, rank, world_size
+from ayolov2_torch.train.trainer import YoloTrainer
 from ayolov2_torch.utils.checkpoint import intersect_trees, load_variables
 from ayolov2_torch.utils.config import load_yaml, make_run_dir, snapshot_configs
 from ayolov2_torch.utils.general import check_img_size
@@ -68,8 +74,10 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--log-dir", "--log_dir", type=str, default="runs", help="log root directory")
     parser.add_argument("--use-swa", "--use_swa", action="store_true", help="save per-epoch ckpts for SWA")
     parser.add_argument("--resume", type=str, default="", help="checkpoint to resume from")
-    parser.add_argument("--n-devices", type=int, default=0, help="device count (one is ported)")
-    parser.add_argument("--local_rank", type=int, default=-1, help="accepted and ignored")
+    parser.add_argument("--n-devices", type=int, default=0,
+                        help="ranks: N > 1 starts N local ranks (0 = the ranks the env names)")
+    parser.add_argument("--local_rank", type=int, default=-1,
+                        help="the rank's card, where LOCAL_RANK is not set (torch's launcher)")
     parser.add_argument("--device", type=str, default="",
                         help="cuda, cuda:N, N (a card's index) or cpu; default the card")
     return parser
@@ -90,21 +98,31 @@ def transfer(model, variables, source: str) -> None:
 
 def main(argv: Optional[Sequence[str]] = None) -> YoloTrainer:
     args = get_parser().parse_args(argv)
-    if args.n_devices > 1 or int(os.environ.get("AYOLO_NUM_PROCS", "1") or 1) > 1:
-        raise SystemExit("training on more than one device or process is not ported yet; it "
-                         "comes with the parallelism slice of the port")
+    rank_device = join_or_launch("ayolov2_torch.cli.train", argv, args.n_devices, args.device,
+                                 args.local_rank)
+    try:
+        return _main(args, rank_device)
+    finally:
+        leave()
+
+
+def _main(args, rank_device) -> YoloTrainer:
     cfg = load_yaml(args.cfg)
     data_cfg = load_yaml(args.data)
     tcfg = cfg["train"]
-    refuse_unported(tcfg)
-    device = device_of(args.device)
+    device = rank_device or device_of(args.device)
     if args.wlog:
         LOGGER.warning("wandb logging is not used by the port; metrics go to metrics.json")
+    # the data axis: ranks on one model-axis row load the same shard
+    tp = max(int(tcfg.get("tp", 0) or 0), 1)
+    shard = (rank() // tp, world_size() // tp) if world_size() % tp == 0 else (0, 1)
 
-    log_dir = make_run_dir(args.log_dir, "train")
-    snapshot_configs(log_dir, merged={"cfg": cfg, "data": data_cfg},
-                     files={"model": args.model, "data": args.data, "cfg": args.cfg})
-    LOGGER.info("Run dir: %s", log_dir)
+    log_dir = make_run_dir(args.log_dir, "train") if is_main_process() else None
+    log_dir = Path(broadcast_object(str(log_dir) if log_dir else None))
+    if is_main_process():
+        snapshot_configs(log_dir, merged={"cfg": cfg, "data": data_cfg},
+                         files={"model": args.model, "data": args.data, "cfg": args.cfg})
+    LOGGER.info("Run dir: %s (rank %d of %d)", log_dir, rank(), world_size())
 
     nc = 1 if tcfg.get("single_cls") else int(data_cfg["nc"])
     names = data_cfg.get("names") or [str(i) for i in range(nc)]
@@ -166,16 +184,18 @@ def main(argv: Optional[Sequence[str]] = None) -> YoloTrainer:
     if workers_mode not in ("thread", "process"):
         raise SystemExit(f"train.workers_mode {workers_mode!r} is not a loader mode: use 'thread' "
                          "or 'process'")
+    # each rank loads its shard of every batch (the order padded, so every
+    # rank runs as many batches)
     train_loader = DataLoader(train_dataset, batch_size=int(tcfg["batch_size"]),
                               shuffle=not tcfg.get("rect", False), drop_last=True,
                               workers=int(tcfg.get("workers", 4)), workers_mode=workers_mode,
-                              max_labels_per_image=max_labels)
+                              max_labels_per_image=max_labels, shard=shard)
 
     # the validation protocol: rect (pad 0.5, the default), train (the train
     # geometry) or both (rect primary, train geometry logged as mAP50_aux)
     val_geometry = str(tcfg.get("val_geometry", "rect"))
     val_loader = val_loader_aux = None
-    if data_cfg.get("val_path"):
+    if data_cfg.get("val_path") and is_main_process():
 
         def _val_loader(rect: bool, pad: float):
             ds = DetectionDataset(data_cfg["val_path"], rect=rect, pad=pad, **common)
@@ -217,14 +237,17 @@ def main(argv: Optional[Sequence[str]] = None) -> YoloTrainer:
         trainer.resume(args.resume)
     trainer.train()
 
-    metrics_path = Path(log_dir) / "metrics.json"
-    metrics_path.write_text(json.dumps(
-        {k: v for k, v in trainer.state_dict.items() if not isinstance(v, np.ndarray)},
-        indent=2, default=float))
-    LOGGER.info("Metrics written to %s", metrics_path)
+    if is_main_process():
+        metrics_path = Path(log_dir) / "metrics.json"
+        metrics_path.write_text(json.dumps(
+            {k: v for k, v in trainer.state_dict.items() if not isinstance(v, np.ndarray)},
+            indent=2, default=float))
+        LOGGER.info("Metrics written to %s", metrics_path)
     return trainer
 
 
 if __name__ == "__main__":
-    logging.basicConfig(level=logging.INFO, format="%(message)s", stream=sys.stdout)
+    from ayolov2_torch.utils.logger import rank_level
+
+    logging.basicConfig(level=rank_level(logging.INFO), format="%(message)s", stream=sys.stdout)
     main()

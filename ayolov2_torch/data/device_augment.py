@@ -292,7 +292,7 @@ def _render_body(img_size: int, frame_size: int, pairs: int, mode: str, dtype):
 
 
 def make_render_fn(img_size: int, frame_size: int, pairs: int = 1, mode: str = "gather",
-                   dtype=torch.float32, mesh=None):
+                   dtype=torch.float32, mesh=None, axis: str = "data"):
     """The batch renderer.
 
     Args:
@@ -304,19 +304,29 @@ def make_render_fn(img_size: int, frame_size: int, pairs: int = 1, mode: str = "
         dtype: the separable products' operand type, torch.float32 or
             torch.bfloat16 (sums in f32 either way); the gather renderer
             reads f32 taps whatever it is.
-        mesh: a render split over several devices; not ported yet.
+        mesh: the render split over the ranks of a mesh's data axis (the JAX
+            package's SPMD render, one process a rank): every rank holds the
+            replicated frames and the global plan batch and renders its
+            rows of it, B / n of them (B must divide); they equal those
+            rows of the one-device render bit for bit.
+        axis: the mesh axis that carries the batch.
 
     Returns render(frames, src_idx, rects, offs, minv, blend, hsv, flips)
-    -> (B, s, s, 3) uint8, every argument a tensor on one device; frames is
-    (N, S, S, 3) uint8, indexed by src_idx.
+    -> (B, s, s, 3) uint8 (the rank's (B / n, s, s, 3) with ``mesh``), every
+    argument a tensor on one device; frames is (N, S, S, 3) uint8, indexed
+    by src_idx.
     """
     if mode not in ("gather", "separable"):
         raise ValueError(f"unknown render mode {mode!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_render_fn(mesh=): a render split over several devices is not ported yet; it "
-            "comes with the parallelism slice of the port")
-    return _render_body(img_size, frame_size, pairs, mode, dtype)
+    body = _render_body(img_size, frame_size, pairs, mode, dtype)
+    if mesh is None:
+        return body
+    from ayolov2_torch.parallel.mesh import shard_batch
+
+    def render_rows(frames, src_idx, *geometry):
+        return body(frames, *shard_batch(mesh, (src_idx, *geometry), axis))
+
+    return render_rows
 
 
 class DeviceAugmenter:

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -136,7 +136,8 @@ class ComputeLoss:
         return bce * scale(logits, targets, gamma)
 
     def __call__(self, preds: List[torch.Tensor], targets: torch.Tensor,
-                 target_mask: torch.Tensor, image_weight: Optional[torch.Tensor] = None
+                 target_mask: torch.Tensor, image_weight: Optional[torch.Tensor] = None,
+                 reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Loss of nl raw maps (bs, ny, nx, na, 5+nc) against (M, 6) [img,
         cls, x, y, w, h] normalised target rows with their (M,) validity.
@@ -144,6 +145,14 @@ class ComputeLoss:
         ``image_weight``: (bs,) 0/1, the objectness mean taken over the
         images weighted 1 only (a padded final validation batch; the caller
         masks those images' target rows too).
+
+        ``reduce``: the sum over the ranks of a data axis (an all-reduce)
+        when ``preds`` are one rank's part of a global batch. The counts the
+        means divide by (each level's matched slots, the images or their
+        weights) are then the global batch's, reduced once and detached, and
+        ``bs`` is the global batch size: the rank's loss is its share of the
+        global sums over the global counts, and the ranks' shares (and their
+        gradients) sum to the loss of the global batch on one device.
 
         Returns (total * bs, [lbox, lobj, lcls, total]); the items carry no
         gradient.
@@ -162,9 +171,9 @@ class ComputeLoss:
         b_row = targets[:, 0].long()
         c_row = targets[:, 1].long()
 
-        lbox = torch.zeros((), device=dev)
-        lobj = torch.zeros((), device=dev)
-        lcls = torch.zeros((), device=dev)
+        w = None if image_weight is None else image_weight.to(device=dev, dtype=torch.float32)
+        # per level: the box, objectness and class sums and the matched slots
+        sums, slots = [], []
         for li, pred in enumerate(preds):
             pred = pred.float()
             ny, nx = pred.shape[1], pred.shape[2]
@@ -201,13 +210,13 @@ class ComputeLoss:
             tcls_f = c_row[None, None, :].expand(shape).reshape(-1)
             anc_f = anchors[li][None, :, None, :].expand(shape + (2,)).reshape(s_n, 2)
             gi_f, gj_f = gi_s.reshape(-1), gj_s.reshape(-1)
-            n_slots = torch.clamp(slot_f.sum(), min=1).float()
+            slots.append(slot_f.sum().float())
 
             ps = pred[b_f, gj_f, gi_f, a_f]  # (S, 5+nc)
             pxy = torch.sigmoid(ps[:, 0:2]) * 2.0 - 0.5
             pwh = (torch.sigmoid(ps[:, 2:4]) * 2.0) ** 2 * anc_f
             iou = bbox_iou(torch.cat([pxy, pwh], -1), tbox_f, x1y1x2y2=False, c_iou=True)
-            lbox = lbox + torch.where(slot_f, 1.0 - iou, torch.zeros_like(iou)).sum() / n_slots
+            box_sum = torch.where(slot_f, 1.0 - iou, torch.zeros_like(iou)).sum()
 
             # objectness target: the largest IoU a cell gets, 0 elsewhere
             score = torch.where(slot_f, iou.detach().clamp(min=0.0), torch.zeros_like(iou))
@@ -216,25 +225,38 @@ class ComputeLoss:
                 0, flat, score, reduce="amax", include_self=True).reshape(bs, ny, nx, na)
             logit = pred[..., 4]
             obj_bce = self._modulate(_bce_with_logits(logit, tobj, hyp["obj_pw"]), logit, tobj, gamma)
-            if image_weight is not None:
-                w = image_weight.to(device=dev, dtype=torch.float32)
-                obj_mean = (obj_bce * w[:, None, None, None]).sum() / (
-                    torch.clamp(w.sum(), min=1.0) * ny * nx * na)
-            else:
-                obj_mean = obj_bce.mean()
-            lobj = lobj + obj_mean * self.balance[li]
+            obj_sum = (obj_bce if w is None else obj_bce * w[:, None, None, None]).sum()
 
+            cls_sum = torch.zeros((), device=dev)
             if self.nc > 1:
                 t_cls = torch.full((s_n, self.nc), cn, device=dev)
                 t_cls[torch.arange(s_n, device=dev), tcls_f.clamp(0, self.nc - 1)] = cp
                 logits = ps[:, 5:]
                 cls_bce = self._modulate(_bce_with_logits(logits, t_cls, hyp["cls_pw"]),
                                          logits, t_cls, gamma)
-                cls_bce = torch.where(slot_f[:, None], cls_bce, torch.zeros_like(cls_bce))
-                lcls = lcls + cls_bce.sum() / (n_slots * self.nc)
+                cls_sum = torch.where(slot_f[:, None], cls_bce, torch.zeros_like(cls_bce)).sum()
+            sums.append((box_sum, obj_sum, cls_sum, ny * nx * na))
+
+        # the counts: matched slots per level, the images, their weights
+        n_img = torch.full((), float(bs), device=dev)
+        counts = torch.stack(slots + [n_img, n_img if w is None else w.sum()])
+        if reduce is not None:
+            counts = reduce(counts.detach()).detach()
+        nl = len(preds)
+        images = counts[nl] if w is None else torch.clamp(counts[nl + 1], min=1.0)
+        lbox = torch.zeros((), device=dev)
+        lobj = torch.zeros((), device=dev)
+        lcls = torch.zeros((), device=dev)
+        for li, (box_sum, obj_sum, cls_sum, cells) in enumerate(sums):
+            n_slots = torch.clamp(counts[li], min=1)
+            lbox = lbox + box_sum / n_slots
+            lobj = lobj + obj_sum / (images * cells) * self.balance[li]
+            lcls = lcls + cls_sum / (n_slots * self.nc)
 
         lbox = lbox * hyp["box"]
         lobj = lobj * hyp["obj"]
         lcls = lcls * hyp["cls"]
         total = lbox + lobj + lcls
+        if reduce is not None:
+            bs = counts[nl]
         return total * bs, torch.stack([lbox, lobj, lcls, total]).detach()

@@ -9,7 +9,9 @@ and Linear. Attribute names follow the kindle/torch convention (``conv``,
 package loads with ``strict=True``.
 
 BatchNorm carries eps=1e-3 and follows flax's ``nn.BatchNorm`` in training
-(:class:`BatchNorm2d`). Conv kernels start from flax's default,
+(:class:`BatchNorm2d`); inside :func:`batchnorm_sync` it normalises over the
+batch of every rank of a data group (SyncBN, what BatchNorm over a sharded
+batch is in the JAX package). Conv kernels start from flax's default,
 ``lecun_normal`` (:func:`lecun_normal_`). ``fused=True`` builds the
 BN-folded form: a conv with bias and no BN.
 
@@ -67,6 +69,31 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Ten
     return weight
 
 
+_SYNC_GROUP: list = [None]
+
+
+class batchnorm_sync:
+    """Within this context every :class:`BatchNorm2d` in training normalises
+    over the global batch of ``group``'s ranks (the data axis), as flax
+    normalises a batch sharded across devices: the per-channel sum and count
+    are all-reduced for the mean, then the sum of squares about it for the
+    biased variance (two passes, so no f32 cancellation of E[x^2] - E[x]^2);
+    the sums are differentiable, so the backward crosses ranks too. ``group``
+    None leaves BatchNorm local."""
+
+    def __init__(self, group) -> None:
+        self.group = group
+
+    def __enter__(self):
+        self.prev = _SYNC_GROUP[0]
+        _SYNC_GROUP[0] = self.group
+        return self
+
+    def __exit__(self, *exc):
+        _SYNC_GROUP[0] = self.prev
+        return False
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with flax's semantics (eps 1e-3, decay 0.97).
 
@@ -92,6 +119,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
+        if _SYNC_GROUP[0] is not None:
+            return self._forward_sync(x, _SYNC_GROUP[0])
         out = F.batch_norm(x, self.batch_mean, self.batch_var, self.weight, self.bias, True, 1.0,
                            self.eps)
         if not self.update_stats:
@@ -101,6 +130,25 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_mean.lerp_(self.batch_mean, self.momentum)
             self.running_var.lerp_(self.batch_var * ((n - 1) / n), self.momentum)
         return out
+
+    def _forward_sync(self, x: torch.Tensor, group) -> torch.Tensor:
+        from ayolov2_torch.parallel.collectives import all_reduce
+
+        c = x.shape[1]
+        x32 = x.float()
+        total = all_reduce(torch.cat([x32.sum((0, 2, 3)),
+                                      x32.new_full((1,), float(x.numel() // c))]), group)
+        n = total[c]
+        mean = total[:c] / n
+        centred = x32 - mean[None, :, None, None]
+        var = all_reduce((centred * centred).sum((0, 2, 3)), group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        out = centred * scale[None, :, None, None] + self.bias[None, :, None, None]
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        return out.to(x.dtype)
 
 
 def autopad(k: int, p: Optional[int] = None) -> int:

@@ -138,10 +138,12 @@ def can_fuse_early_model(model) -> bool:
     0..3 a plain float conv: none int8, recording for calibration or
     decomposed (``layers.ConvBnAct.plain``). An int8 model (its layers 1-3
     are int8) and a decomposed one whose map names a layer below 4 serve
-    without the kernel. The widths are not looked at: the kernel's weights
-    are packed only for widths it is built for (:func:`plan_early`), and
-    others raise there, naming the width."""
-    if not can_fuse_early(model.specs):
+    without the kernel, and so does a model whose later layers read one of
+    layers 0..3 (a head on layer 3): the kernel returns layer 3's output
+    alone. The widths are not looked at: the kernel's weights are packed
+    only for widths it is built for (:func:`plan_early`), and others raise
+    there, naming the width."""
+    if not can_fuse_early(model.specs) or any(i < 4 for i in model.save):
         return False
     return all(getattr(m, "plain", True) for i in range(4) for m in model.model[i].modules())
 

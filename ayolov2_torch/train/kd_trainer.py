@@ -1,6 +1,7 @@
 """The soft-teacher knowledge-distillation trainer.
 
-The counterpart of ``ayolov2_tpu/train/kd_trainer.py`` on one device:
+The counterpart of ``ayolov2_tpu/train/kd_trainer.py``, on one device or
+on the ranks of ``torch.distributed``:
 
 - **Teacher.** A frozen, BN-folded model served by ``make_serving_fn`` in
   bf16 (:func:`make_teacher`): layers 0-3 run as the early-network
@@ -42,8 +43,13 @@ The counterpart of ``ayolov2_tpu/train/kd_trainer.py`` on one device:
   ``YoloTrainer``); SIGTERM stops at the next batch and stamps
   ``last.ckpt`` with the previous epoch.
 
-``train.fsdp`` and ``train.tp`` are refused (``refuse_unported``), and so
-is more than one device.
+- **Ranks.** On N ranks the student step is data parallel (or ZeRO with
+  ``train.fsdp``), as ``YoloTrainer``'s (``parallel/sharded.py``): each rank
+  takes its shard of the labelled and of the unlabeled loader, and its own
+  teacher runs K1 on its pseudo batch. Checkpoints and validation are rank
+  0's, after the gather every rank joins; a preemption on any rank stops
+  every rank at the next validation. ``train.tp`` is not used here, as in
+  the JAX package (a warning says so).
 """
 
 from __future__ import annotations
@@ -66,12 +72,14 @@ from ayolov2_torch.ops.nms import detections_to_list
 from ayolov2_torch.train.optimizer import NBS_NOMINAL, build_optimizer
 from ayolov2_torch.train.train_state import (
     EMA,
+    backward,
     TrainState,
     create_train_state,
     finish_step,
     train_forward,
 )
-from ayolov2_torch.train.trainer import AbstractTrainer, refuse_unported, scale_hyp_gains
+from ayolov2_torch.parallel.mesh import host_broadcast_max, is_main_process, world_size
+from ayolov2_torch.train.trainer import AbstractTrainer, make_parallel, scale_hyp_gains
 from ayolov2_torch.utils.boxes import xyxy2xywh
 from ayolov2_torch.utils.checkpoint import (
     AsyncCheckpointWriter,
@@ -88,17 +96,22 @@ class PseudoProducerError(RuntimeError):
 
 
 def make_kd_step(loss_fn: ComputeLoss, w_pseudo: float, ema: EMA = EMA(),
-                 image_dtype: torch.dtype = torch.bfloat16):
+                 image_dtype: torch.dtype = torch.bfloat16, parallel=None):
     """``step(state, imgs_l, tgt_l, mask_l, imgs_u, tgt_u, mask_u) -> (items_l,
     items_u)``: both forwards in train mode (labelled first), one backward of
     ``loss_l + w_pseudo * loss_u``, the optimizer's micro-step, the EMA; the
-    state advances in place."""
+    state advances in place. With ``parallel``, over the rank's rows of both
+    global batches (the items the global batches')."""
 
     def step(state: TrainState, imgs_l, tgt_l, mask_l, imgs_u, tgt_u, mask_u):
-        loss_l, items_l = train_forward(state.model, loss_fn, imgs_l, tgt_l, mask_l, image_dtype)
-        loss_u, items_u = train_forward(state.model, loss_fn, imgs_u, tgt_u, mask_u, image_dtype)
-        (loss_l + w_pseudo * loss_u).backward()
+        loss_l, items_l = train_forward(state.model, loss_fn, imgs_l, tgt_l, mask_l, image_dtype,
+                                        parallel)
+        loss_u, items_u = train_forward(state.model, loss_fn, imgs_u, tgt_u, mask_u, image_dtype,
+                                        parallel)
+        backward(state, loss_l + w_pseudo * loss_u, parallel)
         finish_step(state, ema)
+        if parallel is not None:
+            items_l, items_u = parallel.data_sum(torch.cat([items_l, items_u])).chunk(2)
         return items_l.detach(), items_u.detach()
 
     return step
@@ -153,10 +166,10 @@ class SoftTeacherTrainer(AbstractTrainer):
                  n_devices: Optional[int] = None, class_names: Optional[list] = None,
                  device=None, early_pipeline: bool = True) -> None:
         tcfg = cfg["train"]
-        refuse_unported(tcfg)
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError("training on more than one device is not ported yet; it "
-                                      "comes with the parallelism slice of the port")
+        if int(tcfg.get("tp", 0) or 0) > 1:
+            LOGGER.warning("train.tp is not used by the distillation trainer: its student is "
+                           "data parallel (with train.fsdp, ZeRO)")
+        self.parallel = make_parallel(tcfg, n_devices, allow_tp=False)
         super().__init__(epochs=int(tcfg["epochs"]))
         self.device = resolve_device(device)
         self.student = student.to(self.device)
@@ -190,7 +203,8 @@ class SoftTeacherTrainer(AbstractTrainer):
         self.state: TrainState = create_train_state(self.student, optimizer)
         self.image_dtype = torch.bfloat16 if tcfg.get("half", True) else torch.float32
         self._student_step = make_kd_step(self.loss_fn, self.PSEUDO_LOSS_WEIGHT,
-                                          image_dtype=self.image_dtype)
+                                          image_dtype=self.image_dtype, parallel=self.parallel)
+        self._ckpt_state = None  # the gathered state of a validation or the end
 
         self.teacher = make_teacher(teacher, self.device, early_pipeline=early_pipeline)
         sa = cfg.get("strong_augmentation")
@@ -321,6 +335,8 @@ class SoftTeacherTrainer(AbstractTrainer):
                     "device %s", self.epochs, self.batch_size, self.accumulate,
                     str(self.teacher.image_dtype).replace("torch.", ""),
                     " with the early-network kernel" if self.teacher.early else "", self.device)
+        if self.parallel is not None:
+            self.parallel.setup(self.state)
         self._start_producer()
 
     def epoch_iterator(self):
@@ -361,23 +377,48 @@ class SoftTeacherTrainer(AbstractTrainer):
                     self.mean_items[3], self.mean_items[7])
 
     def on_preempt(self) -> None:
-        self._save_weights("last.ckpt")
+        if is_main_process():
+            self._save_weights("last.ckpt")
+
+    def _full_state(self) -> TrainState:
+        if self._ckpt_state is not None:
+            return self._ckpt_state
+        if self.parallel is None:
+            return self.state
+        with self._device_lock:
+            return self.parallel.full_state(self.state)
 
     def validation(self) -> None:
+        if world_size() == 1:
+            self._validation_main()
+            return
+        # the gather every rank joins, rank 0's validation, then the stop
+        # (a preemption on any rank) agreed by an all-reduce MAX
+        self._ckpt_state = self._full_state()
+        try:
+            if is_main_process():
+                self._validation_main()
+            if host_broadcast_max(self.parallel.mesh, float(self.is_preempted)) > 0:
+                self.is_early_stop = True
+        finally:
+            self._ckpt_state = None
+
+    def _validation_main(self) -> None:
         if self.val_loader is None:
             self._save_weights("last.ckpt")
             return
         from ayolov2_torch.eval import YoloValidator
 
+        ema = self._full_state().ema_model
         with self._device_lock:
             if getattr(self, "_validator", None) is None:
                 # cuDNN for the student: K1 is the teacher's alone on this path
                 self._validator = YoloValidator(
-                    self.state.ema_model, self.val_loader, class_names=self.class_names,
+                    ema, self.val_loader, class_names=self.class_names,
                     cfg={"half": bool(self.tcfg.get("half", True)), "early_pipeline": False},
                     device=self.device)
             else:
-                self._validator.update_weights(self.state.ema_model)
+                self._validator.update_weights(ema)
             result = self._validator.validation()
         map50 = result["map50"]
         self.log_dict({"mAP50": map50, "mAP50_95": result["map50_95"]})
@@ -390,7 +431,12 @@ class SoftTeacherTrainer(AbstractTrainer):
 
     def on_train_end(self) -> None:
         self._stop_producer()
-        self._save_weights("last.ckpt")
+        self._ckpt_state = self._full_state() if world_size() > 1 else None  # every rank
+        try:
+            if is_main_process():
+                self._save_weights("last.ckpt")
+        finally:
+            self._ckpt_state = None
         if self._ckpt_writer is not None:
             self._ckpt_writer.wait()
         LOGGER.info("Distillation done. best mAP50 = %.4f; weights in %s", self.best_score,
@@ -404,8 +450,9 @@ class SoftTeacherTrainer(AbstractTrainer):
 
     def _save_weights(self, name: str, map50: Optional[float] = None) -> None:
         epoch = self.current_epoch - 1 if self.partial_epoch else self.current_epoch
+        state = self._full_state()
         with self._device_lock:
-            payload = checkpoint_payload(self.state, epoch, best_score=self.best_score,
+            payload = checkpoint_payload(state, epoch, best_score=self.best_score,
                                          map50=map50, model_cfg=self.model_cfg_dict)
         path = self.wdir / name
         if self._ckpt_writer is not None:

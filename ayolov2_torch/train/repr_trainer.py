@@ -14,7 +14,15 @@ loss of ``loss/losses_repr.py``, one optimizer update a batch:
 Each epoch the validation loss (eval mode) picks ``best_eNNN.ckpt`` (meta
 ``best_score`` = -best loss) and ``last.ckpt`` is written, in the JAX
 package's checkpoint format; the model is also its own EMA branch there, as
-in the JAX package. One device only.
+in the JAX package.
+
+On N ranks (``torch.distributed``) the step is data parallel over the view
+batch, as the JAX package's over its mesh: every rank draws the global view
+batch and computes its rows (BatchNorm over the global batch), the features
+are all-gathered, so each rank takes the loss of the global batch, and the
+gradients of the rows are summed over the ranks (``parallel/sharded.py``).
+Rank 0 validates and writes the checkpoints; a preemption on any rank stops
+every rank at the next validation.
 """
 
 from __future__ import annotations
@@ -30,8 +38,12 @@ import numpy as np
 import torch
 
 from ayolov2_torch.loss.losses_repr import InfoNCELoss, RLLoss
+from ayolov2_torch.models.layers import batchnorm_sync
+from ayolov2_torch.parallel.collectives import gather_slices
+from ayolov2_torch.parallel.mesh import host_broadcast_max, is_main_process, shard_batch, \
+    world_size
 from ayolov2_torch.train.train_state import to_input
-from ayolov2_torch.train.trainer import AbstractTrainer
+from ayolov2_torch.train.trainer import AbstractTrainer, make_parallel
 from ayolov2_torch.utils.checkpoint import save_checkpoint
 from ayolov2_torch.utils.general import resolve_device
 
@@ -111,16 +123,17 @@ class RepresentationLearningTrainer(AbstractTrainer):
             nesterov).
         train_loader / val_loader: ``RLDataLoader``s.
         rl_type: ``base`` (SimpleRL) or ``simclr``.
-        device: default the card (raises without CUDA); "cpu" explicitly.
+        n_devices: the rank count (checked against ``torch.distributed``).
+        device: default the card (raises without CUDA); "cpu" explicitly;
+            on several ranks, the rank's device.
     """
 
     def __init__(self, model, cfg: Dict[str, Any], train_loader, val_loader=None,
                  rl_type: str = "base", log_dir: str = "runs/repr/exp",
                  model_cfg_dict: Optional[Dict[str, Any]] = None,
                  n_devices: Optional[int] = None, device=None) -> None:
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError("training on more than one device is not ported yet; it "
-                                      "comes with the parallelism slice of the port")
+        # replicated state, as the JAX package's (train.fsdp and tp are not read)
+        self.parallel = make_parallel({}, n_devices)
         if rl_type not in ("base", "simclr"):
             raise ValueError(f"rl_type must be 'base' or 'simclr', got {rl_type!r}")
         tcfg = cfg["train"]
@@ -156,11 +169,22 @@ class RepresentationLearningTrainer(AbstractTrainer):
         self._t_epoch = 0.0
 
     def train_step(self, images: torch.Tensor) -> torch.Tensor:
-        """One update on a uint8 view batch on the device; returns [loss]."""
+        """One update on a uint8 view batch on the device (on several ranks,
+        the global view batch, of which the rank computes its rows); returns
+        [loss]."""
         self.model.train()
-        feats = self.model(to_input(images, torch.float32), training=True)
-        total, items = self.loss_fn(feats)
-        total.backward()
+        par = self.parallel
+        if par is None:
+            feats = self.model(to_input(images, torch.float32), training=True)
+            total, items = self.loss_fn(feats)
+            total.backward()
+        else:
+            par.setup(self.state)
+            rows = shard_batch(par.mesh, images)
+            with batchnorm_sync(par.data_group):
+                feats = self.model(to_input(rows, torch.float32), training=True)
+            total, items = self.loss_fn(gather_slices(feats, 0, par.data_group))
+            par.backward(total, self.model)
         self.state.optimizer.step()
         return items.detach()
 
@@ -192,9 +216,17 @@ class RepresentationLearningTrainer(AbstractTrainer):
         LOGGER.info("epoch %3d done in %.1fs (%.1f views/s)", epoch, dt, self.views_per_s)
 
     def on_preempt(self) -> None:
-        self._save("last.ckpt")
+        if is_main_process():
+            self._save("last.ckpt")
 
     def validation(self) -> None:
+        if is_main_process():
+            self._validation_main()
+        if world_size() > 1 and host_broadcast_max(self.parallel.mesh,
+                                                   float(self.is_preempted)) > 0:
+            self.is_early_stop = True
+
+    def _validation_main(self) -> None:
         if self.val_loader is None:
             self._save("last.ckpt")
             return

@@ -11,6 +11,13 @@ With ``image_dtype=torch.float32`` everything is f32. As in the JAX
 package, the EMA and the BatchNorm statistics advance on every micro-step,
 also on those where accumulation applies no update; the EMA covers the
 parameters and the BatchNorm running statistics.
+
+On N ranks (``make_train_step(parallel=)``, ``parallel/sharded.py``) each
+rank runs the micro-step on its rows of the global batch: BatchNorm over
+the global batch, the loss over the global counts, the gradients summed
+across ranks; ``accumulate``, the gains and the warmup are the global
+batch's, and the EMA advances every micro-step on every rank. The step
+equals the one-device step on the global batch.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from ayolov2_torch.loss.yolo_loss import ComputeLoss
+from ayolov2_torch.models.layers import batchnorm_sync
 from ayolov2_torch.train.optimizer import Optimizer
 
 
@@ -82,15 +90,31 @@ def to_input(images: torch.Tensor, image_dtype: torch.dtype) -> torch.Tensor:
 
 def train_forward(model: torch.nn.Module, loss_fn: ComputeLoss, images: torch.Tensor,
                   targets: torch.Tensor, target_mask: torch.Tensor,
-                  image_dtype: torch.dtype = torch.bfloat16
+                  image_dtype: torch.dtype = torch.bfloat16, parallel=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward in train mode and the loss: (total * bs, items)."""
+    """Forward in train mode and the loss: (total * bs, items). With
+    ``parallel`` (a ``parallel.sharded.Parallel``), over the rank's rows:
+    BatchNorm over the data axis's global batch, and the rank's share of the
+    global loss times the global batch size (its items the rank's share)."""
     model.train()
     x = to_input(images, image_dtype)
-    with torch.autocast(device_type=images.device.type, dtype=torch.bfloat16,
-                        enabled=image_dtype == torch.bfloat16):
+    with batchnorm_sync(parallel.data_group if parallel is not None else None), \
+            torch.autocast(device_type=images.device.type, dtype=torch.bfloat16,
+                           enabled=image_dtype == torch.bfloat16):
         raw = model(x, training=True)
-    return loss_fn([r.float() for r in raw], targets, target_mask)
+    if parallel is None:
+        return loss_fn([r.float() for r in raw], targets, target_mask)
+    return loss_fn([r.float() for r in raw], targets, target_mask,
+                   reduce=parallel.data_sum)
+
+
+def backward(state: TrainState, loss: torch.Tensor, parallel=None) -> None:
+    """The loss's gradient into the parameters' ``grad`` (added to what
+    accumulation holds); with ``parallel``, summed over the data axis."""
+    if parallel is None:
+        loss.backward()
+    else:
+        parallel.backward(loss, state.model)
 
 
 def finish_step(state: TrainState, ema: EMA = EMA()) -> bool:
@@ -104,19 +128,21 @@ def finish_step(state: TrainState, ema: EMA = EMA()) -> bool:
 
 
 def make_train_step(loss_fn: ComputeLoss, ema: EMA = EMA(),
-                    image_dtype: torch.dtype = torch.bfloat16
+                    image_dtype: torch.dtype = torch.bfloat16, parallel=None
                     ) -> Callable[[TrainState, torch.Tensor, torch.Tensor, torch.Tensor],
                                   torch.Tensor]:
     """``step(state, images uint8 (B, H, W, 3), targets (M, 6), target_mask
     (M,)) -> loss items [lbox, lobj, lcls, total]``; the state advances in
-    place. Inputs live on the model's device."""
+    place. Inputs live on the model's device. With ``parallel`` the inputs
+    are the rank's rows of the global batch (image indices local) and the
+    items are the global batch's."""
 
     def step_fn(state: TrainState, images, targets, target_mask) -> torch.Tensor:
         total, items = train_forward(state.model, loss_fn, images, targets, target_mask,
-                                     image_dtype)
-        total.backward()
+                                     image_dtype, parallel)
+        backward(state, total, parallel)
         finish_step(state, ema)
-        return items
+        return items if parallel is None else parallel.data_sum(items)
 
     return step_fn
 

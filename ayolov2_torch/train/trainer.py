@@ -1,6 +1,7 @@
 """Trainers: the epoch lifecycle (``AbstractTrainer``) and ``YoloTrainer``.
 
-The counterpart of ``ayolov2_tpu/train/trainer.py`` on one device:
+The counterpart of ``ayolov2_tpu/train/trainer.py``, on one device or on
+the ranks of ``torch.distributed`` (see below):
 
 - the loss with its gains rescaled for the model (``scale_hyp_gains``),
   the 3-group optimizer with warmup and accumulation to a nominal batch of
@@ -33,8 +34,19 @@ The counterpart of ``ayolov2_tpu/train/trainer.py`` on one device:
 ``cli/train.py``): each layer an activation checkpoint, BN statistics moved
 once a step.
 
-Not ported yet, and refused with a message naming the later slice: ``tp``,
-``fsdp`` and more than one device or process.
+On N ranks (``torch.distributed`` initialised, ``parallel.mesh.
+initialize_distributed``; ``n_devices`` is then the rank count) the step on
+the ranks equals the step on the global batch on one device
+(``parallel/sharded.py``): ``train.batch_size`` is the global batch, each
+rank's loader holds its shard (``DataLoader(shard=...)``, padded so every
+rank runs as many batches), ``train.fsdp`` splits the large leaves over the
+data axis (``train.fsdp_min_elems``) and ``train.tp`` over a model axis of
+that size (a ``("data", "model")`` mesh; tp wins over fsdp, with the JAX
+package's warning). Checkpoints, plots, validation and the result writer are
+rank 0's, after a gather of the split leaves that every rank joins; a stop
+(early stopping, or SIGTERM on any rank) is agreed by an all-reduce MAX at
+each validation, so every rank leaves at the same epoch. With device
+augmentation each rank renders its own shard's plans.
 """
 
 from __future__ import annotations
@@ -52,6 +64,14 @@ from ayolov2_torch.data.device_augment import DeviceAugmenter
 from ayolov2_torch.data.image_io import resize_linear
 from ayolov2_torch.loss.yolo_loss import ComputeLoss
 from ayolov2_torch.models.builder import count_params
+from ayolov2_torch.parallel.mesh import (
+    broadcast_object,
+    get_mesh,
+    host_broadcast_max,
+    is_main_process,
+    world_size,
+)
+from ayolov2_torch.parallel.sharded import Parallel
 from ayolov2_torch.train.optimizer import NBS_NOMINAL, build_optimizer
 from ayolov2_torch.train.train_state import TrainState, create_train_state, make_train_step
 from ayolov2_torch.utils.anchors import check_anchors
@@ -176,16 +196,20 @@ class AbstractTrainer:
             restore_signals()
 
     def _train_loop(self) -> None:
+        # a rank leaving the epoch alone would leave the others waiting in the
+        # next collective: on several ranks a preemption stops the run at the
+        # validation's consensus, not mid-epoch
+        single = world_size() == 1
         self.on_train_start()
         for epoch in range(self.start_epoch, self.epochs):
             self.current_epoch = epoch
             self.on_epoch_start(epoch)
             for i, batch in enumerate(self.epoch_iterator()):
                 self.training_step(batch, i)
-                if self.is_preempted:
+                if self.is_preempted and single:
                     break
             self.on_epoch_end(epoch)
-            if self.is_preempted:
+            if self.is_preempted and single:
                 # treated as partial even if the signal came after the last
                 # batch: running a finished epoch again is safe, skipping one is not
                 self.partial_epoch = True
@@ -199,20 +223,32 @@ class AbstractTrainer:
         self.on_train_end()
 
 
-def refuse_unported(tcfg: Dict[str, Any]) -> None:
-    """Raise for the train options this slice of the port does not run."""
-    later = [
-        (int(tcfg.get("tp", 0) or 0) > 1, "train.tp (tensor parallelism)", "parallelism"),
-        (bool(tcfg.get("fsdp", False)), "train.fsdp (ZeRO sharding)", "parallelism"),
-    ]
-    for on, what, slice_name in later:
-        if on:
-            raise NotImplementedError(f"{what} is not ported yet; it comes with the "
-                                      f"{slice_name} slice of the port")
+def make_parallel(tcfg: Dict[str, Any], n_devices: Optional[int], allow_tp: bool = True
+                  ) -> Optional[Parallel]:
+    """The trainers' ranks: None on one process without ``torch.distributed``;
+    else the mesh (``("data", "model")`` with ``train.tp``) and its
+    ``Parallel``. ``n_devices`` must equal the rank count when given."""
+    world = world_size()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(
+            f"n_devices={n_devices} but this process is one of {world} rank(s): start "
+            f"{n_devices} ranks (cli --n-devices {n_devices}, torchrun, or AYOLO_NUM_PROCS) and "
+            "call parallel.initialize_distributed first")
+    if not (torch.distributed.is_available() and torch.distributed.is_initialized()):
+        return None
+    tp = int(tcfg.get("tp", 0) or 0) if allow_tp else 0
+    if tp > 1:
+        if world % tp:
+            raise ValueError(f"train.tp={tp} does not divide {world} ranks")
+        mesh = get_mesh(axis_names=("data", "model"), shape=(world // tp, tp))
+    else:
+        mesh = get_mesh()
+    return Parallel(mesh, fsdp=bool(tcfg.get("fsdp", False)), tp=tp,
+                    fsdp_min_elems=int(tcfg.get("fsdp_min_elems", 65536)))
 
 
 class YoloTrainer(AbstractTrainer):
-    """The detection trainer on one device.
+    """The detection trainer, on one device or on this process's rank.
 
     Args:
         model: a ``YOLOModel`` (unfused) with its initial weights; trained
@@ -225,7 +261,9 @@ class YoloTrainer(AbstractTrainer):
             logged as ``mAP50_aux``.
         log_dir: the run dir; checkpoints go to ``log_dir/weights``.
         model_cfg_dict: the model config stored in the checkpoints.
-        device: default the card (raises without CUDA); "cpu" explicitly.
+        n_devices: the rank count (checked against ``torch.distributed``).
+        device: default the card (raises without CUDA); "cpu" explicitly;
+            on several ranks, the rank's device.
     """
 
     def __init__(self, model, cfg: Dict[str, Any], train_loader, val_loader=None,
@@ -234,10 +272,7 @@ class YoloTrainer(AbstractTrainer):
                  model_cfg_dict: Optional[Dict[str, Any]] = None, val_loader_aux=None,
                  device=None) -> None:
         tcfg = cfg["train"]
-        refuse_unported(tcfg)
-        if n_devices is not None and n_devices > 1:
-            raise NotImplementedError("training on more than one device is not ported yet; it "
-                                      "comes with the parallelism slice of the port")
+        self.parallel = make_parallel(tcfg, n_devices)
         super().__init__(epochs=int(tcfg["epochs"]))
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -276,7 +311,9 @@ class YoloTrainer(AbstractTrainer):
             accumulate=self.accumulate, optimizer=hyp.get("optimizer", "SGD"),
             linear_lr=bool(tcfg.get("linear_lr", False)), freeze=int(tcfg.get("freeze", 0)))
         self.state: TrainState = create_train_state(self.model, optimizer)
-        self._train_step = make_train_step(self.compute_loss, image_dtype=self.image_dtype)
+        self._train_step = make_train_step(self.compute_loss, image_dtype=self.image_dtype,
+                                           parallel=self.parallel)
+        self._ckpt_state = None  # the gathered state of a validation or the end
 
         self.mloss = np.zeros(4)
         self.n_steps = 0
@@ -295,12 +332,15 @@ class YoloTrainer(AbstractTrainer):
     def resume(self, ckpt_path: str) -> None:
         """Epoch, step, weights, EMA and optimizer from a checkpoint; the
         previous run's weight dir is copied into this run as
-        ``backup_epoch_{N}``."""
+        ``backup_epoch_{N}`` (by rank 0). Every rank reads the file before
+        its leaves are split (at the start of training)."""
+        if self.parallel is not None and self.parallel.ready:
+            raise RuntimeError("resume before train(): the state is already split over the ranks")
         _, meta = restore_train_state(ckpt_path, self.state)
         self.start_epoch = int(meta["epoch"]) + 1
         self.best_score = float(meta["best_score"])
         prev_dir = Path(ckpt_path).parent
-        if prev_dir.resolve() != self.wdir.resolve():
+        if prev_dir.resolve() != self.wdir.resolve() and is_main_process():
             backup = self.log_dir / f"backup_epoch_{self.start_epoch}"
             try:
                 shutil.copytree(prev_dir, backup, dirs_exist_ok=True)
@@ -311,13 +351,21 @@ class YoloTrainer(AbstractTrainer):
                     self.best_score)
 
     # -- hooks -----------------------------------------------------------------
+    def _setup_parallel(self) -> None:
+        """Equal replicas, then the split leaves and the hooks (once)."""
+        if self.parallel is not None and not self.parallel.ready:
+            self.parallel.setup(self.state)
+
     def on_train_start(self) -> None:
         if self.tcfg.get("auto_anchor", True):
-            anchors, changed = check_anchors(
-                self.train_loader.dataset,
-                np.asarray(self.model.anchors, np.float32).reshape(self.model.nl, -1, 2),
-                self.model.strides, thr=float(self.hyp.get("anchor_t", 4.0)),
-                img_size=self.img_size)
+            anchors, changed = None, False
+            if is_main_process():  # one decision, rank 0's, for every rank
+                anchors, changed = check_anchors(
+                    self.train_loader.dataset,
+                    np.asarray(self.model.anchors, np.float32).reshape(self.model.nl, -1, 2),
+                    self.model.strides, thr=float(self.hyp.get("anchor_t", 4.0)),
+                    img_size=self.img_size)
+            anchors, changed = broadcast_object((anchors, changed))
             if changed:
                 # the model, its EMA copy, the loss and the stored config
                 # all take the new anchors
@@ -330,13 +378,17 @@ class YoloTrainer(AbstractTrainer):
                     self.model_cfg_dict["anchors"] = [
                         [float(v) for v in level.reshape(-1)] for level in anchors]
                 self._train_step = make_train_step(self.compute_loss,
-                                                   image_dtype=self.image_dtype)
+                                                   image_dtype=self.image_dtype,
+                                                   parallel=self.parallel)
+        n_params = count_params(self.model)
+        self._setup_parallel()
         if self.plot:
             self._plot("labels.png", lambda path: plot_label_histogram(
                 self.train_loader.dataset.labels, self.model.nc, path))
         LOGGER.info("Start training: %s params, %d epochs, batch %d (accumulate %d), img %d, "
-                    "device %s", f"{count_params(self.model):,}", self.epochs, self.batch_size,
-                    self.accumulate, self.img_size, self.device)
+                    "device %s, %d rank(s)%s", f"{n_params:,}", self.epochs, self.batch_size,
+                    self.accumulate, self.img_size, self.device, world_size(),
+                    f" ({self.parallel.mode})" if self.parallel is not None else "")
         LOGGER.info("training images: %s", self.augmentation_path())
         if self.plot:
             LOGGER.info("plots: labels.png and train_batch0-2.png in %s", self.log_dir)
@@ -383,8 +435,10 @@ class YoloTrainer(AbstractTrainer):
         return self._augmenter(batch)
 
     def _plot(self, name: str, draw) -> None:
-        """``draw(path)`` into the run dir, timed in the log; a plot that
-        fails is logged and training goes on."""
+        """``draw(path)`` into the run dir, timed in the log (rank 0); a plot
+        that fails is logged and training goes on."""
+        if not is_main_process():
+            return
         t0 = time.perf_counter()
         try:
             draw(self.log_dir / name)
@@ -395,6 +449,7 @@ class YoloTrainer(AbstractTrainer):
 
     def training_step(self, batch, batch_idx: int) -> Dict[str, float]:
         dev = self.device
+        self._setup_parallel()
         if batch.images is None and hasattr(batch, "minv"):
             if self.multi_scale:
                 raise ValueError("train.device_aug and train.multi_scale are mutually exclusive")
@@ -441,29 +496,61 @@ class YoloTrainer(AbstractTrainer):
 
     def on_preempt(self) -> None:
         # the interrupted epoch ran only some batches: stamp the previous one
-        self._save_weights(self.current_epoch - 1, "last.ckpt")
+        # (one rank: several ranks stop at the validation's consensus)
+        if is_main_process():
+            self._save_weights(self.current_epoch - 1, "last.ckpt")
 
-    def _make_validator(self, loader):
+    def _make_validator(self, ema, loader):
         from ayolov2_torch.eval import YoloValidator
 
         return YoloValidator(
-            self.state.ema_model, loader, class_names=self.class_names,
+            ema, loader, class_names=self.class_names,
             cfg={"half": bool(self.tcfg.get("half", True)),
                  "single_cls": bool(self.tcfg.get("single_cls", False))},
             compute_loss=self.compute_loss, device=self.device)
+
+    def _full_state(self) -> TrainState:
+        """The state in the one-device layout: gathered (by every rank) when
+        leaves are split."""
+        if self._ckpt_state is not None:
+            return self._ckpt_state
+        return self.state if self.parallel is None else self.parallel.full_state(self.state)
 
     def _validate(self, which: str, loader):
         """One validator a loader for the run; each epoch it takes the EMA
         weights anew."""
         v = getattr(self, which)
+        ema = self._full_state().ema_model
         if v is None:
-            v = self._make_validator(loader)
+            v = self._make_validator(ema, loader)
             setattr(self, which, v)
         else:
-            v.update_weights(self.state.ema_model)
+            v.update_weights(ema)
         return v.validation()
 
     def validation(self) -> None:
+        if world_size() == 1:
+            self._validation_main()
+            return
+        # every rank joins the gather of a split state before rank 0 alone
+        # validates and saves; then the stop (early stopping on rank 0, a
+        # preemption on any rank) is agreed by an all-reduce MAX
+        self._ckpt_state = self._full_state()
+        try:
+            if not is_main_process():
+                if host_broadcast_max(self.parallel.mesh, float(self.is_preempted)) > 0:
+                    self.is_early_stop = True
+            else:
+                self._validation_main()
+                stop = self.is_early_stop or self.is_preempted
+                if host_broadcast_max(self.parallel.mesh, float(stop)) > 0:
+                    self.is_early_stop = True
+            if self.image_weights:  # rank 0's per-class mAPs weigh every rank's sampling
+                self.val_maps = broadcast_object(self.val_maps)
+        finally:
+            self._ckpt_state = None
+
+    def _validation_main(self) -> None:
         if self.val_loader is None:
             self._save_weights(self.current_epoch, "last.ckpt")
             return
@@ -502,10 +589,10 @@ class YoloTrainer(AbstractTrainer):
             self.is_early_stop = True
 
     def _save_weights(self, epoch: int, name: str, map50: Optional[float] = None) -> None:
-        # the state is copied to the host here; with async_ckpt the encoding
-        # and the write run on the writer's thread
-        payload = checkpoint_payload(self.state, epoch, best_score=self.best_score, map50=map50,
-                                     model_cfg=self.model_cfg_dict)
+        # the state is copied to the host here (in the one-device layout);
+        # with async_ckpt the encoding and the write run on the writer's thread
+        payload = checkpoint_payload(self._full_state(), epoch, best_score=self.best_score,
+                                     map50=map50, model_cfg=self.model_cfg_dict)
         path = self.wdir / name
         if self._ckpt_writer is not None:
             self._ckpt_writer.submit(lambda: write_checkpoint(path, payload))
@@ -515,7 +602,12 @@ class YoloTrainer(AbstractTrainer):
     def on_train_end(self) -> None:
         self._tracer.close()
         epoch = self.current_epoch - 1 if self.partial_epoch else self.current_epoch
-        self._save_weights(epoch, "last.ckpt")
+        self._ckpt_state = self._full_state() if world_size() > 1 else None  # every rank
+        try:
+            if is_main_process():
+                self._save_weights(epoch, "last.ckpt")
+        finally:
+            self._ckpt_state = None
         if self._ckpt_writer is not None:
             self._ckpt_writer.wait()  # every write is on disk before train() returns
         LOGGER.info("Training done. best mAP50 = %.4f; weights in %s", self.best_score, self.wdir)

@@ -64,10 +64,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    scratch on 16 drawn images at 320 (the memorisation recipe), gated on the
    last 20 steps' mean loss <= 0.7 x the first 20's; and the entry point:
    ``python -m ayolov2_torch.cli.train`` from the golden checkpoint on
-   phase 7's set (train = val, YAML configs read by the port's reader, 2
-   epochs, under ``build/chip_smoke_train/``), ``cli.val`` on its
+   phase 7's set (train = val, YAML configs read by the port's reader, 1
+   epoch, under ``build/chip_smoke_train/``), ``cli.val`` on its
    ``best.ckpt`` through K1 within 0.02 mAP50 of the trainer's own
-   validation of that epoch, and ``--resume`` to 3 epochs, which must run
+   validation of that epoch, and ``--resume`` to 2 epochs, which must run
    one epoch and advance ``step`` and ``ema_updates`` by its micro-steps.
 
 9. device augmentation: phase 7's 128 BMPs at 640 as a resident store,
@@ -100,8 +100,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    shear) and each pixel policy and ``Affine`` forced to p = 1 on one 640
    item. 10.3: ``cli.train`` from the golden checkpoint with
    ``train_golden.yaml`` (320 px, bs 16, thread workers) and with
-   ``train_config.yaml`` (640 px, bs 32, ``workers_mode: process``), each
-   for 2 epochs with its augmentation sections byte for byte as shipped
+   ``train_config.yaml`` (640 px, bs 32, ``workers_mode: process``), for 1
+   and 2 epochs (11.1's trace is written in epoch 1), the augmentation
+   sections byte for byte as shipped
    (only epochs, validate_period, the batch, workers_mode and, for
    ``train_golden.yaml``, plot change), gated on finite losses, ``step`` =
    ``ema_updates`` = the micro-steps, the log naming the host path, and
@@ -160,7 +161,7 @@ Phases, each printing its own lines; any failure exits non-zero:
    yolov5_v5's Focus conv (cin 12) equal to its plain version (an f64
    product on the card) exactly; the probe's forms (3x3, 256 -> 256, 80x80,
    bs 32) timed against the bf16 cuDNN conv. 13.2 the golden checkpoint
-   calibrated on 4 batches of phase 7's set in f32 on the card and on the
+   calibrated on 2 batches of phase 7's set in f32 on the card and on the
    CPU: stats (absmax 1e-4 relative, p99.9 1e-3), the same quantized convs,
    int8 raw maps card vs CPU (1e-2 of the peak). 13.3 ``cli.val --int8``
    (absmax, p999) on phase 7's set: no K1 launch, absmax mAP50 >= bf16
@@ -177,7 +178,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    decomposes nothing at the defaults. 13.6 ``cli.val_optimizer`` for 3
    trials through K1, then ``--load-if-exists`` for a fourth;
    ``cli.create_swa_model -b 2`` on the 2-epoch ``--use-swa`` run's
-   ``epoch_N.ckpt`` and ``cli.val`` of ``swa.ckpt`` through K1.
+   ``epoch_N.ckpt`` (on 32 of phase 7's images) and ``cli.val`` of
+   ``swa.ckpt`` through K1.
    ``--compress-only`` runs phases 1, 2, 3, 7 and 13.
 
 14. the secondary trainers and tools, under ``build/chip_smoke_secondary/``:
@@ -221,7 +223,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    each bf16 path's distance from the f32 path printed beside); 15.3 phase 7's 128 BMPs validated at -iw 800
    on a checkpoint of the 1.05 model, labelled by its f32 plain path, under
    phase 7's gates, and ``python -m ayolov2_torch.cli.val`` equal to the
-   in-process run; 15.4 ``cli.export`` of that checkpoint (bs 16, 800): the
+   in-process run; 15.4 ``cli.export`` of that checkpoint (bs 16, 800;
+   started before phase 14, beside it at a lower CPU priority): the
    operator in the ``.pt2`` with the widths, read back in a fresh
    interpreter equal bit for bit to ``make_serving_fn`` of the model the
    exporter builds, one launch a call; 15.5 K1 timed at bs 16, 800 and bs
@@ -264,12 +267,34 @@ Phases, each printing its own lines; any failure exits non-zero:
    counted by the registration (its time, the plain version's and the cuDNN
    chain's make the runner's entry of the kernels line); 17.3
    ``cli.bench_matrix --configs serve int8 tta decomposed train latency sweep
-   h2d --iters 5 --sweep-prefilters exact`` (every row finite, the serve
+   h2d --iters 3 --sweep-prefilters exact`` (every row finite, the serve
    row's K1 launches 1 a call); 17.4
-   ``cli.profile_train`` at 640 with ``--bs-sweep 16 64`` (every number
+   ``cli.profile_train`` at 640 with ``--bs-sweep 16`` (every number
    finite, every time, rate and MFU positive) and ``cli.bench_loader`` on
    phase 7's images and labels with ``train_config.yaml`` (``--batches
    5``). ``--tools-only`` runs phases 1, 2, 3, 7 and 17.
+
+18. ranks (``torch.distributed``; one card, so no multi-card speed is
+   measured): 18.0 which collectives gloo takes on the card's tensors, 2
+   ranks (recorded, not gated; with ``--parallel-only`` only); 18.1 ``YoloTrainer`` with DP and with
+   ``train.fsdp`` over NCCL at world 1, 3 steps of yolov5s at global bs 16,
+   640, f32 (TF32 off, accumulate 1), against the one-process trainer on the
+   same batches; 18.2 two ranks on the card over gloo: DP, fsdp and tp=2,
+   2 steps each on the same global batches, against one rank (gates: loss items
+   1e-4 relative; params, BN statistics and EMA within 1e-4 of the tree's
+   peak; under fsdp each rank holds half of the split leaves' bytes and
+   ``memory_allocated`` below DP's), and each rank's KD teacher launches K1
+   on its rows; 18.3 ``make_sharded_serving_fn`` on 2 ranks, yolov5s (seeded,
+   head shaped) at bs 32, 640, 16 a rank: K1 launched on both ranks, counts
+   equal to ``make_serving_fn``'s on the whole batch in >= 31/32 images and
+   >= 99% of its detections of score >= 0.05 (at least one an image) matched
+   at IoU >= 0.99 with the same class, an odd batch refused; 18.4 ``cli.train`` under torchrun's env
+   at world 1 over NCCL, one epoch on phase 7's images at 320 from the golden
+   checkpoint (no validation of its own), rank 0's last.ckpt scored by
+   ``cli.val`` through K1. The ranks
+   are interpreters of their own (``parallel_rank``), each under a time
+   limit, their logs in ``build/chip_smoke_parallel/``. ``--parallel-only``
+   runs phases 1, 2, 3 and 18 (18.4 then trains on drawn images).
 
 ``--profile`` adds where the serve call's (yolov5s, and in 12.1 the two zoo
 models') and the augmentation render's device time goes (torch.profiler) and where the kernel's own time goes
@@ -1205,8 +1230,8 @@ def run_logged(args, timeout: int = 900, env: Optional[dict] = None):
 
 
 def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 16) -> tuple:
-    """8.5: ``cli.train`` from the golden checkpoint on phase 7's set for 3
-    epochs, ``cli.val`` on its best.ckpt (K1), then ``--resume`` to 4
+    """8.5: ``cli.train`` from the golden checkpoint on phase 7's set for 1
+    epoch, ``cli.val`` on its best.ckpt (K1), then ``--resume`` to 2
     epochs. Returns (ok, early_pipeline launches of the in-process cli.val).
     ``device``, ``img`` and ``bs`` shrink it for a rehearsal on the CPU."""
     import re
@@ -1216,8 +1241,8 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
     from ayolov2_torch.utils.checkpoint import load_checkpoint
 
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    data, cfg2 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 2, img, bs)
-    _, cfg3 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 3, img, bs)
+    data, cfg2 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 1, img, bs)
+    _, cfg3 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 2, img, bs)
     dev = [] if device == "cuda" else ["--device", device]
     common = ["-m", "ayolov2_torch.cli.train", "--data", str(data), "--log-dir",
               str(TRAIN_DIR / "runs"), *dev]
@@ -1229,7 +1254,7 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
     vals = re.findall(r"epoch +(\d+) validation: mAP50 ([\d.]+) mAP50-95 ([\d.]+)", out)
     run_dir = re.search(r"Run dir: (\S+)", out)
     log(f"[train] python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
-        f"{cfg2.name} (memorisation recipe, 2 epochs): exit {proc.returncode} in {wall:.1f} s")
+        f"{cfg2.name} (memorisation recipe, 1 epoch): exit {proc.returncode} in {wall:.1f} s")
     for e, v in zip(epochs, vals):
         log(f"[train]   epoch {e[0]}: {e[2]} img/s, mean loss box {e[3]} obj {e[4]} cls {e[5]} "
             f"total {e[6]}; validation mAP50 {v[1]} mAP50-95 {v[2]}")
@@ -1238,7 +1263,7 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
         return False, 0
     wdir = Path(run_dir.group(1)) / "weights"
     best, last = wdir / "best.ckpt", wdir / "last.ckpt"
-    ok = best.exists() and last.exists() and len(epochs) == 2 and len(vals) == 2
+    ok = best.exists() and last.exists() and len(epochs) == 1 and len(vals) == 1
     meta_best, meta_last = load_checkpoint(best)["meta"], load_checkpoint(last)["meta"]
 
     # the resume reads last.ckpt and writes a run of its own: it runs beside cli.val
@@ -1274,11 +1299,11 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
         return False, launches
     meta2 = load_checkpoint(Path(run2.group(1)) / "weights/last.ckpt")["meta"]
     n_steps = int(epochs2[0][1]) if len(epochs2) == 1 else -1
-    ok_resume = (len(epochs2) == 1 and epochs2[0][0] == "2"
+    ok_resume = (len(epochs2) == 1 and epochs2[0][0] == "1"
                  and meta2["step"] == meta_last["step"] + n_steps
                  and meta2["ema_updates"] == meta_last["ema_updates"] + n_steps)
     log(f"[train] --resume last.ckpt (epoch {meta_last['epoch']}, step {meta_last['step']}, "
-        f"ema_updates {meta_last['ema_updates']}) to 3 epochs: exit {proc.returncode} in "
+        f"ema_updates {meta_last['ema_updates']}) to 2 epochs: exit {proc.returncode} in "
         f"{wall:.1f} s (beside cli.val), ran epochs {[e[0] for e in epochs2]} of {n_steps} "
         f"micro-steps; the new "
         f"last.ckpt: epoch {meta2['epoch']}, step {meta2['step']}, ema_updates "
@@ -1788,7 +1813,8 @@ def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: f
     path = re.search(r"training images: (.*)", out)
     run_dir = re.search(r"Run dir: (\S+)", out)
     log(f"[host] python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
-        f"{HOST_RECIPES[recipe].name} as shipped ({img} px, bs {bs}, {epochs} epochs, "
+        f"{HOST_RECIPES[recipe].name} as shipped ({img} px, bs {bs}, {epochs} "
+        f"epoch{'s' if epochs > 1 else ''}, "
         f"workers_mode {workers_mode}{', plot as shipped, a trace window' if surface else ''}): "
         f"exit {proc.returncode} in {wall:.1f} s; training images "
         f"{path.group(1) if path else '?'}")
@@ -1852,7 +1878,8 @@ def host_aug_phase(step_img_s: float, device: str = "cuda", img: int = 640, bs: 
     launches = 0
     for recipe, mode, run_bs in (("golden", "thread", None), ("a", "process", bs)):
         ok_run, n = host_entry_point(recipe, mode, images, step_img_s, device, run_bs,
-                                     img=train_img, surface=recipe == "a")
+                                     epochs=2 if recipe == "a" else 1, img=train_img,
+                                     surface=recipe == "a")
         ok, launches = ok and ok_run, launches + n
     log(f"[host] phase 10 in {time.perf_counter() - t0:.1f} s")
     return ok, launches
@@ -2547,14 +2574,22 @@ def plant_low_rank(params, paths, rank: int = 8, seed: int = 0) -> None:
 
 
 def start_job(name: str, args: list, root: Path = COMPRESS_DIR, tag: str = "compress",
-              group: bool = False) -> tuple:
+              group: bool = False, nice: int = 0, threads: int = 0) -> tuple:
     """A ``python -m`` subprocess in the background, its output to
     ``root/{name}.log``; returns (name, Popen, log path, start, tag). With
-    ``group`` it leads a process group of its own (see :func:`stop_jobs`)."""
+    ``group`` it leads a process group of its own (see :func:`stop_jobs`);
+    ``nice`` lowers its CPU priority (and its children's) below the
+    foreground's; ``threads`` caps its CPU ops' threads (jobs that run
+    together then share the host's cores instead of each spinning on all)."""
     path = root / f"{name}.log"
     fh = open(path, "w")
-    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, stdout=fh,
-                            stderr=subprocess.STDOUT, text=True, start_new_session=group)
+    env = None
+    if threads:
+        env = dict(os.environ, **{k: str(threads) for k in (
+            "OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")})
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, stdout=fh, env=env,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=group,
+                            preexec_fn=(lambda: os.nice(nice)) if nice else None)
     fh.close()
     return name, proc, path, time.perf_counter(), tag
 
@@ -2638,7 +2673,7 @@ def int8_route(card: str, seed: int) -> bool:
 
 
 def ptq_card_vs_cpu() -> bool:
-    """13.2: the golden checkpoint calibrated on 4 batches of phase 7's set
+    """13.2: the golden checkpoint calibrated on 2 batches of phase 7's set
     in f32 (TF32 off) on the card and on the CPU: stats (absmax within 1e-4
     relative, p99.9 within 1e-3) and the same quantized convs. Then the
     card's int8 model (the card's int8 tree) on 8 images: each int8 conv's
@@ -2664,7 +2699,7 @@ def ptq_card_vs_cpu() -> bool:
     variables, meta = load_variables(GOLDEN)
     cfg = json.loads(meta["model_cfg"])
     fused = fuse_variables(variables)
-    batches = phase7_batches(4)
+    batches = phase7_batches(2)
     stats, qvars, t = {}, {}, {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -2688,7 +2723,7 @@ def ptq_card_vs_cpu() -> bool:
     quant = [{k[:-1] for k in leaves(q["params"]) if k[-1] == "q_kernel"} for q in qvars.values()]
     ok_stats = (g.keys() == w.keys() and err["in_absmax"] <= 1e-4 and err["in_p999"] <= 1e-3
                 and quant[0] == quant[1] and len(quant[0]) > 40)
-    log(f"[compress] 13.2 PTQ of the golden checkpoint on 4 batches of 32 of phase 7's set, "
+    log(f"[compress] 13.2 PTQ of the golden checkpoint on 2 batches of 32 of phase 7's set, "
         f"f32: {len(w) // 2} convs' stats card vs CPU, max rel |d| absmax "
         f"{err['in_absmax']:.2e} (gate 1e-4) p99.9 {err['in_p999']:.2e} (gate 1e-3); "
         f"quantized convs {len(quant[0])} card / {len(quant[1])} CPU, same set "
@@ -2998,6 +3033,20 @@ def decomposition(card: str, host, decompose_job) -> tuple:
     return ok_1 and none_map == {} and ok_map and ok_k1 and ok_raw and ok_e, launches
 
 
+def swa_images() -> Path:
+    """32 of phase 7's labelled images, linked, for 13.6's ``--use-swa``
+    run (2 epochs of 2 steps: its time is the entry point's, not the set's)."""
+    root = COMPRESS_DIR / "swa_set"
+    for sub in ("images", "labels"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    for img in sorted((VAL_DIR / "images").iterdir())[:32]:
+        (root / "images" / img.name).symlink_to(img)
+        label = VAL_DIR / "labels" / (img.stem + ".txt")
+        if label.exists():
+            (root / "labels" / label.name).symlink_to(label)
+    return root / "images"
+
+
 def search_and_swa(card: str, train_job) -> tuple:
     """13.6: ``cli.val_optimizer`` for 3 trials on phase 7's set through K1
     (its study under ``COMPRESS_DIR``), then ``--load-if-exists`` for one
@@ -3090,7 +3139,7 @@ def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
     plant_low_rank(planted["params"], PLANTED)
     planted_ckpt = COMPRESS_DIR / "planted.ckpt"
     write_checkpoint(planted_ckpt, {"meta": meta, "model": planted, "ema": planted})
-    data, cfg2 = write_train_files(COMPRESS_DIR / "swa", VAL_DIR / "images", 2, 320, 16)
+    data, cfg2 = write_train_files(COMPRESS_DIR / "swa", swa_images(), 2, 320, 16)
     decomposed = COMPRESS_DIR / "decomposed.ckpt"
     decompose_args = ["--weights", str(planted_ckpt), "--data-cfg", str(VAL_DIR / "data.json"),
                       "-iw", "640", "--batch-size", "32", "--out", str(decomposed)]
@@ -3098,20 +3147,22 @@ def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
                    "--out", str(COMPRESS_DIR / "decomposed_tpu_nms")]
     jobs = {
         "ptq": start_job("ptq_card_vs_cpu", [
-            "-c", "import sys, chip_smoke; sys.exit(0 if chip_smoke.ptq_card_vs_cpu() else 1)"]),
+            "-c", "import sys, chip_smoke; sys.exit(0 if chip_smoke.ptq_card_vs_cpu() else 1)"],
+            threads=2),
         "export": start_job("export_int8", [
             "-m", "ayolov2_torch.cli.export", "--weights", str(GOLDEN), "--nc", "20",
             "--batch-size", "32", "-iw", "640", "--dtype", "int8", "--calib-dir",
             str(VAL_DIR / "images"), "--calib-batches", "4", "--out",
-            str(COMPRESS_DIR / "golden_int8")]),
+            str(COMPRESS_DIR / "golden_int8")], threads=2),
         "sizes": start_job("artifact_sizes", [
             "-m", "ayolov2_torch.cli.artifact_sizes", "--out",
-            str(COMPRESS_DIR / "artifact_sizes.json")]),
+            str(COMPRESS_DIR / "artifact_sizes.json")], threads=2),
         # cli.decompose_model, then cli.export of what it wrote, in one process
         "decompose": start_job("decompose_model", ["-c", (
             "import logging, sys; logging.basicConfig(level=logging.INFO, format='%(message)s', "
             "stream=sys.stdout); from ayolov2_torch.cli import decompose_model, export; "
-            f"decompose_model.main({decompose_args!r}); export.main({export_args!r})")]),
+            f"decompose_model.main({decompose_args!r}); export.main({export_args!r})")],
+            threads=2),
         "train": start_job("train_swa", [
             "-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--cfg", str(cfg2),
             "--data", str(data), "--log-dir", str(COMPRESS_DIR / "runs"), "--use-swa"]),
@@ -3924,7 +3975,31 @@ def k1_times(card: str, variant: str, ep, fused_state, imgs) -> dict:
     return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": chain}
 
 
-def widths_phase(card: str, seed: int) -> tuple:
+def start_widths(seed: int) -> tuple:
+    """Phase 15's set-up, made before phase 14 in the whole run so that
+    15.4's ``cli.export`` (the tracing of the 64M-parameter model on the
+    host) runs beside phase 14, at a lower CPU priority: the seeded models
+    with their heads shaped, the checkpoint and the export job. Returns
+    (models, checkpoint, job)."""
+    shutil.rmtree(WIDTHS_DIR, ignore_errors=True)
+    WIDTHS_DIR.mkdir(parents=True)
+    models = {v: seeded_model(v, seed + 15, fuse=False) for v in (WIDE, STEM8)}
+    for v, m in models.items():
+        damped = damp_residuals(m)
+        found = shape_head(m.eval(), seed + 16)
+        log(f"[widths] {model_name(v)}: {damped} residual branches damped x0.3; the head reads "
+            f"features of rms {', '.join(f'{r:.3f}' for r in found)} and is shaped as a "
+            f"trained detector's (shape_head)")
+    ckpt = wide_checkpoint(models[WIDE], WIDTHS_DIR / "wide.ckpt")
+    export_job = start_job("widths_export", [
+        "-m", "ayolov2_torch.cli.export", "--weights", str(ckpt), "--batch-size", "16",
+        "-iw", "800", "--type", "tpu_nms", "--out", str(WIDTHS_DIR / "wide_tpu_nms")],
+        WIDTHS_DIR, "widths", group=True, nice=10)
+    atexit.register(stop_jobs, [export_job])
+    return models, ckpt, export_job
+
+
+def widths_phase(card: str, seed: int, started: Optional[tuple] = None) -> tuple:
     """Phase 15: K1 at the widths of ``yolov5_depth1.5_width1.05_800.yaml``
     (stem 72, conv1 136, C3 68 x 4, conv2 272; padded 80/144/80/288) and of a
     stem of 8 (yolov5s at width 0.125; padded 16/16/16/32), nc 80, seeded
@@ -3945,27 +4020,15 @@ def widths_phase(card: str, seed: int) -> tuple:
     a call. 15.5 times: K1 at bs
     16, 800 and bs 8, 640 for the 1.05 set, bs 8, 640 for stem 8, each beside
     its bound, tile, plain version and cuDNN chain; the serve rate at bs 16,
-    800. Returns (ok, {set: its kernels-line entry})."""
+    800. ``started``: what :func:`start_widths` returned, else it runs here.
+    Returns (ok, {set: its kernels-line entry})."""
     import torch
 
     from ayolov2_torch.export import make_serving_fn
     from ayolov2_torch.ops import early_pipeline as early
 
     t_phase = time.perf_counter()
-    shutil.rmtree(WIDTHS_DIR, ignore_errors=True)
-    WIDTHS_DIR.mkdir(parents=True)
-    models = {v: seeded_model(v, seed + 15, fuse=False) for v in (WIDE, STEM8)}
-    for v, m in models.items():
-        damped = damp_residuals(m)
-        found = shape_head(m.eval(), seed + 16)
-        log(f"[widths] {model_name(v)}: {damped} residual branches damped x0.3; the head reads "
-            f"features of rms {', '.join(f'{r:.3f}' for r in found)} and is shaped as a "
-            f"trained detector's (shape_head)")
-    ckpt = wide_checkpoint(models[WIDE], WIDTHS_DIR / "wide.ckpt")
-    export_job = start_job("widths_export", [
-        "-m", "ayolov2_torch.cli.export", "--weights", str(ckpt), "--batch-size", "16",
-        "-iw", "800", "--type", "tpu_nms", "--out", str(WIDTHS_DIR / "wide_tpu_nms")],
-        WIDTHS_DIR, "widths")
+    models, ckpt, export_job = started if started is not None else start_widths(seed)
     models = {v: m.fuse() for v, m in models.items()}
     eps = {v: early.extract_early_params(m.state_dict()).to("cuda") for v, m in models.items()}
     entries = {v: {"max_abs_err": 0.0} for v in (WIDE, STEM8)}
@@ -4267,7 +4330,8 @@ def start_tools_jobs(seed: int) -> dict:
     ayolov2_torch.cli.export --aoti`` of it (bf16, bs 32, 640, K1 in the
     graph) and the build of the C++ registration and the runner
     (``_build.TORCH_SOURCES``), each a job whose log lands in
-    ``build/chip_smoke_tools/``."""
+    ``build/chip_smoke_tools/``. Both run at a lower CPU priority: they have
+    until phase 17, and the phases before it keep the host's cores."""
     shutil.rmtree(TOOLS_DIR, ignore_errors=True)
     TOOLS_DIR.mkdir(parents=True)
     # a seeded head puts full-confidence boxes of no size everywhere (every score 1.0 ties,
@@ -4278,11 +4342,12 @@ def start_tools_jobs(seed: int) -> dict:
     export = start_job("export_aoti", [
         "-m", "ayolov2_torch.cli.export", "--weights", str(ckpt), "--nc", "80",
         "--batch-size", "32", "-iw", "640", "--aoti", "--no-dry-run",
-        "--out", str(TOOLS_DIR / "yolov5s_tpu_nms")], root=TOOLS_DIR, tag="tools", group=True)
+        "--out", str(TOOLS_DIR / "yolov5s_tpu_nms")], root=TOOLS_DIR, tag="tools", group=True,
+        nice=10)
     build = start_job("build_runner", [
         "-c", "from ayolov2_torch.ops import _build; "
               "print(_build.build_all([], [(n, ()) for n in _build.TORCH_SOURCES]))"],
-        root=TOOLS_DIR, tag="tools", group=True)
+        root=TOOLS_DIR, tag="tools", group=True, nice=10)
     atexit.register(stop_jobs, (export, build))
     return {"export": export, "build": build, "ckpt": ckpt}
 
@@ -4525,16 +4590,16 @@ def run_cli(name: str, args: list, timeout: int = 600) -> tuple:
 
 def tools_clis(card: str, serve_img_s: float) -> bool:
     """17.3-17.4: ``cli.bench_matrix --configs serve int8 tta decomposed train
-    latency sweep h2d --iters 5 --sweep-prefilters exact`` (every row finite,
+    latency sweep h2d --iters 3 --sweep-prefilters exact`` (every row finite,
     the serve row's K1 launches 1 per call); ``cli.profile_train`` at 640
-    with ``--bs-sweep 16 64`` (every number finite, every time, rate and MFU
+    with ``--bs-sweep 16`` (every number finite, every time, rate and MFU
     positive; the
     stage sum beside the full step); ``cli.bench_loader`` on phase 7's
     images and labels with ``train_config.yaml``'s augmentation at bs 32,
     ``--batches 5`` (both worker modes)."""
     from ayolov2_torch.cli.bench_matrix import rows_finite
 
-    rc, secs, _ = run_cli("bench_matrix", ["--configs", *TOOLS_CONFIGS, "--iters", "5",
+    rc, secs, _ = run_cli("bench_matrix", ["--configs", *TOOLS_CONFIGS, "--iters", "3",
                                            "--sweep-prefilters", "exact",
                                            "--out", str(TOOLS_DIR / "bench_matrix.json")])
     if rc != 0:
@@ -4545,15 +4610,15 @@ def tools_clis(card: str, serve_img_s: float) -> bool:
             and {r["metric"].split("_640_")[1] for r in rows if "_640_" in r["metric"]}
             >= {"bs32_serve", "bs32_serve_int8", "bs32_tta_serve", "bs32_decomposed_serve",
                 "bs32_train_step", "bs1_p50_latency_ms"})
-    log(f"[tools] {card}: 17.3 cli.bench_matrix ({secs:.1f} s, {len(rows)} rows, --iters 5): "
+    log(f"[tools] {card}: 17.3 cli.bench_matrix ({secs:.1f} s, {len(rows)} rows, --iters 3): "
         + "; ".join(f"{r['metric']} {r['value']} {r['unit']}" for r in rows)
         + f"; serve K1 launches per call {serve['k1_launches_per_call']} (gate 1); every row "
         f"finite {'ok' if ok_m else 'FAIL'}")
     log(f"[time] {card}: bench_matrix's serve {serve['value']} img/s beside phase 6's "
         f"make_serving_fn {serve_img_s:.1f} img/s (nan where not run)")
 
-    rc, secs, _ = run_cli("profile_train", ["--img-size", "640", "--bs-sweep", "16", "64",
-                                            "--iters", "5",
+    rc, secs, _ = run_cli("profile_train", ["--img-size", "640", "--bs-sweep", "16",
+                                            "--iters", "3",
                                             "--out", str(TOOLS_DIR / "profile_train.json")])
     if rc != 0:
         return False
@@ -4565,7 +4630,7 @@ def tools_clis(card: str, serve_img_s: float) -> bool:
             and all(v is not None and v > 0 for v in timed))
     bd = rows[0]
     stage_sum = bd["fwd_ms"] + bd["loss_ms"] + bd["bwd_ms"] + bd["opt_ema_direct_ms"]
-    log(f"[tools] {card}: 17.4 cli.profile_train ({secs:.1f} s, 640, --iters 5): "
+    log(f"[tools] {card}: 17.4 cli.profile_train ({secs:.1f} s, 640, --iters 3): "
         + "; ".join(json.dumps(r) for r in rows)
         + f"; stages fwd + loss + bwd + opt_ema_direct {stage_sum:.2f} ms beside the full step "
         f"{bd['full_ms']} ms; every number finite, every time, rate and MFU positive "
@@ -4596,6 +4661,527 @@ def tools_phase(card: str, jobs: dict, serve_img_s: float = float("nan")) -> tup
         "foreground time")
     return ok_t, launches, numbers
 
+
+
+PARALLEL_DIR = ROOT / "build/chip_smoke_parallel"
+# 18.3's head is shaped to put a few boxes an image above a score of 0.06
+SERVE_SCORE_MIN = 0.05
+# the collectives probed over gloo on the card's tensors (18.0)
+# (send/recv last: on CUDA tensors it ended the process in a trial)
+GLOO_PROBES = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor", "reduce",
+               "reduce_scatter", "reduce_scatter_tensor", "all_to_all_single", "gather",
+               "scatter", "barrier", "send/recv")
+
+
+def local_rows(images, targets, mask, lo: int, hi: int) -> tuple:
+    """Rows lo:hi of a global batch with their targets, image index local."""
+    keep = mask & (targets[:, 0] >= lo) & (targets[:, 0] < hi)
+    t, m = np.zeros_like(targets), np.zeros_like(mask)
+    n = int(keep.sum())
+    t[:n], m[:n] = targets[keep], True
+    t[:n, 0] -= lo
+    return images[lo:hi], t, m
+
+
+class _Batches:
+    """What ``YoloTrainer`` reads of its loader before training: the labels
+    (class weights) and the batch count (the schedules)."""
+
+    def __init__(self, n: int, nc: int) -> None:
+        from types import SimpleNamespace
+
+        self.n = n
+        self.dataset = SimpleNamespace(labels=[np.array([[i, .5, .5, .2, .2]], np.float32)
+                                               for i in range(nc)])
+
+    def __len__(self) -> int:
+        return self.n
+
+
+def trainer_steps(spec: dict, device: str, tcfg: dict, rows=None, root: Path = PARALLEL_DIR
+                  ) -> dict:
+    """``YoloTrainer`` (f32, accumulate 1 so every micro-step updates) over
+    ``spec``'s seeded global batches, ``rows`` of each on this rank (all
+    without ranks): the global loss items per step, and the state in the
+    one-device layout on the host, gathered by every rank."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from ayolov2_torch.models import build_model, init_model, yolov5_cfg
+    from ayolov2_torch.train.trainer import YoloTrainer
+
+    nc, img, bs = spec["nc"], spec["img"], spec["bs"]
+    cfg, _ = memorize_hyp(nc, img)
+    cfg["train"].update(epochs=300, batch_size=bs, image_size=img, half=False, plot=False,
+                        **tcfg)
+    model = init_model(build_model(yolov5_cfg(spec["variant"], nc=nc), device="cpu"),
+                       spec["seed"])
+    mem0 = torch.cuda.memory_allocated() if device != "cpu" else 0
+    trainer = YoloTrainer(model, cfg, _Batches(100, nc), log_dir=str(root / "run"),
+                          device=device)
+    trainer.state.optimizer.accumulate = 1
+    rng = np.random.default_rng(spec["seed"] + 18)
+    items, t0 = [], time.perf_counter()
+    for k in range(spec["steps"]):
+        images, targets, mask = drawn_batch(rng, bs, img, nc)
+        if rows is not None:
+            images, targets, mask = local_rows(images, targets, mask, rows.start, rows.stop)
+        before = trainer._loss_sum.clone()
+        trainer.training_step(SimpleNamespace(images=images, targets=targets,
+                                              target_mask=mask), k + 1)
+        items.append((trainer._loss_sum - before).cpu().numpy())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    par = trainer.parallel
+    split = par.state_bytes(trainer.state) if par is not None else {"all": 0, "split": 0}
+    mem = (torch.cuda.memory_allocated() - mem0) if device != "cpu" else 0
+    full = trainer._full_state()
+    host = {name: {k: v.detach().float().cpu().clone() for k, v in m.state_dict().items()
+                   if v.is_floating_point()}
+            for name, m in (("model", full.model), ("ema", full.ema_model))}
+    out = dict(items=np.stack(items), state=host, seconds=seconds, split=split, mem=mem,
+               ema=full.ema_model, mode=par.mode if par is not None else "one",
+               n_split=len(par.dims) if par is not None else 0)
+    del trainer, full
+    return out
+
+
+def state_errs(got: dict, want: dict) -> dict:
+    """Loss items (max relative), params, BN statistics and EMA (max |d| over
+    the tree's peak) of two :func:`trainer_steps` results."""
+    def group(run, part, stats):
+        return {k: v for k, v in run["state"][part].items()
+                if k.endswith(("running_mean", "running_var")) == stats}
+
+    def tree(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in b) / max(
+            float(b[k].abs().max()) for k in b)
+
+    items = float(np.abs(got["items"] - want["items"]).max() / np.abs(want["items"]).max())
+    return {"items": items,
+            "params": tree(group(got, "model", False), group(want, "model", False)),
+            "BN": tree(group(got, "model", True), group(want, "model", True)),
+            "EMA": tree({**group(got, "ema", False), **group(got, "ema", True)},
+                        {**group(want, "ema", False), **group(want, "ema", True)})}
+
+
+def probe_gloo(device: str) -> dict:
+    """18.0: each collective of ``GLOO_PROBES`` over gloo on a tensor of
+    ``device``, each in a group of its own (a collective that breaks the
+    connection leaves the next one a new one) and followed by an all-reduce
+    of a CPU tensor in that group (which fails if the connection broke):
+    "ok" when it ran and its result is right, else what went wrong. Each result is also printed as it
+    comes (``PROBE name: result``), in case a probe ends the process."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    x = torch.full((4,), float(r + 1), device=device)
+    total = float(n * (n + 1) // 2)  # the sum of the ranks' x
+    every = torch.arange(1, n + 1, device=device, dtype=torch.float32).repeat_interleave(4)
+
+    def call(fn, out, want):
+        """Run a collective writing ``out``; its result against ``want``."""
+        fn(out)
+        return out, want
+
+    def sends(g):
+        if r == 0:
+            dist.send(x, 1, group=g)
+            return x, x
+        return call(lambda o: dist.recv(o, 0, group=g), torch.empty_like(x),
+                    torch.full_like(x, 1.0))
+
+    probes = {
+        "all_reduce": lambda g: call(lambda o: dist.all_reduce(o, group=g), x.clone(),
+                                     torch.full_like(x, total)),
+        "broadcast": lambda g: call(lambda o: dist.broadcast(o, src=0, group=g), x.clone(),
+                                    torch.full_like(x, 1.0)),
+        "all_gather": lambda g: call(
+            lambda o: dist.all_gather(list(o.chunk(n)), x, group=g),
+            torch.empty(4 * n, device=device), every),
+        "all_gather_into_tensor": lambda g: call(
+            lambda o: dist.all_gather_into_tensor(o, x, group=g),
+            torch.empty(4 * n, device=device), every),
+        "reduce": lambda g: call(lambda o: dist.reduce(o, dst=0, group=g), x.clone(),
+                                 torch.full_like(x, total) if r == 0 else None),
+        "reduce_scatter": lambda g: call(
+            lambda o: dist.reduce_scatter(o, [x.clone() for _ in range(n)], group=g),
+            torch.empty_like(x), torch.full_like(x, total)),
+        "reduce_scatter_tensor": lambda g: call(
+            lambda o: dist.reduce_scatter_tensor(o, torch.cat([x] * n), group=g),
+            torch.empty_like(x), torch.full_like(x, total)),
+        "all_to_all_single": lambda g: call(
+            lambda o: dist.all_to_all_single(o, torch.cat([x] * n), group=g),
+            torch.empty(4 * n, device=device), every),
+        "gather": lambda g: call(
+            lambda o: dist.gather(x, list(o.chunk(n)) if r == 0 else None, dst=0, group=g),
+            torch.empty(4 * n, device=device), every if r == 0 else None),
+        "scatter": lambda g: call(
+            lambda o: dist.scatter(o, [torch.full_like(x, float(k + 1)) for k in range(n)]
+                                   if r == 0 else None, src=0, group=g),
+            torch.empty_like(x), torch.full_like(x, float(r + 1))),
+        "barrier": lambda g: (dist.barrier(group=g), (x, x))[1],
+        "send/recv": sends,
+    }
+    store = dist.distributed_c10d._get_default_store()
+    out = {}
+    for name in GLOO_PROBES:
+        group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=20))
+        try:
+            got, want = probes[name](group)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            dist.all_reduce(torch.zeros(1), group=group)
+            right = want is None or torch.equal(got, want)
+            out[name] = "ok" if right else f"wrong result {got.tolist()} (want {want.tolist()})"
+        except Exception as e:  # the finding is which ones raise
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"
+        print(f"PROBE {name}: {out[name]}", flush=True)
+        store.add(f"probe/{name}", 1)  # every rank is past it, through the store
+        while store.add(f"probe/{name}", 0) < n:
+            time.sleep(0.05)
+    return out
+
+
+def parallel_rank(case: str, rank: int, world: int, port: int, out: str, spec_json: str) -> None:
+    """One rank of phase 18, in its own interpreter (``python3 -c "import
+    chip_smoke; chip_smoke.parallel_rank(...)"``); writes its result to
+    ``out/{case}_rank{rank}.json``.
+
+    ``nccl`` (18.1, one rank): the one-process trainer's steps, then the ranks'
+    trainer (DP, then fsdp) over NCCL at world 1 (gloo on the CPU).
+    ``gloo`` (18.2, 18.3, two ranks on one device over gloo): rank 0 runs the
+    one-process steps first; DP, fsdp and tp=2 steps on the global batch;
+    each rank's KD teacher (K1) on its rows; ``make_sharded_serving_fn``
+    against ``make_serving_fn``. ``probe`` (18.0, two ranks over gloo): the
+    collectives of ``GLOO_PROBES``, each bounded by a 20 s timeout."""
+    import faulthandler
+
+    import torch
+
+    faulthandler.dump_traceback_later(float(os.environ.get("AYOLO_PHASE18_LIMIT_S", "300")),
+                                      exit=True)
+    spec = json.loads(spec_json)
+    device = spec["device"]
+    if device == "cpu":  # a rehearsal: its processes share the host's cores
+        torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ["AYOLO_DIST_TIMEOUT_S"] = "20" if case == "probe" else "300"
+    if world > 1:
+        os.environ.update(AYOLO_NUM_PROCS=str(world), AYOLO_PROC_ID=str(rank),
+                          AYOLO_COORDINATOR=f"localhost:{port}")
+    else:
+        os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.parallel import launch, mesh as pm
+
+    res: dict = {"case": case, "rank": rank}
+    if case == "probe":
+        pm.initialize_distributed(backend="gloo", device=device)
+        res["probes"] = probe_gloo(device)
+        launch.leave()
+        Path(out, f"{case}_rank{rank}.json").write_text(json.dumps(res))
+        return
+    ref = trainer_steps(spec, device, {}, root=Path(out)) if rank == 0 else None
+    backend = "nccl" if case == "nccl" and device != "cpu" else "gloo"
+    pm.initialize_distributed(backend=backend, device=device)
+    res["backend"] = torch.distributed.get_backend()
+    early.early_pipeline.launches = 0
+    runs = {"dp": {}, "fsdp": {"fsdp": True}}
+    if case == "gloo":
+        runs["tp"] = {"tp": 2}
+    per = spec["bs"] // world
+    for name, tcfg in runs.items():
+        rows = slice(0, spec["bs"]) if name == "tp" else slice(rank * per, (rank + 1) * per)
+        got = trainer_steps(spec, device, tcfg, rows, root=Path(out))
+        res[name] = {"mode": got["mode"], "seconds": got["seconds"], "split": got["split"],
+                     "mem": got["mem"], "n_split": got["n_split"]}
+        if rank == 0:
+            res[name]["errs"] = state_errs(got, ref)
+            res[name]["items"] = got["items"].tolist()
+        if case == "gloo" and name == "dp":
+            from ayolov2_torch.train.kd_trainer import make_teacher
+
+            teacher = make_teacher(got["ema"].fuse(), device, early_pipeline=True)
+            rng = np.random.default_rng(spec["seed"] + 5 + rank)
+            x = torch.from_numpy(drawn_batch(rng, per, spec["img"], spec["nc"])[0]).to(device)
+            before = early.early_pipeline.launches
+            teacher(x)
+            res["teacher"] = {"early": bool(teacher.early),
+                              "launches": early.early_pipeline.launches - before}
+        del got
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    if case == "gloo":
+        res["serve"] = sharded_serving_check(spec, rank, world, device)
+    res["launches"] = early.early_pipeline.launches
+    if rank == 0:
+        res["ref_items"] = ref["items"].tolist()
+        res["ref_seconds"] = ref["seconds"]
+    launch.leave()
+    Path(out, f"{case}_rank{rank}.json").write_text(json.dumps(res))
+
+
+def sharded_serving_check(spec: dict, rank: int, world: int, device: str) -> dict:
+    """18.3: seeded yolov5s (its head shaped) through
+    ``make_sharded_serving_fn`` on the ranks' data axis, gathered to rank 0,
+    against ``make_serving_fn`` on the whole batch on rank 0."""
+    import torch
+
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.models import build_model, init_model, yolov5_cfg
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.parallel import get_mesh, make_sharded_serving_fn
+
+    if device == "cpu":
+        model = init_model(build_model(yolov5_cfg(spec["variant"], nc=80), device="cpu"),
+                           spec["seed"])
+    else:
+        model = seeded_model("s", spec["seed"] + 17, fuse=False)
+        shape_head(model, spec["seed"] + 17, size=spec["serve_img"], per_level=4.0)
+    model = model.fuse()
+    x = np.random.default_rng(spec["seed"] + 21).integers(
+        0, 256, (spec["serve_bs"], spec["serve_img"], spec["serve_img"], 3), dtype=np.uint8)
+    serve = make_sharded_serving_fn(get_mesh(), model, gather=True, device=device)
+    before = early.early_pipeline.launches
+    xs = torch.from_numpy(x).to(device)
+    t0 = time.perf_counter()
+    det, n = serve(xs)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out = {"early": bool(serve.core.early), "launches": early.early_pipeline.launches - before,
+           "seconds": time.perf_counter() - t0}
+    try:
+        serve(xs[:world * 2 - 1])
+        out["indivisible"] = "served"
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    if rank == 0:
+        det_w, n_w = make_serving_fn(model, conf_thres=0.001, iou_thres=0.65, top_k=512,
+                                     keep_top_k=100, nms_box=1000, fused_decode=False,
+                                     device=device)(xs)
+        same, wanted, found, max_box = runner_matches(
+            det.float().cpu().numpy(), n.cpu().numpy(), det_w.float().cpu().numpy(),
+            n_w.cpu().numpy(), score_min=SERVE_SCORE_MIN)
+        out.update(shape=list(det.shape), same=same, wanted=wanted, found=found,
+                   max_box=max_box, counts=int(n.sum()), counts_whole=int(n_w.sum()))
+    return out
+
+
+def start_ranks(case: str, world: int, spec: dict, timeout: int) -> list:
+    """``world`` interpreters, one rank of ``case`` each (:func:`parallel_rank`)."""
+    from ayolov2_torch.parallel.launch import free_port
+
+    port = free_port()
+    PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("AYOLO_NUM_PROCS", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    env["AYOLO_PHASE18_LIMIT_S"] = str(timeout - 10)
+    procs = []
+    for r in range(world):
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
+                f"chip_smoke.parallel_rank({case!r}, {r}, {world}, {port}, "
+                f"{str(PARALLEL_DIR)!r}, {json.dumps(spec)!r})")
+        logf = open(PARALLEL_DIR / f"{case}_rank{r}.log", "w")
+        procs.append((f"{case}_rank{r}", subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT,
+            env=env, start_new_session=True), logf, timeout))
+    atexit.register(stop_jobs, procs)
+    return procs
+
+
+def finish_ranks(procs) -> list:
+    """Each rank's result, or None for a rank that failed (its log's tail
+    printed)."""
+    out = []
+    for name, proc, logf, timeout in procs:
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            stop_jobs([(name, proc)])
+            rc = "timeout"
+        logf.close()
+        path = PARALLEL_DIR / f"{name}.json"
+        if rc != 0 or not path.exists():
+            tail = (PARALLEL_DIR / f"{name}.log").read_text().strip().splitlines()[-8:]
+            log(f"[parallel] {name}: exit {rc}; " + " | ".join(tail))
+            out.append(None)
+        else:
+            out.append(json.loads(path.read_text()))
+    return out
+
+
+def cli_train_world1(card: str, device: str, img: int, bs: int, n_drawn: int = 32) -> tuple:
+    """18.4: ``cli.train`` as rank 0 of a world of 1 under torchrun's env
+    (NCCL on the card, gloo on the CPU) for one epoch on phase 7's images
+    (or, without them, drawn ones) from the golden checkpoint, then
+    ``cli.val`` of its last.ckpt in this process through K1. Returns (ok,
+    K1 launches)."""
+    import re
+
+    from ayolov2_torch.cli import val
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.parallel.launch import free_port
+
+    root = PARALLEL_DIR / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    images = VAL_DIR / "images"
+    if not any((VAL_DIR / "labels").glob("*.txt")):
+        images = root / "drawn" / "images"
+        images.mkdir(parents=True)
+        (root / "drawn" / "labels").mkdir()
+        ims, targets, mask = drawn_batch(np.random.default_rng(18), n_drawn, img, 20)
+        for i, im in enumerate(ims):
+            write_bmp(images / f"{i + 1:06d}.bmp", im)
+            rows = targets[mask & (targets[:, 0] == i)]
+            (root / "drawn" / "labels" / f"{i + 1:06d}.txt").write_text(
+                "".join(f"{int(r[1])} {r[2]:.6f} {r[3]:.6f} {r[4]:.6f} {r[5]:.6f}\n"
+                        for r in rows))
+    data, cfg = write_train_files(root, images, 1, img, bs)
+    train_data = root / "train_data.yaml"  # no val_path: cli.val scores the checkpoint
+    train_data.write_text(data.read_text().replace(f"val_path: {images}\n", ""))
+    env = {k: v for k, v in os.environ.items() if k not in ("AYOLO_NUM_PROCS",)}
+    env.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="localhost",
+               MASTER_PORT=str(free_port()))
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    dev = [] if device == "cuda" else ["--device", device]
+    proc, wall = run_logged(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
+                             str(train_data), "--cfg", str(cfg), "--log-dir", str(root / "runs"),
+                             *dev], env=env)
+    text = proc.stdout + proc.stderr
+    (root / "train.log").write_text(text)
+    run_dir = re.search(r"Run dir: (\S+) \(rank 0 of 1\)", text)
+    joined = re.search(r"Start training: .* 1 rank\(s\) \((\w+)\)", text)
+    last = Path(run_dir.group(1)) / "weights" / "last.ckpt" if run_dir else None
+    ok = proc.returncode == 0 and bool(joined) and last is not None and last.exists()
+    log(f"[parallel] 18.4 python -m ayolov2_torch.cli.train under torchrun's env (WORLD_SIZE=1, "
+        f"RANK=0): exit {proc.returncode} in {wall:.1f} s, joined "
+        f"{joined.group(1) if joined else '?'} at world 1, last.ckpt written by rank 0: "
+        f"{bool(last and last.exists())}")
+    if not ok:
+        log("[parallel] " + " | ".join(text.strip().splitlines()[-8:]))
+        return False, 0
+    early.early_pipeline.launches = 0
+    res = val.main(["--weights", str(last), "--data-cfg", str(data), "-iw", str(img),
+                    "--batch-size", str(bs), *dev])
+    launches = early.early_pipeline.launches
+    ok = (launches > 0 or device == "cpu") and 0.0 <= res["map50"] <= 1.0
+    log(f"[parallel] 18.4 cli.val of that last.ckpt (K1 path): mAP50 {res['map50']:.5f} "
+        f"mAP50-95 {res['map50_95']:.5f}, early_pipeline launches {launches} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok, launches
+
+
+def parallel_phase(card: str, seed: int, device: str = "cuda", variant: str = "s",
+                   img: int = 640, bs: int = 16, steps: int = 3, steps2: int = 2,
+                   serve_bs: int = 32,
+                   serve_img: int = 640, cli_img: int = 320, cli_bs: int = 16,
+                   cli_drawn: int = 32, probe: bool = True) -> tuple:
+    """Phase 18 (see the module docstring): the ranks of 18.0-18.3 run in
+    the background beside 18.4; 18.0 only with ``probe``. ``device="cpu"``
+    and small sizes
+    rehearse it on the CPU (gloo; K1's plain version, whose calls the
+    teacher's and the serving's ``early`` stand for). Returns (ok, K1
+    launches on the ranks and in 18.4's cli.val)."""
+    import re
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
+    spec = dict(seed=seed, device=device if device == "cpu" else "cuda:0", variant=variant,
+                img=img, bs=bs, steps=steps, nc=80, serve_bs=serve_bs, serve_img=serve_img)
+    one = start_ranks("nccl", 1, spec, timeout=300)
+    two = start_ranks("gloo", 2, dict(spec, steps=steps2), timeout=300)
+    probes = start_ranks("probe", 2, spec, timeout=300) if probe else None
+    ok4, launches = cli_train_world1(card, device, cli_img, cli_bs, cli_drawn)
+    (nccl,), gloo = finish_ranks(one), finish_ranks(two)
+    ok = ok4 and nccl is not None and None not in gloo
+    if probes is not None:
+        finish_ranks(probes)
+        p0, p1 = ({m.group(1): m.group(2) for m in re.finditer(
+            r"^PROBE (\S+): (.*)$", (PARALLEL_DIR / f"probe_rank{r}.log").read_text(), re.M)}
+            for r in (0, 1))
+        works = [k for k in GLOO_PROBES if p0.get(k) == "ok" and p1.get(k) == "ok"]
+        log(f"[parallel] 18.0 {card}: gloo on {device} tensors, 2 ranks: takes "
+            f"{', '.join(works) or 'none'}; " + "; ".join(
+                f"{k}: {p0.get(k, 'not reached')}" + (f" / {p1.get(k)}" if p1.get(k) != "ok" and
+                                                       p1.get(k) != p0.get(k) else "")
+                for k in GLOO_PROBES if k not in works))
+    tol = 1e-4
+    on_card = device != "cpu"
+    if nccl is not None:
+        for mode in ("dp", "fsdp"):
+            e = nccl[mode]["errs"]
+            good = all(v < tol for v in e.values())
+            ok = ok and good
+            log(f"[parallel] 18.1 {card}: YoloTrainer {mode} (runs as "
+                f"{nccl[mode]['mode']}: one rank splits nothing) over {nccl['backend']} at world 1, "
+                f"yolov5{variant} nc 80 f32 (TF32 off), {steps} steps of global bs {bs} at {img} "
+                f"(accumulate 1) against the one-process trainer: loss items max rel "
+                f"{e['items']:.2e}, params {e['params']:.2e}, BN {e['BN']:.2e}, EMA {e['EMA']:.2e} "
+                f"of the peak (gate {tol}); {nccl[mode]['seconds']:.2f} s for the steps "
+                f"(one process {nccl['ref_seconds']:.2f} s) {'ok' if good else 'FAIL'}")
+    if None not in gloo:
+        r0, r1 = gloo
+        for mode in ("dp", "fsdp", "tp"):
+            e = r0[mode]["errs"]
+            good = all(v < tol for v in e.values()) and r0[mode]["mode"] == mode
+            split = [r[mode]["split"] for r in gloo]
+            line = (f"[parallel] 18.2 {card}: {mode} on 2 ranks over gloo ({device}), "
+                    f"{steps2} steps of global bs {bs} at {img} against one rank: loss items "
+                    f"max rel {e['items']:.2e}, params {e['params']:.2e}, BN {e['BN']:.2e}, EMA "
+                    f"{e['EMA']:.2e} (gate {tol}); {r0[mode]['n_split']} leaves split; "
+                    f"{r0[mode]['seconds']:.2f} s for the steps")
+            if mode == "fsdp":
+                whole = sum(s["split"] for s in split)
+                half = all(abs(s["split"] * 2 - whole) <= 0.01 * whole for s in split)
+                good = good and half and whole > 0
+                if on_card:
+                    good = good and r0["fsdp"]["mem"] < r0["dp"]["mem"]
+                line += (f"; split leaves {split[0]['split'] / 2**20:.2f} / "
+                         f"{split[1]['split'] / 2**20:.2f} MiB on the ranks of the state's "
+                         f"{split[0]['all'] / 2**20:.2f} / {split[1]['all'] / 2**20:.2f} MiB "
+                         f"(whole {whole / 2**20:.2f} MiB), memory_allocated after the steps "
+                         f"fsdp {r0['fsdp']['mem'] / 2**20:.1f} MiB vs dp "
+                         f"{r0['dp']['mem'] / 2**20:.1f} MiB (rank 0)")
+            ok = ok and good
+            log(f"{line} {'ok' if good else 'FAIL'}")
+        k1 = [r["teacher"] for r in gloo]
+        good = all(t["early"] and (t["launches"] == 1 or not on_card) for t in k1)
+        ok = ok and good
+        log(f"[parallel] 18.2 each rank's KD teacher (make_teacher of its gathered EMA, K1) on "
+            f"its {bs // 2} images: early {[t['early'] for t in k1]}, K1 launches "
+            f"{[t['launches'] for t in k1]} {'ok' if good else 'FAIL'}")
+        s0, s1 = r0["serve"], r1["serve"]
+        need = s0["wanted"] * 0.99
+        good = (s0["early"] and s1["early"] and s0["shape"] == [serve_bs, 100, 6]
+                and s0["same"] >= serve_bs - 1 and s0["found"] >= need
+                and (not on_card or s0["wanted"] >= serve_bs)
+                and all("not divisible" in s["indivisible"] for s in (s0, s1))
+                and (not on_card or (s0["launches"] >= 1 and s1["launches"] >= 1)))
+        ok = ok and good
+        what = "yolov5s (seeded, head shaped)" if on_card else f"yolov5{variant} (init_model)"
+        log(f"[parallel] 18.3 {card}: make_sharded_serving_fn on 2 ranks over gloo, {what} "
+            f"bs {serve_bs} at {serve_img}, {serve_bs // 2} a rank, "
+            f"gathered to rank 0: K1 launches {s0['launches']} / {s1['launches']} (early "
+            f"{s0['early']} / {s1['early']}), {s0['seconds']:.2f} s; against make_serving_fn on "
+            f"the whole batch: equal counts in {s0['same']}/{serve_bs} images ({s0['counts']} vs "
+            f"{s0['counts_whole']} detections), {s0['found']}/{s0['wanted']} detections of score "
+            f">= {SERVE_SCORE_MIN} matched at IoU >= 0.99 with their class, max box |d| "
+            f"{s0['max_box']:.4f} "
+            f"px; an odd batch: {s0['indivisible']!r} {'ok' if good else 'FAIL'}")
+        launches += sum(r["launches"] for r in gloo)
+    if nccl is not None:
+        launches += nccl["launches"]
+    log(f"[parallel] phase 18: {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    return ok, launches
 
 
 def width_entry(variant: str, numbers: dict) -> dict:
@@ -4648,10 +5234,20 @@ def main() -> int:
     ap.add_argument("--tools-only", action="store_true",
                     help="phases 1, 2, 3, 7 and 17 only (the native runner against the "
                          ".pt2 on phase 7's images, and the measurement CLIs)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="phases 1, 2, 3 and 18 only (the trainers, serving and the entry "
+                         "point on ranks of torch.distributed)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
     args = ap.parse_args()
+    # the card's machine sets PYTHONDONTWRITEBYTECODE, so each interpreter the
+    # script starts would compile torch's sources again: they share one
+    # bytecode cache under build/ instead (the installed packages stay as they are)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(ROOT / "build/pycache")
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
 
     import torch
 
@@ -4694,7 +5290,8 @@ def main() -> int:
     tools_jobs = None
     if args.tools_only or not (args.check_only or args.train_only or args.host_only
                                or args.zoo_only or args.compress_only or args.secondary_only
-                               or args.widths_only or args.images_only):
+                               or args.widths_only or args.images_only
+                               or args.parallel_only):
         tools_jobs = start_tools_jobs(args.seed)  # 17.1 in the background
         log("[tools] 17.1 started in the background: cli.export --aoti of seeded yolov5s and "
             "the build of the C++ registration and the runner")
@@ -4739,6 +5336,14 @@ def main() -> int:
             log("[widths] FAIL")
             return 1
         print(json.dumps({"kernels": [width_entry(v, e) for v, e in entries.items()]}))
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if args.parallel_only:
+        if not parallel_phase(card, args.seed)[0]:
+            log("[parallel] FAIL")
+            return 1
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -5038,6 +5643,7 @@ def main() -> int:
 
     # ---- 14. the secondary trainers and tools ---------------------------------
     torch.cuda.empty_cache()
+    widths = start_widths(args.seed)  # 15.4's export runs beside phase 14
     ok14, secondary_launches = secondary_phase(card, args.seed, val[2])
     if not ok14:
         log("[secondary] FAIL")
@@ -5046,7 +5652,7 @@ def main() -> int:
 
     # ---- 15. K1 at every width: the width-1.05 config ---------------------------
     torch.cuda.empty_cache()
-    ok15, entries = widths_phase(card, args.seed)
+    ok15, entries = widths_phase(card, args.seed, widths)
     if not ok15:
         log("[widths] FAIL")
         return 1
@@ -5065,6 +5671,14 @@ def main() -> int:
     if not ok17:
         log("[tools] FAIL")
         return 1
+
+    # ---- 18. ranks: the trainers, serving and cli.train over torch.distributed ------
+    torch.cuda.empty_cache()
+    ok18, parallel_launches = parallel_phase(card, args.seed, probe=False)  # 18.0: --parallel-only
+    if not ok18:
+        log("[parallel] FAIL")
+        return 1
+    launches += parallel_launches
     log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s")
 
     k1 = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,

@@ -277,8 +277,27 @@ def test_mode_and_dtype_overrides_and_mesh(monkeypatch):
     monkeypatch.setenv("AYOLO_DEVICE_AUG_DTYPE", "float16")
     with pytest.raises(ValueError, match="unknown render dtype"):
         DeviceAugmenter(64, 64, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        make_render_fn(64, 64, mode="separable", mesh=object())
+    # the split render: rank 1 of a 2-way data axis renders rows 2-3 of 4,
+    # equal to the one-device render's; a batch the axis does not divide raises
+    class Rank1Of2:
+        mesh_dim_names, shape = ("data",), (2,)
+
+        def get_local_rank(self, axis):
+            return 1
+
+    rng = np.random.default_rng(0)
+    plan = [torch.from_numpy(rng.integers(0, 256, (3, 64, 64, 3), dtype=np.uint8)),
+            torch.from_numpy(rng.integers(0, 3, (4, 1, 4), dtype=np.int32)),
+            torch.tensor([[[[0, 0, 64, 64]] + [[0, 0, 0, 0]] * 3]] * 4, dtype=torch.int32),
+            torch.zeros((4, 1, 4, 2), dtype=torch.int32),
+            torch.eye(3).expand(4, 1, 3, 3).contiguous(), torch.ones(4),
+            torch.ones((4, 3)), torch.tensor([[0, 0], [1, 0], [0, 1], [1, 1]], dtype=torch.int32)]
+    for mode in ("gather", "separable"):
+        whole = make_render_fn(64, 64, mode=mode)(*plan)
+        rows = make_render_fn(64, 64, mode=mode, mesh=Rank1Of2())(*plan)
+        assert rows.shape[0] == 2 and torch.equal(rows, whole[2:])
+        with pytest.raises(ValueError, match="not divisible by data-axis size 2"):
+            make_render_fn(64, 64, mode=mode, mesh=Rank1Of2())(plan[0], *(a[:3] for a in plan[1:]))
     with pytest.raises(ValueError, match="unknown render mode"):
         make_render_fn(64, 64, mode="fast")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -11,7 +11,7 @@ import sys
 import pytest
 import torch
 
-from _torch_port_common import GOLDEN, LABELLED_IMG, ROOT, labelled_set
+from _torch_port_common import GOLDEN, LABELLED_IMG, ROOT, labelled_set, train_files
 
 torch.set_num_threads(1)
 WEIGHTS = str(GOLDEN / "weights/best.ckpt")
@@ -75,17 +75,26 @@ def test_val2_cli_writes_an_answersheet_its_evaluator_scores(data_cfg, tmp_path)
 @pytest.mark.parametrize("module,flags,match", [
     ("val", ["--weights", "m.jaxexp"], "JAX artifact is read by the JAX package .* reads "
                                        "the .pt2"),
-    ("train", ["--n-devices", "2"], "more than one device .* parallelism slice"),
+    ("train", ["--n-devices", "2"], "^0$"),
 ])
-def test_unported_flags_exit_with_a_message(module, flags, match):
-    """What the port still refuses stops the entry point naming the slice it
-    comes with (``tp`` and ``fsdp``: the isolation tests); a JAX artifact
-    names the package that reads it."""
+def test_unported_flags_exit_with_a_message(module, flags, match, tmp_path):
+    """A JAX artifact stops ``cli.val`` naming the package that reads it.
+    ``cli.train --n-devices 2``, refused until the parallelism slice, now
+    starts two ranks (gloo on the CPU) and leaves with their exit code, 0:
+    rank 0 wrote the run's checkpoints and metrics (the parallel runs
+    themselves: ``tests/test_torch_port_parallel_cli.py``)."""
     import importlib
 
     main = importlib.import_module(f"ayolov2_torch.cli.{module}").main
+    if module == "train":
+        model_cfg, data, cfg = train_files(tmp_path)
+        flags = flags + ["--model", str(model_cfg), "--data", str(data), "--cfg", str(cfg),
+                         "--log-dir", str(tmp_path / "runs")]
     with pytest.raises(SystemExit, match=match):
         main(flags + ["--device", "cpu"])
+    if module == "train":
+        (run,) = (tmp_path / "runs" / "train").iterdir()
+        assert (run / "weights" / "last.ckpt").exists() and (run / "metrics.json").exists()
 
 
 def _jax_option_strings(path) -> set:

@@ -33,7 +33,9 @@ def test_import_pulls_in_no_jax():
         "ayolov2_torch.cli.train_repr, ayolov2_torch.cli.crop_bboxes, "
         "ayolov2_torch.cli.import_torch_weights, ayolov2_torch.cli.bench_matrix, "
         "ayolov2_torch.cli.profile_train, ayolov2_torch.cli.bench_loader, "
-        "ayolov2_torch.export.aoti\n"
+        "ayolov2_torch.export.aoti, ayolov2_torch.parallel.mesh, ayolov2_torch.parallel.sharded, "
+        "ayolov2_torch.parallel.collectives, ayolov2_torch.parallel.launch, "
+        "ayolov2_torch.parallel.serve, ayolov2_torch.utils.logger\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ayolov2_tpu', 'cv2', "
         "'PIL', 'matplotlib', 'scipy')]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
@@ -80,7 +82,10 @@ def test_every_module_imports_without_jax_opencv_pil_yaml_or_msgpack():
             "ayolov2_torch.cli.distillation", "ayolov2_torch.cli.train_repr",
             "ayolov2_torch.cli.crop_bboxes", "ayolov2_torch.cli.import_torch_weights",
             "ayolov2_torch.cli.bench_matrix", "ayolov2_torch.cli.profile_train",
-            "ayolov2_torch.cli.bench_loader", "ayolov2_torch.export.aoti"} <= names
+            "ayolov2_torch.cli.bench_loader", "ayolov2_torch.export.aoti",
+            "ayolov2_torch.parallel.mesh", "ayolov2_torch.parallel.sharded",
+            "ayolov2_torch.parallel.collectives", "ayolov2_torch.parallel.launch",
+            "ayolov2_torch.parallel.serve", "ayolov2_torch.utils.logger"} <= names
 
 
 def test_no_file_names_jax():
@@ -162,16 +167,40 @@ def test_training_entry_points_need_a_device_without_cuda(monkeypatch, tmp_path)
 
 
 def test_trainer_refuses_unported_options(tmp_path, monkeypatch):
-    from ayolov2_torch.train.trainer import refuse_unported
+    """Nothing of the train options is refused any longer: ``tp`` and
+    ``fsdp`` on one process train on that process alone (as the JAX
+    package's on one device, where the mesh has one device), and on several
+    ranks they split the state (``tests/test_torch_port_parallel_*.py``);
+    ``n_devices`` must equal the rank count, else the trainers say how to
+    start the ranks."""
+    from ayolov2_torch.data import DataLoader, DetectionDataset
+    from ayolov2_torch.models import build_model, yolov5_cfg
+    from ayolov2_torch.train.kd_trainer import SoftTeacherTrainer
+    from ayolov2_torch.train.repr_trainer import RepresentationLearningTrainer
+    from ayolov2_torch.train.trainer import YoloTrainer, make_parallel
+    from ayolov2_torch.utils.config import load_yaml
 
-    for key, value, slice_name in (("tp", 2, "parallelism"), ("fsdp", True, "parallelism")):
-        with pytest.raises(NotImplementedError, match=f"not ported yet.*{slice_name} slice"):
-            refuse_unported({key: value})
     monkeypatch.setenv("AYOLO_TRACE_DIR", str(tmp_path))
-    refuse_unported({})  # plot (true by default) and the trace window are ported
-    refuse_unported({"plot": True, "tp": 1, "fsdp": False, "remat": False})
-    refuse_unported({"remat": True})  # ported with the model zoo
-    refuse_unported({"remat": "save_convs"})
+    for tcfg in ({}, {"plot": True, "tp": 2, "fsdp": True, "remat": False}, {"remat": True},
+                 {"remat": "save_convs"}, {"tp": 1, "fsdp": False}):
+        assert make_parallel(tcfg, None) is None  # one process: nothing to split
+    _, _, cfg = train_files(tmp_path)
+    cfg = load_yaml(cfg)
+    cfg["train"].update(tp=2, fsdp=True)
+    loader = DataLoader(DetectionDataset(str(tmp_path / "images"), img_size=64), batch_size=4)
+    model = build_model(yolov5_cfg("n", nc=3), device="cpu")
+    trainer = YoloTrainer(model, cfg, loader, log_dir=str(tmp_path / "run"), device="cpu",
+                          n_devices=1)
+    assert trainer.parallel is None
+    for make in (lambda: YoloTrainer(model, cfg, loader, log_dir=str(tmp_path / "r2"),
+                                     device="cpu", n_devices=2),
+                 lambda: SoftTeacherTrainer(model, model.fuse(), cfg, loader, loader,
+                                            log_dir=str(tmp_path / "r3"), device="cpu",
+                                            n_devices=2),
+                 lambda: RepresentationLearningTrainer(model, cfg, loader, device="cpu",
+                                                       n_devices=4)):
+        with pytest.raises(ValueError, match="rank.*--n-devices .*AYOLO_NUM_PROCS"):
+            make()
 
 
 def test_train_cli_on_cpu_then_val_reads_its_checkpoints(tmp_path):
