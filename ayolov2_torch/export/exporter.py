@@ -174,11 +174,16 @@ class ServingModule(nn.Module):
         return self.model(x, training=True)
 
     def forward(self, images: torch.Tensor):
-        raw = self.raw_maps(images)
+        hw = tuple(self.img_hw) if self.raw_hw is not None else tuple(images.shape[1:3])
+        return self.detect(self.raw_maps(images), hw)
+
+    def detect(self, raw, hw: Tuple[int, int]):
+        """The graph after the head: the raw maps of whole images of size
+        ``hw`` -> (detections, counts), or the decoded predictions without
+        NMS. Spatially split serving runs it on the gathered maps."""
         if not self.include_nms:
             return self.model.head.decode(raw)
         if self.fused_decode:
-            hw = tuple(self.img_hw) if self.raw_hw is not None else tuple(images.shape[1:3])
             det, n = fused_decode_nms(flatten_raw_maps(raw), *self.grid_meta(hw),
                                       nms_box=self.nms_box, pre_top_k=self.top_k,
                                       graph=self.graph_nms, **self.nms_kw)

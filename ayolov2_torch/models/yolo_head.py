@@ -92,14 +92,16 @@ class YOLOHead(nn.Module):
         Returns (decoded or None, raw maps); decoded is None in training mode.
         """
         assert len(xs) == self.nl, f"expected {self.nl} feature maps, got {len(xs)}"
-        raw = []
-        for conv, x in zip(self.m, xs):
-            y = conv(x)
-            bs, _, ny, nx = y.shape
-            raw.append(y.permute(0, 2, 3, 1).reshape(bs, ny, nx, self.na, self.no))
+        raw = [self.level(i, x) for i, x in enumerate(xs)]
         if training:
             return None, raw
         return self.decode(raw), raw
+
+    def level(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Level ``i``'s raw map (bs, ny, nx, na, no) of its feature map x."""
+        y = self.m[i](x)
+        bs, _, ny, nx = y.shape
+        return y.permute(0, 2, 3, 1).reshape(bs, ny, nx, self.na, self.no)
 
     def decode(self, raw: List[torch.Tensor]) -> torch.Tensor:
         """Raw maps -> (bs, sum ny*nx*na, 5+nc) f32: xywh (``out_xyxy``:

@@ -26,6 +26,10 @@ continues with ``forward(..., start_layer=4)``.
   fake implementation gives the output's shape to the tracer. Importing
   this module registers it.
 
+:func:`early_pipeline_rows` runs the operator on the image rows that some
+/8 output rows read (their halo, :func:`slab_halo`) and keeps those rows:
+a rank's part in spatially split serving (``parallel/spatial.py``).
+
 The kernel holds every width padded (:func:`padded_widths`): c0, c1 and ch
 to multiples of 16 and c2 to a multiple of its N tile, with zero weights and
 biases, so that every padded channel is exactly 0 after SiLU; it stores only
@@ -673,6 +677,7 @@ def _launch(lib: ctypes.CDLL, images: torch.Tensor, wpack: torch.Tensor, widths:
         raise RuntimeError(f"early_pipeline kernel launch failed: error {err} "
                            f"({_width_text(*widths)}, tile {plan.th}x{plan.tw})")
     early_pipeline.launches += 1
+    early_pipeline.last_input = tuple(images.shape)
     return out
 
 
@@ -740,6 +745,51 @@ def early_pipeline(images: torch.Tensor, ep: EarlyParams) -> torch.Tensor:
 
 
 early_pipeline.launches = 0
+early_pipeline.last_input = None  # the (bs, H, W, 3) of the kernel's last launch
+
+
+def slab_halo(n: int) -> Tuple[int, int]:
+    """(t, u): the /8 rows of input above and below a /8 output row's own 8
+    input rows that the row reads, in whole /8 rows, for C3 depth ``n``.
+    Output row r reads input rows 8r - 8 - 4n ... 8r + 9 + 4n: conv2
+    (3x3/s2/p1) /4 rows 2r - 1 ... 2r + 1, the n bottlenecks' 3x3 convs one
+    /4 row more each side apiece, conv1 (3x3/s2/p1) /2 rows 2q - 1 ... 2q +
+    1 of /4 row q, and the stem (6x6/s2/p2) input rows 2p - 2 ... 2p + 3 of
+    /2 row p: 12 + 4n rows above the 8 and 2 + 4n below them."""
+    return -(-(8 + 4 * n) // 8), -(-(2 + 4 * n) // 8)
+
+
+def slab_rows(a: int, b: int, h: int, n: int) -> Tuple[int, int]:
+    """The input rows [lo, hi) that /8 output rows [a, b) of an image of
+    height ``h`` read: [8 (a - t), 8 (b + u)) clamped to [0, h), with (t, u)
+    :func:`slab_halo`. They start on a multiple of 8, so each of the
+    network's strides keeps its phase."""
+    t, u = slab_halo(n)
+    return max(0, 8 * (a - t)), min(h, 8 * (b + u))
+
+
+def early_pipeline_rows(images: torch.Tensor, wpack: torch.Tensor, a: int, b: int, c0: int,
+                        n: int, c1: Optional[int] = None, ch: Optional[int] = None,
+                        c2: Optional[int] = None) -> torch.Tensor:
+    """Rows [a, b) of the operator's /8 output for whole (bs, H, W, 3) uint8
+    ``images``, computed from the input rows they read alone
+    (:func:`slab_rows`): the operator (kernel on the card, plain version on
+    the CPU) on that slab, its output cropped to [a, b). The operator
+    zero-pads each layer at its input's edge, which is right only at the
+    image's own top and bottom; the rows that padding reaches at a slab's
+    inner edge lie in the halo and are dropped. The slab is a view of the
+    images for bs 1 and a copy for bs > 1. No rows: an empty output and no
+    launch."""
+    bs, h, w, _ = images.shape
+    c2_true = widths_of(c0, n, c1, ch, c2)[3]
+    if b <= a:
+        return images.new_empty((bs, 0, w // 8, c2_true), dtype=torch.bfloat16)
+    lo, hi = slab_rows(a, b, h, n)
+    slab = images[:, lo:hi]
+    if not slab.is_contiguous():
+        slab = slab.contiguous()
+    out = early_pipeline_op(slab, wpack, c0, n, c1, ch, c2)
+    return out[:, a - lo // 8:b - lo // 8]
 
 
 PROFILE_SLOTS = ("wait for raw rows", "convert to s2d", "stem", "conv1", "cv1|cv2",

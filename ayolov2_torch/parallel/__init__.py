@@ -1,7 +1,8 @@
 """The parallelism layer over ``torch.distributed``: ranks and the mesh
 (``mesh``), differentiable collectives (``collectives``), data, ZeRO and
 tensor parallelism in the train step (``sharded``), the entry points' ranks
-(``launch``), sharded serving and the host-to-device stream (``serve``).
+(``launch``), sharded and spatially split serving and the host-to-device
+stream (``serve``; the split's row plan and layer walk in ``spatial``).
 
 The JAX package's BatchNorm over a sharded batch is SyncBN
 (``models.layers.batchnorm_sync``); its per-host input sharding is the
@@ -20,10 +21,15 @@ from ayolov2_torch.parallel.mesh import (
     tp_sharding,
     zero_sharding,
 )
-from ayolov2_torch.parallel.serve import make_sharded_serving_fn, serve_stream
+from ayolov2_torch.parallel.serve import (
+    make_latency_serving_fn,
+    make_sharded_serving_fn,
+    serve_stream,
+)
 
 __all__ = [
     "make_sharded_serving_fn",
+    "make_latency_serving_fn",
     "serve_stream",
     "zero_sharding",
     "tp_sharding",

@@ -19,9 +19,16 @@ and ``all_gather`` (the list form); ``broadcast`` makes the replicas equal
   ZeRO shard gathered for a forward over each rank's own batch), so the
   gradient of a shard is summed across them: a reduce-scatter, done as an
   all-reduce and a slice.
+
+Spatially split serving (``spatial``) adds two without gradients:
+:func:`halo_exchange`, the rows of a map that a rank's slab reads beyond its
+own, from an all-gather of every rank's edge rows; and :func:`gather_rows`,
+maps split by rows put back whole on every rank.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.distributed as dist
@@ -138,3 +145,82 @@ def bucketed_(tensors, collective) -> None:
             n = t.numel()
             t.copy_(flat[o:o + n].view(t.shape))
             o += n
+
+
+@torch.no_grad()
+def halo_exchange(x: torch.Tensor, owned, need, rank: int, group, up: int, down: int):
+    """Rows ``need[rank]`` = [lo, hi) of a (bs, C, H, W) map split over
+    ``group``'s ranks as ``owned`` (rank r holds rows owned[r]; ``x`` is this
+    rank's), and how many of them came from other ranks.
+
+    One all-gather of fixed-size edge buffers, no send/recv (gloo's on CUDA
+    tensors ends the process): every rank sends its bottom ``up`` rows and
+    its top ``down`` rows, (bs, up + down, W, C), zero-padded where it holds
+    fewer (or none). ``up`` is at least the most rows any rank needs above
+    its own, ``down`` below, so a rank's rows that another needs always lie
+    in those edges, from a neighbour's or, past a short slab, the rank
+    beyond it. Every rank of the group calls it, needing rows or not."""
+    bs, c, _, w = x.shape
+    s, e = owned[rank]
+    nhwc = x.permute(0, 2, 3, 1)
+    buf = x.new_zeros((bs, up + down, w, c))
+    tail, head = min(up, e - s), min(down, e - s)
+    if tail:
+        buf[:, up - tail:up] = nhwc[:, e - s - tail:]
+    if head:
+        buf[:, up:up + head] = nhwc[:, :head]
+    parts = [torch.empty_like(buf) for _ in range(len(owned))]
+    dist.all_gather(parts, buf, group=group)
+    lo, hi = need[rank]
+    pieces, got = [], 0
+    for r, (s2, e2) in enumerate(owned):
+        x0, x1 = max(lo, s2), min(hi, e2)
+        if x0 >= x1:
+            continue
+        if r == rank:
+            pieces.append(nhwc[:, x0 - s:x1 - s])
+            continue
+        got += x1 - x0
+        if r < rank:  # from its bottom rows
+            if e2 - x0 > up:
+                raise ValueError(f"rank {rank} needs rows {x0}..{x1} of rank {r} ({s2}..{e2}), "
+                                 f"past its {up} edge rows")
+            pieces.append(parts[r][:, up - (e2 - x0):up - (e2 - x1)])
+        else:  # from its top rows
+            if x1 - s2 > down:
+                raise ValueError(f"rank {rank} needs rows {x0}..{x1} of rank {r} ({s2}..{e2}), "
+                                 f"past its {down} edge rows")
+            pieces.append(parts[r][:, up + x0 - s2:up + x1 - s2])
+    out = torch.cat(pieces, 1) if pieces else nhwc[:, :0]
+    if out.shape[1] != max(0, hi - lo):
+        raise ValueError(f"rank {rank} assembled {out.shape[1]} of rows {lo}..{hi}")
+    return out.permute(0, 3, 1, 2), got
+
+
+@torch.no_grad()
+def gather_rows(xs, owned, dim: int, group):
+    """Each tensor of ``xs`` whole on every rank: tensor i is split along
+    ``dim`` over ``group``'s ranks as ``owned[i]`` (rank r holds rows
+    owned[i][r]). One all-gather of every tensor padded to its largest
+    part, the parts then trimmed and joined in order. One rank: ``xs``."""
+    n = len(owned[0])
+    if n == 1:
+        return list(xs)
+    shapes, flat = [], []
+    for x, parts in zip(xs, owned):
+        shape = list(x.shape)
+        shape[dim] = max(b - a for a, b in parts)
+        buf = x.new_zeros(shape)
+        buf.narrow(dim, 0, x.shape[dim]).copy_(x)
+        shapes.append(shape)
+        flat.append(buf.reshape(-1))
+    flat = torch.cat(flat)
+    got = [torch.empty_like(flat) for _ in range(n)]
+    dist.all_gather(got, flat, group=group)
+    out, pos = [], 0
+    for shape, parts in zip(shapes, owned):
+        size = math.prod(shape)
+        out.append(torch.cat([g[pos:pos + size].view(shape).narrow(dim, 0, b - a)
+                              for g, (a, b) in zip(got, parts)], dim))
+        pos += size
+    return out

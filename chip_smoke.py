@@ -296,6 +296,26 @@ Phases, each printing its own lines; any failure exits non-zero:
    limit, their logs in ``build/chip_smoke_parallel/``. ``--parallel-only``
    runs phases 1, 2, 3 and 18 (18.4 then trains on drawn images).
 
+19. spatially split bs-1 serving (``make_latency_serving_fn``: one image's
+   rows over the ranks, K1 on each rank's rows with their halo, the rows a
+   layer lacks from one all-gather of edge rows): seeded yolov5s (nc 80,
+   bf16, its head shaped as 18.3's), K1 on; 19.1 one rank over NCCL at 640,
+   19.2 two ranks of the card over gloo at 640 and 608 (the /32 level's 19
+   rows split unevenly), each rank in an interpreter of its own as phase
+   18's. Gates on every rank against ``make_serving_fn`` on the same image:
+   equal counts; every detection of score >= 0.05 found at IoU >= 0.99 with
+   its class; the gathered raw maps within K1's gate (0.03 of the peak,
+   0.015 at p99.9); K1 launched once in a call, on at most 8 (rows + t + u)
+   image rows; the rank's slab within K1's gate of its plain version.
+   Recorded: whether the slab's rows equal the whole image's kernel rows
+   bit for bit, and the bs-1 p50 of both serves (host clock, in turns).
+   19.3 K1 on the whole bs-1 640 image and on 19.2's taller slab against
+   its plain version (phase 3's gate), with the kernel's, plain version's
+   and cuDNN chain's device times (launches queued behind a sleep of the
+   stream: at bs 1 the Python call outlasts the kernel) beside the bound
+   (two entries of the kernels line).
+   ``--latency-only`` runs phases 1, 2, 3 and 19.
+
 ``--profile`` adds where the serve call's (yolov5s, and in 12.1 the two zoo
 models') and the augmentation render's device time goes (torch.profiler) and where the kernel's own time goes
 (clock stamps at its layer boundaries, from a second build of the same
@@ -4883,6 +4903,14 @@ def parallel_rank(case: str, rank: int, world: int, port: int, out: str, spec_js
     from ayolov2_torch.parallel import launch, mesh as pm
 
     res: dict = {"case": case, "rank": rank}
+    if case.startswith("latency"):
+        pm.initialize_distributed(backend="nccl" if case == "latency_nccl" and device != "cpu"
+                                  else "gloo", device=device)
+        res["backend"] = torch.distributed.get_backend()
+        res["sizes"] = latency_check(spec, rank, device)
+        launch.leave()
+        Path(out, f"{case}_rank{rank}.json").write_text(json.dumps(res))
+        return
     if case == "probe":
         pm.initialize_distributed(backend="gloo", device=device)
         res["probes"] = probe_gloo(device)
@@ -5184,6 +5212,233 @@ def parallel_phase(card: str, seed: int, device: str = "cuda", variant: str = "s
     return ok, launches
 
 
+# ---- phase 19: spatially split bs-1 serving over ranks -----------------------------
+
+
+def p50_pair(fns, iters: int, sync) -> list:
+    """The median host time of each of ``fns`` over ``iters`` calls, taken
+    in turns (so that a drift of the host or the card's clocks falls on
+    both), each call ended by ``sync()``, after 3 untimed calls of each."""
+    for fn in fns:
+        for _ in range(3):
+            fn()
+    sync()
+    times = [[] for _ in fns]
+    for _ in range(iters):
+        for fn, t in zip(fns, times):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            t.append((time.perf_counter() - t0) * 1e3)
+    return [float(np.median(t)) for t in times]
+
+
+def device_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Device time of fn() over ``iters`` calls queued behind a sleep of the
+    stream (CUDA events): the host enqueues every launch before the card
+    reaches them, so launches the host paces (a kernel shorter than its
+    Python call, as at bs 1) are timed back to back on the device."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # about 50 ms at the H100's clock
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def latency_check(spec: dict, rank: int, device: str) -> dict:
+    """19.1 / 19.2 on one rank: seeded yolov5s (head shaped as 18.3's; the
+    CPU rehearsal: ``init_model`` weights of ``spec["variant"]``) through
+    ``make_latency_serving_fn`` on the ranks' data axis and
+    ``make_serving_fn`` on the rank's device, bs 1 at each of
+    ``spec["sizes"]``: detections, counts, the gathered raw maps, K1's
+    launches and input in one call, the rank's slab against K1's plain
+    version and against the whole image's kernel rows, and the bs-1 p50 of
+    both serves. ``main`` counts K1's launches in the split serve's calls."""
+    import torch
+
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.models import build_model, init_model, yolov5_cfg
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.parallel import get_mesh, make_latency_serving_fn
+
+    if device == "cpu":
+        model = init_model(build_model(yolov5_cfg(spec["variant"], nc=80), device="cpu"),
+                           spec["seed"])
+    else:
+        model = seeded_model("s", spec["seed"] + 19, fuse=False)
+        shape_head(model, spec["seed"] + 19, size=spec["sizes"][0], per_level=4.0)
+    model = model.fuse()
+    one = make_serving_fn(model, device=device)
+    size0 = spec["sizes"][0]
+    split = make_latency_serving_fn(get_mesh(), model, img_hw=(size0, size0), device=device)
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    out = {}
+    for size in spec["sizes"]:
+        rng = np.random.default_rng(spec["seed"] + 19 + size)
+        x = torch.from_numpy(rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)).to(device)
+        det_w, n_w = one(x)
+        raw_w = one.raw_maps(x)
+        before = early.early_pipeline.launches
+        det, n = split(x)
+        sync()
+        launches, k1_input = early.early_pipeline.launches - before, early.early_pipeline.last_input
+        res = {"early": bool(split.core.early), "launches": launches, "main": launches,
+               "k1_input": list(k1_input) if launches and k1_input else None}
+        before = early.early_pipeline.launches
+        raw = split.raw_maps(x)
+        res["main"] += early.early_pipeline.launches - before
+        res["raw"] = [list(rel_err(a, b)[:2]) for a, b in zip(raw, raw_w)]
+        same, wanted, found, max_box = runner_matches(
+            det.float().cpu().numpy(), n.cpu().numpy(), det_w.float().cpu().numpy(),
+            n_w.cpu().numpy(), score_min=SERVE_SCORE_MIN)
+        res.update(same=same, wanted=wanted, found=found, max_box=max_box, count=int(n.sum()),
+                   count_whole=int(n_w.sum()), finite=bool(torch.isfinite(det).all()),
+                   shape=list(det.shape))
+        plan = split.plan(size, size)
+        res["received"] = sum(plan.received(rank).values())
+        if split.core.early:
+            (a, b), (t, u) = plan.maps[3].owned[rank], plan.early_halo
+            c0, c1, ch, c2, n_c3 = split.core.ep.widths
+            res.update(rows=[a, b], halo=[t, u], slab_max=8 * (b - a) + 8 * (t + u))
+            got = early.early_pipeline_rows(x, split.core.k1_weights, a, b, c0, n_c3, c1, ch, c2)
+            lo, hi = early.slab_rows(a, b, size, n_c3)
+            want = early.early_pipeline_ref(x[:, lo:hi].contiguous(), split.core.ep)
+            res["slab_err"] = list(rel_err(got, want[:, a - lo // 8:b - lo // 8]))
+            whole = early.early_pipeline_op(x, split.core.k1_weights, c0, n_c3, c1, ch, c2)
+            res["slab_bit_equal"] = bool(torch.equal(got, whole[:, a:b]))
+        launched = [0]
+
+        def split_call():  # only the split serve's launches are counted
+            before = early.early_pipeline.launches
+            split(x)
+            launched[0] += early.early_pipeline.launches - before
+
+        res["p50_split"], res["p50_one"] = p50_pair([split_call, lambda: one(x)],
+                                                    spec["iters"], sync)
+        res["main"] += launched[0]
+        out[str(size)] = res
+    return out
+
+
+def k1_bs1_entries(card: str, seed: int, launches: dict) -> tuple:
+    """K1 on the bs-1 640 image and on the taller of 19.2's two slabs: the
+    kernel against its plain version (phase 3's gate), and the kernel's,
+    plain version's and cuDNN chain's times beside the bound. Returns (ok,
+    two entries of the kernels line)."""
+    import torch
+
+    from ayolov2_torch.ops import early_pipeline as early
+
+    model = seeded_model("s", seed + 19)
+    ep = early.extract_early_params(model.state_dict()).to("cuda")
+    fused_state = {k: v.cuda() for k, v in model.state_dict().items()}
+    chains = [cudnn_chain(fused_state, c) for c in (3, 8)]
+    x = images_on_card((1, 640, 640, 3), seed + 19)
+    lo, hi = early.slab_rows(40, 80, 640, ep.n)  # rank 1's of two: /8 rows 40-79
+    plan = early.kernel_plan(ep)
+    ok, entries = True, []
+    for what, imgs, key in (("the whole bs-1 640 image", x, "whole"),
+                            (f"19.2's slab (rows {lo}-{hi} of 640, /8 rows 40-79 with their "
+                             "halo)", x[:, lo:hi].contiguous(), "slab")):
+        got = early.early_pipeline(imgs, ep)
+        want = early.early_pipeline_ref(imgs, ep)
+        peak, p999, mx = rel_err(got, want)
+        good = peak < TOL_PEAK and p999 < TOL_P999 and bool(torch.isfinite(got.float()).all())
+        ok = ok and good
+        ms = device_ms(lambda: early.early_pipeline(imgs, ep), 50)
+        paced_ms = time_ms(lambda: early.early_pipeline(imgs, ep), 50)
+        plain_ms = device_ms(lambda: early.early_pipeline_ref(imgs, ep), 10, warmup=1)
+        torch.backends.cudnn.benchmark = True
+        try:  # each conv's algorithm chosen by timing in the warm-up, as time_chain does
+            library_ms = min(device_ms(lambda: chain(imgs), 50) for chain in chains)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        bound_ms, bound_by, flops, nbytes = bound_of(ep, imgs.shape[:3])
+        tiles = -(-(imgs.shape[1] // 8) // plan.th) * -(-(imgs.shape[2] // 8) // plan.tw)
+        log(f"[latency] 19.3 {card}: K1 on {what} {tuple(imgs.shape)}: {tiles} tiles of "
+            f"{plan.th}x{plan.tw} for 132 SMs; vs plain max|d|/peak {peak:.5f} p99.9 {p999:.5f} "
+            f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if good else 'FAIL'}; device time (launches "
+            f"queued behind a sleep): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN chain "
+            f"{library_ms:.4f} ms (the faster stem width, cudnn.benchmark), bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+            f"the kernel launched from Python back to back {paced_ms:.4f} ms a call")
+        entries.append(kernel_entry(
+            f"early_pipeline (yolov5s bs1, {what}, in make_latency_serving_fn)",
+            launches=launches[key], max_abs_err=mx, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms))
+    return ok, entries
+
+
+def latency_phase(card: str, seed: int, device: str = "cuda", variant: str = "s",
+                  sizes=(640, 608), iters: int = 30) -> tuple:
+    """Phase 19 (see the module docstring): 19.1 one rank over NCCL (gloo on
+    the CPU) at ``sizes[0]``, then 19.2 two ranks of the card over gloo at
+    every size, each rank in an interpreter of its own as phase 18's; then
+    (on the card) 19.3, K1's times at bs 1. ``device="cpu"`` and small sizes
+    rehearse it on the CPU (K1's plain version, which launches nothing).
+    Returns (ok, K1's launches in the split serves, the kernels line's
+    entries)."""
+    import torch
+
+    t0 = time.perf_counter()
+    on_card = device != "cpu"
+    spec = dict(seed=seed, device=device if device == "cpu" else "cuda:0", variant=variant,
+                iters=iters)
+    (one,) = finish_ranks(start_ranks("latency_nccl", 1, dict(spec, sizes=list(sizes[:1])),
+                                      timeout=240))
+    two = finish_ranks(start_ranks("latency_gloo", 2, dict(spec, sizes=list(sizes)),
+                                   timeout=240))
+    ok = one is not None and None not in two
+    main = {"whole": 0, "slab": 0}
+    for tag, ranks in (("19.1", [one]), ("19.2", two)):
+        for r in ranks:
+            if r is None:
+                continue
+            for size, c in r["sizes"].items():
+                raw_peak = max(e[0] for e in c["raw"])
+                raw_p999 = max(e[1] for e in c["raw"])
+                good = (c["early"] and c["same"] == 1 and c["found"] >= c["wanted"]
+                        and c["finite"] and c["shape"] == [1, 100, 6]
+                        and raw_peak < TOL_PEAK and raw_p999 < TOL_P999
+                        and (not on_card or c["wanted"] >= 1))
+                k1 = "K1 off"
+                if c["early"]:
+                    e = c["slab_err"]
+                    good = (good and e[0] < TOL_PEAK and e[1] < TOL_P999
+                            and (not on_card or (c["launches"] == 1
+                                                 and c["k1_input"][1] <= c["slab_max"])))
+                    k1 = (f"K1 launches in the call {c['launches']}, input "
+                          f"{c['k1_input']} for /8 rows {c['rows']} (t, u = {c['halo']}; at "
+                          f"most {c['slab_max']} rows), slab vs plain max|d|/peak {e[0]:.5f} "
+                          f"p99.9 {e[1]:.5f}, equal to the whole image's kernel rows: "
+                          f"{c['slab_bit_equal']}")
+                ok = ok and good
+                main["whole" if tag == "19.1" else "slab"] += c["main"]
+                log(f"[latency] {tag} {card}: make_latency_serving_fn rank {r['rank']} of "
+                    f"{len(ranks)} over {r['backend']}, bs 1 at {size}: counts {c['count']} vs "
+                    f"make_serving_fn {c['count_whole']}, {c['found']}/{c['wanted']} detections "
+                    f"of score >= {SERVE_SCORE_MIN} matched at IoU >= 0.99 with their class, max "
+                    f"box |d| {c['max_box']:.4f} px; raw maps vs make_serving_fn's max|d|/peak "
+                    f"{raw_peak:.5f} p99.9 {raw_p999:.5f} (gate {TOL_PEAK}/{TOL_P999}); {k1}; "
+                    f"{c['received']} rows received; bs-1 p50 {c['p50_split']:.3f} ms split, "
+                    f"{c['p50_one']:.3f} ms make_serving_fn {'ok' if good else 'FAIL'}")
+    entries = []
+    if on_card and ok:
+        torch.cuda.empty_cache()
+        ok3, entries = k1_bs1_entries(card, seed, main)
+        ok = ok and ok3
+    log(f"[latency] phase 19: {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    return ok, main["whole"] + main["slab"], entries
+
+
 def width_entry(variant: str, numbers: dict) -> dict:
     """Phase 15's entry of the kernels line for one width set."""
     from ayolov2_torch.models import build_model
@@ -5237,6 +5492,9 @@ def main() -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="phases 1, 2, 3 and 18 only (the trainers, serving and the entry "
                          "point on ranks of torch.distributed)")
+    ap.add_argument("--latency-only", action="store_true",
+                    help="phases 1, 2, 3 and 19 only (spatially split bs-1 serving on ranks "
+                         "of torch.distributed)")
     ap.add_argument("--profile", action="store_true",
                     help="also break the bs32 serve call and the augmentation render down "
                          "by stage and by kernel (torch.profiler)")
@@ -5291,7 +5549,7 @@ def main() -> int:
     if args.tools_only or not (args.check_only or args.train_only or args.host_only
                                or args.zoo_only or args.compress_only or args.secondary_only
                                or args.widths_only or args.images_only
-                               or args.parallel_only):
+                               or args.parallel_only or args.latency_only):
         tools_jobs = start_tools_jobs(args.seed)  # 17.1 in the background
         log("[tools] 17.1 started in the background: cli.export --aoti of seeded yolov5s and "
             "the build of the C++ registration and the runner")
@@ -5336,6 +5594,16 @@ def main() -> int:
             log("[widths] FAIL")
             return 1
         print(json.dumps({"kernels": [width_entry(v, e) for v, e in entries.items()]}))
+        log(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
+    if args.latency_only:
+        ok19, _, entries = latency_phase(card, args.seed)
+        if not ok19:
+            log("[latency] FAIL")
+            return 1
+        print(json.dumps({"kernels": entries}))
         log(card)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
@@ -5679,6 +5947,14 @@ def main() -> int:
         log("[parallel] FAIL")
         return 1
     launches += parallel_launches
+
+    # ---- 19. spatially split bs-1 serving over ranks ----------------------------------
+    torch.cuda.empty_cache()
+    ok19, latency_launches, latency_entries = latency_phase(card, args.seed)
+    if not ok19:
+        log("[latency] FAIL")
+        return 1
+    launches += latency_launches
     log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s")
 
     k1 = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -5688,7 +5964,8 @@ def main() -> int:
                       + [kernel_entry("early_pipeline (yolov5s bs32 640, inside the native "
                                       "runner's AOTInductor package, launched by the C++ "
                                       "registration)", launches=runner_launches,
-                                      **runner_numbers)]}))
+                                      **runner_numbers)]
+                      + latency_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -23,6 +23,11 @@ Cases:
   rank 0 writes the items and the weights.
 - ``preempt``: ``YoloTrainer`` on ``train_files(DIR / "files")`` (written
   by the test); prints EPOCH_DONE per epoch and TRAIN_RETURNED at the end.
+- ``latency``: ``make_latency_serving_fn`` over the sub-cases of
+  ``case.json`` (model, image size, batch, K1 on or off, ``img_hw`` or not)
+  on the images of ``batches.npz``; every rank writes its detections and
+  counts, the tallest input of each layer's convs and pools (forward
+  pre-hooks), K1's input shapes and the rows it received.
 """
 
 from __future__ import annotations
@@ -253,6 +258,83 @@ def case_preempt(rank, world, out):
     trainer.train()
     print(f"TRAIN_RETURNED preempted={trainer.is_preempted} early_stop={trainer.is_early_stop} "
           f"epoch={trainer.current_epoch}", flush=True)
+
+
+def latency_model(case, kind, variables):
+    """A sub-case's model: the JAX weights (``tiny``), their int8 form
+    (``int8``, calibrated on ``calib``), or a seeded narrow v5 / MobileViT."""
+    from ayolov2_torch.compress.quantize import quantize_model
+    from ayolov2_torch.models import build_model, init_model
+    from ayolov2_torch.utils.weights import load_flax_variables
+
+    if kind == "tiny":
+        return load_flax_variables(build_model(case["model_cfg"], nc=20, device="cpu"),
+                                   variables).fuse()
+    if kind == "int8":
+        calib = torch.from_numpy(np.load(case["dir"] + "/batches.npz")["calib"])
+        return quantize_model(case["model_cfg"], variables, [calib.permute(0, 3, 1, 2)],
+                              dtype=torch.float32, nc=20, device="cpu")[0]
+    return init_model(build_model(case["cfgs"][kind], nc=20, device="cpu"),
+                      case["seeds"][kind]).fuse()
+
+
+def record_rows(model, heights: dict, k1: list):
+    """Forward pre-hooks on every conv and pool-holding module of each layer,
+    keeping the tallest input by layer, and K1's inputs; returns the undo."""
+    from torch import nn
+
+    from ayolov2_torch.models import layers as L
+    from ayolov2_torch.ops import early_pipeline as early
+
+    handles = []
+    for i, layer in enumerate(model.model):
+        for m in layer.modules():
+            if isinstance(m, (nn.Conv2d, L.QuantConv, L.SPP, L.SPPF)):
+                handles.append(m.register_forward_pre_hook(
+                    lambda mod, args, i=i: heights.__setitem__(
+                        i, max(heights.get(i, 0), int(args[0].shape[2])))))
+    op = early.early_pipeline_op
+
+    def recording(images, *args, **kw):
+        k1.append(list(images.shape))
+        return op(images, *args, **kw)
+
+    early.early_pipeline_op = recording
+
+    def undo():
+        for h in handles:
+            h.remove()
+        early.early_pipeline_op = op
+
+    return undo
+
+
+def case_latency(rank, world, out):
+    from ayolov2_torch.parallel.mesh import get_mesh
+    from ayolov2_torch.parallel.serve import make_latency_serving_fn
+
+    case = json.loads((out / "case.json").read_text())
+    case["dir"] = str(out)
+    variables = unflatten(dict(np.load(out / "vars.npz")))
+    data = np.load(out / "batches.npz")
+    mesh = get_mesh()
+    res, rows = {}, {}
+    for sub in case["subcases"]:
+        name = sub["name"]
+        model = latency_model(case, sub["model"], variables)
+        hw = tuple(sub["hw"])
+        serve = make_latency_serving_fn(
+            mesh, model, conf_thres=1e-5, keep_top_k=10, top_k=32, image_dtype=torch.float32,
+            img_hw=hw if sub["img_hw"] else None, device="cpu", early_pipeline=sub["early"])
+        heights, k1 = {}, []
+        undo = record_rows(serve.core.model, heights, k1)
+        det, n = serve(data[name])
+        undo()
+        res[f"{name}/det"], res[f"{name}/n"] = det.numpy(), n.numpy()
+        rows[name] = {"heights": heights, "k1": k1, "early": bool(serve.core.early),
+                      "received": {f"{a},{b}": v for (a, b), v in serve.received.items()}}
+    np.savez(out / f"rank{rank}.npz", **res)
+    (out / f"rank{rank}.json").write_text(json.dumps(rows))
 
 
 def main() -> None:
