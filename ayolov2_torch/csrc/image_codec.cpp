@@ -11,9 +11,10 @@
 // jdcolor.c's fixed-point YCbCr -> BGR. Data cut short reads on as libjpeg's
 // stdio source feeds it (fake EOI markers): a scan is padded with zero bits
 // and its rest left zero, and a progressive file cut before its last scan
-// is block-smoothed (decompress_smooth_data). Arithmetic coding, lossless
-// and hierarchical frames, 12-bit samples and CMYK/YCCK files raise as
-// unsupported.
+// is block-smoothed (decompress_smooth_data). Four-component files are
+// CMYK, or YCCK after an Adobe marker whose transform is not 0, turned into
+// BGR by OpenCV's inverted-CMYK formula. Arithmetic coding, lossless and
+// hierarchical frames and 12-bit samples raise as unsupported.
 //
 // JPEG encoding is libjpeg-turbo's at OpenCV's defaults: JFIF, baseline,
 // 4:2:0 (gray: one component), jpeg_set_quality's tables, jccolor.c's
@@ -311,8 +312,8 @@ struct JpegDecoder {
     if (precision != 8)
       fail(UNSUPPORTED, std::to_string(precision) + "-bit JPEG samples are not supported");
     if (height <= 0 || width <= 0 || nc <= 0) fail(CORRUPT, "empty JPEG image");
-    if (nc == 4) fail(UNSUPPORTED, "CMYK/YCCK JPEG files (4 components) are not supported");
-    if (nc != 1 && nc != 3) fail(CORRUPT, "a JPEG file of " + std::to_string(nc) + " components");
+    if (nc != 1 && nc != 3 && nc != 4)
+      fail(CORRUPT, "a JPEG file of " + std::to_string(nc) + " components");
     progressive = marker == 0xC2;
     comps.resize(nc);
     for (auto& c : comps) {
@@ -894,6 +895,9 @@ struct JpegDecoder {
       return;
     }
     const bool rgb = rgb_colorspace();
+    // four components are CMYK, or YCCK where an Adobe marker's transform is
+    // not 0 (libjpeg's default_decompress_parms)
+    const bool ycck = nc == 4 && adobe && adobe_transform != 0;
     const int kScale = 16, kHalf = 1 << 15;
     auto fix = [](double v) { return (int32_t)(v * 65536 + 0.5); };
     int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
@@ -909,6 +913,26 @@ struct JpegDecoder {
       const uint8_t* p1 = row_of(comps[1], s[1].data(), y, buf[1].data());
       const uint8_t* p2 = row_of(comps[2], s[2].data(), y, buf[2].data());
       uint8_t* o = out + (size_t)y * width * 3;
+      if (nc == 4) {
+        // libjpeg's CMYK output (ycck_cmyk_convert for YCCK), then OpenCV's
+        // icvCvt_CMYK2BGR_8u_C4C3R, which reads the values as Adobe's
+        // inverted CMYK
+        const uint8_t* p3 = row_of(comps[3], s[3].data(), y, buf[3].data());
+        for (int x = 0; x < width; x++, o += 3) {
+          int c = p0[x], m = p1[x], ye = p2[x];
+          if (ycck) {
+            const int yy = p0[x], cb = p1[x], cr = p2[x];
+            c = clamp255(255 - (yy + cr_r[cr]));
+            m = clamp255(255 - (yy + ((cb_g[cb] + cr_g[cr]) >> kScale)));
+            ye = clamp255(255 - (yy + cb_b[cb]));
+          }
+          const int k = p3[x];
+          o[2] = (uint8_t)(k - ((255 - c) * k >> 8));
+          o[1] = (uint8_t)(k - ((255 - m) * k >> 8));
+          o[0] = (uint8_t)(k - ((255 - ye) * k >> 8));
+        }
+        continue;
+      }
       if (rgb) {
         for (int x = 0; x < width; x++, o += 3) {
           o[0] = p2[x];

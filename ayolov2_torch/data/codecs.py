@@ -1,15 +1,18 @@
-"""JPEG and PNG without OpenCV or PIL: the port's own codecs.
+"""Image files without OpenCV or PIL: the port's own codecs.
 
-The pixels come from ``csrc/image_codec.cpp``, a C++ library built by the
-host compiler at first use into ``build/torch_kernels/`` (``ops/_build.
-load``) and called through ``ctypes``, which releases the GIL, so the
-loader's threads decode at once. A library that does not build raises with
-the compiler's output; nothing falls back to OpenCV.
+The pixels come from C++ libraries built by the host compiler at first use
+into ``build/torch_kernels/`` (``ops/_build.load``) and called through
+``ctypes``, which releases the GIL, so the loader's threads decode at once:
+``csrc/image_codec.cpp`` (JPEG, PNG), ``csrc/raster_codec.cpp`` (BMP's
+run-length data, TIFF's LZW and PackBits) and ``csrc/webp_codec.cpp`` (VP8L
+and VP8). A library that does not build raises with the compiler's output;
+nothing falls back to OpenCV.
 
 - :func:`decode_jpeg` is ``cv2.imread`` of a file holding ``data``, before
   the EXIF rotation: libjpeg-turbo's baseline, extended and progressive
   Huffman decoding, islow IDCT, fancy upsampling and YCbCr -> BGR, bit for
-  bit, and a cut file read on as libjpeg's stdio source reads it (block
+  bit, CMYK and YCCK (Adobe's transform flag) through OpenCV's inverted-CMYK
+  formula, and a cut file read on as libjpeg's stdio source reads it (block
   smoothing of a cut progressive file included).
 - :func:`encode_jpeg` gives the bytes of ``cv2.imencode('.jpg', im,
   [IMWRITE_JPEG_QUALITY, quality])`` (4:2:0, baseline, standard tables).
@@ -18,13 +21,24 @@ the compiler's output; nothing falls back to OpenCV.
   and inflated here (``zlib``), unfiltered and converted in C++. A critical
   chunk with a bad CRC, a cut file or too little image data raise as
   ``cv2.imread`` gives None; an ancillary chunk with a bad CRC is skipped.
-- :func:`header_size` reads (w, h) from a JPEG's SOF or a PNG's IHDR;
-  :func:`exif_orientation` reads the orientation tag, and
+- :func:`decode_bmp` is OpenCV's own BMP reader: every header size, 1- to
+  32-bit pixels, RLE4 and RLE8, top-down rows.
+- :func:`decode_tiff` is ``cv2.imread`` of a TIFF's first image through
+  libtiff's RGBA interface: the directory is parsed here, Deflate inflated
+  with ``zlib``, LZW and PackBits unpacked in C++, the samples turned into
+  BGR as libtiff turns them.
+- :func:`decode_webp` is libwebp's ``WebPDecodeBGRInto`` (the RIFF chunks
+  are parsed here, the VP8L and VP8 bitstreams decoded in C++), the first
+  frame of an animation as cv2's reader gives it.
+- :func:`header_size` reads (w, h) from a JPEG's SOF, a PNG's IHDR, a BMP's
+  header, a TIFF's IFD0 or a WebP's canvas; :func:`exif_orientation` and
+  :func:`webp_orientation` read the orientation tag, and
   :func:`apply_orientation` turns an image as cv2's ``ApplyExifOrientation``.
 
 Errors raise ``OSError`` (or ``ValueError`` for a bad argument) naming the
-file and what failed; a JPEG feature that is not decoded (arithmetic coding,
-lossless, 12-bit, CMYK/YCCK) is named in the message, and a header beyond
+file and what failed; a feature that is not decoded (arithmetic-coded,
+lossless or 12-bit JPEG; TIFF's JPEG, CCITT and other compressions, YCbCr
+and Lab colour, float samples) is named in the message, and a header beyond
 OpenCV's size limits (``CV_IO_MAX_IMAGE_*``) raises before any allocation.
 """
 
@@ -46,27 +60,41 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _SOF = set(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
 _MSG = 256
 _LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
+_LIB: Optional[ctypes.CDLL] = None  # image_codec
+_LIBS: dict = {}  # the other host libraries, by name
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(name: str = "image_codec") -> ctypes.CDLL:
+    """The host library ``csrc/<name>.cpp``, built at first use."""
     global _LIB
     with _LOCK:
-        if _LIB is None:
-            lib = _build.load("image_codec")
-            u8p, i64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64
-            lib.ayolo_jpeg_decode.argtypes = [ctypes.c_char_p, i64, ctypes.c_int, ctypes.c_int,
-                                              u8p, ctypes.c_char_p, ctypes.c_int]
-            lib.ayolo_jpeg_encode.argtypes = [u8p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                              ctypes.c_int, ctypes.POINTER(u8p),
-                                              ctypes.POINTER(i64)]
-            lib.ayolo_free.argtypes = [u8p]
-            lib.ayolo_free.restype = None
-            lib.ayolo_png_pixels.argtypes = [u8p, i64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                             ctypes.c_int, ctypes.c_int, ctypes.c_char_p,
-                                             ctypes.c_int, u8p, ctypes.c_char_p, ctypes.c_int]
-            _LIB = lib
-    return _LIB
+        if (_LIB if name == "image_codec" else _LIBS.get(name)) is None:
+            lib = _build.load(name)
+            u8p, i64, c_int, c_str = (ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int,
+                                      ctypes.c_char_p)
+            if name == "image_codec":
+                lib.ayolo_jpeg_decode.argtypes = [c_str, i64, c_int, c_int, u8p, c_str, c_int]
+                lib.ayolo_jpeg_encode.argtypes = [u8p, c_int, c_int, c_int, c_int,
+                                                  ctypes.POINTER(u8p), ctypes.POINTER(i64)]
+                lib.ayolo_free.argtypes = [u8p]
+                lib.ayolo_free.restype = None
+                lib.ayolo_png_pixels.argtypes = [u8p, i64, c_int, c_int, c_int, c_int, c_int, c_str,
+                                                 c_int, u8p, c_str, c_int]
+            elif name == "raster_codec":
+                lib.ayolo_bmp_rle.argtypes = [c_str, i64, c_int, c_int, c_int, c_str, u8p, c_str,
+                                              c_int]
+                lib.ayolo_bmp_rle.restype = c_int
+                lib.ayolo_tiff_unpack.argtypes = [c_str, i64, c_int, u8p, i64, c_str, c_int]
+                lib.ayolo_tiff_unpack.restype = i64
+            else:
+                for fn in (lib.ayolo_vp8l_decode, lib.ayolo_vp8_decode):
+                    fn.argtypes = [c_str, i64, c_int, c_int, u8p, c_str, c_int]
+                    fn.restype = c_int
+            if name == "image_codec":
+                _LIB = lib
+            else:
+                _LIBS[name] = lib
+    return _LIB if name == "image_codec" else _LIBS[name]
 
 
 def _ptr(a: np.ndarray):
@@ -327,13 +355,517 @@ def decode_png(data: bytes, name: str = "<bytes>") -> np.ndarray:
     return out
 
 
+# ---- BMP -------------------------------------------------------------------------
+
+BMP_SIGNATURE = b"BM"
+
+
+def _bmp_header(data: bytes, name: str) -> dict:
+    """The fields OpenCV's BmpDecoder reads: a BITMAPCOREHEADER (12 bytes)
+    or a header of 36 bytes or more (40, 52, 56, 64, V4 108, V5 124).
+    Raises ``OSError`` where cv2.imread gives None."""
+    if len(data) < 26 or not data.startswith(BMP_SIGNATURE):
+        raise OSError(f"{name}: not a BMP file")
+    offset, size = struct.unpack_from("<iI", data, 10)
+    if size >= 36 and size < 1 << 31:
+        if len(data) < 50:
+            raise OSError(f"{name}: BMP header is cut short")
+        w, h, planes_bpp, comp = struct.unpack_from("<iiIi", data, 18)
+        (colors,) = struct.unpack_from("<i", data, 46)
+        core = False
+    elif size == 12:
+        w, h, planes_bpp = struct.unpack_from("<HHI", data, 18)
+        comp, colors, core = 0, 0, True
+    else:
+        raise OSError(f"{name}: BMP header of {size} bytes")
+    if not 0 <= comp <= 3:
+        kind = {4: "JPEG", 5: "PNG"}.get(comp, f"compression {comp}")
+        raise OSError(f"{name}: a BMP holding {kind} data is not read (cv2.imread gives None)")
+    return dict(offset=offset, size=size, w=w, h=h, bpp=planes_bpp >> 16, comp=comp,
+                colors=colors, core=core)
+
+
+def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(h, w, 3) BGR uint8 of a BMP, as ``cv2.imread`` (OpenCV's own reader):
+    1-, 4- and 8-bit palettes (RLE4 and RLE8 too), 16 bits (555, or
+    BI_BITFIELDS 565/555 with the masks after the header), 24 and 32 bits
+    (BI_BITFIELDS as BGRA, alpha dropped), bottom-up or top-down, core or
+    later headers."""
+    data = bytes(data)
+    hd = _bmp_header(data, name)
+    w, h, bpp, comp = hd["w"], hd["h"], hd["bpp"], hd["comp"]
+    pos = 14 + hd["size"]
+    if hd["core"]:
+        ok = w > 0 and h != 0 and bpp in (1, 4, 8, 24, 32)
+    else:
+        ok = w > 0 and h != 0 and ((bpp in (1, 4, 8, 24, 32) and comp == 0)
+                                   or (bpp in (16, 32) and comp in (0, 3))
+                                   or (bpp == 4 and comp == 2) or (bpp == 8 and comp == 1))
+    if not ok:
+        raise OSError(f"{name}: a BMP of {bpp} bits with compression {comp} is not read "
+                      "(cv2.imread gives None)")
+    palette = np.zeros((256, 3), np.uint8)
+    if bpp <= 8:
+        n = 1 << bpp
+        if not hd["core"]:
+            if not 0 <= hd["colors"] <= 256:
+                raise OSError(f"{name}: BMP palette of {hd['colors']} colours")
+            n = hd["colors"] or n
+        entry = 3 if hd["core"] else 4
+        if pos + n * entry > len(data):
+            raise OSError(f"{name}: BMP palette is cut short")
+        palette[:n] = np.frombuffer(data, np.uint8, n * entry, pos).reshape(n, entry)[:, :3]
+    elif bpp == 16:
+        if comp == 3:
+            if pos + 12 > len(data):
+                raise OSError(f"{name}: BMP bit fields are cut short")
+            masks = struct.unpack_from("<III", data, pos)  # red, green, blue
+            if masks == (0x7C00, 0x3E0, 0x1F):
+                bpp = 15
+            elif masks != (0xF800, 0x7E0, 0x1F):
+                raise OSError(f"{name}: BMP bit fields {[hex(m) for m in masks]} are not read "
+                              "(cv2.imread gives None)")
+        else:
+            bpp = 15
+    ah = abs(h)
+    _check_size(w, ah, name)
+    if ah * w * 3 >= 1 << 30:
+        raise OSError(f"{name}: a BMP of {w}x{ah} pixels is beyond OpenCV's BMP reader")
+    offset = hd["offset"]
+    if offset < 0 or offset > len(data):
+        raise OSError(f"{name}: BMP pixel data lies past the end of the file")
+    if comp in (1, 2):
+        out = np.zeros((ah + 1, w, 3), np.uint8)
+        msg = ctypes.create_string_buffer(_MSG)
+        pal = np.ascontiguousarray(palette).tobytes()
+        if _lib("raster_codec").ayolo_bmp_rle(data[offset:], len(data) - offset, w, ah,
+                                              8 if comp == 1 else 4, pal, _ptr(out), msg, _MSG):
+            raise OSError(f"{name}: {msg.value.decode(errors='replace')}")
+        im = out[:ah]
+    else:
+        pitch = ((w * (16 if bpp == 15 else bpp) + 7) // 8 + 3) & -4
+        if offset + pitch * ah > len(data):
+            raise OSError(f"{name}: BMP pixel data is cut short ({len(data)} bytes, need "
+                          f"{offset + pitch * ah})")
+        rows = np.frombuffer(data, np.uint8, pitch * ah, offset).reshape(ah, pitch)
+        if bpp <= 8:
+            idx = np.unpackbits(rows, axis=1).reshape(ah, -1, bpp) if bpp < 8 else rows[..., None]
+            if bpp < 8:
+                idx = (idx * (1 << np.arange(bpp - 1, -1, -1, dtype=np.uint8))).sum(2)
+            im = palette[idx.reshape(ah, -1)[:, :w]]
+        elif bpp in (15, 16):
+            t = rows[:, : 2 * w].view("<u2").astype(np.int32)
+            if bpp == 15:
+                im = np.stack([(t << 3) & 0xF8, (t >> 2) & 0xF8, (t >> 7) & 0xF8], -1)
+            else:
+                im = np.stack([(t << 3) & 0xF8, (t >> 3) & 0xFC, (t >> 8) & 0xF8], -1)
+            im = im.astype(np.uint8)
+        else:
+            k = bpp // 8
+            im = rows[:, : k * w].reshape(ah, w, k)[..., :3]
+    return np.ascontiguousarray(im[::-1] if h > 0 else im)
+
+
+# ---- TIFF ------------------------------------------------------------------------
+
+TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
+_TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
+               11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
+_TIFF_COMPRESSION = {1: "none", 5: "LZW", 32773: "PackBits", 8: "Deflate", 32946: "Deflate"}
+_TIFF_LEFT_OUT = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
+                  7: "JPEG", 32771: "CCITT RLEW", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
+                  34712: "JPEG 2000", 34887: "lossless JPEG (DNG)", 52546: "JPEG XL"}
+_PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "Palette", 4: "Mask",
+                5: "Separated (CMYK)", 6: "YCbCr", 8: "CIELab", 9: "ICCLab", 10: "ITULab",
+                32803: "CFA", 32844: "LogL", 32845: "LogLuv", 34892: "LinearRaw"}
+# (photometric, bits) -> samples cv2.imread turns into BGR, as libtiff's RGBA
+# reader does (other bit depths give None there)
+_TIFF_BITS = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,)}
+
+
+_ROUND16 = ((np.arange(1 << 16) + 128) // 257).astype(np.uint8)
+
+
+def _tiff_ifd0(data: bytes, name: str) -> Tuple[str, dict]:
+    """(byte order, {tag: values}) of a TIFF's (or BigTIFF's) first IFD."""
+    if len(data) < 8 or data[:4] not in TIFF_SIGNATURES:
+        raise OSError(f"{name}: not a TIFF file")
+    e = "<" if data[:2] == b"II" else ">"
+    big = data[2:4] in (b"+\0", b"\0+")
+    try:
+        if big:
+            (at,) = struct.unpack_from(e + "Q", data, 8)
+            (count,) = struct.unpack_from(e + "Q", data, at)
+            entry, start, inline = 20, at + 8, 8
+        else:
+            (at,) = struct.unpack_from(e + "I", data, 4)
+            (count,) = struct.unpack_from(e + "H", data, at)
+            entry, start, inline = 12, at + 2, 4
+        tags = {}
+        for i in range(count):
+            pos = start + entry * i
+            tag, kind = struct.unpack_from(e + "HH", data, pos)
+            (n,) = struct.unpack_from(e + ("Q" if big else "I"), data, pos + 4)
+            fmt = _TIFF_TYPES.get(kind)
+            if fmt is None or n > 1 << 24:
+                continue
+            size = struct.calcsize(e + fmt) * n
+            where = pos + 4 + inline
+            if size > inline:
+                (where,) = struct.unpack_from(e + ("Q" if big else "I"), data, where)
+            vals = struct.unpack_from(e + fmt * n, data, where)
+            tags[tag] = list(vals)
+    except struct.error as err:
+        raise OSError(f"{name}: TIFF directory is cut short") from err
+    return e, tags
+
+
+def _tiff_left_out(name: str, what: str):
+    return OSError(f"{name}: TIFF {what} is not read by the port")
+
+
+def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(h, w, 3) BGR uint8 of a TIFF's first image, as ``cv2.imread`` reads
+    it through libtiff's RGBA interface: strips or tiles, planar
+    configuration 1 or 2, no compression, LZW, PackBits or Deflate,
+    predictor 2, MinIsBlack/MinIsWhite at 1, 8 or 16 bits (16 bits keep the
+    high byte), RGB at 8 or 16 bits (16 bits rounded to 8), an unassociated
+    alpha premultiplied and then dropped, palettes at 1, 4 or 8 bits (8-bit
+    colour maps as libtiff detects them), 8-bit CMYK, and Orientation 1-4
+    as libtiff applies them (5-8 of a square image as cv2 turns it; of any
+    other, cv2.imread gives None and the port raises naming the tag). JPEG,
+    CCITT and the other compressions, YCbCr and the other colour spaces and
+    float samples raise ``OSError`` naming the feature."""
+    data = bytes(data)
+    e, tags = _tiff_ifd0(data, name)
+    if 256 not in tags or 257 not in tags:
+        raise OSError(f"{name}: TIFF without ImageWidth or ImageLength")
+    w, h = tags[256][0], tags[257][0]
+    if w == 0 or h == 0:
+        raise OSError(f"{name}: empty TIFF image")
+    _check_size(w, h, name)
+    spp = tags.get(277, [1])[0]
+    bits = tags.get(258, [1])[0]
+    comp = tags.get(259, [1])[0]
+    planar = tags.get(284, [1])[0]
+    fmt = tags.get(339, [1])[0]
+    extra = tags.get(338, [])
+    orient = tags.get(274, [1])[0]
+    orient = orient if 1 <= orient <= 8 else 1
+    if comp in _TIFF_LEFT_OUT:
+        raise _tiff_left_out(name, f"compression {comp} ({_TIFF_LEFT_OUT[comp]})")
+    if comp not in _TIFF_COMPRESSION:
+        raise _tiff_left_out(name, f"compression {comp}")
+    if 262 in tags:
+        photo = tags[262][0]
+    elif spp - len(extra) in (1, 3):
+        photo = 1 if spp - len(extra) == 1 else 2
+    else:
+        raise OSError(f"{name}: TIFF without PhotometricInterpretation")
+    if photo not in _TIFF_BITS:
+        raise _tiff_left_out(name, f"photometric {photo} ({_PHOTOMETRIC.get(photo, 'unknown')})")
+    if fmt == 3:
+        raise _tiff_left_out(name, "float samples (SampleFormat 3)")
+    if spp > 4 or spp < 1:
+        raise OSError(f"{name}: a TIFF of {spp} samples a pixel (cv2.imread gives None)")
+    if bits not in _TIFF_BITS[photo] or (bits < 8 and spp > 1):
+        raise OSError(f"{name}: a {_PHOTOMETRIC[photo]} TIFF of {bits} bits a sample "
+                      "(cv2.imread gives None)")
+    if orient >= 5 and w != h:
+        raise OSError(f"{name}: TIFF Orientation {orient} of a {w}x{h} image (cv2.imread gives "
+                      "None for 5-8 unless the image is square)")
+    colour = spp - len(extra)
+    if (photo == 2 and colour < 3) or (photo == 5 and (spp != 4 or tags.get(332, [1])[0] != 1)):
+        raise OSError(f"{name}: a {_PHOTOMETRIC[photo]} TIFF of {spp} samples "
+                      "(cv2.imread gives None)")
+    if photo == 3 and 320 not in tags:
+        raise OSError(f"{name}: palette TIFF without a ColorMap")
+    predictor = tags.get(317, [1])[0] if comp in (5, 8, 32946) else 1
+    if predictor not in (1, 2) or (predictor == 2 and bits < 8):
+        raise _tiff_left_out(name, f"predictor {predictor} at {bits} bits")
+
+    tiled = 322 in tags
+    planes = spp if planar == 2 and spp > 1 else 1
+    per = 1 if planes > 1 else spp  # samples in one chunk's pixel
+    if tiled:
+        tw, th = tags[322][0], tags.get(323, [0])[0]
+        if tw == 0 or th == 0:
+            raise OSError(f"{name}: TIFF tile of {tw}x{th}")
+        offsets, counts = tags.get(324, []), tags.get(325, [])
+        across, down = -(-w // tw), -(-h // th)
+    else:
+        rps = tags.get(278, [h])[0]
+        rps = h if rps == 0 or rps > h else rps
+        tw, th = w, rps
+        offsets, counts = tags.get(273, []), tags.get(279, [])
+        across, down = 1, -(-h // rps)
+    if tw * th * per * max(1, bits // 8) >= 1 << 30:  # OpenCV's limit on one strip or tile
+        raise OSError(f"{name}: a TIFF strip or tile of {tw}x{th} pixels is beyond OpenCV's limits")
+    n_chunks = across * down * planes
+    if len(offsets) < n_chunks or len(counts) < n_chunks:
+        raise OSError(f"{name}: TIFF has {len(offsets)} strip or tile offsets, needs {n_chunks}")
+    row_bytes = (tw * per * bits + 7) // 8
+    skewed = tiled and planes == 1 and photo in (0, 1) and (per > 1 or bits == 16)
+    dtype = np.dtype(e + "u2") if bits == 16 else np.dtype(np.uint8)
+    samples = np.zeros((planes, down * th, across * tw, per), dtype.newbyteorder("="))
+    lib = None
+    for k in range(n_chunks):
+        plane, rest = divmod(k, across * down)
+        ty, tx = divmod(rest, across)
+        rows = th if tiled else min(th, h - ty * th)
+        want = rows * row_bytes
+        raw = data[offsets[k]: offsets[k] + counts[k]]
+        if comp == 1:
+            chunk = raw[:want]
+        elif comp in (8, 32946):
+            try:
+                chunk = zlib.decompressobj().decompress(raw, want)
+            except zlib.error as err:
+                raise OSError(f"{name}: TIFF Deflate data is corrupt ({err})") from err
+        else:
+            buf = np.zeros(want, np.uint8)
+            msg = ctypes.create_string_buffer(_MSG)
+            lib = lib or _lib("raster_codec")
+            got = lib.ayolo_tiff_unpack(raw, len(raw), comp, _ptr(buf), want, msg, _MSG)
+            if got < 0:
+                raise OSError(f"{name}: {msg.value.decode(errors='replace')}")
+            chunk = buf[:got].tobytes()
+        if len(chunk) < want:
+            raise OSError(f"{name}: TIFF strip or tile {k} holds {len(chunk)} of {want} bytes")
+        rows_u8 = np.frombuffer(chunk, np.uint8, want).reshape(rows, row_bytes)
+        if bits < 8:
+            px = np.unpackbits(rows_u8, axis=1)[:, : tw * bits].reshape(rows, tw, bits)
+            px = (px * (1 << np.arange(bits - 1, -1, -1, dtype=np.uint8))).sum(2, dtype=np.uint8)
+            px = px[..., None]
+        elif bits == 8:
+            px = rows_u8.reshape(rows, tw, per)
+        else:
+            px = rows_u8.view(dtype).astype(dtype.newbyteorder("=")).reshape(rows, tw, per)
+        if predictor == 2:
+            px = np.cumsum(px, axis=1, dtype=px.dtype)
+        npix = min(tw, w - tx * tw)
+        if skewed and npix < tw:
+            # libtiff's grey put functions step through a clipped tile's
+            # buffer (native byte order) by the pixels shown plus the
+            # pixels cut, the latter counted as bytes
+            native = np.frombuffer(px.astype("<u2" if bits == 16 else np.uint8).tobytes(), np.uint8)
+            size = per * bits // 8
+            step = npix * size + (tw - npix)
+            shown = np.zeros((rows, npix * size), np.uint8)
+            for r in range(rows):
+                shown[r] = native[r * step: r * step + npix * size]
+            px = np.zeros_like(px)
+            px[:, :npix] = shown.view("<u2" if bits == 16 else np.uint8).reshape(rows, npix, per)
+        samples[plane, ty * th: ty * th + rows, tx * tw: (tx + 1) * tw] = px
+    samples = np.concatenate(list(samples), axis=2) if planes > 1 else samples[0]
+    s = samples[:h, :w]
+    flips = orient - 4 if orient >= 5 else orient  # libtiff reads 5-8 as 1-4
+    if flips in (2, 3):  # libtiff mirrors each strip or tile within its width
+        for tx in range(across):
+            s[:, tx * tw: min((tx + 1) * tw, w)] = s[:, tx * tw: min((tx + 1) * tw, w)][:, ::-1]
+    if flips in (3, 4):
+        s = s[::-1]
+    if orient >= 5:  # then cv2 turns a square image (transposed, 6 and 8 also flipped)
+        s = apply_orientation(s, 5 if orient in (5, 7) else 7)
+    if planes > 1 and photo in (0, 1):
+        # separate planes of grey and alpha go through libtiff's RGB path:
+        # no inversion, 16 bits rounded, an unassociated alpha applied
+        s = np.concatenate([np.repeat(s[..., :1], 3, 2), s[..., 1:2]], 2)
+        photo = 2
+    return _tiff_bgr(s, photo, bits, extra, tags, name)
+
+
+def _tiff_bgr(s: np.ndarray, photo: int, bits: int, extra, tags: dict, name: str) -> np.ndarray:
+    """libtiff's RGBA conversion of the samples (h, w, spp), then BGR."""
+    if photo in (0, 1):
+        g = s[..., 0].astype(np.int64)
+        if bits == 16:
+            g >>= 8
+        top = 255 if bits == 16 else (1 << bits) - 1
+        g = (g * 255 // top) if photo == 1 else ((top - g) * 255 // top)
+        return np.repeat(g.astype(np.uint8)[..., None], 3, 2)
+    if photo == 3:
+        cmap = np.asarray(tags[320], np.int64)
+        n = 1 << bits
+        if cmap.size < 3 * n:
+            raise OSError(f"{name}: TIFF ColorMap of {cmap.size} values, needs {3 * n}")
+        cmap = cmap[: 3 * n].reshape(3, n)
+        if (cmap >= 256).any():
+            cmap >>= 8
+        idx = s[..., 0].astype(np.int64)
+        return np.stack([cmap[2][idx], cmap[1][idx], cmap[0][idx]], -1).astype(np.uint8)
+    v = _ROUND16[s] if bits == 16 else s  # libtiff's Bitdepth16To8
+    if photo == 5:
+        k = 255 - v[..., 3:4].astype(np.uint16)
+        rgb = k * (255 - v[..., :3].astype(np.uint16)) // 255
+    else:
+        rgb = v[..., :3]
+        if len(extra) >= 1 and extra[0] == 2 and s.shape[2] >= 4:  # unassociated alpha
+            rgb = (rgb.astype(np.uint16) * v[..., 3:4] + 127) // 255
+    return np.ascontiguousarray(rgb[..., ::-1], dtype=np.uint8)
+
+
+def tiff_orientation(data: bytes, name: str = "<bytes>") -> int:
+    """IFD0's Orientation tag of a TIFF (1 where absent or out of range)."""
+    o = _tiff_ifd0(data, name)[1].get(274, [1])[0]
+    return o if 1 <= o <= 8 else 1
+
+
+def tiff_size(data: bytes, name: str = "<bytes>") -> Tuple[int, int]:
+    """(w, h) of a TIFF's first image, from its directory."""
+    _, tags = _tiff_ifd0(data, name)
+    if 256 not in tags or 257 not in tags:
+        raise OSError(f"{name}: TIFF without ImageWidth or ImageLength")
+    return tags[256][0], tags[257][0]
+
+
+# ---- WebP ------------------------------------------------------------------------
+
+
+def is_webp(data: bytes) -> bool:
+    return len(data) >= 12 and data[:4] == b"RIFF" and data[8:12] == b"WEBP"
+
+
+def _webp_chunks(data: bytes) -> Iterator[Tuple[bytes, int, int]]:
+    """(tag, payload start, payload size) of each chunk of a RIFF WEBP file,
+    as far as the data reaches."""
+    pos = 12
+    while pos + 8 <= len(data):
+        tag = data[pos: pos + 4]
+        (size,) = struct.unpack_from("<I", data, pos + 4)
+        yield tag, pos + 8, size
+        pos += 8 + size + (size & 1)
+
+
+def _webp_frame_size(data: bytes, tag: bytes, at: int, size: int, name: str) -> Tuple[int, int]:
+    """(w, h) of a VP8 or VP8L bitstream, checked as libwebp's GetInfo."""
+    if tag == b"VP8L":
+        if len(data) - at < 5 or data[at] != 0x2F or data[at + 4] >> 5:
+            raise OSError(f"{name}: bad VP8L header")
+        (v,) = struct.unpack_from("<I", data, at + 1)
+        return (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
+    if len(data) - at < 10 or data[at + 3: at + 6] != b"\x9d\x01\x2a":
+        raise OSError(f"{name}: bad VP8 header")
+    bits = data[at] | (data[at + 1] << 8) | (data[at + 2] << 16)
+    if bits & 1:
+        raise OSError(f"{name}: VP8 data is not a key frame")
+    if (bits >> 1) & 7 > 3 or not (bits >> 4) & 1 or (bits >> 5) >= size:
+        raise OSError(f"{name}: bad VP8 frame header")
+    w, h = (struct.unpack_from("<H", data, at + k)[0] & 0x3FFF for k in (6, 8))
+    if w == 0 or h == 0:
+        raise OSError(f"{name}: empty VP8 frame")
+    return w, h
+
+
+def _webp_parse(data: bytes, name: str) -> dict:
+    """The container as libwebp (and cv2's WebP reader) reads it: the canvas
+    size, the image chunk (tag, start, size) of the still image or of the
+    first animation frame with its offset, and the EXIF payload."""
+    if not is_webp(data):
+        raise OSError(f"{name}: not a WebP file")
+    (riff,) = struct.unpack_from("<I", data, 4)
+    if riff < 12 or riff > len(data) - 8:
+        raise OSError(f"{name}: WebP data is cut short (RIFF size {riff}, {len(data)} bytes)")
+    data = data[: riff + 8]
+    out = {"exif": None, "offset": (0, 0), "animated": False}
+    canvas, flags = None, 0
+    for tag, at, size in _webp_chunks(data):
+        if at + size > len(data):
+            raise OSError(f"{name}: WebP chunk {tag!r} is cut short")
+        if tag == b"VP8X":
+            if size != 10:
+                raise OSError(f"{name}: bad VP8X chunk")
+            flags = data[at]
+            canvas = (1 + int.from_bytes(data[at + 4: at + 7], "little"),
+                      1 + int.from_bytes(data[at + 7: at + 10], "little"))
+            out["animated"] = bool(flags & 2)
+        elif tag == b"EXIF" and out["exif"] is None and canvas and flags & 8:
+            out["exif"] = data[at: at + size]  # libwebp's demuxer keeps it under the flag only
+        elif tag in (b"VP8 ", b"VP8L") and "image" not in out:
+            out["image"] = (tag, at, size)
+        elif tag == b"ANMF" and "image" not in out:
+            if size < 16:
+                raise OSError(f"{name}: bad ANMF chunk")
+            out["offset"] = (2 * int.from_bytes(data[at: at + 3], "little"),
+                             2 * int.from_bytes(data[at + 3: at + 6], "little"))
+            for sub, sat, ssize in _webp_chunks(b"\0" * 12 + data[at + 16: at + size]):
+                if sub in (b"VP8 ", b"VP8L"):
+                    out["image"] = (sub, at + 16 + sat - 12, ssize)
+                    break
+    if "image" not in out:
+        raise OSError(f"{name}: WebP file without image data")
+    tag, at, size = out["image"]
+    frame = _webp_frame_size(data, tag, at, size, name)
+    out["frame"] = frame
+    out["canvas"] = canvas or frame
+    if canvas and not out["animated"] and canvas != frame:
+        raise OSError(f"{name}: WebP canvas {canvas} differs from its image {frame}")
+    return out
+
+
+def webp_orientation(data: bytes, name: str = "<bytes>", exif_id: bool = False) -> int:
+    """The orientation tag of a WebP's EXIF chunk (kept only under the
+    VP8X EXIF flag); 1 where there is none. cv2 reads it only from a chunk
+    that starts with the TIFF header; with ``exif_id`` also after an
+    ``Exif\0\0`` prefix, as PIL does."""
+    try:
+        exif = _webp_parse(data, name)["exif"]
+    except OSError:
+        return 1
+    if not exif:
+        return 1
+    if exif_id and exif.startswith(b"Exif\0\0"):
+        exif = exif[6:]
+    return _tiff_orientation(exif)
+
+
+def decode_webp(data: bytes, name: str = "<bytes>") -> np.ndarray:
+    """(h, w, 3) BGR uint8 of a WebP, as ``cv2.imread`` before its EXIF
+    rotation: the VP8L or VP8 image decoded as libwebp's
+    ``WebPDecodeBGRInto`` (alpha not decoded: BGR output drops it); of an
+    animation, the first frame on a transparent black canvas."""
+    data = bytes(data)
+    info = _webp_parse(data, name)
+    tag, at, size = info["image"]
+    fw, fh = info["frame"]
+    cw, ch = info["canvas"]
+    _check_size(cw, ch, name)
+    frame = np.empty((fh, fw, 3), np.uint8)
+    msg = ctypes.create_string_buffer(_MSG)
+    lib = _lib("webp_codec")
+    fn = lib.ayolo_vp8l_decode if tag == b"VP8L" else lib.ayolo_vp8_decode
+    if fn(data[at:], len(data) - at, fw, fh, _ptr(frame), msg, _MSG):
+        raise OSError(f"{name}: {msg.value.decode(errors='replace')}")
+    if (fw, fh) == (cw, ch):
+        return frame
+    x, y = info["offset"]
+    if x + fw > cw or y + fh > ch:
+        raise OSError(f"{name}: WebP frame lies outside its canvas")
+    out = np.zeros((ch, cw, 3), np.uint8)
+    out[y: y + fh, x: x + fw] = frame
+    return out
+
+
+def webp_size(data: bytes, name: str = "<bytes>") -> Tuple[int, int]:
+    """(w, h) of a WebP's canvas (of its image where there is no VP8X)."""
+    return _webp_parse(data, name)["canvas"]
+
+
 def header_size(data: bytes, name: str = "<bytes>") -> Tuple[int, int]:
-    """(w, h) of a JPEG (its SOF) or PNG (its IHDR) without decoding a pixel;
-    raises ``OSError`` for anything else."""
+    """(w, h) of a JPEG (its SOF), PNG (IHDR), BMP (its header), TIFF (IFD0)
+    or WebP (its canvas) without decoding a pixel; raises ``OSError`` for
+    anything else."""
     if data.startswith(PNG_SIGNATURE):
         if len(data) < 33 or data[12:16] != b"IHDR":
             raise OSError(f"{name}: PNG file without an IHDR chunk")
         return struct.unpack_from(">II", data, 16)
     if data.startswith(JPEG_SIGNATURE):
         return _jpeg_frame(data, name)
-    raise OSError(f"{name}: neither a JPEG nor a PNG file")
+    if data.startswith(BMP_SIGNATURE):
+        hd = _bmp_header(data, name)
+        return hd["w"], abs(hd["h"])
+    if data.startswith(TIFF_SIGNATURES):
+        return tiff_size(data, name)
+    if is_webp(data):
+        return webp_size(data, name)
+    raise OSError(f"{name}: not a JPEG, PNG, BMP, TIFF or WebP file")

@@ -1,16 +1,19 @@
 """Host image I/O without OpenCV: reading, shapes and resizes as cv2 does them.
 
 - :func:`imread` chooses the decoder from the file's first bytes, as cv2
-  does, not from its suffix: JPEG (``FF D8 FF``) and PNG go to the port's
-  own codecs (``data/codecs.py``, a C++ library built at first use), equal
-  to ``cv2.imread`` bit for bit, and are turned by their EXIF orientation as
-  ``cv2.imread`` turns them; a 24-bit uncompressed (BI_RGB) ``BM`` file is
-  decoded here, bottom-up or top-down, rows padded to 4 bytes. TIFF, WebP,
-  DNG and other BMPs go to ``cv2``, imported only then; without it the
-  error names the file and the package.
-- :func:`image_size` reads (w, h) from a JPEG's, PNG's or BMP's header
-  without decoding a pixel, swapped for EXIF orientations 6 and 8 only,
-  as the JAX package's ``exif_size`` swaps them; other formats ask ``cv2``.
+  does, not from its suffix: JPEG (``FF D8 FF``), PNG, BMP (``BM``), TIFF
+  (``II*``/``MM*``, DNG included) and WebP (``RIFF....WEBP``) go to the
+  port's own codecs (``data/codecs.py``, C++ libraries built at first use),
+  equal to ``cv2.imread`` bit for bit, and JPEG, PNG and WebP are turned by
+  their EXIF orientation as ``cv2.imread`` turns them (TIFF's Orientation
+  1-4 as libtiff applies it). A mode the port leaves out raises ``OSError``
+  naming it, with cv2 installed or not; only a file of another signature
+  goes to ``cv2``, imported only then; without it the error names the file
+  and the package.
+- :func:`image_size` reads (w, h) from any of these headers without
+  decoding a pixel, as the JAX package's ``exif_size(PIL.Image.open(f))``
+  gives it: swapped for EXIF orientations 6 and 8 of a JPEG, PNG or WebP,
+  for a TIFF's Orientation 5-8 (PIL sizes it turned) and never for a BMP.
 - :func:`imwrite` writes ``.jpg``/``.jpeg`` through the port's encoder
   (the bytes of ``cv2.imwrite`` at its defaults: quality 95, 4:2:0),
   ``.png`` through ``utils/png.write_png`` and ``.bmp`` itself (24-bit,
@@ -36,48 +39,19 @@ from ayolov2_torch.data import codecs
 from ayolov2_torch.utils.png import write_png
 
 
-def _bmp_header(data: bytes) -> Optional[Tuple[int, int, int, int, int]]:
-    """(offset, width, height, bits per pixel, compression) of a BMP with a
-    BITMAPINFOHEADER or a later header; None for anything else."""
-    if len(data) < 54 or data[:2] != b"BM":
-        return None
-    offset, dib = struct.unpack_from("<II", data, 10)
-    if dib < 40:
-        return None
-    width, height, _, bpp, compression = struct.unpack_from("<iiHHI", data, 18)
-    return offset, width, height, bpp, compression
-
-
 def _cv2(path: str, what: str):
     try:
         import cv2
     except ImportError as e:
         raise ImportError(
             f"{path}: {what} needs OpenCV (the package 'cv2'), which is not installed; "
-            "the port reads JPEG, PNG and 24-bit uncompressed BMP files itself") from e
+            "the port reads JPEG, PNG, BMP, TIFF and WebP files itself") from e
     return cv2
-
-
-def _read_bmp(data: bytes) -> Optional[np.ndarray]:
-    head = _bmp_header(data)
-    if head is None:
-        return None
-    offset, width, height, bpp, compression = head
-    if bpp != 24 or compression != 0 or width <= 0 or height == 0:
-        return None
-    h = abs(height)
-    pitch = (width * 3 + 3) // 4 * 4
-    if offset + pitch * h > len(data):
-        raise ValueError(f"BMP pixel data is truncated ({len(data)} bytes, need "
-                         f"{offset + pitch * h})")
-    rows = np.frombuffer(data, np.uint8, pitch * h, offset).reshape(h, pitch)
-    im = rows[:, : width * 3].reshape(h, width, 3)
-    return np.ascontiguousarray(im[::-1] if height > 0 else im)
 
 
 def imread(path: str) -> np.ndarray:
     """(h, w, 3) BGR uint8, as ``cv2.imread(path)``; raises ``OSError``
-    where cv2 gives None."""
+    where cv2 gives None or the file uses a mode the port leaves out."""
     data = Path(path).read_bytes()
     if data.startswith(codecs.JPEG_SIGNATURE):
         return codecs.apply_orientation(codecs.decode_jpeg(data, path),
@@ -85,9 +59,13 @@ def imread(path: str) -> np.ndarray:
     if data.startswith(codecs.PNG_SIGNATURE):
         return codecs.apply_orientation(codecs.decode_png(data, path),
                                         codecs.exif_orientation(data, name=path))
-    im = _read_bmp(data) if data[:2] == b"BM" else None
-    if im is not None:
-        return im
+    if data.startswith(codecs.BMP_SIGNATURE):
+        return codecs.decode_bmp(data, path)
+    if data.startswith(codecs.TIFF_SIGNATURES):
+        return codecs.decode_tiff(data, path)
+    if codecs.is_webp(data):
+        return codecs.apply_orientation(codecs.decode_webp(data, path),
+                                        codecs.webp_orientation(data, path))
     im = _cv2(path, "decoding this image").imread(path)
     if im is None:
         raise OSError(f"Image read failed: {path}")
@@ -123,29 +101,33 @@ def imwrite(path: str, im: np.ndarray) -> None:
 
 
 def image_size(path: str) -> Tuple[int, int]:
-    """(w, h) of an image file from its header, swapped where the EXIF
-    orientation is 6 or 8 (the JAX package's ``exif_size``: PIL's first
-    ``Exif`` APP1 of a JPEG, the ``eXIf`` chunk of a PNG); raises
-    ``OSError`` for a file whose header cannot be read."""
+    """(w, h) of an image file from its header, as the JAX package's
+    ``exif_size(PIL.Image.open(path))``: swapped where the EXIF orientation
+    is 6 or 8 (PIL's first ``Exif`` APP1 of a JPEG, the ``eXIf`` chunk of a
+    PNG, the ``EXIF`` chunk of a WebP) and for a TIFF whose Orientation is
+    5-8, which PIL sizes turned; raises ``OSError`` for a file whose header
+    cannot be read."""
     with open(path, "rb") as f:
         data = f.read(1 << 16)
-    if data.startswith(codecs.PNG_SIGNATURE):
-        data = Path(path).read_bytes()  # eXIf may follow the image data
+    if data.startswith((codecs.PNG_SIGNATURE, *codecs.TIFF_SIGNATURES)) or codecs.is_webp(data):
+        data = Path(path).read_bytes()  # eXIf, EXIF or an IFD may lie past the first 64 KiB
     elif data.startswith(codecs.JPEG_SIGNATURE):
         try:
             codecs.header_size(data, path)
         except OSError:  # a header past the first 64 KiB
             data = Path(path).read_bytes()
-    if data.startswith((codecs.JPEG_SIGNATURE, codecs.PNG_SIGNATURE)):
-        w, h = codecs.header_size(data, path)
-        if codecs.exif_orientation(data, exif_id=True, name=path) in (6, 8):
-            w, h = h, w
+    if not (data.startswith((codecs.JPEG_SIGNATURE, codecs.PNG_SIGNATURE, codecs.BMP_SIGNATURE,
+                             *codecs.TIFF_SIGNATURES)) or codecs.is_webp(data)):
+        h, w = imread(path).shape[:2]  # another format: cv2 decodes it
         return w, h
-    head = _bmp_header(data[:54])
-    if head is not None:
-        return head[1], abs(head[2])
-    h, w = imread(path).shape[:2]
-    return w, h
+    w, h = codecs.header_size(data, path)
+    if data.startswith(codecs.JPEG_SIGNATURE) or data.startswith(codecs.PNG_SIGNATURE):
+        swap = codecs.exif_orientation(data, exif_id=True, name=path) in (6, 8)
+    elif codecs.is_webp(data):
+        swap = codecs.webp_orientation(data, path, exif_id=True) in (6, 8)
+    else:  # PIL sizes a TIFF with Orientation 5-8 turned
+        swap = data.startswith(codecs.TIFF_SIGNATURES) and codecs.tiff_orientation(data) >= 5
+    return (h, w) if swap else (w, h)
 
 
 def _linear_taps(src: int, dst: int, columns: bool, scale: Optional[float] = None):

@@ -36,7 +36,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
-HOST_SOURCES = ("image_codec",)  # csrc/<name>.cpp, which build_all's default leaves out
+# csrc/<name>.cpp of the image codecs, which build_all's default leaves out
+HOST_SOURCES = ("image_codec", "raster_codec", "webp_codec")
 # csrc/<name>.cpp built against libtorch: name -> "library" or "executable"
 TORCH_SOURCES = {"early_pipeline_op": "library", "aoti_runner": "executable"}
 

@@ -12,7 +12,8 @@ Phases, each printing its own lines; any failure exits non-zero:
 2. build: nvcc compiles every ``ayolov2_torch/csrc/*.cu`` (in parallel; the
    early-network kernel once per padded width set of the shipped configs
    and the stem-8 one, ``ops/_build.EARLY_SETS``), and the host compiler the
-   image codecs (``csrc/image_codec.cpp``) beside them;
+   image codecs (``csrc/image_codec.cpp``, ``raster_codec.cpp``,
+   ``webp_codec.cpp``) beside them;
 3. kernel: the fused early-network kernel against its plain torch version
    (``early_pipeline_ref``) on seeded full-width weights: yolov5s at bs 4,
    640x640 and 384x640, yolov5m at bs 2, 640x640, l and x at bs 1, 640x640,
@@ -232,9 +233,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    tile, plain version and cuDNN chain, and the 1.05 config's serve rate at
    bs 16, 800. ``--widths-only`` runs phases 1, 2, 3 and 15.
 16. image files without OpenCV, under ``build/chip_smoke_images/``: 16.1
-   each fixture of ``tests/res/torch_codec/`` read by the port equal to the
-   digest of ``cv2.imread``'s array in its manifest, and each JPEG
-   fixture's source encoded by the port equal to the digest of
+   each fixture of ``tests/res/torch_codec/`` (JPEG, PNG, BMP, TIFF, WebP)
+   read by the port equal to the digest of ``cv2.imread``'s array in its
+   manifest (a mode the port leaves out raising ``OSError`` naming it), and
+   each JPEG fixture's source encoded by the port equal to the digest of
    ``cv2.imencode``'s bytes; 16.2 phase 7's 128 images written as JPEG by
    the port's encoder (quality 95, 4:2:0), every eighth as PNG and every
    sixteenth as a JPEG stored turned with EXIF orientation 6 or 8, labelled
@@ -244,11 +246,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    from the golden checkpoint on that set with ``train_config.yaml`` as
    shipped (``workers_mode: process``, 1 epoch, 640, bs 32): finite losses,
    step = ema_updates = the micro-steps, ``cli.val`` of its ``best.ckpt``
-   through K1; 16.4 on the host clock, decode ms per 640x480 image (baseline
-   and progressive JPEG, PNG, BMP), encode ms, the val loader's ms per batch
-   of 32 on JPEG and on BMP with 2 and 4 threads, and the warm validation
-   pass's img/s on JPEG against phase 7's BMPs. ``--images-only`` runs
-   phases 1, 2, 3, 7 and 16.
+   through K1; 16.5 phase 7's first 32 images written as 8-bit palette and
+   32-bit BMPs and as TIFFs (LZW with predictor 2, PackBits, Deflate,
+   Deflate tiles) by ``write_format_file``, beside the two 640x480 WebP
+   fixtures (lossless and lossy), labelled by the f32 plain path on the
+   decoded pixels and validated under phase 7's gates (bs 32, 640, rect, K1
+   one launch a batch), ``python -m ayolov2_torch.cli.val`` equal to the
+   in-process run; 16.4 on the host clock, decode ms per 640x480 image
+   (baseline and progressive JPEG, PNG, BMP, LZW TIFF, lossless and lossy
+   WebP), encode ms, the val loader's ms per batch of 32 on JPEG and on BMP
+   with 2 and 4 threads, and the warm validation pass's img/s on JPEG
+   against phase 7's BMPs. ``--images-only`` runs phases 1, 2, 3, 7 and 16.
 17. the native runner and the measurement CLIs, under
    ``build/chip_smoke_tools/``: 17.1, started in the background right after
    phase 2, ``cli.export --aoti`` of seeded yolov5s (nc 80, bf16, bs 32,
@@ -674,6 +682,260 @@ def write_bmp(path: Path, img: np.ndarray) -> None:
     path.write_bytes(head + rows.tobytes())
 
 
+def bmp_file(pixels: bytes, w: int, h: int, bpp: int, compression: int = 0, palette=None,
+             header: int = 40, masks=None, top_down: bool = False, colors_used: int = 0) -> bytes:
+    """A BMP of the stored rows ``pixels`` (in file order, each padded to 4
+    bytes, or an RLE stream): ``header`` 12 (OS/2 core), 40, 108 (V4) or
+    124 (V5); ``palette`` (n, 3) BGR, stored after the header (3 bytes an
+    entry in a core header, else 4); ``masks`` (r, g, b[, a]) after a
+    40-byte header, inside a V4/V5 one."""
+    masks = tuple(masks or ())
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bpp)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bpp, compression,
+                           len(pixels), 2835, 2835, colors_used, 0)
+        if header > 40:
+            m = (masks + (0, 0, 0, 0))[:4]
+            info += struct.pack("<IIII", *m) + b"sRGB" + bytes(header - 56)
+            masks = ()
+    extra = b"".join(struct.pack("<I", m) for m in masks)
+    pal = b""
+    if palette is not None:
+        pal = b"".join(bytes(int(c) for c in e) + (b"" if header == 12 else b"\0")
+                       for e in np.asarray(palette, np.uint8))
+    offset = 14 + len(info) + len(extra) + len(pal)
+    return (struct.pack("<2sIHHI", b"BM", offset + len(pixels), 0, 0, offset) + info + extra + pal
+            + pixels)
+
+
+def bmp_rows(rows: np.ndarray, bits: int) -> bytes:
+    """(h, n) samples of ``bits`` each (or (h, w, c) bytes) as BMP rows,
+    packed MSB first (16 bits little-endian) and padded to 4 bytes."""
+    rows = np.asarray(rows)
+    h = rows.shape[0]
+    if bits == 16:
+        raw = rows.astype("<u2").reshape(h, -1).view(np.uint8)
+    elif bits >= 8:
+        raw = rows.astype(np.uint8).reshape(h, -1)
+    else:
+        per = 8 // bits
+        v = np.zeros((h, -(-rows.shape[1] // per) * per), np.int64)
+        v[:, : rows.shape[1]] = rows
+        v = v.reshape(h, -1, per)
+        raw = np.zeros(v.shape[:2], np.int64)
+        for i in range(per):
+            raw = (raw << bits) | v[:, :, i]
+        raw = raw.astype(np.uint8)
+    pitch = (raw.shape[1] + 3) // 4 * 4
+    out = np.zeros((h, pitch), np.uint8)
+    out[:, : raw.shape[1]] = raw
+    return out.tobytes()
+
+
+def palette_332(img: np.ndarray) -> tuple:
+    """(indices (h, w), palette (256, 3) BGR) of ``img`` cut to 3-3-2 bits."""
+    b, g, r = (img[..., k].astype(np.int64) for k in range(3))
+    idx = (r >> 5) << 5 | (g >> 5) << 2 | (b >> 6)
+    i = np.arange(256)
+    pal = np.stack([(i & 3) * 85, ((i >> 2) & 7) * 255 // 7, (i >> 5) * 255 // 7], 1)
+    return idx.astype(np.uint8), pal.astype(np.uint8)
+
+
+def lzw(data: bytes, compat: bool = False) -> bytes:
+    """TIFF LZW of ``data``: 9- to 12-bit codes, MSB first, the width raised
+    one code early (libtiff's writer); ``compat``: the old LSB-first
+    order, raised on time."""
+    out, acc, nacc = bytearray(), 0, 0
+
+    def put(code: int, width: int) -> None:
+        nonlocal acc, nacc
+        if compat:
+            acc |= code << nacc
+            nacc += width
+            while nacc >= 8:
+                out.append(acc & 255)
+                acc >>= 8
+                nacc -= 8
+        else:
+            acc = (acc << width) | code
+            nacc += width
+            while nacc >= 8:
+                out.append((acc >> (nacc - 8)) & 255)
+                nacc -= 8
+                acc &= (1 << nacc) - 1
+
+    def width(free: int) -> int:  # the reader, a code behind, raises it at 511 (compat 512)
+        late = 1 if compat else 0
+        return 9 if free < 512 + late else 10 if free < 1024 + late else \
+            11 if free < 2048 + late else 12
+
+    table, free, prefix = {}, 258, -1
+    put(256, 9)
+    for c in data:
+        if prefix < 0:
+            prefix = c
+            continue
+        key = (prefix << 8) | c
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        put(prefix, width(free))
+        table[key] = free
+        free += 1
+        prefix = c
+        if free == 4094:
+            put(256, width(free))
+            table, free = {}, 258
+    if prefix >= 0:
+        put(prefix, width(free))
+        free += 1
+    put(257, width(free))
+    if nacc:
+        put(0, 8 - nacc)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits of ``data``: runs of 3 or more as repeats, the rest literal."""
+    a = np.frombuffer(data, np.uint8)
+    if a.size == 0:
+        return b""
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]])
+    lengths = np.diff(np.r_[starts, a.size])
+    out, lit = bytearray(), bytearray()
+
+    def flush() -> None:
+        for i in range(0, len(lit), 128):
+            part = lit[i: i + 128]
+            out.append(len(part) - 1)
+            out.extend(part)
+        lit.clear()
+
+    for s, n in zip(starts.tolist(), lengths.tolist()):
+        if n < 3:
+            lit.extend(data[s: s + n])
+            continue
+        flush()
+        while n > 0:
+            k = min(n, 128)
+            if k < 3:
+                lit.extend(data[s: s + k])
+            else:
+                out.extend((257 - k, data[s]))
+            n -= k
+    flush()
+    return bytes(out)
+
+
+def tiff_file(img: np.ndarray, little: bool = True, compression: int = 1, predictor: int = 1,
+              tile=None, rows_per_strip: Optional[int] = None, planar: int = 1,
+              photometric: int = 2, bits: int = 8, colormap=None, orientation: int = 0,
+              extra_samples=None, sample_format: int = 0, zlevel: int = 6,
+              big: bool = False) -> bytes:
+    """A baseline TIFF of ``img`` (h, w, samples; its values stored as they
+    are, in the samples' order): ``compression`` 1, 5 (LZW), 32773
+    (PackBits), 8 or 32946 (Deflate), ``predictor`` 2 (horizontal
+    differencing), strips of ``rows_per_strip`` rows or tiles (tw, th),
+    ``planar`` 1 or 2, ``bits`` 1, 2, 4, 8 or 16 a sample, ``colormap``
+    (3, 2**bits) 16-bit values, and the tags Orientation, ExtraSamples and
+    SampleFormat where given; ``big``: a BigTIFF."""
+    import zlib
+
+    e = "<" if little else ">"
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    h, w, spp = img.shape
+
+    def pack(block: np.ndarray) -> bytes:  # (rows, cols, samples) -> stored bytes
+        block = block.astype(np.int64)
+        if predictor == 2:
+            block = block.copy()
+            block[:, 1:] = (block[:, 1:] - block[:, :-1]) & ((1 << bits) - 1)
+        rows = block.reshape(block.shape[0], -1)
+        if bits == 16:
+            return rows.astype(e + "u2").tobytes()
+        if bits == 8:
+            return rows.astype(np.uint8).tobytes()
+        per = 8 // bits
+        v = np.zeros((rows.shape[0], -(-rows.shape[1] // per) * per), np.int64)
+        v[:, : rows.shape[1]] = rows
+        v = v.reshape(rows.shape[0], -1, per)
+        packed = np.zeros(v.shape[:2], np.int64)
+        for i in range(per):
+            packed = (packed << bits) | v[:, :, i]
+        return packed.astype(np.uint8).tobytes()
+
+    def squeeze(raw: bytes) -> bytes:
+        if compression == 5:
+            return lzw(raw)
+        if compression == 32773:
+            return packbits(raw)
+        if compression in (8, 32946):
+            return zlib.compress(raw, zlevel)
+        return raw
+
+    planes = [img[..., k: k + 1] for k in range(spp)] if planar == 2 else [img]
+    chunks = []
+    for plane in planes:
+        if tile:
+            tw, th = tile
+            for ty in range(0, h, th):
+                for tx in range(0, w, tw):
+                    block = np.zeros((th, tw, plane.shape[2]), img.dtype)
+                    part = plane[ty: ty + th, tx: tx + tw]
+                    block[: part.shape[0], : part.shape[1]] = part
+                    chunks.append(squeeze(pack(block)))
+        else:
+            rps = rows_per_strip or h
+            for y in range(0, h, rps):
+                chunks.append(squeeze(pack(plane[y: y + rps])))
+    head_size = 16 if big else 8
+    data, offsets = bytearray(), []
+    for c in chunks:
+        offsets.append(head_size + len(data))
+        data += c + (b"\0" if len(c) % 2 else b"")
+    tags = {256: (4, [w]), 257: (4, [h]), 258: (3, [bits] * spp), 259: (3, [compression]),
+            262: (3, [photometric]), 277: (3, [spp]), 284: (3, [planar])}
+    if tile:
+        tags.update({322: (4, [tile[0]]), 323: (4, [tile[1]]), 324: (4, offsets),
+                     325: (4, [len(c) for c in chunks])})
+    else:
+        tags.update({273: (4, offsets), 278: (4, [rows_per_strip or h]),
+                     279: (4, [len(c) for c in chunks])})
+    if predictor != 1:
+        tags[317] = (3, [predictor])
+    if colormap is not None:
+        tags[320] = (3, np.asarray(colormap).ravel().tolist())
+    if orientation:
+        tags[274] = (3, [orientation])
+    if extra_samples is not None:
+        tags[338] = (3, list(extra_samples))
+    if sample_format:
+        tags[339] = (3, [sample_format] * spp)
+    ifd_at = head_size + len(data)
+    word, inline = ("Q", 8) if big else ("I", 4)
+    values_at = ifd_at + (8 + 20 * len(tags) + 8 if big else 2 + 12 * len(tags) + 4)
+    ifd, values = bytearray(struct.pack(e + ("Q" if big else "H"), len(tags))), bytearray()
+    for tag in sorted(tags):
+        kind, vals = tags[tag]
+        raw = b"".join(struct.pack(e + ("H" if kind == 3 else "I"), v) for v in vals)
+        ifd += struct.pack(e + "HH" + word, tag, kind, len(vals))
+        if len(raw) <= inline:
+            ifd += raw.ljust(inline, b"\0")
+        else:
+            ifd += struct.pack(e + word, values_at + len(values))
+            values += raw + (b"\0" if len(raw) % 2 else b"")
+    ifd += struct.pack(e + word, 0)
+    if big:
+        head = (b"II" if little else b"MM") + struct.pack(e + "HHHQ", 43, 8, 0, ifd_at)
+    else:
+        head = (b"II" if little else b"MM") + struct.pack(e + "HI", 42, ifd_at)
+    return head + bytes(data) + bytes(ifd) + bytes(values)
+
+
 def write_image_file(images: Path, stem: str, img: np.ndarray, i: int) -> None:
     """Phase 16's file for image ``i``: a JPEG from the port's encoder
     (quality 95, 4:2:0); every eighth a PNG instead, and every sixteenth a
@@ -692,23 +954,57 @@ def write_image_file(images: Path, stem: str, img: np.ndarray, i: int) -> None:
         (images / f"{stem}.jpg").write_bytes(encode_jpeg(img))
 
 
+FORMAT_WEBPS = ("w640_lossless_cv2.webp", "w640_lossy_cv2.webp")  # 16.5's WebP fixtures
+
+
+def write_format_file(images: Path, stem: str, img: np.ndarray, i: int) -> None:
+    """Phase 16.5's file for image ``i``, by ``i % 6``: an 8-bit palette BMP
+    (3-3-2 colours), a 32-bit BMP, and TIFFs in LZW with predictor 2,
+    PackBits, Deflate and Deflate tiles of 64x64."""
+    k = i % 6
+    h, w = img.shape[:2]
+    if k == 0:
+        idx, pal = palette_332(img)
+        data = bmp_file(bmp_rows(idx[::-1], 8), w, h, 8, palette=pal)
+    elif k == 1:
+        bgra = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], 2)
+        data = bmp_file(bmp_rows(bgra[::-1].reshape(h, -1), 8), w, h, 32)
+    else:
+        rgb = np.ascontiguousarray(img[..., ::-1])
+        data = tiff_file(rgb, **[dict(compression=5, predictor=2, rows_per_strip=64),
+                                 dict(compression=32773, rows_per_strip=32),
+                                 dict(compression=8, rows_per_strip=128),
+                                 dict(compression=8, tile=(64, 64))][k - 2])
+    (images / f"{stem}.{'bmp' if k < 2 else 'tif'}").write_bytes(data)
+
+
 def write_val_set(root: Path, seed: int, sizes=VAL_SIZES, per_size: int = 32,
-                  nc: int = 20, files: bool = False) -> Path:
+                  nc: int = 20, files: bool = False, formats: bool = False,
+                  limit: Optional[int] = None) -> Path:
     """``root/images`` (the sizes in a seeded order, numeric stems, so the
     rect sort has work to do; BMPs, or with ``files`` the same images as
-    phase 16's JPEG and PNG files, :func:`write_image_file`), an empty
-    ``root/labels`` and ``root/data.json`` (``nc`` classes)."""
+    phase 16's JPEG and PNG files, :func:`write_image_file`, or with
+    ``formats`` as phase 16.5's BMP and TIFF files, :func:`write_format_file`,
+    beside the WebP fixtures ``FORMAT_WEBPS``; only the first ``limit``
+    images where given), an empty ``root/labels`` and ``root/data.json``
+    (``nc`` classes)."""
     shutil.rmtree(root, ignore_errors=True)
     (root / "images").mkdir(parents=True)
     (root / "labels").mkdir()
     rng = np.random.default_rng(seed)
     order = rng.permutation(np.repeat(np.arange(len(sizes)), per_size))
-    for i, k in enumerate(order):
+    for i, k in enumerate(order[:limit]):
         img = synthetic_image(rng, *sizes[k])
-        if files:
+        if formats:
+            write_format_file(root / "images", f"{i + 1:06d}", img, i)
+        elif files:
             write_image_file(root / "images", f"{i + 1:06d}", img, i)
         else:
             write_bmp(root / "images" / f"{i + 1:06d}.bmp", img)
+    if formats:
+        first = len(order[:limit]) + 1
+        for j, name in enumerate(FORMAT_WEBPS):
+            shutil.copy(CODEC_FIXTURES / name, root / "images" / f"{first + j:06d}.webp")
     cfg = root / "data.json"
     cfg.write_text(json.dumps({"val_path": str(root / "images"), "nc": nc, "dataset": "VOC",
                                "names": [f"class{i}" for i in range(nc)]}))
@@ -764,15 +1060,18 @@ def write_labels(found, cut: float, top: int = 50):
 def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int = 640,
                      sizes=VAL_SIZES, per_size: int = 32, bs: int = 32, weights: Path = GOLDEN,
                      nc: int = 20, root: Path = VAL_DIR, name: str = "yolov5s",
-                     tag: str = "val", entry_points=("val", "val2"), files: bool = False):
+                     tag: str = "val", entry_points=("val", "val2"), files: bool = False,
+                     formats: bool = False, limit: Optional[int] = None, checks: bool = True):
     """Phase 7 (see the module docstring), on the golden checkpoint; phase
     15.3 runs it on another checkpoint (``weights``, ``nc``, ``name``) under
     ``root`` with only ``cli.val`` as its entry point, its lines tagged
     ``tag``; phase 16.2 on the same images written as JPEG and PNG files
-    (``files``). Returns (early_pipeline launches in the kernel's validation
-    run, max |kernel - plain| at the rect shapes, the kernel run's mAP50,
-    bf16 cuDNN's mAP50, the warm pass's img/s), or None when a gate
-    failed."""
+    (``files``), 16.5 on the first ``limit`` written as BMP and TIFF files
+    beside two WebPs (``formats``), without the kernel's check at the rect
+    shapes and the warm pass (``checks``). Returns (early_pipeline launches
+    in the kernel's validation run, max |kernel - plain| at the rect shapes,
+    the kernel run's mAP50, bf16 cuDNN's mAP50, the warm pass's img/s), or
+    None when a gate failed."""
     import torch
 
     from ayolov2_torch.data import DataLoader, DetectionDataset, ImageFolderDataset
@@ -784,11 +1083,14 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
         print(msg.replace("[val]", f"[{tag}]", 1), flush=True)
 
     t0 = time.perf_counter()
-    data_cfg = write_val_set(root, seed, sizes, per_size, nc, files)
+    data_cfg = write_val_set(root, seed, sizes, per_size, nc, files, formats, limit)
     kinds = {}
     for f in (root / "images").iterdir():
         kinds[f.suffix] = kinds.get(f.suffix, 0) + 1
-    log(f"[val] wrote {len(sizes) * per_size} images ({per_size} at each of {list(sizes)}; "
+    n_images = sum(kinds.values())
+    drawn = (f"the first {limit} of {len(sizes) * per_size}" if limit
+             else f"{per_size} at each of {list(sizes)}")
+    log(f"[val] wrote {n_images} images ({drawn}; "
         + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items()))
         + f") in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -803,7 +1105,7 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
     folder = ImageFolderDataset(images_dir, img_size=img_size, batch_size=bs, rect=True, pad=0.5)
     shapes = sorted({tuple(int(v) for v in s) for s in folder.batch_shapes}, reverse=True)
     max_abs = 0.0
-    for h, w in shapes:
+    for h, w in shapes if checks else ():
         imgs = torch.from_numpy(np.random.default_rng(seed + h + w).integers(
             0, 256, (bs, h, w, 3), dtype=np.uint8)).to(device)
         got = early.early_pipeline(imgs, ep)
@@ -869,9 +1171,9 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
             f"{sorted({tuple(int(x) for x in b) for b in ds.batch_shapes})})")
     f32, cud, ker = results["f32 cuDNN"], results["bf16 cuDNN"], results["bf16 kernel"]
     gates = {
-        "128 seen, equal label counts": all(r["seen"] == len(sizes) * per_size and
-                                            r["n_labels"] == f32["n_labels"] > 0
-                                            for r in results.values()),
+        f"{n_images} seen, equal label counts": all(r["seen"] == n_images and
+                                                    r["n_labels"] == f32["n_labels"] > 0
+                                                    for r in results.values()),
         "f32 mAP50 >= 0.99": f32["map50"] >= 0.99,
         "kernel within 0.02 of bf16 cuDNN": all(abs(ker[k] - cud[k]) <= 0.02
                                                 for k in ("map50", "map50_95")),
@@ -921,6 +1223,8 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
         if not preds or not np.isfinite(list(coco.values())).all():
             return None
 
+    if not checks:
+        return launches, max_abs, ker["map50"], cud["map50"], float("nan")
     # times: a second, warm pass of the kernel's run; the loader alone
     v, ds = run({})
     v.validation()
@@ -4172,8 +4476,9 @@ def sha256_of(data) -> str:
 
 
 def codec_fixtures() -> bool:
-    """16.1: each committed fixture read by the port gives the digest of
-    ``cv2.imread``'s array that the manifest records, and each JPEG
+    """16.1: each committed fixture (JPEG, PNG, BMP, TIFF, WebP) read by the
+    port gives the digest of ``cv2.imread``'s array that the manifest
+    records (a left-out mode raises ``OSError`` naming it), and each JPEG
     fixture's source, encoded by the port, the digest of ``cv2.imencode``'s
     bytes."""
     from ayolov2_torch.data.codecs import encode_jpeg
@@ -4182,7 +4487,17 @@ def codec_fixtures() -> bool:
     t0 = time.perf_counter()
     manifest = json.loads((CODEC_FIXTURES / "manifest.json").read_text())
     bad, n_enc = [], 0
+    left_out = 0
     for name, entry in sorted(manifest["files"].items()):
+        if "left_out" in entry:  # a mode the port leaves out: it raises naming it
+            left_out += 1
+            try:
+                imread(str(CODEC_FIXTURES / name))
+                bad.append(f"{name} (read, should raise)")
+            except OSError as e:
+                if entry["left_out"] not in str(e):
+                    bad.append(f"{name} ({e})")
+            continue
         im = imread(str(CODEC_FIXTURES / name))
         if list(im.shape) != entry["shape"] or sha256_of(im.tobytes()) != entry["sha256"]:
             bad.append(name)
@@ -4193,8 +4508,13 @@ def codec_fixtures() -> bool:
                                src["quality"])
             if sha256_of(data) != src["imencode_sha256"]:
                 bad.append(f"{name} (encoded)")
-    log(f"[images] 16.1 the {len(manifest['files'])} fixtures of tests/res/torch_codec read by the "
-        f"port: each equal to the digest of {manifest['reference']}'s imread; the {n_enc} JPEG "
+    kinds = {}
+    for name in manifest["files"]:
+        kinds[Path(name).suffix] = kinds.get(Path(name).suffix, 0) + 1
+    log(f"[images] 16.1 the {len(manifest['files'])} fixtures of tests/res/torch_codec ("
+        + ", ".join(f"{n} {k}" for k, n in sorted(kinds.items())) + ") read by the port: "
+        f"each equal to the digest of {manifest['reference']}'s imread, the {left_out} of modes "
+        f"the port leaves out raising OSError naming them; the {n_enc} JPEG "
         f"sources encoded by the port: each equal to the digest of its imencode "
         f"({time.perf_counter() - t0:.1f} s) {'ok' if not bad else 'FAIL: ' + ', '.join(bad)}")
     return not bad
@@ -4287,11 +4607,21 @@ def codec_times(card: str, bs: int = 32, img_size: int = 640) -> None:
     (tdir / "scene.jpg").write_bytes(encode_jpeg(scene))
     write_png(tdir / "scene.png", scene)
     write_bmp(tdir / "scene.bmp", scene)
+    (tdir / "noisy_lzw.tif").write_bytes(tiff_file(src[..., ::-1], compression=5, predictor=2,
+                                                   rows_per_strip=64))
+    (tdir / "scene_lzw.tif").write_bytes(tiff_file(scene[..., ::-1], compression=5, predictor=2,
+                                                   rows_per_strip=64))
     files = {"JPEG baseline 4:2:0 q95, phase 16's kind of image": tdir / "scene.jpg",
              "JPEG baseline 4:2:0 q95, gradient with noise": tdir / "noisy.jpg",
              "JPEG progressive 4:2:0 q75 (fixture jprog640.jpg)": CODEC_FIXTURES / "jprog640.jpg",
              "PNG 8-bit RGB (write_png)": tdir / "scene.png",
-             "BMP 24-bit (phase 7's kind)": tdir / "scene.bmp"}
+             "BMP 24-bit (phase 7's kind)": tdir / "scene.bmp",
+             "TIFF LZW predictor 2, phase 16's kind": tdir / "scene_lzw.tif",
+             "TIFF LZW predictor 2, gradient with noise": tdir / "noisy_lzw.tif",
+             "WebP lossless, phase 7's kind with noise (fixture w640_lossless_cv2.webp)":
+                 CODEC_FIXTURES / "w640_lossless_cv2.webp",
+             "WebP lossy q75, phase 7's kind with noise (fixture w640_lossy_cv2.webp)":
+                 CODEC_FIXTURES / "w640_lossy_cv2.webp"}
     parts = [f"{k} ({f.stat().st_size} B) {host_ms(lambda f=f: imread(str(f)), 20):.3f}"
              for k, f in files.items()]
     log(f"[time] {card}: 16.4 host decode ms per 640x480 image (imread, one thread, mean of 20): "
@@ -4331,10 +4661,17 @@ def images_phase(card: str, seed: int, bmp_img_s: float, device: str = "cuda",
     log(f"[time] {card}: 16.2 warm validation pass on the JPEG/PNG files {val[4]:.1f} img/s, on "
         f"phase 7's BMPs {bmp_img_s:.1f} img/s")
     ok_train, train_launches = images_train(device, bs, train_img)
+    t5 = time.perf_counter()
+    formats = validation_phase(seed, card, device=device, img_size=img_size, sizes=sizes,
+                               per_size=per_size, bs=bs, root=IMAGES_DIR / "formats",
+                               tag="formats", entry_points=("val",), formats=True, limit=bs,
+                               checks=False)
+    log(f"[images] 16.5 BMP, TIFF and WebP files validated through K1 under phase 7's gates: "
+        f"{'ok' if formats else 'FAIL'} in {time.perf_counter() - t5:.1f} s")
     codec_times(card, bs, img_size)
-    log(f"[images] phase 16 {'ok' if ok and ok_train else 'FAIL'} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    return ok and ok_train, val[0] + train_launches
+    ok = ok and ok_train and formats is not None
+    log(f"[images] phase 16 {'ok' if ok else 'FAIL'} in {time.perf_counter() - t0:.1f} s")
+    return ok, val[0] + train_launches + (formats[0] if formats else 0)
 
 # ---- phase 17: the native runner and the measurement CLIs -------------------------
 

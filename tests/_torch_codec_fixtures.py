@@ -1,18 +1,29 @@
-"""The committed JPEG and PNG fixtures of the port's codecs and their manifest.
+"""The committed image fixtures of the port's codecs and their manifest.
 
 ``tests/res/torch_codec/`` holds small JPEGs written by OpenCV (each chroma
-sampling, progressive, restart markers, gray, a 16-bit quantisation table,
-no Huffman tables, EXIF orientations 1-8, a baseline and a progressive file
-cut short, and a 640x480 progressive file that the card's phase also
-times) and PNGs of every colour type and
-bit depth (Adam7, ``tRNS``, ``eXIf``) written by :func:`png_file`.
-``manifest.json`` records each file's ``cv2.imread`` shape and sha256 and,
-for a JPEG, its source (``chip_smoke.codec_source``: seed, size, gray),
-quality and the sha256 of ``cv2.imencode`` of the source at that quality.
-``chip_smoke.py`` phase 16 holds the port's codecs on the card's machine,
-which has no OpenCV, against these digests.
+sampling, progressive, restart markers, gray, a 16-bit quantisation table, no
+Huffman tables, EXIF orientations 1-8, a baseline and a progressive file cut
+short, and a 640x480 progressive file that the card's phase also times) and by
+Pillow (CMYK, and the same file marked YCCK); PNGs of every colour type and bit
+depth (Adam7, ``tRNS``, ``eXIf``) written by :func:`png_file`; BMPs written by
+OpenCV (gray: an 8-bit palette), by Pillow (1- and 8-bit palettes, 32-bit RGBA)
+and here (RLE8 and RLE4 with end-of-line, delta and end-of-bitmap escapes,
+4-bit, BI_BITFIELDS 565 and 32-bit, 16-bit 555, a core header, a V5 header,
+top-down rows); TIFFs written by OpenCV (no compression, LZW, PackBits,
+Deflate) and by ``chip_smoke.tiff_file`` (big-endian, tiled, planar
+configuration 2, predictor 2 at 8 and 16 bits, 16-bit gray, palettes,
+MinIsWhite, bilevel, unassociated alpha, CMYK, Orientation 3, and a YCbCr file,
+a mode the port leaves out); WebPs written by OpenCV (lossless and quality 90,
+and at 640x480 lossless and quality 75, which the card's phase 16.5 validates
+and 16.4 times) and by Pillow (EXIF orientations 5-8, alpha, an animation).
+``manifest.json`` records each file's ``cv2.imread`` shape and sha256, for a
+left-out mode the feature the port names when it raises, and for an OpenCV JPEG
+its source (``chip_smoke.codec_source``: seed, size, gray), quality and the
+sha256 of ``cv2.imencode`` of the source at that quality. ``chip_smoke.py``
+phase 16 holds the port's codecs on the card's machine, which has no OpenCV,
+against these digests.
 
-Write them again (with OpenCV): ``python tests/_torch_codec_fixtures.py``.
+Write them again (with OpenCV and Pillow): ``python tests/_torch_codec_fixtures.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +42,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FIXTURES = ROOT / "tests/res/torch_codec"
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import codec_source, exif_app1, with_exif  # noqa: E402
+from chip_smoke import (bmp_file, bmp_rows, codec_source, exif_app1,  # noqa: E402
+                        synthetic_image, tiff_file, with_exif)
 
 JPEG_H, JPEG_W = 45, 71  # a partial MCU at the right and bottom edges
 PNG_H, PNG_W = 19, 27
@@ -213,6 +225,224 @@ def png_fixtures():
     return out
 
 
+# ---- BMP, TIFF, WebP and CMYK JPEG -------------------------------------------------------
+
+IMG_H, IMG_W = 45, 71  # each fixture's size, as the JPEGs'
+
+
+def rle(idx: np.ndarray, bits: int, delta_row: int = -1) -> bytes:
+    """BMP RLE8 (``bits`` 8) or RLE4 data of (h, w) palette indices, rows in
+    file order: runs of three or more as encoded runs, the rest as absolute
+    runs (or encoded runs of one or two); each row ends with end-of-line,
+    the last with end-of-bitmap. Row ``delta_row`` is skipped by a delta
+    escape halfway along it (its pixels left to palette entry 0) and an
+    end-of-line, the delta moving right only, as OpenCV reads it in RLE4."""
+    out = bytearray()
+    h, w = idx.shape
+    for y, row in enumerate(idx.tolist()):
+        x = 0
+        if y == delta_row:
+            out += bytes([0, 2, w // 2, 0, 0, 0])
+            continue
+        while x < w:
+            n = 1
+            while x + n < w and row[x + n] == row[x] and n < 255:
+                n += 1
+            if n >= 3 or w - x < 3:
+                c = row[x] if bits == 8 else row[x] << 4 | row[x]
+                out += bytes([n, c])
+                x += n
+                continue
+            k = 3
+            while x + k < w and k < 255 and row[x + k] != row[x + k - 1]:
+                k += 1
+            vals = row[x: x + k]
+            if bits == 8:
+                body = bytes(vals)
+            else:
+                vals = vals + [0] * (k % 2)
+                body = bytes(a << 4 | b for a, b in zip(vals[::2], vals[1::2]))
+            out += bytes([0, k]) + body + bytes(len(body) % 2)
+            x += k
+        out += bytes([0, 1]) if y == h - 1 else bytes([0, 0])
+    return bytes(out)
+
+
+def _stored(rows: bytes, h: int) -> bytes:
+    """BMP rows given top first, stored bottom-up."""
+    n = len(rows) // h
+    return b"".join(rows[i * n: (i + 1) * n] for i in range(h - 1, -1, -1))
+
+
+def bmp_fixtures() -> dict:
+    import io
+
+    import cv2
+    from PIL import Image
+
+    rng = np.random.default_rng(200)
+    h, w = IMG_H, IMG_W
+    img = codec_source(200, h, w)
+    out = {}
+    ok, buf = cv2.imencode(".bmp", codec_source(201, h, w, gray=True))
+    out["bgray_cv2.bmp"] = buf.tobytes()
+
+    def pil(im, mode):
+        b = io.BytesIO()
+        Image.fromarray(im, mode).save(b, "BMP")
+        return b.getvalue()
+
+    out["bp1_pil.bmp"] = pil((codec_source(202, h, w, gray=True) > 127), "1")
+    pal_img = Image.fromarray(img[..., ::-1]).quantize(colors=200, method=Image.Quantize.MEDIANCUT)
+    b = io.BytesIO()
+    pal_img.save(b, "BMP")
+    out["bp8_pil.bmp"] = b.getvalue()
+    rgba = np.concatenate([img[..., ::-1], rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], 2)
+    out["brgba_pil.bmp"] = pil(rgba, "RGBA")
+    pal16 = rng.integers(0, 256, (16, 3))
+    pal256 = rng.integers(0, 256, (256, 3))
+    idx4 = (codec_source(203, h, w, gray=True) // 64).astype(np.int64)  # runs and changes
+    idx8 = (codec_source(204, h, w, gray=True) // 8).astype(np.int64)
+    out["brle8.bmp"] = bmp_file(rle(idx8[::-1], 8, delta_row=7), w, h, 8, 1, palette=pal256)
+    out["brle4.bmp"] = bmp_file(rle(idx4[::-1], 4, delta_row=7), w, h, 4, 2, palette=pal16)
+    out["b4.bmp"] = bmp_file(_stored(bmp_rows(idx4, 4), h), w, h, 4, palette=pal16, colors_used=16)
+    v16 = rng.integers(0, 1 << 16, (h, w))
+    out["b565.bmp"] = bmp_file(_stored(bmp_rows(v16, 16), h), w, h, 16, 3,
+                               masks=(0xF800, 0x7E0, 0x1F))
+    out["b555.bmp"] = bmp_file(_stored(bmp_rows(v16, 16), h), w, h, 16)
+    bgra = np.concatenate([img, rng.integers(0, 256, (h, w, 1))], 2).reshape(h, -1)
+    out["b32bf.bmp"] = bmp_file(_stored(bmp_rows(bgra, 8), h), w, h, 32, 3,
+                                masks=(0xFF0000, 0xFF00, 0xFF, 0xFF000000))
+    out["bcore8.bmp"] = bmp_file(_stored(bmp_rows(idx8, 8), h), w, h, 8, palette=pal256,
+                                 header=12)
+    out["bcore24.bmp"] = bmp_file(_stored(bmp_rows(img.reshape(h, -1), 8), h), w, h, 24,
+                                  header=12)
+    out["btopdown.bmp"] = bmp_file(bmp_rows(img.reshape(h, -1), 8), w, h, 24, top_down=True)
+    out["bv5.bmp"] = bmp_file(_stored(bmp_rows(img.reshape(h, -1), 8), h), w, h, 24, header=124)
+    return out
+
+
+def tiff_fixtures() -> dict:
+    import cv2
+
+    rng = np.random.default_rng(300)
+    h, w = IMG_H, IMG_W
+    img = codec_source(300, h, w)
+    rgb = np.ascontiguousarray(img[..., ::-1])
+    out = {}
+    for name, comp in (("none", 1), ("lzw", 5), ("packbits", 32773), ("deflate", 8)):
+        ok, buf = cv2.imencode(".tif", img, [cv2.IMWRITE_TIFF_COMPRESSION, comp])
+        out[f"t{name}_cv2.tif"] = buf.tobytes()
+    out["tmm_lzw_pred.tif"] = tiff_file(rgb, little=False, compression=5, predictor=2,
+                                        rows_per_strip=8)
+    out["ttiled.tif"] = tiff_file(rgb, compression=8, tile=(32, 16))
+    out["tplanar.tif"] = tiff_file(rgb, compression=32773, planar=2, rows_per_strip=10)
+    v16 = (rgb.astype(np.uint16) * 257 + rng.integers(0, 257, rgb.shape)).astype(np.uint16)
+    out["t16_lzw_pred.tif"] = tiff_file(v16, bits=16, compression=5, predictor=2)
+    out["tgray16.tif"] = tiff_file(v16[..., :1], bits=16, photometric=1, compression=32946,
+                                   little=False)
+    idx = (codec_source(301, h, w, gray=True) // 4)
+    out["tpal8.tif"] = tiff_file(idx[..., None], photometric=3,
+                                 colormap=rng.integers(0, 1 << 16, (3, 256)))
+    out["tpal4.tif"] = tiff_file((idx // 16)[..., None], bits=4, photometric=3,
+                                 colormap=rng.integers(0, 256, (3, 16)), compression=5)
+    out["tminwhite.tif"] = tiff_file(codec_source(302, h, w, gray=True)[..., None], photometric=0)
+    out["tbilevel.tif"] = tiff_file((codec_source(303, h, w, gray=True) > 127)[..., None]
+                                    .astype(np.uint8), bits=1, photometric=1, compression=32773)
+    rgba = np.concatenate([rgb, rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], 2)
+    out["trgba_unassoc.tif"] = tiff_file(rgba, extra_samples=(2,), compression=8)
+    out["tcmyk.tif"] = tiff_file(rng.integers(0, 256, (h, w, 4), dtype=np.uint8), photometric=5)
+    out["torient3.tif"] = tiff_file(rgb, orientation=3, tile=(16, 16))
+    out["tycbcr.tif"] = tiff_file(rgb, photometric=6)  # left out: the port raises
+    return out
+
+
+def scene_640() -> np.ndarray:
+    """A 640x480 image of phase 7's kind (``chip_smoke.synthetic_image``:
+    shapes on a gradient) with a little noise, as a camera's."""
+    img = synthetic_image(np.random.default_rng(112), 480, 640).astype(np.int64)
+    img += np.random.default_rng(113).integers(-3, 4, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def webp_fixtures() -> dict:
+    import io
+
+    import cv2
+    from PIL import Image
+
+    h, w = IMG_H, IMG_W
+    out = {}
+    ok, buf = cv2.imencode(".webp", codec_source(400, h, w))
+    out["wlossless_cv2.webp"] = buf.tobytes()
+    ok, buf = cv2.imencode(".webp", codec_source(401, h, w), [cv2.IMWRITE_WEBP_QUALITY, 90])
+    out["wlossy_cv2.webp"] = buf.tobytes()
+    big = scene_640()  # phase 16.5 validates these, 16.4 times them
+    out["w640_lossless_cv2.webp"] = cv2.imencode(".webp", big)[1].tobytes()
+    out["w640_lossy_cv2.webp"] = cv2.imencode(".webp", big,
+                                              [cv2.IMWRITE_WEBP_QUALITY, 75])[1].tobytes()
+    src = Image.fromarray(codec_source(402, h, w)[..., ::-1])
+    for o in (5, 6, 7, 8):
+        exif = Image.Exif()
+        exif[0x0112] = o
+        b = io.BytesIO()
+        src.save(b, "WEBP", quality=80, lossless=o % 2 == 1, exif=exif.tobytes())
+        out[f"wexif{o}_pil.webp"] = b.getvalue()
+    rgba = np.concatenate([codec_source(403, h, w)[..., ::-1],
+                           codec_source(404, h, w, gray=True)[..., None]], 2)
+    for lossless in (True, False):
+        b = io.BytesIO()
+        Image.fromarray(rgba, "RGBA").save(b, "WEBP", lossless=lossless, quality=85)
+        out[f"walpha_{'lossless' if lossless else 'lossy'}_pil.webp"] = b.getvalue()
+    frames = [Image.fromarray(codec_source(405 + k, h, w)[..., ::-1]) for k in range(3)]
+    b = io.BytesIO()
+    frames[0].save(b, "WEBP", save_all=True, append_images=frames[1:], quality=80)
+    out["wanim_pil.webp"] = b.getvalue()
+    return out
+
+
+def cmyk_jpeg_fixtures() -> dict:
+    """A CMYK JPEG written by Pillow (Adobe marker, transform 0) and the
+    same file marked YCCK (transform 2)."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(500)
+    cmyk = np.concatenate([codec_source(500, IMG_H, IMG_W),
+                           rng.integers(0, 256, (IMG_H, IMG_W, 1), dtype=np.uint8)], 2)
+    b = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(b, "JPEG", quality=90, subsampling=2)
+    data = bytearray(b.getvalue())
+    at = data.index(b"Adobe")
+    out = {"jcmyk_pil.jpg": bytes(data)}
+    data[at + 11] = 2
+    out["jycck_pil.jpg"] = bytes(data)
+    return out
+
+
+def webp_with_exif(webp: bytes, orientation: int) -> bytes:
+    """A simple-format WebP (one VP8 or VP8L chunk) as an extended one: VP8X
+    with the EXIF flag, the image, and an EXIF chunk holding a TIFF IFD0
+    with the orientation tag only."""
+    tag, (size,) = webp[12:16], struct.unpack_from("<I", webp, 16)
+    payload = webp[20: 20 + size]
+    if tag == b"VP8L":
+        (v,) = struct.unpack_from("<I", payload, 1)
+        w, h = (v & 0x3FFF) + 1, ((v >> 14) & 0x3FFF) + 1
+    else:
+        w, h = (struct.unpack_from("<H", payload, k)[0] & 0x3FFF for k in (6, 8))
+    exif = exif_app1(orientation)[10:]
+    vp8x = bytes([8, 0, 0, 0]) + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+    body = b"".join(t + struct.pack("<I", len(p)) + p + bytes(len(p) % 2)
+                    for t, p in ((b"VP8X", vp8x), (tag, payload), (b"EXIF", exif)))
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+# the fixtures of modes the port leaves out: name -> the feature its error names
+LEFT_OUT = {"tycbcr.tif": "YCbCr"}
+
+
 # ---- manifest ----------------------------------------------------------------------------
 
 
@@ -220,16 +450,23 @@ def sha256(b) -> str:
     return hashlib.sha256(bytes(b)).hexdigest()
 
 
+def fixture_files(root: Path = FIXTURES):
+    return sorted(p for p in root.iterdir() if p.name != "manifest.json")
+
+
 def manifest(root: Path = FIXTURES) -> dict:
-    """Each fixture's ``cv2.imread`` shape and digest, and for a JPEG its
-    source and the digest of ``cv2.imencode`` of the source."""
+    """Each fixture's ``cv2.imread`` shape and digest; for a left-out mode
+    the feature the port names; for an OpenCV JPEG its source and the digest
+    of ``cv2.imencode`` of the source."""
     import cv2
 
     files = {}
     sources = {name: src for name, (_, src) in jpeg_fixtures().items()}
-    for path in sorted(root.glob("*.*g")):
+    for path in fixture_files(root):
         im = cv2.imread(str(path))
         entry = {"shape": list(im.shape), "sha256": sha256(np.ascontiguousarray(im).tobytes())}
+        if path.name in LEFT_OUT:
+            entry["left_out"] = LEFT_OUT[path.name]
         if path.name in sources:
             src = dict(sources[path.name])
             ok, buf = cv2.imencode(".jpg", codec_source(src["seed"], src["h"], src["w"], src["gray"]),
@@ -244,8 +481,9 @@ def write(root: Path = FIXTURES) -> None:
     root.mkdir(parents=True, exist_ok=True)
     for name, (data, _) in jpeg_fixtures().items():
         (root / name).write_bytes(data)
-    for name, data in png_fixtures().items():
-        (root / name).write_bytes(data)
+    for group in (png_fixtures, bmp_fixtures, tiff_fixtures, webp_fixtures, cmyk_jpeg_fixtures):
+        for name, data in group().items():
+            (root / name).write_bytes(data)
     (root / "manifest.json").write_text(json.dumps(manifest(root), indent=1, sort_keys=True) + "\n")
 
 

@@ -11,7 +11,8 @@ the tests import cv2, the port never does.
   quality and at each tested one, colour and gray;
 - cut and corrupt files give what ``cv2.imread`` gives (an image, or
   ``OSError`` where it gives None), block smoothing of cut progressive files
-  included; arithmetic coding, lossless, 12-bit and CMYK files raise naming
+  included; CMYK and YCCK files (Pillow's, Adobe's transform flag) equal
+  ``cv2.imread``; arithmetic coding, lossless and 12-bit files raise naming
   the feature.
 """
 
@@ -167,10 +168,7 @@ def test_corrupt_scan_data_gives_what_cv2_gives(tmp_path, progressive):
     (lambda d: d.replace(b"\xff\xc0", b"\xff\xc9", 1), "arithmetic"),
     (lambda d: d.replace(b"\xff\xc0", b"\xff\xc3", 1), "lossless"),
     (lambda d: d.replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc1\x00\x11\x0c", 1), "12-bit"),
-    (lambda d: d.replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x14\x08", 1)
-     .replace(b"\x03\x01\x22\x00\x02\x11\x01\x03\x11\x01",
-              b"\x04\x01\x22\x00\x02\x11\x01\x03\x11\x01\x04\x11\x01", 1), "CMYK"),
-], ids=["arithmetic", "lossless", "12bit", "cmyk"])
+], ids=["arithmetic", "lossless", "12bit"])
 def test_unsupported_modes_raise_naming_the_feature(tmp_path, patch, feature):
     from ayolov2_torch.data.image_io import imread
 
@@ -180,6 +178,47 @@ def test_unsupported_modes_raise_naming_the_feature(tmp_path, patch, feature):
     with pytest.raises(OSError, match=feature) as err:
         imread(str(path))
     assert str(path) in str(err.value)
+
+
+def _cmyk_jpeg(h: int, w: int, seed: int, quality: int, subsampling: int, progressive: bool):
+    """A CMYK JPEG as Pillow writes it (libjpeg with an Adobe marker,
+    transform 0, Adobe's inverted values)."""
+    import io
+
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    cmyk = np.concatenate([_image(h, w, seed, noisy=seed % 2 == 1),
+                           rng.integers(0, 256, (h, w, 1), dtype=np.uint8)], 2)
+    b = io.BytesIO()
+    Image.fromarray(cmyk, "CMYK").save(b, "JPEG", quality=quality, subsampling=subsampling,
+                                       progressive=progressive)
+    return b.getvalue()
+
+
+@pytest.mark.parametrize("transform", ["cmyk", "ycck", "unknown", "no_adobe"])
+def test_cmyk_and_ycck_equal_cv2(tmp_path, transform):
+    """Four components: CMYK (Adobe transform 0, or no Adobe marker) or YCCK
+    (transform 2, and libjpeg's guess for any other), upsampled and turned
+    into BGR by OpenCV's inverted-CMYK formula, each size, sampling and
+    mode; and a frame of four components whose scans name only three."""
+    for (h, w), sub, prog in itertools.product(SIZES, (0, 2), (False, True)):
+        data = bytearray(_cmyk_jpeg(h, w, h * w + sub, 80, sub, prog))
+        at = data.index(b"Adobe")
+        if transform == "no_adobe":
+            seg = at - 4
+            del data[seg: seg + 2 + ((data[seg + 2] << 8) | data[seg + 3])]
+        else:
+            data[at + 11] = {"cmyk": 0, "ycck": 2, "unknown": 1}[transform]
+        path = tmp_path / f"{h}x{w}_{sub}_{prog}.jpg"
+        path.write_bytes(bytes(data))
+        _same_as_cv2(path)
+    four = _encode(_image(16, 16, 0, noisy=False)).replace(
+        b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x14\x08", 1).replace(
+        b"\x03\x01\x22\x00\x02\x11\x01\x03\x11\x01",
+        b"\x04\x01\x22\x00\x02\x11\x01\x03\x11\x01\x04\x11\x01", 1)
+    (tmp_path / "four.jpg").write_bytes(four)
+    _same_as_cv2(tmp_path / "four.jpg")
 
 
 @pytest.mark.parametrize("sampling", ["420", "422", "444", "gray"])

@@ -62,16 +62,22 @@ def test_top_down_bmp(tmp_path):
 def test_other_formats_go_through_cv2_and_name_what_is_missing(tmp_path, monkeypatch):
     from ayolov2_torch.data.image_io import image_size, imread
 
-    """TIFF (like WebP and DNG) is still read through cv2; JPEG and PNG no
-    longer are (``test_torch_port_image_files.py``)."""
+    """A signature that none of the port's decoders claims (here a PPM) is
+    still read through cv2, and without cv2 the error names the file and the
+    package; TIFF (like JPEG, PNG, BMP and WebP) no longer goes to cv2
+    (``test_torch_port_codec_*.py``)."""
     img = np.random.default_rng(4).integers(0, 256, (9, 11, 3), dtype=np.uint8)
-    path = str(tmp_path / "a.tif")
+    path = str(tmp_path / "a.ppm")
     cv2.imwrite(path, img)
     np.testing.assert_array_equal(imread(path), img)
     assert image_size(path) == (11, 9)
+    tif = str(tmp_path / "a.tif")
+    cv2.imwrite(tif, img)
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match=r"a\.tif.*'cv2'"):
+    with pytest.raises(ImportError, match=r"a\.ppm.*'cv2'"):
         imread(path)
+    np.testing.assert_array_equal(imread(tif), img)
+    assert image_size(tif) == (11, 9)
 
 
 @pytest.mark.parametrize("src,dst", [((76, 100), (160, 121)), ((150, 200), (160, 120)),

@@ -1,9 +1,9 @@
 """Image files through the port: EXIF orientations, sizes, the committed
 codec fixtures, the JPEG compression policy and the dataset on a directory of
-JPEG, PNG and EXIF-rotated JPEG files, each against the JAX package (which
-reads through cv2 and PIL) or the sandbox's OpenCV 5.0; and the port's reads
-and writes in an interpreter where cv2 and PIL cannot be imported, as on the
-card's machine.
+JPEG, PNG, EXIF-rotated JPEG, TIFF, EXIF-rotated WebP and palette BMP files,
+each against the JAX package (which reads through cv2 and PIL) or the
+installed OpenCV 5.0; and the port's reads and writes in an interpreter
+where cv2 and PIL cannot be imported, as on the card's machine.
 """
 
 from __future__ import annotations
@@ -83,16 +83,26 @@ def test_fixture_manifest_is_current(tmp_path):
         assert (tmp_path / name).read_bytes() == (fx.FIXTURES / name).read_bytes(), name
 
 
-@pytest.mark.parametrize("kind", ["jpeg", "png"])
+KINDS = {".jpg": "jpeg", ".png": "png", ".bmp": "bmp", ".tif": "tiff", ".webp": "webp"}
+
+
+@pytest.mark.parametrize("kind", ["jpeg", "png", "bmp", "tiff", "webp"])
 def test_port_decodes_fixtures_to_the_manifest(kind):
     """What ``chip_smoke.py`` phase 16 checks on the card: each fixture's
-    array digest, and each JPEG source's re-encoded bytes."""
+    array digest (a left-out mode raises naming its feature), and each
+    JPEG source's re-encoded bytes."""
     from ayolov2_torch.data.codecs import encode_jpeg
     from ayolov2_torch.data.image_io import imread
 
     files = json.loads((fx.FIXTURES / "manifest.json").read_text())["files"]
+    seen = 0
     for name, entry in files.items():
-        if name.endswith(".jpg") != (kind == "jpeg"):
+        if KINDS[Path(name).suffix] != kind:
+            continue
+        seen += 1
+        if "left_out" in entry:
+            with pytest.raises(OSError, match=entry["left_out"]):
+                imread(str(fx.FIXTURES / name))
             continue
         im = imread(str(fx.FIXTURES / name))
         assert list(im.shape) == entry["shape"] and fx.sha256(im.tobytes()) == entry["sha256"], name
@@ -100,6 +110,22 @@ def test_port_decodes_fixtures_to_the_manifest(kind):
             s = entry["source"]
             enc = encode_jpeg(fx.codec_source(s["seed"], s["h"], s["w"], s["gray"]), s["quality"])
             assert fx.sha256(enc) == s["imencode_sha256"], name
+    assert seen > 0
+
+
+def test_image_size_equals_exif_size_on_every_fixture():
+    """``image_size`` reads each fixture's header as the JAX package's
+    ``exif_size(PIL.Image.open(f))`` sizes it: EXIF 6 and 8 swapped in JPEG,
+    PNG and WebP files, 5 and 7 not (a WebP at 5 or 7 is turned by cv2,
+    not by PIL), TIFF Orientation 5-8 swapped by PIL itself, BMP never."""
+    from PIL import Image
+
+    from ayolov2_tpu.data.datasets import exif_size
+    from ayolov2_torch.data.image_io import image_size
+
+    for path in fx.fixture_files():
+        with Image.open(path) as pil:
+            assert image_size(str(path)) == exif_size(pil), path.name
 
 
 def test_a_failed_codec_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
@@ -138,9 +164,12 @@ def test_image_compression_equals_jax():
 
 def _write_mixed_set(root: Path) -> Path:
     """``root/images``: JPEGs, PNGs (written by the port's writer and by the
-    tests' writer with filters and Adam7) and JPEGs stored turned with EXIF
-    orientations 3, 5, 6 and 8; ``labels/`` and ``segments/`` for each."""
+    tests' writer with filters and Adam7), JPEGs stored turned with EXIF
+    orientations 3, 5, 6 and 8, an LZW TIFF with predictor 2, a WebP stored
+    turned with EXIF orientation 6 and a palette BMP; ``labels/`` and
+    ``segments/`` for each."""
     from ayolov2_torch.utils.png import write_png
+    from chip_smoke import bmp_file, bmp_rows, palette_332, tiff_file
 
     images, labels, segments = root / "images", root / "labels", root / "segments"
     for d in (images, labels, segments):
@@ -149,7 +178,8 @@ def _write_mixed_set(root: Path) -> Path:
     files = [((96, 128), "jpeg", 0), ((128, 96), "png", 0), ((80, 80), "exif", 6),
              ((112, 64), "adam7", 0), ((64, 112), "exif", 8), ((100, 140), "jpeg", 0),
              ((90, 60), "exif", 5), ((128, 128), "exif", 3), ((72, 120), "png", 0),
-             ((120, 72), "exif", 6), ((96, 96), "adam7", 0), ((60, 90), "jpeg", 0)]
+             ((120, 72), "exif", 6), ((96, 96), "adam7", 0), ((60, 90), "jpeg", 0),
+             ((88, 120), "tiff", 0), ((70, 110), "webp", 6), ((100, 76), "bmp", 0)]
     for i, ((h, w), kind, o) in enumerate(files):
         im = fx.codec_source(20 + i, h, w)
         if kind == "jpeg":
@@ -160,6 +190,17 @@ def _write_mixed_set(root: Path) -> Path:
             stored = {3: im[::-1, ::-1], 5: im.transpose(1, 0, 2), 6: np.rot90(im, 1),
                       8: np.rot90(im, -1)}[o]
             (images / f"{i}.jpg").write_bytes(fx.with_exif(_jpeg(np.ascontiguousarray(stored)), o))
+        elif kind == "tiff":
+            (images / f"{i}.tif").write_bytes(tiff_file(im[..., ::-1], compression=5, predictor=2,
+                                                        rows_per_strip=16))
+        elif kind == "webp":
+            stored = np.ascontiguousarray(np.rot90(im, 1))
+            webp = cv2.imencode(".webp", stored, [cv2.IMWRITE_WEBP_QUALITY, 90])[1].tobytes()
+            (images / f"{i}.webp").write_bytes(fx.webp_with_exif(webp, o))
+        elif kind == "bmp":
+            idx, pal = palette_332(im)
+            rows = bmp_rows(idx[::-1], 8)
+            (images / f"{i}.bmp").write_bytes(bmp_file(rows, w, h, 8, palette=pal))
         else:
             (images / f"{i}.png").write_bytes(fx.png_file(30 + i, w, h, 8, 2, interlace=1))
         n = int(rng.integers(1, 4))
@@ -223,8 +264,11 @@ def test_augmented_items_on_mixed_files_equal_jax(mixed):
 
 def test_no_cv2_or_pil_on_the_path(mixed, tmp_path):
     """With ``cv2`` and ``PIL`` blocked from import, as on the card's machine:
-    the fixtures are read and sized, a JPEG is written, and the dataset gives
-    an item over the mixed set."""
+    every fixture (JPEG, PNG, BMP, TIFF, WebP) is read and sized, a left-out
+    mode raises naming its feature, a JPEG is written, and the dataset gives
+    an item of each file of the mixed set (JPEG, PNG, TIFF, WebP, BMP)."""
+    left_out = {k: v["left_out"] for k, v in json.loads(
+        (fx.FIXTURES / "manifest.json").read_text())["files"].items() if "left_out" in v}
     code = f"""
 import sys
 sys.modules["cv2"] = None
@@ -233,20 +277,36 @@ sys.path.insert(0, {str(ROOT)!r})
 from pathlib import Path
 from ayolov2_torch.data import DetectionDataset
 from ayolov2_torch.data.image_io import image_size, imread, imwrite
-n = 0
-for p in sorted(Path({str(fx.FIXTURES)!r}).glob("*.*g")):
-    im = imread(str(p))
+n = raised = 0
+kinds = set()
+for p in sorted(Path({str(fx.FIXTURES)!r}).iterdir()):
+    if p.name == "manifest.json":
+        continue
     w, h = image_size(str(p))
+    if p.name in {left_out!r}:
+        try:
+            imread(str(p))
+        except OSError as e:
+            assert {left_out!r}[p.name] in str(e), e
+            raised += 1
+        continue
+    im = imread(str(p))
     assert im.ndim == 3 and im.shape[2] == 3 and {{w, h}} == {{im.shape[0], im.shape[1]}}, p
     n += 1
+    kinds.add(p.suffix)
 imwrite({str(tmp_path / "w.jpg")!r}, im)
 assert imread({str(tmp_path / "w.jpg")!r}).shape == im.shape
 ds = DetectionDataset({str(mixed)!r}, img_size={IMG}, batch_size=4, rect=True, pad=0.5)
-item = ds[0]
-assert item[0].ndim == 3 and sys.modules["cv2"] is None and sys.modules["PIL"] is None
-print("ok", n, item[0].shape)
+for i in range(len(ds)):
+    item = ds[i]
+    assert item[0].ndim == 3
+assert sys.modules["cv2"] is None and sys.modules["PIL"] is None
+suffixes = sorted(Path(f).suffix for f in ds.img_files)
+print("ok", n, raised, sorted(kinds), len(ds), sorted(set(suffixes)))
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300,
                          cwd=tmp_path)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("ok 40 ")
+    files = fx.fixture_files()
+    assert out.stdout.split()[:3] == ["ok", str(len(files) - len(left_out)), str(len(left_out))]
+    assert "['.bmp', '.jpg', '.png', '.tif', '.webp']" in out.stdout, out.stdout
