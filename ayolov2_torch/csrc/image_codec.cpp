@@ -3,18 +3,30 @@
 // imencode give through libjpeg-turbo and libpng at OpenCV's defaults.
 //
 // JPEG decoding follows libjpeg-turbo: baseline, extended sequential and
-// progressive Huffman scans (restart intervals, 8- and 16-bit quantisation
-// tables, tables redefined between scans, the standard tables where a file
-// defines none), the islow inverse DCT in the arithmetic of libjpeg-turbo's
-// SIMD version (which OpenCV's build runs), fancy upsampling (h2v1, h1v2,
-// h2v2 with context rows; other integral factors replicated), and
-// jdcolor.c's fixed-point YCbCr -> BGR. Data cut short reads on as libjpeg's
-// stdio source feeds it (fake EOI markers): a scan is padded with zero bits
-// and its rest left zero, and a progressive file cut before its last scan
-// is block-smoothed (decompress_smooth_data). Four-component files are
-// CMYK, or YCCK after an Adobe marker whose transform is not 0, turned into
-// BGR by OpenCV's inverted-CMYK formula. Arithmetic coding, lossless and
-// hierarchical frames and 12-bit samples raise as unsupported.
+// progressive scans, Huffman-coded or arithmetic-coded (jdarith.c's QM
+// decoder, DAC conditioning; data past a marker decoded as zeros) (restart
+// intervals, 8- and 16-bit quantisation tables, tables redefined between
+// scans, the standard Huffman tables where a file defines none), the islow
+// inverse DCT in the arithmetic of libjpeg-turbo's SIMD version (which
+// OpenCV's build runs), fancy upsampling (h2v1, h1v2, h2v2 with context
+// rows; other integral factors replicated), and jdcolor.c's fixed-point
+// YCbCr -> BGR. Data cut short reads on as libjpeg's stdio source feeds it
+// (fake EOI markers): a Huffman scan is padded with zero bits and its rest
+// left zero, and a progressive file cut before its last scan is
+// block-smoothed (decompress_smooth_data). Four-component files are CMYK,
+// or YCCK after an Adobe marker whose transform is not 0, turned into BGR by
+// OpenCV's inverted-CMYK formula. Lossless frames (SOF3) follow jdlhuff.c,
+// jddiffct.c and jdlossls.c: predictors 1-7, the point transform, any
+// sampling (replicated, never fancy), restarts at MCU rows, and a scan that
+// runs out of data read on at the centre value; cv2 gives an image only for
+// 8-bit samples whose colour space libjpeg takes as RGB or CMYK, since it
+// converts no colours in lossless mode. After the scan of a single-scan
+// file nothing is read: OpenCV keeps the image whatever
+// jpeg_finish_decompress finds there. A JPEG strip or tile of a TIFF is
+// decoded as libtiff asks libjpeg to (ayolo_jpeg_decode's mode): YCbCr ->
+// RGB whatever the markers say, or the components as stored. Hierarchical
+// frames, arithmetic-coded lossless ones and DCT samples of other than 8
+// bits raise as cv2.imread gives None for them.
 //
 // JPEG encoding is libjpeg-turbo's at OpenCV's defaults: JFIF, baseline,
 // 4:2:0 (gray: one component), jpeg_set_quality's tables, jccolor.c's
@@ -99,6 +111,42 @@ const int kChromaQ[64] = {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99
                           99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
                           99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99};
 
+// jaricom.c's jpeg_aritab (T.81 table D.2): Qe << 16 | Next_Index_MPS << 8 |
+// Switch_MPS << 7 | Next_Index_LPS; the last entry is the fixed probability
+// 0.5 of the sign and refinement bits
+#define V(qe, nlps, nmps, sw) (((int32_t)(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+const int32_t kAriTab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),    V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0),    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),   V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),   V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0),   V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),   V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),   V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0),   V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),   V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),   V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0),   V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),   V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),   V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0),   V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),   V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),   V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0),   V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),   V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),   V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1),   V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),   V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),   V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0),   V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),  V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0),  V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
 // islow's constants (13 fractional bits)
 constexpr int32_t C0298 = 2446, C0390 = 3196, C0541 = 4433, C0765 = 6270, C0899 = 7373,
                   C1175 = 9633, C1501 = 12299, C1847 = 15137, C1961 = 16069, C2053 = 16819,
@@ -118,7 +166,9 @@ struct HuffTable {
   int32_t valoffset[18];
   uint16_t look[512];  // 9-bit lookahead: (length << 8) | value, 0 where longer
 
-  void derive(bool dc) {
+  // dc: values above max_dc are refused, as libjpeg refuses them (15 in a
+  // DCT frame, 16 in a lossless one)
+  void derive(bool dc, int max_dc = 15) {
     int huffsize[257], huffcode[257], p = 0;
     for (int l = 1; l <= 16; l++)
       for (int i = 0; i < bits[l]; i++) {
@@ -126,9 +176,9 @@ struct HuffTable {
         huffsize[p++] = l;
       }
     const int count = p;
-    if (dc)  // libjpeg takes DC values of 0-15 only
+    if (dc)
       for (int i = 0; i < count; i++)
-        if (vals[i] > 15) fail(CORRUPT, "bad Huffman table");
+        if (vals[i] > max_dc) fail(CORRUPT, "bad Huffman table");
     huffsize[p] = 0;
     int code = 0, si = huffsize[0];
     p = 0;
@@ -170,6 +220,8 @@ struct Component {
   int coef_bits[64];  // libjpeg's progression status: Al of each coefficient, -1 unseen
   int prev_bits[64];  // the same before the last scan that held this component
   std::vector<int16_t> coef;
+  std::vector<uint16_t> plane;  // lossless: the undifferenced samples, dw x dh
+  int pt = 0;                   // lossless: the point transform of its scan
   int16_t* block(int by, int bx) { return coef.data() + ((size_t)by * bw + bx) * 64; }
 };
 
@@ -238,6 +290,73 @@ struct BitReader {
 
 inline int extend(int x, int s) { return x < (1 << (s - 1)) ? x - (1 << s) + 1 : x; }
 
+// jdarith.c's arith_decode (T.81 D.2 with Markus Kuhn's floating cut between
+// the interval base and the bit buffer in C): a marker, or the end of the
+// data, stops the byte input, and zeros are decoded on from there
+struct ArithReader {
+  const uint8_t* data;
+  size_t n, pos;
+  int marker = 0;
+  int64_t c = 0, a = 0;
+  int ct = -16;  // -16: two bytes to fetch; -1: an error stops the scan's decoding
+
+  int byte() { return pos < n ? data[pos++] : 0xD9; }
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int d;
+        if (marker) {
+          d = 0;
+        } else {
+          d = byte();
+          if (d == 0xFF) {
+            do d = byte();
+            while (d == 0xFF);
+            if (d == 0) {
+              d = 0xFF;
+            } else {
+              marker = d;
+              d = 0;
+            }
+          }
+        }
+        c = (c << 8) | d;
+        if ((ct += 8) < 0)
+          if (++ct == 0) a = 0x8000;
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int32_t qe = kAriTab[sv & 0x7F];
+    const int nl = qe & 0xFF;
+    qe >>= 8;
+    const int nm = qe & 0xFF;
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {
+      if (a < qe) {
+        *st = (uint8_t)((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = (uint8_t)((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
 struct JpegDecoder {
   const uint8_t* data;
   size_t n;
@@ -247,13 +366,22 @@ struct JpegDecoder {
   bool qt_defined[4] = {};
   std::vector<Component> comps;
   int width = 0, height = 0, max_h = 1, max_v = 1, mcus_x = 0, mcus_y = 0;
-  bool frame = false, progressive = false, jfif = false, adobe = false;
+  bool frame = false, progressive = false, lossless = false, arithmetic = false, jfif = false,
+       adobe = false;
+  // DAC's conditioning of each arithmetic table (L and U of the DC tables,
+  // K of the AC tables), libjpeg's defaults until a DAC segment sets them
+  uint8_t arith_l[16] = {}, arith_u[16], arith_k[16];
+  int precision = 8;
+  int color_mode = 0;  // 0: as cv2 (BGR), 1: YCbCr -> RGB, 2: the components as stored
   int adobe_transform = -1;
   int restart_interval = 0;
   int scans = 0;
-  bool single_scan = false;  // the first scan held every component: nothing may follow it
+  bool single_scan = false;  // the first scan held every component: nothing after it is read
 
-  JpegDecoder(const uint8_t* d, size_t len) : data(d), n(len) {}
+  JpegDecoder(const uint8_t* d, size_t len) : data(d), n(len) {
+    std::memset(arith_u, 1, sizeof(arith_u));
+    std::memset(arith_k, 5, sizeof(arith_k));
+  }
 
   int byte() {
     if (pos >= n) fail(CORRUPT, "JPEG data ends inside a marker segment");
@@ -304,17 +432,24 @@ struct JpegDecoder {
 
   void read_sof(int marker, size_t end) {
     if (frame) fail(CORRUPT, "a second SOF marker");
-    int precision = byte();
+    precision = byte();
     height = word();
     width = word();
     int nc = byte();
     if (end - pos != (size_t)nc * 3) fail(CORRUPT, "bad SOF length");
-    if (precision != 8)
-      fail(UNSUPPORTED, std::to_string(precision) + "-bit JPEG samples are not supported");
+    lossless = marker == 0xC3;
+    if (lossless && (precision < 2 || precision > 16)) fail(CORRUPT, "bad lossless JPEG precision");
+    if (lossless && (precision != 8 || color_mode))
+      fail(UNSUPPORTED, "lossless JPEG of " + std::to_string(precision) +
+                            "-bit samples is not read (cv2.imread gives None)");
+    if (!lossless && precision != 8)
+      fail(UNSUPPORTED, std::to_string(precision) +
+                            "-bit JPEG samples are not read (cv2.imread gives None)");
     if (height <= 0 || width <= 0 || nc <= 0) fail(CORRUPT, "empty JPEG image");
     if (nc != 1 && nc != 3 && nc != 4)
       fail(CORRUPT, "a JPEG file of " + std::to_string(nc) + " components");
-    progressive = marker == 0xC2;
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arithmetic = marker == 0xC9 || marker == 0xCA;
     comps.resize(nc);
     for (auto& c : comps) {
       c.id = byte();
@@ -342,38 +477,36 @@ struct JpegDecoder {
     frame = true;
   }
 
-  // libjpeg's read_restart_marker and jpeg_resync_to_restart
-  void restart(BitReader& br, int& next_rst) {
-    br.bits = 0;
-    if (br.marker == 0) {
-      size_t p = br.pos;
-      br.marker = next_marker(p);
-      br.pos = p;
-    }
-    if (br.marker == 0xD0 + next_rst) {
-      br.marker = 0;
+  // libjpeg's read_restart_marker and jpeg_resync_to_restart over the
+  // reader's position and the marker it stopped at
+  void read_restart_marker(size_t& pos_, int& marker, int& next_rst) const {
+    if (marker == 0) marker = next_marker(pos_);
+    if (marker == 0xD0 + next_rst) {
+      marker = 0;
     } else {
       for (;;) {
-        int m = br.marker, action;
+        int m = marker, action;
         if (m < 0xC0) action = 2;
         else if (m < 0xD0 || m > 0xD7) action = 3;
         else if (m == 0xD0 + ((next_rst + 1) & 7) || m == 0xD0 + ((next_rst + 2) & 7)) action = 3;
         else if (m == 0xD0 + ((next_rst - 1) & 7) || m == 0xD0 + ((next_rst - 2) & 7)) action = 2;
         else action = 1;
-        if (action == 1) { br.marker = 0; break; }
+        if (action == 1) { marker = 0; break; }
         if (action == 3) break;
-        size_t p = br.pos;
-        br.marker = next_marker(p);
-        br.pos = p;
+        marker = next_marker(pos_);
       }
     }
     next_rst = (next_rst + 1) & 7;
+  }
+
+  void restart(BitReader& br, int& next_rst) {
+    br.bits = 0;
+    read_restart_marker(br.pos, br.marker, next_rst);
     if (br.marker == 0) br.insufficient = false;
   }
 
   void read_sos(size_t end) {
     if (!frame) fail(CORRUPT, "SOS before SOF");
-    if (single_scan) fail(CORRUPT, "a scan after the only scan of a sequential JPEG");
     int ns = byte();
     if (ns < 1 || ns > 4 || end - pos != (size_t)ns * 2 + 3) fail(CORRUPT, "bad SOS length");
     std::vector<Component*> sc;
@@ -389,11 +522,44 @@ struct JpegDecoder {
       sc.push_back(c);
       td[i] = t >> 4;
       ta[i] = t & 15;
-      if (td[i] > 3 || ta[i] > 3) fail(CORRUPT, "bad Huffman table index");
+      if (!arithmetic && (td[i] > 3 || ta[i] > 3)) fail(CORRUPT, "bad Huffman table index");
     }
     int ss = byte(), se = byte(), a = byte(), ah = a >> 4, al = a & 15;
     if (scans == 0 && !progressive && ns == (int)comps.size()) single_scan = true;
     scans++;
+    if (lossless) {
+      // jdlossls.c's start_pass: Ss the predictor, Al the point transform
+      if (ss < 1 || ss > 7 || se != 0 || ah != 0 || al >= precision)
+        fail(CORRUPT, "bad lossless scan parameters");
+      for (int k = 0; k < 2; k++)
+        if (!dc[k].defined)
+          set_std(dc[k], k ? kDcChromaBits : kDcLumaBits, k ? kDcChromaVals : kDcLumaVals, 12);
+      for (int i = 0; i < ns; i++) {
+        if (!dc[td[i]].defined) fail(CORRUPT, "a scan's Huffman table is not defined");
+        dc[td[i]].derive(true, 16);
+      }
+      decode_lossless_scan(sc, td, ss, al);
+      return;
+    }
+    if (arithmetic) {
+      if (progressive) {
+        bool bad = ss == 0 ? se != 0 : (se < ss || se > 63 || ns != 1);
+        if (bad || (ah != 0 && al != ah - 1) || al > 13) fail(CORRUPT, "bad progressive scan parameters");
+        for (auto* c : sc) {
+          for (int k = std::min(ss, 1); k <= std::max(se, 9); k++)
+            c->prev_bits[k] = scans > 1 ? c->coef_bits[k] : 0;
+          for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
+        }
+      }
+      for (auto* c : sc)
+        if (!c->latched) {
+          if (!qt_defined[c->tq]) fail(CORRUPT, "a component's quantisation table is not defined");
+          std::memcpy(c->q, qt[c->tq], sizeof(c->q));
+          c->latched = true;
+        }
+      decode_scan_arith(sc, td, ta, ss, se, ah, al);
+      return;
+    }
     // libjpeg's standard tables for slots 0 and 1 where the file defines none
     for (int k = 0; k < 2; k++) {
       if (!dc[k].defined)
@@ -429,6 +595,322 @@ struct JpegDecoder {
       }
     }
     decode_scan(sc, td, ta, ss, se, ah, al);
+  }
+
+  // jddiffct.c's decompress_data over jdlhuff.c's decode_mcus and
+  // jdlossls.c's undifferencing (a DCT block is one sample): an MCU row
+  // holds v rows of each component, its dummy samples past a component's
+  // width decoded and dropped; restarts come every restart_interval /
+  // MCUs-per-row MCU rows (an interval that is no multiple is refused); an
+  // MCU row begun after the data ran out gets zero differences. A restart,
+  // or the data running out, sets the first-row predictor for the next row
+  // undifferenced, and libjpeg undifferences once an iMCU row has been
+  // decoded: v rows of a single-component scan's MCU rows, so a reset
+  // inside them acts on the first
+  void decode_lossless_scan(std::vector<Component*>& sc, std::vector<int>& td, int psv, int pt) {
+    BitReader br{data, n, pos};
+    const int ns = (int)sc.size();
+    for (auto* c : sc) {
+      c->pt = pt;
+      c->latched = true;
+      c->plane.assign((size_t)c->dw * c->dh, 0);
+    }
+    // an interleaved scan's MCU is max_h x max_v samples of the image;
+    // a single component's is one of its samples
+    const int per_row = ns == 1 ? sc[0]->dw : (width + max_h - 1) / max_h;
+    const int mcu_rows = ns == 1 ? sc[0]->dh : (height + max_v - 1) / max_v;
+    std::vector<int> bh(ns), bv(ns);
+    std::vector<std::vector<int>> diff(ns);
+    for (int i = 0; i < ns; i++) {
+      bh[i] = ns == 1 ? 1 : sc[i]->h;
+      bv[i] = ns == 1 ? 1 : sc[i]->v;
+      diff[i].assign((size_t)bv[i] * per_row * bh[i], 0);
+    }
+    if (restart_interval % per_row)
+      fail(CORRUPT, "a lossless restart interval that is not a whole number of MCU rows");
+    const int restart_rows = restart_interval / per_row;
+    // MCU rows undifferenced together: an iMCU row
+    const int group = ns == 1 ? sc[0]->v : 1;
+    std::vector<std::vector<int>> rows_diff(group);
+    int rows_to_go = restart_rows, next_rst = 0;
+    std::vector<bool> first_row(ns, true);
+    for (int g0 = 0; g0 < mcu_rows; g0 += group) {
+      const int n_rows = std::min(group, mcu_rows - g0);
+      for (int k = 0; k < n_rows; k++) {
+        if (restart_interval && rows_to_go == 0) {
+          restart(br, next_rst);
+          first_row.assign(ns, true);
+          rows_to_go = restart_rows;
+        }
+        if (br.insufficient) {
+          for (auto& d : diff) std::fill(d.begin(), d.end(), 0);
+          first_row.assign(ns, true);
+        } else {
+          for (int mx = 0; mx < per_row; mx++)
+            for (int i = 0; i < ns; i++)
+              for (int y = 0; y < bv[i]; y++)
+                for (int x = 0; x < bh[i]; x++) {
+                  int s = br.decode(dc[td[i]]);
+                  if (s == 16) s = 32768;
+                  else if (s) s = extend(br.get(s), s);
+                  diff[i][(size_t)y * per_row * bh[i] + mx * bh[i] + x] = s;
+                }
+        }
+        if (restart_interval) rows_to_go--;
+        if (group > 1) rows_diff[k] = diff[0];
+      }
+      if (group > 1) {  // one component: its iMCU row's rows
+        for (int k = 0; k < n_rows; k++) {
+          undifference(*sc[0], g0 + k, rows_diff[k].data(), psv, pt, first_row[0]);
+          first_row[0] = false;
+        }
+        continue;
+      }
+      for (int i = 0; i < ns; i++)
+        for (int y = 0; y < bv[i] && g0 * bv[i] + y < sc[i]->dh; y++) {
+          undifference(*sc[i], g0 * bv[i] + y, diff[i].data() + (size_t)y * per_row * bh[i], psv,
+                       pt, first_row[i]);
+          first_row[i] = false;
+        }
+    }
+    pos = br.pos;
+    pending_marker = br.marker ? br.marker : next_marker(pos);
+  }
+
+  // jdlossls.c's undifferencing of component row y from its differences d
+  void undifference(Component& c, int y, const int* d, int psv, int pt, bool first_row) {
+    const int w = c.dw;
+    uint16_t* row = c.plane.data() + (size_t)y * w;
+    if (first_row) {
+      int ra = (d[0] + (1 << (precision - pt - 1))) & 0xFFFF;
+      row[0] = (uint16_t)ra;
+      for (int x = 1; x < w; x++) row[x] = (uint16_t)(ra = (d[x] + ra) & 0xFFFF);
+      return;
+    }
+    const uint16_t* prev = row - w;
+    int rb = prev[0], ra = (d[0] + rb) & 0xFFFF, rc;
+    row[0] = (uint16_t)ra;
+    for (int x = 1; x < w; x++) {
+      rc = rb;
+      rb = prev[x];
+      int p;
+      switch (psv) {
+        case 1: p = ra; break;
+        case 2: p = rb; break;
+        case 3: p = rc; break;
+        case 4: p = ra + rb - rc; break;
+        case 5: p = ra + ((rb - rc) >> 1); break;
+        case 6: p = rb + ((ra - rc) >> 1); break;
+        default: p = (ra + rb) >> 1; break;
+      }
+      row[x] = (uint16_t)(ra = (d[x] + p) & 0xFFFF);
+    }
+  }
+
+  // jdarith.c's decode_mcu (sequential), decode_mcu_DC_first, _AC_first,
+  // _DC_refine and _AC_refine over the scan's MCUs: each scan starts its
+  // statistics bins afresh, as each restart does; a magnitude or spectral
+  // overflow stops decoding until the next restart (the blocks left as they
+  // are)
+  void decode_scan_arith(std::vector<Component*>& sc, std::vector<int>& td, std::vector<int>& ta,
+                         int ss, int se, int ah, int al) {
+    ArithReader ar{data, n, pos};
+    const int ns = (int)sc.size();
+    uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin[4] = {113, 0, 0, 0};
+    int last_dc[4] = {0, 0, 0, 0}, dc_context[4] = {0, 0, 0, 0};
+    auto reset = [&]() {
+      for (int i = 0; i < ns; i++) {
+        if (!progressive || (ss == 0 && ah == 0)) {
+          std::memset(dc_stats[td[i]], 0, 64);
+          last_dc[i] = dc_context[i] = 0;
+        }
+        if (!progressive || ss) std::memset(ac_stats[ta[i]], 0, 256);
+      }
+      ar.c = ar.a = 0;
+      ar.ct = -16;
+    };
+    reset();
+    int restarts_to_go = restart_interval, next_rst = 0;
+    // Figures F.19-F.24: a DC difference; false on a magnitude overflow
+    auto dc_diff = [&](int i) -> bool {
+      const int tbl = td[i];
+      uint8_t* st = dc_stats[tbl] + dc_context[i];
+      if (ar.decode(st) == 0) {
+        dc_context[i] = 0;
+        return true;
+      }
+      const int sign = ar.decode(st + 1);
+      st += 2 + sign;
+      int m = ar.decode(st);
+      if (m) {
+        st = dc_stats[tbl] + 20;
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          st += 1;
+        }
+      }
+      if (m < (int)((1L << arith_l[tbl]) >> 1)) dc_context[i] = 0;
+      else if (m > (int)((1L << arith_u[tbl]) >> 1)) dc_context[i] = 12 + sign * 4;
+      else dc_context[i] = 4 + sign * 4;
+      int v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      last_dc[i] = (last_dc[i] + v) & 0xffff;
+      return true;
+    };
+    // an AC coefficient's value after its position k (st at its bins + 2)
+    auto ac_value = [&](int tbl, int k, uint8_t* st, int& v) -> bool {
+      const int sign = ar.decode(fixed_bin);
+      st += 2;
+      int m = ar.decode(st);
+      if (m && ar.decode(st)) {
+        m <<= 1;
+        st = ac_stats[tbl] + (k <= arith_k[tbl] ? 189 : 217);
+        while (ar.decode(st)) {
+          if ((m <<= 1) == 0x8000) {
+            ar.ct = -1;
+            return false;
+          }
+          st += 1;
+        }
+      }
+      v = m;
+      st += 14;
+      while (m >>= 1)
+        if (ar.decode(st)) v |= m;
+      v += 1;
+      if (sign) v = -v;
+      return true;
+    };
+    // the AC bins of positions lo..hi: false on a spectral or magnitude overflow
+    auto ac_run = [&](int tbl, int lo, int hi, int16_t* blk, int shift) -> bool {
+      for (int k = lo; k <= hi; k++) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (ar.decode(st)) break;  // EOB
+        while (ar.decode(st + 1) == 0) {
+          st += 3;
+          if (++k > hi) {
+            ar.ct = -1;
+            return false;
+          }
+        }
+        int v;
+        if (!ac_value(tbl, k, st, v)) return false;
+        blk[kNatural[k]] = (int16_t)((unsigned)v << shift);
+      }
+      return true;
+    };
+    auto ac_refine = [&](int tbl, int16_t* blk) {
+      const int p1 = 1 << al, m1 = -1 * (1 << al);
+      int kex = se;
+      for (; kex > 0; kex--)
+        if (blk[kNatural[kex]]) break;
+      for (int k = ss; k <= se; k++) {
+        uint8_t* st = ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex && ar.decode(st)) break;  // EOB
+        for (;;) {
+          int16_t* coef = blk + kNatural[k];
+          if (*coef) {
+            if (ar.decode(st + 2)) *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+            break;
+          }
+          if (ar.decode(st + 1)) {
+            *coef = (int16_t)(ar.decode(fixed_bin) ? m1 : p1);
+            break;
+          }
+          st += 3;
+          if (++k > se) {
+            ar.ct = -1;
+            return;
+          }
+        }
+      }
+    };
+    // one MCU: blocks[j] of scan component comp[j]
+    auto do_mcu = [&](int nb, int16_t* const* blocks, const int* comp, int imcu_row) {
+      last_good_row = imcu_row;
+      if (restart_interval) {
+        if (restarts_to_go == 0) {
+          read_restart_marker(ar.pos, ar.marker, next_rst);
+          reset();
+          restarts_to_go = restart_interval;
+        }
+        restarts_to_go--;
+      }
+      if (progressive && ss == 0 && ah != 0) {  // DC refinement: the next bit of each DC value
+        for (int j = 0; j < nb; j++)
+          if (ar.decode(fixed_bin)) blocks[j][0] = (int16_t)(blocks[j][0] | (1 << al));
+        return;
+      }
+      if (ar.ct == -1) return;
+      for (int j = 0; j < nb; j++) {
+        const int i = comp[j];
+        int16_t* blk = blocks[j];
+        if (!progressive) {
+          if (!dc_diff(i)) return;
+          blk[0] = (int16_t)last_dc[i];
+          if (!ac_run(ta[i], 1, 63, blk, 0)) return;
+        } else if (ss == 0) {
+          if (!dc_diff(i)) return;
+          blk[0] = (int16_t)((unsigned)last_dc[i] << al);
+        } else if (ah == 0) {
+          if (!ac_run(ta[i], ss, se, blk, al)) return;
+        } else {
+          ac_refine(ta[i], blk);
+          if (ar.ct == -1) return;
+        }
+      }
+    };
+    int16_t* blocks[10];
+    int comp[10];
+    if (ns == 1) {
+      Component* c = sc[0];
+      comp[0] = 0;
+      for (int by = 0; by < c->hib; by++)
+        for (int bx = 0; bx < c->wib; bx++) {
+          blocks[0] = c->block(by, bx);
+          do_mcu(1, blocks, comp, by / c->v);
+        }
+    } else {
+      for (int my = 0; my < mcus_y; my++)
+        for (int mx = 0; mx < mcus_x; mx++) {
+          int nb = 0;
+          for (int i = 0; i < ns; i++) {
+            Component* c = sc[i];
+            for (int y = 0; y < c->v; y++)
+              for (int x = 0; x < c->h; x++) {
+                if (nb == 10) fail(CORRUPT, "an MCU of more than 10 blocks");
+                comp[nb] = i;
+                blocks[nb++] = c->block(my * c->v + y, mx * c->h + x);
+              }
+          }
+          do_mcu(nb, blocks, comp, my);
+        }
+    }
+    pos = ar.pos;
+    pending_marker = ar.marker ? ar.marker : next_marker(pos);
+  }
+
+  // DAC: conditioning of the arithmetic tables
+  void read_dac(size_t end) {
+    while (pos + 2 <= end) {
+      int index = byte(), val = byte();
+      if (index >= 32) fail(CORRUPT, "bad DAC table index");
+      if (index >= 16) {
+        arith_k[index - 16] = (uint8_t)val;
+      } else {
+        arith_l[index] = (uint8_t)(val & 15);
+        arith_u[index] = (uint8_t)(val >> 4);
+        if (arith_l[index] > arith_u[index]) fail(CORRUPT, "bad DAC value");
+      }
+    }
+    if (pos != end) fail(CORRUPT, "bad DAC length");
   }
 
   void set_std(HuffTable& t, const uint8_t* bits, const uint8_t* vals, int n) {
@@ -594,15 +1076,16 @@ struct JpegDecoder {
       size_t end = seg + len;
       if (end > n) fail(CORRUPT, "JPEG data ends inside a marker segment");
       switch (m) {
-        case 0xC0: case 0xC1: case 0xC2:
+        case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC9: case 0xCA:
           read_sof(m, end);
           break;
-        case 0xC3: case 0xC7: case 0xCB: case 0xCF:
-          fail(UNSUPPORTED, "lossless JPEG is not supported");
-        case 0xC5: case 0xC6: case 0xCD: case 0xCE:
-          fail(UNSUPPORTED, "hierarchical JPEG is not supported");
-        case 0xC9: case 0xCA: case 0xCC:
-          fail(UNSUPPORTED, "arithmetic-coded JPEG is not supported");
+        case 0xC5: case 0xC6: case 0xC7: case 0xCD: case 0xCE: case 0xCF:
+          fail(UNSUPPORTED, "hierarchical JPEG is not read (cv2.imread gives None)");
+        case 0xCB:
+          fail(UNSUPPORTED, "arithmetic-coded lossless JPEG is not read (cv2.imread gives None)");
+        case 0xCC:
+          read_dac(end);
+          break;
         case 0xC4:
           read_dht(end);
           break;
@@ -615,6 +1098,10 @@ struct JpegDecoder {
           break;
         case 0xDA:
           read_sos(end);
+          // after a single-scan file's scan libjpeg reads markers only in
+          // jpeg_finish_decompress, whose errors OpenCV ignores: the image
+          // is whole whatever follows
+          if (single_scan) return;
           continue;  // decode_scan left pos and the next marker
         case 0xE0:
           if (len >= 16 && !std::memcmp(data + seg + 2, "JFIF\0", 5)) jfif = true;
@@ -830,6 +1317,11 @@ struct JpegDecoder {
   const uint8_t* row_of(const Component& c, const uint8_t* s, int y, uint8_t* buf) const {
     const int pw = c.wib * 8, hx = max_h / c.h, vy = max_v / c.v, r = y / vy;
     if (hx == 1 && vy == 1) return s + (size_t)y * pw;
+    if (lossless) {  // libjpeg upsamples a lossless frame by replication only
+      const uint8_t* in = s + (size_t)r * pw;
+      for (int x = 0; x < width; x++) buf[x] = in[x / hx];
+      return buf;
+    }
     auto row = [&](int k) { return s + (size_t)std::min(std::max(k, 0), c.dh - 1) * pw; };
     const int last = c.dw - 1;
     if (hx == 2 && vy == 1 && c.dw > 2) {
@@ -871,9 +1363,44 @@ struct JpegDecoder {
     return buf;
   }
 
-  void output(uint8_t* out) {
-    const bool smooth = smoothing();
+  // a lossless component's samples as libjpeg's scaler gives them (shifted
+  // back by the point transform, cast to 8 bits), (wib * 8) x dh
+  static std::vector<uint8_t> lossless_samples(const Component& c) {
+    const int pw = c.wib * 8;
+    std::vector<uint8_t> s((size_t)pw * c.dh);
+    for (int y = 0; y < c.dh; y++)
+      for (int x = 0; x < c.dw; x++)
+        s[(size_t)y * pw + x] = (uint8_t)(c.plane[(size_t)y * c.dw + x] << c.pt);
+    return s;
+  }
+
+  // libjpeg's colour space of a lossless frame (default_decompress_parms);
+  // it converts none in lossless mode, so cv2 reads only RGB and CMYK
+  void check_lossless_colors() const {
     const size_t nc = comps.size();
+    bool ok;
+    if (nc == 3)
+      ok = !jfif && (!adobe || adobe_transform == 0);
+    else if (nc == 4)
+      ok = !(adobe && adobe_transform == 2);
+    else
+      ok = false;
+    if (!ok)
+      fail(UNSUPPORTED, std::string("a lossless JPEG whose colour space libjpeg takes as ") +
+                            (nc == 1 ? "grey" : nc == 3 ? "YCbCr" : "YCCK") +
+                            " is not read (cv2.imread gives None: libjpeg converts no colours "
+                            "in lossless mode)");
+    for (const auto& c : comps)
+      if (!c.latched) fail(CORRUPT, "a component of a lossless JPEG that no scan holds");
+  }
+
+  // out: (h, w, 3) BGR as cv2 (color_mode 0), (h, w, 3) RGB from YCbCr
+  // (1) or (h, w, components) as stored (2)
+  void output(uint8_t* out) {
+    const bool smooth = !lossless && smoothing();
+    const size_t nc = comps.size();
+    if (lossless) check_lossless_colors();
+    if (color_mode == 1 && nc != 3) fail(CORRUPT, "a YCbCr JPEG of " + std::to_string(nc) + " components");
     std::vector<std::vector<uint8_t>> s(nc), buf(nc);
     for (size_t i = 0; i < nc; i++) {
       Component& c = comps[i];
@@ -883,8 +1410,17 @@ struct JpegDecoder {
         std::memcpy(c.q, qt[c.tq], sizeof(c.q));
       }
       if (max_h % c.h || max_v % c.v) fail(UNSUPPORTED, "fractional sampling factors are not supported");
-      s[i] = samples(c, smooth);
+      s[i] = lossless ? lossless_samples(c) : samples(c, smooth);
       buf[i].resize((size_t)std::max(c.dw * (max_h / c.h), width));
+    }
+    if (color_mode == 2) {
+      for (int y = 0; y < height; y++)
+        for (size_t i = 0; i < nc; i++) {
+          const uint8_t* r = row_of(comps[i], s[i].data(), y, buf[i].data());
+          uint8_t* o = out + (size_t)y * width * nc + i;
+          for (int x = 0; x < width; x++) o[x * nc] = r[x];
+        }
+      return;
     }
     if (nc == 1) {
       for (int y = 0; y < height; y++) {
@@ -894,7 +1430,7 @@ struct JpegDecoder {
       }
       return;
     }
-    const bool rgb = rgb_colorspace();
+    const bool rgb = color_mode == 1 ? false : lossless || rgb_colorspace();
     // four components are CMYK, or YCCK where an Adobe marker's transform is
     // not 0 (libjpeg's default_decompress_parms)
     const bool ycck = nc == 4 && adobe && adobe_transform != 0;
@@ -941,11 +1477,12 @@ struct JpegDecoder {
         }
         continue;
       }
+      const int bi = color_mode == 1 ? 2 : 0, ri = 2 - bi;
       for (int x = 0; x < width; x++, o += 3) {
         int yy = p0[x], cb = p1[x], cr = p2[x];
-        o[0] = clamp255(yy + cb_b[cb]);
+        o[bi] = clamp255(yy + cb_b[cb]);
         o[1] = clamp255(yy + ((cb_g[cb] + cr_g[cr]) >> kScale));
-        o[2] = clamp255(yy + cr_r[cr]);
+        o[ri] = clamp255(yy + cr_r[cr]);
       }
     }
   }
@@ -1358,11 +1895,14 @@ int report(const CodecError& e, char* msg, int msg_len) {
 
 extern "C" {
 
-// Decode a JPEG held in data[0:n] into out, (h, w, 3) BGR uint8, where (w, h)
-// is the frame's size (the caller reads it from the header). Returns 0, or 1
-// where cv2.imread gives None, or 2 for a file it does not decode; msg says why.
-int ayolo_jpeg_decode(const uint8_t* data, int64_t n, int w, int h, uint8_t* out, char* msg,
-                      int msg_len) {
+// Decode a JPEG held in data[0:n] into out, where (w, h) is the frame's
+// size (the caller reads it from the header): mode 0, (h, w, 3) BGR uint8 as
+// cv2.imread; 1, (h, w, 3) RGB from YCbCr whatever the markers say; 2,
+// (h, w, components) as stored (libtiff's JPEGCOLORMODE_RGB and its
+// suppressed colour handling). Returns 0, or 1 where cv2.imread gives None,
+// or 2 for a file it does not decode; msg says why.
+int ayolo_jpeg_decode(const uint8_t* data, int64_t n, int w, int h, int mode, uint8_t* out,
+                      char* msg, int msg_len) {
   try {
     // past its end libjpeg's stdio source reads FF D9 (a fake EOI) again and
     // again, and a segment cut short is parsed with those bytes
@@ -1372,6 +1912,7 @@ int ayolo_jpeg_decode(const uint8_t* data, int64_t n, int w, int h, uint8_t* out
       padded.push_back(0xD9);
     }
     JpegDecoder d(padded.data(), padded.size());
+    d.color_mode = mode;
     d.parse();
     if (d.width != w || d.height != h) fail(CORRUPT, "the frame's size differs from the header's");
     d.output(out);

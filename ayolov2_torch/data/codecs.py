@@ -3,17 +3,20 @@
 The pixels come from C++ libraries built by the host compiler at first use
 into ``build/torch_kernels/`` (``ops/_build.load``) and called through
 ``ctypes``, which releases the GIL, so the loader's threads decode at once:
-``csrc/image_codec.cpp`` (JPEG, PNG), ``csrc/raster_codec.cpp`` (BMP's
-run-length data, TIFF's LZW and PackBits) and ``csrc/webp_codec.cpp`` (VP8L
-and VP8). A library that does not build raises with the compiler's output;
-nothing falls back to OpenCV.
+``csrc/image_codec.cpp`` (JPEG, TIFF's JPEG strips, PNG),
+``csrc/raster_codec.cpp`` (BMP's run-length data, TIFF's LZW and
+PackBits), ``csrc/fax_codec.cpp`` (TIFF's CCITT) and ``csrc/webp_codec.cpp``
+(VP8L and VP8). A library that does not build raises with the compiler's
+output; nothing falls back to OpenCV.
 
 - :func:`decode_jpeg` is ``cv2.imread`` of a file holding ``data``, before
   the EXIF rotation: libjpeg-turbo's baseline, extended and progressive
-  Huffman decoding, islow IDCT, fancy upsampling and YCbCr -> BGR, bit for
-  bit, CMYK and YCCK (Adobe's transform flag) through OpenCV's inverted-CMYK
-  formula, and a cut file read on as libjpeg's stdio source reads it (block
-  smoothing of a cut progressive file included).
+  decoding, Huffman or arithmetic-coded, islow IDCT, fancy upsampling and
+  YCbCr -> BGR, bit for bit, CMYK and YCCK (Adobe's transform flag) through
+  OpenCV's inverted-CMYK formula, lossless frames at 8 bits in the colour
+  spaces libjpeg passes unconverted (RGB, CMYK), and a cut file read on as
+  libjpeg's stdio source reads it (block smoothing of a cut progressive
+  file included).
 - :func:`encode_jpeg` gives the bytes of ``cv2.imencode('.jpg', im,
   [IMWRITE_JPEG_QUALITY, quality])`` (4:2:0, baseline, standard tables).
 - :func:`decode_png` is ``cv2.imread`` of a PNG, without the rotation, for
@@ -25,8 +28,9 @@ nothing falls back to OpenCV.
   32-bit pixels, RLE4 and RLE8, top-down rows.
 - :func:`decode_tiff` is ``cv2.imread`` of a TIFF's first image through
   libtiff's RGBA interface: the directory is parsed here, Deflate inflated
-  with ``zlib``, LZW and PackBits unpacked in C++, the samples turned into
-  BGR as libtiff turns them.
+  with ``zlib``, LZW, PackBits and CCITT unpacked and JPEG strips decoded in
+  C++, the samples turned into BGR as libtiff turns them (YCbCr and CIELab
+  through its tables, in numpy).
 - :func:`decode_webp` is libwebp's ``WebPDecodeBGRInto`` (the RIFF chunks
   are parsed here, the VP8L and VP8 bitstreams decoded in C++), the first
   frame of an animation as cv2's reader gives it.
@@ -36,10 +40,12 @@ nothing falls back to OpenCV.
   :func:`apply_orientation` turns an image as cv2's ``ApplyExifOrientation``.
 
 Errors raise ``OSError`` (or ``ValueError`` for a bad argument) naming the
-file and what failed; a feature that is not decoded (arithmetic-coded,
-lossless or 12-bit JPEG; TIFF's JPEG, CCITT and other compressions, YCbCr
-and Lab colour, float samples) is named in the message, and a header beyond
-OpenCV's size limits (``CV_IO_MAX_IMAGE_*``) raises before any allocation.
+file and what failed; a mode that cv2.imread refuses (12-bit DCT JPEG,
+lossless JPEG in grey or YCbCr or above 8 bits, hierarchical and arithmetic
+lossless JPEG; TIFF's old-style JPEG and the compressions OpenCV's libtiff
+lacks, ICCLab and ITULab, float samples) is named in the message, and a
+header beyond OpenCV's size limits (``CV_IO_MAX_IMAGE_*``) raises before any
+allocation.
 """
 
 from __future__ import annotations
@@ -73,7 +79,8 @@ def _lib(name: str = "image_codec") -> ctypes.CDLL:
             u8p, i64, c_int, c_str = (ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64, ctypes.c_int,
                                       ctypes.c_char_p)
             if name == "image_codec":
-                lib.ayolo_jpeg_decode.argtypes = [c_str, i64, c_int, c_int, u8p, c_str, c_int]
+                lib.ayolo_jpeg_decode.argtypes = [c_str, i64, c_int, c_int, c_int, u8p, c_str,
+                                                  c_int]
                 lib.ayolo_jpeg_encode.argtypes = [u8p, c_int, c_int, c_int, c_int,
                                                   ctypes.POINTER(u8p), ctypes.POINTER(i64)]
                 lib.ayolo_free.argtypes = [u8p]
@@ -86,6 +93,10 @@ def _lib(name: str = "image_codec") -> ctypes.CDLL:
                 lib.ayolo_bmp_rle.restype = c_int
                 lib.ayolo_tiff_unpack.argtypes = [c_str, i64, c_int, u8p, i64, c_str, c_int]
                 lib.ayolo_tiff_unpack.restype = i64
+            elif name == "fax_codec":
+                lib.ayolo_fax_decode.argtypes = [c_str, i64, c_int, c_int, c_int, c_int, c_int,
+                                                 c_int, ctypes.POINTER(c_int), u8p, c_str, c_int]
+                lib.ayolo_fax_decode.restype = c_int
             else:
                 for fn in (lib.ayolo_vp8l_decode, lib.ayolo_vp8_decode):
                     fn.argtypes = [c_str, i64, c_int, c_int, u8p, c_str, c_int]
@@ -216,7 +227,7 @@ def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
     _check_size(w, h, name)
     out = np.empty((h, w, 3), np.uint8)
     msg = ctypes.create_string_buffer(_MSG)
-    rc = _lib().ayolo_jpeg_decode(data, len(data), w, h, _ptr(out), msg, _MSG)
+    rc = _lib().ayolo_jpeg_decode(data, len(data), w, h, 0, _ptr(out), msg, _MSG)
     if rc:
         raise OSError(f"{name}: {msg.value.decode(errors='replace')}")
     return out
@@ -471,16 +482,25 @@ def decode_bmp(data: bytes, name: str = "<bytes>") -> np.ndarray:
 TIFF_SIGNATURES = (b"II*\0", b"MM\0*", b"II+\0", b"MM\0+")
 _TIFF_TYPES = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 6: "b", 7: "B", 8: "h", 9: "i", 10: "ii",
                11: "f", 12: "d", 16: "Q", 17: "q", 18: "Q"}
-_TIFF_COMPRESSION = {1: "none", 5: "LZW", 32773: "PackBits", 8: "Deflate", 32946: "Deflate"}
-_TIFF_LEFT_OUT = {2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG",
-                  7: "JPEG", 32771: "CCITT RLEW", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
+_TIFF_COMPRESSION = {1: "none", 5: "LZW", 32773: "PackBits", 8: "Deflate", 32946: "Deflate",
+                     7: "JPEG", 2: "CCITT RLE", 3: "CCITT Group 3", 4: "CCITT Group 4",
+                     32771: "CCITT RLEW"}
+# compressions cv2's libtiff is built without ("not configured": cv2.imread gives None)
+_TIFF_LEFT_OUT = {6: "old-style JPEG", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP",
                   34712: "JPEG 2000", 34887: "lossless JPEG (DNG)", 52546: "JPEG XL"}
+_CCITT = (2, 3, 4, 32771)
 _PHOTOMETRIC = {0: "MinIsWhite", 1: "MinIsBlack", 2: "RGB", 3: "Palette", 4: "Mask",
                 5: "Separated (CMYK)", 6: "YCbCr", 8: "CIELab", 9: "ICCLab", 10: "ITULab",
                 32803: "CFA", 32844: "LogL", 32845: "LogLuv", 34892: "LinearRaw"}
 # (photometric, bits) -> samples cv2.imread turns into BGR, as libtiff's RGBA
 # reader does (other bit depths give None there)
-_TIFF_BITS = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,)}
+_TIFF_BITS = {0: (1, 8, 16), 1: (1, 8, 16), 2: (8, 16), 3: (1, 4, 8), 5: (8,), 6: (8,),
+              8: (8, 16)}
+# the YCbCr subsamplings of libtiff's put functions (putcontig8bitYCbCr44tile,
+# ...) -> the bytes each skips per sampling block cut off a clipped tile's
+# row (putcontig8bitYCbCr44tile skips 10, not the 18 its blocks hold)
+_YCBCR_SKIP = {(4, 4): 10, (4, 2): 10, (4, 1): 6, (2, 2): 6, (2, 1): 4, (1, 2): 4, (1, 1): 3}
+_BIT_REVERSE = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))
 
 
 _ROUND16 = ((np.arange(1 << 16) + 128) // 257).astype(np.uint8)
@@ -514,6 +534,9 @@ def _tiff_ifd0(data: bytes, name: str) -> Tuple[str, dict]:
             if size > inline:
                 (where,) = struct.unpack_from(e + ("Q" if big else "I"), data, where)
             vals = struct.unpack_from(e + fmt * n, data, where)
+            if kind in (5, 10):  # rationals as libtiff reads them: float numerator / denominator
+                f = np.float32
+                vals = [float(f(a) / f(b)) if b else 0.0 for a, b in zip(vals[::2], vals[1::2])]
             tags[tag] = list(vals)
     except struct.error as err:
         raise OSError(f"{name}: TIFF directory is cut short") from err
@@ -524,18 +547,96 @@ def _tiff_left_out(name: str, what: str):
     return OSError(f"{name}: TIFF {what} is not read by the port")
 
 
+def _ycbcr_blocks(chunk: np.ndarray, rows: int, cols: int, sh: int, sv: int,
+                  stride: int) -> np.ndarray:
+    """(rows, cols, 3) Y, Cb, Cr of a chunk of packed sampling blocks (sh x
+    sv luma samples, then Cb and Cr), each pixel given its block's chroma, as
+    libtiff's putcontig8bitYCbCr*tile put them: a row of blocks every
+    ``stride`` bytes, a partial block at the right or bottom edge showing
+    only its pixels."""
+    bsz = sh * sv + 2
+    across, down = -(-cols // sh), -(-rows // sv)
+    at = np.arange(down)[:, None] * stride + np.arange(across * bsz)
+    b = np.concatenate([chunk, np.zeros(max(0, int(at.max()) + 1 - chunk.size), np.uint8)])[at]
+    b = b.reshape(down, across, bsz)
+    y = b[..., : sh * sv].reshape(down, across, sv, sh).transpose(0, 2, 1, 3)
+    y = y.reshape(down * sv, across * sh)
+    chroma = np.repeat(np.repeat(b[..., sh * sv:], sv, 0), sh, 1)
+    return np.concatenate([y[..., None], chroma], 2)[:rows, :cols]
+
+
+def _jpeg_sof(data: bytes, name: str) -> Tuple[int, int, int, list]:
+    """(SOF payload offset, height, width, [(h, v) of each component]) of a
+    JPEG stream."""
+    for m, start, end in _jpeg_segments(data, name):
+        if m in _SOF:
+            nc = data[start + 5] if end - start >= 6 else 0
+            if nc == 0 or end - start < 6 + 3 * nc:
+                break
+            h, w = struct.unpack_from(">HH", data, start + 1)
+            return start, h, w, [(data[start + 7 + 3 * i] >> 4, data[start + 7 + 3 * i] & 15)
+                                 for i in range(nc)]
+    raise OSError(f"{name}: a TIFF JPEG strip or tile without a good frame header")
+
+
+def _jpeg_strip(raw: bytes, tables: Optional[bytes], seg_w: int, seg_h: int, last_strip: bool,
+                mode: int, components: int, sampling: Tuple[int, int], name: str) -> np.ndarray:
+    """A TIFF's JPEG strip or tile as libtiff's JPEGPreDecode and JPEGDecode
+    read it: the JPEGTables stream (tag 347) read before the strip's own
+    abbreviated stream (spliced in before its first marker after SOI), the
+    frame checked against the strip's size, component count and sampling
+    (a last strip coded at the full RowsPerStrip is cut to its rows, as
+    libtiff sets the frame's height; a frame larger than its strip is
+    refused, one smaller leaves the rest of the strip zero), and decoded by
+    the port's JPEG decoder in libtiff's colour mode: ``mode`` 1 YCbCr ->
+    RGB, 2 the components as stored. Returns (seg_h, seg_w, 3 or
+    components)."""
+    if tables is not None and len(tables) >= 4 and raw[:2] == b"\xff\xd8":
+        body = tables[2:]
+        end = body.rfind(b"\xff\xd9")
+        raw = raw[:2] + (body[:end] if end >= 0 else body) + raw[2:]
+    raw = bytearray(raw)
+    sof, h, w, factors = _jpeg_sof(bytes(raw), name)
+    if w == seg_w and h > seg_h and last_strip:
+        struct.pack_into(">H", raw, sof + 1, seg_h)  # libtiff cuts the frame to the strip
+        h = seg_h
+    if w > seg_w or h > seg_h:
+        raise OSError(f"{name}: a TIFF JPEG strip or tile of {w}x{h} pixels, larger than its "
+                      f"{seg_w}x{seg_h} (cv2.imread gives None)")
+    if len(factors) != components:
+        raise OSError(f"{name}: a TIFF JPEG strip or tile of {len(factors)} components, "
+                      f"expected {components} (cv2.imread gives None)")
+    if factors[0] != sampling or any(f != (1, 1) for f in factors[1:]):
+        raise OSError(f"{name}: a TIFF JPEG strip or tile sampled {factors}, expected "
+                      f"{sampling} then 1x1 (cv2.imread gives None)")
+    out = np.empty((h, w, 3 if mode == 1 else components), np.uint8)
+    msg = ctypes.create_string_buffer(_MSG)
+    if _lib().ayolo_jpeg_decode(bytes(raw), len(raw), w, h, mode, _ptr(out), msg, _MSG):
+        raise OSError(f"{name}: TIFF JPEG strip or tile: {msg.value.decode(errors='replace')}")
+    if (w, h) == (seg_w, seg_h):
+        return out
+    strip = np.zeros((seg_h, seg_w, out.shape[2]), np.uint8)  # libtiff only warns
+    strip[:h, :w] = out
+    return strip
+
+
 def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
     """(h, w, 3) BGR uint8 of a TIFF's first image, as ``cv2.imread`` reads
     it through libtiff's RGBA interface: strips or tiles, planar
-    configuration 1 or 2, no compression, LZW, PackBits or Deflate,
-    predictor 2, MinIsBlack/MinIsWhite at 1, 8 or 16 bits (16 bits keep the
-    high byte), RGB at 8 or 16 bits (16 bits rounded to 8), an unassociated
-    alpha premultiplied and then dropped, palettes at 1, 4 or 8 bits (8-bit
-    colour maps as libtiff detects them), 8-bit CMYK, and Orientation 1-4
-    as libtiff applies them (5-8 of a square image as cv2 turns it; of any
-    other, cv2.imread gives None and the port raises naming the tag). JPEG,
-    CCITT and the other compressions, YCbCr and the other colour spaces and
-    float samples raise ``OSError`` naming the feature."""
+    configuration 1 or 2, no compression, LZW, PackBits, Deflate, JPEG
+    (with or without JPEGTables) or CCITT (RLE, Group 3 1D and 2D, Group 4,
+    RLEW), FillOrder 2 (each chunk's bits reversed, except JPEG's; CCITT
+    reads it itself), predictor 2, MinIsBlack/MinIsWhite at 1, 8 or 16 bits
+    (16 bits keep the high byte), RGB at 8 or 16 bits (16 bits rounded to
+    8), an unassociated alpha premultiplied and then dropped, palettes at 1,
+    4 or 8 bits (8-bit colour maps as libtiff detects them), 8-bit CMYK,
+    8-bit YCbCr at each subsampling libtiff puts (JPEG's through libjpeg's
+    conversion, as libtiff asks for it), CIELab at 8 or 16 bits, and
+    Orientation 1-4 as libtiff applies them (5-8 of a square image as cv2
+    turns it; of any other, cv2.imread gives None and the port raises
+    naming the tag). What cv2 refuses (old-style JPEG, LZMA, ZSTD and the
+    other compressions its libtiff lacks, float samples, ICCLab and the
+    other colour spaces) raises ``OSError`` naming the feature."""
     data = bytes(data)
     e, tags = _tiff_ifd0(data, name)
     if 256 not in tags or 257 not in tags:
@@ -552,8 +653,10 @@ def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
     extra = tags.get(338, [])
     orient = tags.get(274, [1])[0]
     orient = orient if 1 <= orient <= 8 else 1
+    reverse = tags.get(266, [1])[0] == 2 and comp not in (7, *_CCITT)  # libtiff's TIFF_NOBITREV
     if comp in _TIFF_LEFT_OUT:
-        raise _tiff_left_out(name, f"compression {comp} ({_TIFF_LEFT_OUT[comp]})")
+        raise _tiff_left_out(name, f"compression {comp} ({_TIFF_LEFT_OUT[comp]}; cv2.imread gives "
+                                   "None)")
     if comp not in _TIFF_COMPRESSION:
         raise _tiff_left_out(name, f"compression {comp}")
     if 262 in tags:
@@ -563,9 +666,10 @@ def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
     else:
         raise OSError(f"{name}: TIFF without PhotometricInterpretation")
     if photo not in _TIFF_BITS:
-        raise _tiff_left_out(name, f"photometric {photo} ({_PHOTOMETRIC.get(photo, 'unknown')})")
+        raise _tiff_left_out(name, f"photometric {photo} ({_PHOTOMETRIC.get(photo, 'unknown')}; "
+                                   "cv2.imread gives None)")
     if fmt == 3:
-        raise _tiff_left_out(name, "float samples (SampleFormat 3)")
+        raise _tiff_left_out(name, "float samples (SampleFormat 3; cv2.imread gives None)")
     if spp > 4 or spp < 1:
         raise OSError(f"{name}: a TIFF of {spp} samples a pixel (cv2.imread gives None)")
     if bits not in _TIFF_BITS[photo] or (bits < 8 and spp > 1):
@@ -575,11 +679,17 @@ def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
         raise OSError(f"{name}: TIFF Orientation {orient} of a {w}x{h} image (cv2.imread gives "
                       "None for 5-8 unless the image is square)")
     colour = spp - len(extra)
-    if (photo == 2 and colour < 3) or (photo == 5 and (spp != 4 or tags.get(332, [1])[0] != 1)):
+    if ((photo == 2 and colour < 3) or (photo == 5 and (spp != 4 or tags.get(332, [1])[0] != 1))
+            or (photo in (6, 8) and spp != 3)):
         raise OSError(f"{name}: a {_PHOTOMETRIC[photo]} TIFF of {spp} samples "
                       "(cv2.imread gives None)")
     if photo == 3 and 320 not in tags:
         raise OSError(f"{name}: palette TIFF without a ColorMap")
+    if comp in _CCITT and (bits != 1 or spp != 1):
+        raise OSError(f"{name}: a CCITT TIFF of {spp} samples of {bits} bits (cv2.imread gives "
+                      "None)")
+    if comp == 7 and bits != 8:
+        raise OSError(f"{name}: a JPEG TIFF of {bits} bits a sample (cv2.imread gives None)")
     predictor = tags.get(317, [1])[0] if comp in (5, 8, 32946) else 1
     if predictor not in (1, 2) or (predictor == 2 and bits < 8):
         raise _tiff_left_out(name, f"predictor {predictor} at {bits} bits")
@@ -587,6 +697,17 @@ def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
     tiled = 322 in tags
     planes = spp if planar == 2 and spp > 1 else 1
     per = 1 if planes > 1 else spp  # samples in one chunk's pixel
+    sh, sv = (tags.get(530, []) + [2, 2])[:2] if photo == 6 else (1, 1)
+    first = tags.get(324 if tiled else 273, [0])[:1] + tags.get(325 if tiled else 279, [0])[:1]
+    if comp == 7 and photo == 6 and planes == 1 and 530 not in tags and len(first) == 2:
+        # libtiff's JPEGFixupTagsSubsampling: the first strip's sampling
+        sh, sv = _jpeg_sof(data[first[0]: first[0] + first[1]], name)[3][0]
+    if photo == 6 and comp != 7 and ((sh, sv) not in _YCBCR_SKIP
+                                     or (planes > 1 and (sh, sv) != (1, 1))):
+        raise OSError(f"{name}: YCbCr subsampling {sh}x{sv} of planar configuration {planar} is "
+                      "not one libtiff puts (cv2.imread gives None)")
+    if photo == 8 and planes > 1:
+        raise OSError(f"{name}: a CIELab TIFF of planar configuration 2 (cv2.imread gives None)")
     if tiled:
         tw, th = tags[322][0], tags.get(323, [0])[0]
         if tw == 0 or th == 0:
@@ -607,21 +728,55 @@ def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
     row_bytes = (tw * per * bits + 7) // 8
     skewed = tiled and planes == 1 and photo in (0, 1) and (per > 1 or bits == 16)
     dtype = np.dtype(e + "u2") if bits == 16 else np.dtype(np.uint8)
-    samples = np.zeros((planes, down * th, across * tw, per), dtype.newbyteorder("="))
+    jpeg_mode = 1 if photo == 6 and planes == 1 else 2  # libtiff's JPEGCOLORMODE_RGB, else raw
+    tables = bytes(tags[347]) if comp == 7 and 347 in tags else None
+    out_per = 3 if photo == 6 and planes == 1 else per
+    noeol = ctypes.c_int(0)  # libtiff's Group 3 "no EOL" mode, kept from strip to strip
+    samples = np.zeros((planes, down * th, across * tw, out_per), dtype.newbyteorder("="))
     lib = None
     for k in range(n_chunks):
         plane, rest = divmod(k, across * down)
         ty, tx = divmod(rest, across)
         rows = th if tiled else min(th, h - ty * th)
-        want = rows * row_bytes
         raw = data[offsets[k]: offsets[k] + counts[k]]
+        if reverse:
+            raw = raw.translate(_BIT_REVERSE)
+        if comp == 7:
+            samples[plane, ty * th: ty * th + rows, tx * tw: (tx + 1) * tw] = _jpeg_strip(
+                raw, tables, tw, rows, not tiled and ty == down - 1, jpeg_mode, per,
+                (sh, sv) if jpeg_mode == 1 else (1, 1), name)
+            continue
+        if photo == 6 and planes == 1:
+            # packed sampling blocks; libtiff reads a strip's rows rounded up
+            # to whole blocks, as rows x (a block row's bytes / sv) bytes
+            block_row = -(-tw // sh) * (sh * sv + 2)
+            full = -(-rows // sv) * block_row
+            want = full if tiled else min(full, -(-rows // sv) * sv * (block_row // sv))
+        else:
+            want = rows * row_bytes
         if comp == 1:
+            if reverse and tiled and want % 1024:
+                # libtiff reads a bit-reversed tile into a buffer rounded up
+                # to 1024 bytes and then refuses its byte count
+                raise OSError(f"{name}: an uncompressed FillOrder 2 tile of {want} bytes, not a "
+                              "multiple of 1024 (libtiff refuses it: cv2.imread gives None)")
             chunk = raw[:want]
         elif comp in (8, 32946):
             try:
                 chunk = zlib.decompressobj().decompress(raw, want)
             except zlib.error as err:
                 raise OSError(f"{name}: TIFF Deflate data is corrupt ({err})") from err
+        elif comp in _CCITT:
+            buf = np.zeros(want, np.uint8)
+            msg = ctypes.create_string_buffer(_MSG)
+            options = tags.get(292 if comp == 3 else 293, [0])[0]
+            got = _lib("fax_codec").ayolo_fax_decode(raw, len(raw), comp, options,
+                                                     tags.get(266, [1])[0], tw, rows,
+                                                     offsets[k] & 1, ctypes.byref(noeol),
+                                                     _ptr(buf), msg, _MSG)
+            if got < 0:
+                raise OSError(f"{name}: {msg.value.decode(errors='replace')}")
+            chunk = buf.tobytes()  # a damaged row and those after it as libtiff leaves them
         else:
             buf = np.zeros(want, np.uint8)
             msg = ctypes.create_string_buffer(_MSG)
@@ -632,6 +787,19 @@ def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
             chunk = buf[:got].tobytes()
         if len(chunk) < want:
             raise OSError(f"{name}: TIFF strip or tile {k} holds {len(chunk)} of {want} bytes")
+        if photo == 6 and planes == 1:
+            packed = np.frombuffer(chunk, np.uint8, want)
+            rowsize = tw * 3 if tiled else block_row // sv
+            if predictor == 2 and not (want % rowsize or rowsize % 3):
+                # libtiff's horAcc8 over its rows of the packed bytes (rows it
+                # cannot divide so fail, leaving the differences as decoded)
+                packed = np.cumsum(packed.reshape(-1, rowsize // 3, 3), 1, dtype=np.uint8).ravel()
+            npix = min(tw, w - tx * tw)
+            stride = block_row if npix == tw else (-(-npix // sh) * (sh * sv + 2)
+                                                  + (tw - npix) // sh * _YCBCR_SKIP[(sh, sv)])
+            samples[plane, ty * th: ty * th + rows, tx * tw: tx * tw + npix] = _ycbcr_blocks(
+                packed, rows, npix, sh, sv, stride)
+            continue
         rows_u8 = np.frombuffer(chunk, np.uint8, want).reshape(rows, row_bytes)
         if bits < 8:
             px = np.unpackbits(rows_u8, axis=1)[:, : tw * bits].reshape(rows, tw, bits)
@@ -672,7 +840,93 @@ def decode_tiff(data: bytes, name: str = "<bytes>") -> np.ndarray:
         # no inversion, 16 bits rounded, an unassociated alpha applied
         s = np.concatenate([np.repeat(s[..., :1], 3, 2), s[..., 1:2]], 2)
         photo = 2
+    if comp == 7 and photo == 6 and planes == 1:
+        photo = 2  # libjpeg turned it into RGB
     return _tiff_bgr(s, photo, bits, extra, tags, name)
+
+
+def _ycbcr_rgb(s: np.ndarray, tags: dict) -> np.ndarray:
+    """libtiff's TIFFYCbCrToRGBInit tables (float arithmetic as libtiff
+    computes them, ``YCbCrCoefficients`` and ``ReferenceBlackWhite`` or
+    their defaults) and TIFFYCbCrtoRGB of (h, w, 3) Y, Cb, Cr: (h, w, 3)
+    RGB."""
+    f = np.float32
+    luma = [f(v) for v in (tags.get(529, []) + [0.299, 0.587, 0.114][len(tags.get(529, [])):])[:3]]
+    ref = [f(v) for v in tags.get(532, [0, 255, 128, 255, 128, 255])[:6]]
+    if len(ref) < 6 or not luma[1]:
+        raise OSError("bad YCbCrCoefficients or ReferenceBlackWhite")
+
+    def fix(v):  # FIX(CLAMP(v, 0, 2)): the float times 65536, plus 0.5 in double
+        v = min(max(v, f(0)), f(2))
+        return int(float(v * f(65536)) + 0.5)
+
+    f1 = f(2) - f(2) * luma[0]
+    f3 = f(2) - f(2) * luma[2]
+    d1, d2 = fix(f1), -fix(luma[0] * f1 / luma[1])
+    d3, d4 = fix(f3), -fix(luma[2] * f3 / luma[1])
+
+    def code2v(c, rb, rw, cr):  # ((c - (int)RB) * (float)CR) / (float)(RW - RB or 1)
+        den = rw - rb
+        v = (c - np.trunc(rb).astype(np.int64)).astype(f) * f(cr) / (den if den != 0 else f(1))
+        return np.trunc(np.clip(v, f(-4096), f(4096))).astype(np.int64)
+
+    x = np.arange(256) - 128
+    cr = code2v(x, ref[4] - f(128), ref[5] - f(128), 127)
+    cb = code2v(x, ref[2] - f(128), ref[3] - f(128), 127)
+    ytab = code2v(x + 128, ref[0], ref[1], 255)
+    y, b, r = ytab[s[..., 0]], cb[s[..., 1]], cr[s[..., 2]]
+    red = y + ((d1 * r + (1 << 15)) >> 16)
+    green = y + ((d4 * b + (1 << 15) + d2 * r) >> 16)
+    blue = y + ((d3 * b + (1 << 15)) >> 16)
+    return np.clip(np.stack([red, green, blue], -1), 0, 255).astype(np.uint8)
+
+
+def _lab_rgb(s: np.ndarray, bits: int, tags: dict) -> np.ndarray:
+    """libtiff's putcontig8bitCIELab8 and ...16 of (h, w, 3) L*a*b* samples:
+    TIFFCIELab16ToXYZ against the WhitePoint (D50 where absent) and
+    TIFFXYZToRGB through the display_sRGB tables of TIFFCIELabToRGBInit, in
+    single precision as libtiff computes it. (h, w, 3) RGB."""
+    f = np.float32
+    wp = tags.get(318)
+    if wp is None or len(wp) < 2:
+        total = f(96.4250) + f(100.0) + f(82.4680)
+        wp = [f(96.4250) / total, f(100.0) / total]
+    wp = [f(v) for v in wp[:2]]
+    if not wp[1]:
+        raise OSError("a CIELab TIFF's WhitePoint of zero luminance")
+    x0, y0, z0 = wp[0] / wp[1] * f(100), f(100), (f(1) - wp[0] - wp[1]) / wp[1] * f(100)
+    if bits == 8:
+        l16 = s[..., 0].astype(np.int64) * 257
+        a16 = s[..., 1].astype(np.int8).astype(np.int64) * 256
+        b16 = s[..., 2].astype(np.int8).astype(np.int64) * 256
+    else:
+        l16 = s[..., 0].astype(np.int64)
+        a16, b16 = (s[..., k].astype(np.int16).astype(np.int64) for k in (1, 2))
+    big_l = l16.astype(f) * f(100) / f(65535)
+    dark = big_l < f(8.856)
+    y_dark = big_l * y0 / f(903.292)
+    cby_dark = f(7.787) * (y_dark / y0) + f(16) / f(116)
+    cby_lit = (big_l + f(16)) / f(116)
+    cby = np.where(dark, cby_dark, cby_lit)
+    yy = np.where(dark, y_dark, y0 * cby_lit * cby_lit * cby_lit)
+
+    def cube(t, ref):
+        return np.where(t < f(0.2069), ref * (t - f(0.13793)) / f(7.787), ref * t * t * t)
+
+    xx = cube(a16.astype(f) / f(256) / f(500) + cby, x0)
+    zz = cube(cby - b16.astype(f) / f(256) / f(200), z0)
+    mat = np.array([[3.2410, -1.5374, -0.4986], [-0.9692, 1.8760, 0.0416],
+                    [0.0556, -0.2040, 1.0570]], f)
+    table = f(255) * np.power(np.arange(1501) / 1500.0, 1.0 / float(f(2.4))).astype(f)
+    step = (f(100) - f(1)) / f(1500)
+    out = []
+    for m in mat:
+        lum = m[0] * xx + m[1] * yy + m[2] * zz
+        lum = np.minimum(np.maximum(lum, f(1)), f(100))
+        i = np.minimum(((lum - f(1)) / step).astype(np.int64), 1500)
+        v = table[i].astype(np.float64)
+        out.append(np.minimum(np.where(v > 0, v + 0.5, v - 0.5).astype(np.int64), 255))
+    return np.stack(out, -1).astype(np.uint8)
 
 
 def _tiff_bgr(s: np.ndarray, photo: int, bits: int, extra, tags: dict, name: str) -> np.ndarray:
@@ -694,6 +948,16 @@ def _tiff_bgr(s: np.ndarray, photo: int, bits: int, extra, tags: dict, name: str
             cmap >>= 8
         idx = s[..., 0].astype(np.int64)
         return np.stack([cmap[2][idx], cmap[1][idx], cmap[0][idx]], -1).astype(np.uint8)
+    if photo == 6:
+        try:
+            return np.ascontiguousarray(_ycbcr_rgb(s, tags)[..., ::-1])
+        except OSError as err:
+            raise OSError(f"{name}: {err}") from err
+    if photo == 8:
+        try:
+            return np.ascontiguousarray(_lab_rgb(s, bits, tags)[..., ::-1])
+        except OSError as err:
+            raise OSError(f"{name}: {err}") from err
     v = _ROUND16[s] if bits == 16 else s  # libtiff's Bitdepth16To8
     if photo == 5:
         k = 255 - v[..., 3:4].astype(np.uint16)

@@ -4,12 +4,13 @@
   does, not from its suffix: JPEG (``FF D8 FF``), PNG, BMP (``BM``), TIFF
   (``II*``/``MM*``, DNG included) and WebP (``RIFF....WEBP``) go to the
   port's own codecs (``data/codecs.py``, C++ libraries built at first use),
-  equal to ``cv2.imread`` bit for bit, and JPEG, PNG and WebP are turned by
-  their EXIF orientation as ``cv2.imread`` turns them (TIFF's Orientation
-  1-4 as libtiff applies it). A mode the port leaves out raises ``OSError``
-  naming it, with cv2 installed or not; only a file of another signature
-  goes to ``cv2``, imported only then; without it the error names the file
-  and the package.
+  equal to ``cv2.imread`` bit for bit in every mode cv2 reads (TIFF's
+  JPEG, CCITT, YCbCr and CIELab, lossless and arithmetic-coded JPEG
+  included), and JPEG, PNG and WebP are turned by their EXIF orientation as
+  ``cv2.imread`` turns them (TIFF's Orientation 1-4 as libtiff applies it).
+  A mode cv2 refuses raises ``OSError`` naming it, with cv2 installed or
+  not; only a file of another signature goes to ``cv2``, imported only
+  then; without it the error names the file and the package.
 - :func:`image_size` reads (w, h) from any of these headers without
   decoding a pixel, as the JAX package's ``exif_size(PIL.Image.open(f))``
   gives it: swapped for EXIF orientations 6 and 8 of a JPEG, PNG or WebP,
@@ -51,7 +52,7 @@ def _cv2(path: str, what: str):
 
 def imread(path: str) -> np.ndarray:
     """(h, w, 3) BGR uint8, as ``cv2.imread(path)``; raises ``OSError``
-    where cv2 gives None or the file uses a mode the port leaves out."""
+    where cv2 gives None."""
     data = Path(path).read_bytes()
     if data.startswith(codecs.JPEG_SIGNATURE):
         return codecs.apply_orientation(codecs.decode_jpeg(data, path),

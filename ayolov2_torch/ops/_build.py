@@ -37,7 +37,7 @@ NVCC_FLAGS = [
 ]
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 # csrc/<name>.cpp of the image codecs, which build_all's default leaves out
-HOST_SOURCES = ("image_codec", "raster_codec", "webp_codec")
+HOST_SOURCES = ("image_codec", "raster_codec", "webp_codec", "fax_codec")
 # csrc/<name>.cpp built against libtorch: name -> "library" or "executable"
 TORCH_SOURCES = {"early_pipeline_op": "library", "aoti_runner": "executable"}
 

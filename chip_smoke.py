@@ -233,9 +233,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    tile, plain version and cuDNN chain, and the 1.05 config's serve rate at
    bs 16, 800. ``--widths-only`` runs phases 1, 2, 3 and 15.
 16. image files without OpenCV, under ``build/chip_smoke_images/``: 16.1
-   each fixture of ``tests/res/torch_codec/`` (JPEG, PNG, BMP, TIFF, WebP)
-   read by the port equal to the digest of ``cv2.imread``'s array in its
-   manifest (a mode the port leaves out raising ``OSError`` naming it), and
+   each fixture of ``tests/res/torch_codec/`` (JPEG incl. lossless and
+   arithmetic-coded, PNG, BMP, TIFF incl. JPEG, CCITT, YCbCr and CIELab,
+   WebP) read by the port equal to the digest of ``cv2.imread``'s array in
+   its manifest (a mode the port leaves out raising ``OSError`` naming it), and
    each JPEG fixture's source encoded by the port equal to the digest of
    ``cv2.imencode``'s bytes; 16.2 phase 7's 128 images written as JPEG by
    the port's encoder (quality 95, 4:2:0), every eighth as PNG and every
@@ -248,15 +249,17 @@ Phases, each printing its own lines; any failure exits non-zero:
    step = ema_updates = the micro-steps, ``cli.val`` of its ``best.ckpt``
    through K1; 16.5 phase 7's first 32 images written as 8-bit palette and
    32-bit BMPs and as TIFFs (LZW with predictor 2, PackBits, Deflate,
-   Deflate tiles) by ``write_format_file``, beside the two 640x480 WebP
-   fixtures (lossless and lossy), labelled by the f32 plain path on the
-   decoded pixels and validated under phase 7's gates (bs 32, 640, rect, K1
-   one launch a batch), ``python -m ayolov2_torch.cli.val`` equal to the
-   in-process run; 16.4 on the host clock, decode ms per 640x480 image
-   (baseline and progressive JPEG, PNG, BMP, LZW TIFF, lossless and lossy
-   WebP), encode ms, the val loader's ms per batch of 32 on JPEG and on BMP
-   with 2 and 4 threads, and the warm validation pass's img/s on JPEG
-   against phase 7's BMPs. ``--images-only`` runs phases 1, 2, 3, 7 and 16.
+   Deflate tiles, JPEG strips with JPEGTables, YCbCr subsampled 2x2) by
+   ``write_format_file``, beside the two 640x480 WebP fixtures (lossless
+   and lossy), labelled by the f32 plain path on the decoded pixels and
+   validated under phase 7's gates (bs 32, 640, rect, K1 one launch a
+   batch), ``python -m ayolov2_torch.cli.val`` equal to the in-process run;
+   16.4 on the host clock, decode ms per 640x480 image (baseline and
+   progressive JPEG, PNG, BMP, LZW and JPEG TIFF, CCITT Group 4 TIFF,
+   lossless and lossy WebP), encode ms, the val loader's ms per batch of 32
+   on JPEG and on BMP with 2 and 4 threads, and the warm validation pass's
+   img/s on JPEG against phase 7's BMPs. ``--images-only`` runs phases 1,
+   2, 3, 7 and 16.
 17. the native runner and the measurement CLIs, under
    ``build/chip_smoke_tools/``: 17.1, started in the background right after
    phase 2, ``cli.export --aoti`` of seeded yolov5s (nc 80, bf16, bs 32,
@@ -833,14 +836,23 @@ def tiff_file(img: np.ndarray, little: bool = True, compression: int = 1, predic
               tile=None, rows_per_strip: Optional[int] = None, planar: int = 1,
               photometric: int = 2, bits: int = 8, colormap=None, orientation: int = 0,
               extra_samples=None, sample_format: int = 0, zlevel: int = 6,
-              big: bool = False) -> bytes:
+              big: bool = False, fill_order: int = 1, subsampling=None,
+              jpeg_tables: bool = False, quality: int = 90, tags=None) -> bytes:
     """A baseline TIFF of ``img`` (h, w, samples; its values stored as they
     are, in the samples' order): ``compression`` 1, 5 (LZW), 32773
-    (PackBits), 8 or 32946 (Deflate), ``predictor`` 2 (horizontal
+    (PackBits), 8 or 32946 (Deflate), or 7 (JPEG: each strip or tile a JPEG
+    from the port's encoder at ``quality``, of RGB samples 4:2:0 YCbCr, so
+    written as photometric 6 with subsampling 2x2, or grey; ``jpeg_tables``
+    moves its tables into JPEGTables), ``predictor`` 2 (horizontal
     differencing), strips of ``rows_per_strip`` rows or tiles (tw, th),
     ``planar`` 1 or 2, ``bits`` 1, 2, 4, 8 or 16 a sample, ``colormap``
-    (3, 2**bits) 16-bit values, and the tags Orientation, ExtraSamples and
-    SampleFormat where given; ``big``: a BigTIFF."""
+    (3, 2**bits) 16-bit values, ``subsampling`` (sh, sv) of YCbCr samples
+    (packed in libtiff's sampling blocks, each block's chroma its first
+    pixel's; a predictor is written as a tag only), ``fill_order`` 2 (each
+    chunk's bits reversed), the tags
+    Orientation, ExtraSamples and SampleFormat where given and ``tags``
+    {tag: (type, values)} (type 5 values as (numerator, denominator)
+    pairs, type 7 as bytes); ``big``: a BigTIFF."""
     import zlib
 
     e = "<" if little else ">"
@@ -848,6 +860,7 @@ def tiff_file(img: np.ndarray, little: bool = True, compression: int = 1, predic
     if img.ndim == 2:
         img = img[..., None]
     h, w, spp = img.shape
+    tags_given = dict(tags or {})
 
     def pack(block: np.ndarray) -> bytes:  # (rows, cols, samples) -> stored bytes
         block = block.astype(np.int64)
@@ -868,14 +881,53 @@ def tiff_file(img: np.ndarray, little: bool = True, compression: int = 1, predic
             packed = (packed << bits) | v[:, :, i]
         return packed.astype(np.uint8).tobytes()
 
+    if compression == 7 and img.shape[2] == 3:
+        photometric, subsampling = 6, (2, 2)
+    tables = b""
+
+    def jpeg(block: np.ndarray) -> bytes:
+        from ayolov2_torch.data.codecs import encode_jpeg
+
+        nonlocal tables
+        data = encode_jpeg(block[..., 0] if block.shape[2] == 1 else block[..., ::-1], quality)
+        if not jpeg_tables:
+            return data
+        pos, kept, own = 2, [], []
+        while data[pos + 1] != 0xDA:  # segments before the scan: tables go to JPEGTables
+            end = pos + 2 + struct.unpack_from(">H", data, pos + 2)[0]
+            (own if data[pos + 1] in (0xDB, 0xC4) else kept).append(data[pos:end])
+            pos = end
+        tables = b"\xff\xd8" + b"".join(own) + b"\xff\xd9"
+        return data[:2] + b"".join(kept) + data[pos:]
+
+    def blocks(block: np.ndarray) -> bytes:  # YCbCr samples -> packed sampling blocks
+        sh, sv = subsampling
+        r, c = block.shape[:2]
+        pad = np.zeros((-(-r // sv) * sv, -(-c // sh) * sh, 3), np.uint8)
+        pad[:r, :c] = block
+        pad[r:, :c] = pad[r - 1: r, :c]
+        pad[:, c:] = pad[:, c - 1: c]
+        y = pad[..., 0].reshape(pad.shape[0] // sv, sv, pad.shape[1] // sh, sh).transpose(0, 2, 1, 3)
+        chroma = pad[::sv, ::sh, 1:]
+        return np.concatenate([y.reshape(y.shape[0], y.shape[1], -1), chroma], 2).tobytes()
+
     def squeeze(raw: bytes) -> bytes:
         if compression == 5:
-            return lzw(raw)
-        if compression == 32773:
-            return packbits(raw)
-        if compression in (8, 32946):
-            return zlib.compress(raw, zlevel)
+            raw = lzw(raw)
+        elif compression == 32773:
+            raw = packbits(raw)
+        elif compression in (8, 32946):
+            raw = zlib.compress(raw, zlevel)
+        if fill_order == 2:  # the stored bytes' bits reversed, as libtiff writes them
+            raw = raw.translate(bytes(int(f"{i:08b}"[::-1], 2) for i in range(256)))
         return raw
+
+    def encode(block: np.ndarray) -> bytes:
+        if compression == 7:
+            return jpeg(block)
+        if subsampling and planar == 1:
+            return squeeze(blocks(block))
+        return squeeze(pack(block))
 
     planes = [img[..., k: k + 1] for k in range(spp)] if planar == 2 else [img]
     chunks = []
@@ -887,11 +939,11 @@ def tiff_file(img: np.ndarray, little: bool = True, compression: int = 1, predic
                     block = np.zeros((th, tw, plane.shape[2]), img.dtype)
                     part = plane[ty: ty + th, tx: tx + tw]
                     block[: part.shape[0], : part.shape[1]] = part
-                    chunks.append(squeeze(pack(block)))
+                    chunks.append(encode(block))
         else:
             rps = rows_per_strip or h
             for y in range(0, h, rps):
-                chunks.append(squeeze(pack(plane[y: y + rps])))
+                chunks.append(encode(plane[y: y + rps]))
     head_size = 16 if big else 8
     data, offsets = bytearray(), []
     for c in chunks:
@@ -915,13 +967,25 @@ def tiff_file(img: np.ndarray, little: bool = True, compression: int = 1, predic
         tags[338] = (3, list(extra_samples))
     if sample_format:
         tags[339] = (3, [sample_format] * spp)
+    if fill_order != 1:
+        tags[266] = (3, [fill_order])
+    if subsampling:
+        tags[530] = (3, list(subsampling))
+    if tables:
+        tags[347] = (7, tables)
+    tags.update(tags_given)
     ifd_at = head_size + len(data)
     word, inline = ("Q", 8) if big else ("I", 4)
     values_at = ifd_at + (8 + 20 * len(tags) + 8 if big else 2 + 12 * len(tags) + 4)
     ifd, values = bytearray(struct.pack(e + ("Q" if big else "H"), len(tags))), bytearray()
     for tag in sorted(tags):
         kind, vals = tags[tag]
-        raw = b"".join(struct.pack(e + ("H" if kind == 3 else "I"), v) for v in vals)
+        if kind == 7:
+            raw = bytes(vals)
+        elif kind == 5:
+            raw = b"".join(struct.pack(e + "II", *v) for v in vals)
+        else:
+            raw = b"".join(struct.pack(e + ("H" if kind == 3 else "I"), v) for v in vals)
         ifd += struct.pack(e + "HH" + word, tag, kind, len(vals))
         if len(raw) <= inline:
             ifd += raw.ljust(inline, b"\0")
@@ -957,11 +1021,20 @@ def write_image_file(images: Path, stem: str, img: np.ndarray, i: int) -> None:
 FORMAT_WEBPS = ("w640_lossless_cv2.webp", "w640_lossy_cv2.webp")  # 16.5's WebP fixtures
 
 
+def ycbcr_samples(img: np.ndarray) -> np.ndarray:
+    """(h, w, 3) Y, Cb, Cr of a BGR uint8 image (the JFIF formulas, rounded)."""
+    b, g, r = (img[..., k].astype(np.float64) for k in range(3))
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    ycc = np.stack([y, 128 + (b - y) / 1.772, 128 + (r - y) / 1.402], -1)
+    return np.clip(np.rint(ycc), 0, 255).astype(np.uint8)
+
+
 def write_format_file(images: Path, stem: str, img: np.ndarray, i: int) -> None:
-    """Phase 16.5's file for image ``i``, by ``i % 6``: an 8-bit palette BMP
-    (3-3-2 colours), a 32-bit BMP, and TIFFs in LZW with predictor 2,
-    PackBits, Deflate and Deflate tiles of 64x64."""
-    k = i % 6
+    """Phase 16.5's file for image ``i``, by ``i % 8``: an 8-bit palette BMP
+    (3-3-2 colours), a 32-bit BMP, TIFFs in LZW with predictor 2, PackBits,
+    Deflate and Deflate tiles of 64x64, a JPEG TIFF (the port's encoder,
+    strips of 64 rows, JPEGTables) and a YCbCr TIFF subsampled 2x2 (LZW)."""
+    k = i % 8
     h, w = img.shape[:2]
     if k == 0:
         idx, pal = palette_332(img)
@@ -969,12 +1042,16 @@ def write_format_file(images: Path, stem: str, img: np.ndarray, i: int) -> None:
     elif k == 1:
         bgra = np.concatenate([img, np.full((h, w, 1), 255, np.uint8)], 2)
         data = bmp_file(bmp_rows(bgra[::-1].reshape(h, -1), 8), w, h, 32)
+    elif k == 7:
+        data = tiff_file(ycbcr_samples(img), photometric=6, subsampling=(2, 2), compression=5,
+                         rows_per_strip=64)
     else:
         rgb = np.ascontiguousarray(img[..., ::-1])
         data = tiff_file(rgb, **[dict(compression=5, predictor=2, rows_per_strip=64),
                                  dict(compression=32773, rows_per_strip=32),
                                  dict(compression=8, rows_per_strip=128),
-                                 dict(compression=8, tile=(64, 64))][k - 2])
+                                 dict(compression=8, tile=(64, 64)),
+                                 dict(compression=7, rows_per_strip=64, jpeg_tables=True)][k - 2])
     (images / f"{stem}.{'bmp' if k < 2 else 'tif'}").write_bytes(data)
 
 
@@ -4611,6 +4688,9 @@ def codec_times(card: str, bs: int = 32, img_size: int = 640) -> None:
                                                    rows_per_strip=64))
     (tdir / "scene_lzw.tif").write_bytes(tiff_file(scene[..., ::-1], compression=5, predictor=2,
                                                    rows_per_strip=64))
+    (tdir / "scene_jpeg.tif").write_bytes(tiff_file(np.ascontiguousarray(scene[..., ::-1]),
+                                                    compression=7, rows_per_strip=64,
+                                                    jpeg_tables=True))
     files = {"JPEG baseline 4:2:0 q95, phase 16's kind of image": tdir / "scene.jpg",
              "JPEG baseline 4:2:0 q95, gradient with noise": tdir / "noisy.jpg",
              "JPEG progressive 4:2:0 q75 (fixture jprog640.jpg)": CODEC_FIXTURES / "jprog640.jpg",
@@ -4618,6 +4698,9 @@ def codec_times(card: str, bs: int = 32, img_size: int = 640) -> None:
              "BMP 24-bit (phase 7's kind)": tdir / "scene.bmp",
              "TIFF LZW predictor 2, phase 16's kind": tdir / "scene_lzw.tif",
              "TIFF LZW predictor 2, gradient with noise": tdir / "noisy_lzw.tif",
+             "TIFF JPEG 4:2:0 q90 strips of 64 rows, phase 16's kind": tdir / "scene_jpeg.tif",
+             "TIFF CCITT Group 4, thresholded scene (fixture t640_g4_pil.tif)":
+                 CODEC_FIXTURES / "t640_g4_pil.tif",
              "WebP lossless, phase 7's kind with noise (fixture w640_lossless_cv2.webp)":
                  CODEC_FIXTURES / "w640_lossless_cv2.webp",
              "WebP lossy q75, phase 7's kind with noise (fixture w640_lossy_cv2.webp)":

@@ -1,6 +1,7 @@
 """Image files through the port: EXIF orientations, sizes, the committed
 codec fixtures, the JPEG compression policy and the dataset on a directory of
-JPEG, PNG, EXIF-rotated JPEG, TIFF, EXIF-rotated WebP and palette BMP files,
+JPEG, PNG, EXIF-rotated JPEG, TIFF (LZW, JPEG, YCbCr, Group 4, CIELab),
+lossless and arithmetic-coded JPEG, EXIF-rotated WebP and palette BMP files,
 each against the JAX package (which reads through cv2 and PIL) or the
 installed OpenCV 5.0; and the port's reads and writes in an interpreter
 where cv2 and PIL cannot be imported, as on the card's machine.
@@ -165,9 +166,11 @@ def test_image_compression_equals_jax():
 def _write_mixed_set(root: Path) -> Path:
     """``root/images``: JPEGs, PNGs (written by the port's writer and by the
     tests' writer with filters and Adam7), JPEGs stored turned with EXIF
-    orientations 3, 5, 6 and 8, an LZW TIFF with predictor 2, a WebP stored
-    turned with EXIF orientation 6 and a palette BMP; ``labels/`` and
-    ``segments/`` for each."""
+    orientations 3, 5, 6 and 8, an LZW TIFF with predictor 2, a JPEG TIFF
+    with JPEGTables, a 2x2 YCbCr TIFF, a Group 4 TIFF and a CIELab TIFF
+    (Pillow's), a lossless and an arithmetic-coded JPEG, a WebP stored turned
+    with EXIF orientation 6 and a palette BMP; ``labels/`` and ``segments/``
+    for each."""
     from ayolov2_torch.utils.png import write_png
     from chip_smoke import bmp_file, bmp_rows, palette_332, tiff_file
 
@@ -179,7 +182,9 @@ def _write_mixed_set(root: Path) -> Path:
              ((112, 64), "adam7", 0), ((64, 112), "exif", 8), ((100, 140), "jpeg", 0),
              ((90, 60), "exif", 5), ((128, 128), "exif", 3), ((72, 120), "png", 0),
              ((120, 72), "exif", 6), ((96, 96), "adam7", 0), ((60, 90), "jpeg", 0),
-             ((88, 120), "tiff", 0), ((70, 110), "webp", 6), ((100, 76), "bmp", 0)]
+             ((88, 120), "tiff", 0), ((70, 110), "webp", 6), ((100, 76), "bmp", 0),
+             ((80, 112), "tjpeg", 0), ((96, 64), "tycbcr", 0), ((64, 96), "tg4", 0),
+             ((72, 88), "tlab", 0), ((88, 72), "jlossless", 0), ((64, 80), "jarith", 0)]
     for i, ((h, w), kind, o) in enumerate(files):
         im = fx.codec_source(20 + i, h, w)
         if kind == "jpeg":
@@ -193,6 +198,31 @@ def _write_mixed_set(root: Path) -> Path:
         elif kind == "tiff":
             (images / f"{i}.tif").write_bytes(tiff_file(im[..., ::-1], compression=5, predictor=2,
                                                         rows_per_strip=16))
+        elif kind == "tjpeg":
+            (images / f"{i}.tif").write_bytes(tiff_file(np.ascontiguousarray(im[..., ::-1]),
+                                                        compression=7, rows_per_strip=32,
+                                                        jpeg_tables=True))
+        elif kind == "tycbcr":
+            ycc = cv2.cvtColor(im, cv2.COLOR_BGR2YCrCb)[..., [0, 2, 1]]
+            (images / f"{i}.tif").write_bytes(tiff_file(ycc, photometric=6, subsampling=(2, 2),
+                                                        compression=5))
+        elif kind in ("tg4", "tlab"):
+            import io
+
+            from PIL import Image
+
+            pil = Image.fromarray(np.ascontiguousarray(im[..., ::-1]))
+            b = io.BytesIO()
+            if kind == "tg4":
+                pil.convert("L").point(lambda v: 255 if v > 110 else 0).convert("1").save(
+                    b, "TIFF", compression="group4")
+            else:
+                pil.convert("LAB").save(b, "TIFF")
+            (images / f"{i}.tif").write_bytes(b.getvalue())
+        elif kind == "jlossless":
+            (images / f"{i}.jpg").write_bytes(fx.lossless_jpeg(im[..., ::-1], predictor=6))
+        elif kind == "jarith":
+            (images / f"{i}.jpg").write_bytes(fx.arith_jpeg(i, w, h, restart=5))
         elif kind == "webp":
             stored = np.ascontiguousarray(np.rot90(im, 1))
             webp = cv2.imencode(".webp", stored, [cv2.IMWRITE_WEBP_QUALITY, 90])[1].tobytes()
