@@ -214,7 +214,7 @@ std::string sidecar_of(const std::string& program) {
 // ---- the operator's registration ------------------------------------------------
 
 struct OpLibrary {
-  int (*configure)(const char*, const int64_t*, const int*) = nullptr;
+  int (*configure)(const char*, const int64_t*, const int*, int) = nullptr;
   const char* (*error)() = nullptr;
   int64_t (*launches)() = nullptr;
 };
@@ -249,13 +249,14 @@ size_t configure(const Json& sidecar, const OpLibrary& lib) {
     const Json* widths = call.get("widths");
     const Json* plan = call.get("plan");
     if (!library || library->kind != Json::kStr) continue;  // a CPU package: no kernel
-    if (!widths || widths->arr.size() != 5 || !plan || plan->arr.size() != 14)
-      throw std::runtime_error("sidecar: an early_pipeline entry needs 5 widths and 14 plan ints");
+    if (!widths || widths->arr.size() != 5 || !plan)
+      throw std::runtime_error("sidecar: an early_pipeline entry needs 5 widths and a plan");
     int64_t w[5];
-    int p[14];
+    std::vector<int> p(plan->arr.size());  // its length is checked by the registration
     for (int i = 0; i < 5; ++i) w[i] = static_cast<int64_t>(widths->arr[i].num);
-    for (int i = 0; i < 14; ++i) p[i] = static_cast<int>(plan->arr[i].num);
-    if (lib.configure(library->str.c_str(), w, p) != 0) throw std::runtime_error(lib.error());
+    for (size_t i = 0; i < p.size(); ++i) p[i] = static_cast<int>(plan->arr[i].num);
+    if (lib.configure(library->str.c_str(), w, p.data(), static_cast<int>(p.size())) != 0)
+      throw std::runtime_error(lib.error());
   }
   const Json* outputs = sidecar.get("outputs");
   return outputs ? outputs->arr.size() : 0;

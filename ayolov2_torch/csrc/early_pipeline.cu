@@ -16,9 +16,16 @@
 // widths: any c0, c1, ch, c2 whose padded forms (below) are at most 80, 160,
 // 80 and 320, as a v6 model of width_multiple 0.125 to 1.25 has them
 //
-// No intermediate is written to device memory. A persistent grid of one
-// block per SM walks the TH x TW tiles of the /8 output; a block recomputes
-// a tile's receptive field at every level in shared memory.
+// Two forms, one library. The fused form (this kernel, early_pipeline_kernel)
+// writes no intermediate to device memory: a persistent grid of one block per
+// SM walks the TH x TW tiles of the /8 output, and a block recomputes a tile's
+// receptive field at every level in shared memory. The staged form (below,
+// "the staged form") runs 2 + n kernels of the same make through device
+// memory, each with a halo of at most one conv: for the wide width sets, where
+// the fused tile that fits a block is 2x2 and recomputes its field 11-19
+// times. The host's plan picks the form per width set (plan_early: a cost of
+// MACs done in 64-row tiles, weight bytes streamed, activation bytes and
+// launches).
 //
 // Every width is held padded: c0, c1 and ch to multiples of 16 (so that a
 // tap's channels are whole k16 steps and a pixel pitch is an odd multiple of
@@ -36,7 +43,7 @@
 // the input patch, the stem output, the bottleneck 1x1 output and the C3
 // output.
 //
-// What bounds it: per 640x640 image yolov5s needs 3.54 GFLOP against 1.23 MB
+// What bounds it (the fused form): per 640x640 image yolov5s needs 3.54 GFLOP against 1.23 MB
 // in and 1.64 MB out, so at batch 32 the bf16 tensor-core time (0.115 ms at
 // 989 TFLOP/s) is four times the memory time: the bound is operations. In
 // practice the products are narrow (N = 32 or 64 channels, K = 144 to 576),
@@ -95,9 +102,10 @@
 //   arithmetic on the tap strides) and how the epilogue masks and addresses
 //   its output; only the geometry of the tile is read at run time.
 //
-// The tile, the band height, the ring depth and every buffer offset are
-// planned on the host (`plan_early` in ops/early_pipeline.py) and checked
-// here against the geometry before the launch.
+// The form, each kernel's tile, the band height, the ring depth and every
+// buffer offset are planned on the host (`plan_early` in
+// ops/early_pipeline.py) and checked here against the geometry before the
+// launch.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -170,10 +178,12 @@ struct Geo {
   uint32_t m_cs, m_c1, m_c1i, m_c3, m_raw;  // magic_of cs, c1, c1 - 2, c3, raw_pitch / 8
 };
 
-__host__ __device__ inline Geo make_geo(int n, int th, int tw) {
+// The regions of a conv1 output of r1 x c1 pixels, of which the r3 x c3 C3
+// output is kept (1 x 1 where no C3 output is kept).
+__host__ __device__ inline Geo geo_of(int r1, int c1, int r3, int c3) {
   Geo g;
-  g.r3 = 2 * th + 1;  g.c3 = 2 * tw + 1;
-  g.r1 = g.r3 + 2 * n;  g.c1 = g.c3 + 2 * n;
+  g.r3 = r3;  g.c3 = c3;
+  g.r1 = r1;  g.c1 = c1;
   g.r0 = 2 * g.r1 + 1;  g.c0 = 2 * g.c1 + 1;
   g.cs = g.c0 + 2;
   g.half0 = (g.c0 + 1) / 2;  g.half3 = (g.c3 + 1) / 2;
@@ -181,6 +191,12 @@ __host__ __device__ inline Geo make_geo(int n, int th, int tw) {
   g.m_cs = magic_of(g.cs);  g.m_c1 = magic_of(g.c1);  g.m_c1i = magic_of(g.c1 - 2);
   g.m_c3 = magic_of(g.c3);  g.m_raw = magic_of(g.raw_pitch / 8);
   return g;
+}
+
+// A th x tw tile of the fused form's /8 output: its C3 output, and the conv1
+// output the n bottlenecks' 3x3 convs read around it.
+__host__ __device__ inline Geo make_geo(int n, int th, int tw) {
+  return geo_of(2 * th + 1 + 2 * n, 2 * tw + 1 + 2 * n, 2 * th + 1, 2 * tw + 1);
 }
 
 // One layer's weights in the packed buffer.
@@ -839,18 +855,18 @@ __device__ __forceinline__ Band make_band(int b, int rb, int r1) {
 // pieces, zeros where the piece lies outside the image. Row j of the buffer
 // is image row 2 (r0 + 2 rb0 + first) - 2 + j; its first byte is byte
 // floor8(3 (2 q0 - 2)) of that row.
-__device__ __forceinline__ void start_raw(const Args& a, const Geo& geo, const Tile& t,
-                                          const Band& bd, uint32_t s_raw) {
+__device__ __forceinline__ void start_raw(const uint8_t* img, int H, int W, const Geo& geo,
+                                          const Tile& t, const Band& bd, uint32_t s_raw) {
   const int rows = 2 * bd.s2d_rows;
   const int per_row = geo.raw_pitch / 8;
   const int gr0 = 2 * (t.r0 + 2 * bd.rb0 + bd.first) - 2;
   const int gb0 = (3 * (2 * t.q0 - 2)) & ~7;
-  const uint8_t* im = a.img + (size_t)t.b * a.H * a.W * 3;
-  const int row_bytes = a.W * 3;
+  const uint8_t* im = img + (size_t)t.b * H * W * 3;
+  const int row_bytes = W * 3;
   for (int i = threadIdx.x; i < rows * per_row; i += kConsumerThreads) {
     const int j = fast_div(i, geo.m_raw, per_row), k = i - j * per_row;
     const int gr = gr0 + j, gb = gb0 + 8 * k;
-    const bool ok = gr >= 0 && gr < a.H && gb >= 0 && gb < row_bytes;
+    const bool ok = gr >= 0 && gr < H && gb >= 0 && gb < row_bytes;
     const uint8_t* src = ok ? im + (size_t)gr * row_bytes + gb : im;
     cp_async8(s_raw + j * geo.raw_pitch + 8 * k, src, ok ? 8 : 0);
   }
@@ -905,6 +921,105 @@ constexpr int kProfSlots = 0;
 #define TIMED_SYNC() consumer_sync()
 #endif
 
+// The barriers of the ring and the layer table; every thread waits for them.
+__device__ __forceinline__ void init_shared(Shared& sh, int stages, int n) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(&sh.full[s]), 1);
+      mbar_init(smem_u32(&sh.empty[s]), kConsumerThreads / 32);
+    }
+    fill_layers(sh.tab, n);
+#ifdef EARLY_PROFILE
+    for (int k = 0; k < 20; ++k) sh.wg_clocks[k / 5][k % 5] = 0;
+#endif
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer's part of one product of M pixels: the layer's chunks, once a
+// round, `group` chunks (contiguous in the packed buffer) a stage. Items run
+// N tile by N tile (64-row tiles within), so a round's items use the rows of
+// a run of N tiles: a layer of several N tiles copies only those rows of each
+// chunk, to where they lie in a whole chunk (one copy a stage where they are
+// all the rows).
+__device__ __forceinline__ void emit_layer(const Shared& sh, Pipe& pp, const Plan& P,
+                                           uint32_t ring, const uint8_t* wpack, int layer, int M) {
+  const LayerW lw = sh.tab[layer];
+  const int nt = nt_of(lw.co), m_tiles = (M + 63) / 64, items = m_tiles * (lw.co / nt);
+  const int rounds = rounds_of(M, lw.co), chunk = lw.co * 128;
+  const int nchunks = lw.ksteps / lw.kpc / lw.group, bytes = lw.group * chunk;
+  for (int r = 0; r < rounds; ++r) {
+    const int first = r * kWarpgroups, last = min(items, first + kWarpgroups) - 1;
+    const int row0 = first / m_tiles * nt * 128, rows = (last / m_tiles + 1) * nt * 128 - row0;
+    for (int c = 0; c < nchunks; ++c) {
+      mbar_wait(smem_u32(&sh.empty[pp.stage]), pp.phase ^ 1);
+      const uint32_t full = smem_u32(&sh.full[pp.stage]);
+      const uint32_t dst = ring + pp.stage * P.stage_bytes;
+      const uint8_t* src = wpack + lw.goff + (size_t)c * bytes;
+      if (EARLY_ABLATE == 6 || EARLY_ABLATE == 8) {
+        mbar_arrive(full);
+      } else if (rows == chunk) {
+        mbar_expect_tx(full, bytes);
+        bulk_copy(dst, src, bytes, full);
+      } else {
+        mbar_expect_tx(full, lw.group * rows);
+        for (int g = 0; g < lw.group; ++g)
+          bulk_copy(dst + g * chunk + row0, src + g * chunk + row0, rows, full);
+      }
+      pp.advance(P.stages);
+    }
+  }
+}
+
+// Every product's bias, from behind the last layer's chunks, into shared memory.
+__device__ __forceinline__ void load_biases(bf16* s_bias, const Shared& sh, const uint8_t* wpack,
+                                            int n) {
+  const LayerW& last = sh.tab[4 + 2 * n];
+  const bf16* gb = reinterpret_cast<const bf16*>(wpack + last.goff
+                                                 + (last.ksteps / last.kpc) * last.co * 128);
+  for (int i = threadIdx.x; i < total_bias(n); i += kConsumerThreads) s_bias[i] = gb[i];
+}
+
+// Carries the last stem row of the band before over to row 0 of the band buffer.
+__device__ __forceinline__ void carry_stem_row(const Geo& geo, uint8_t* s_stem, int rb, int p0) {
+  const int words = 2 * geo.half0 * p0 / 16;
+  const uint4* src = reinterpret_cast<const uint4*>(s_stem + (size_t)(2 * rb) * words * 16);
+  uint4* dst = reinterpret_cast<uint4*>(s_stem);
+  for (int i = threadIdx.x; i < words; i += kConsumerThreads) dst[i] = src[i];
+}
+
+// The stem of band bd: 3x3 over the space-to-depth pixels -> the band buffer
+// (parity-split), zero outside the image. Its rows are whole rows of the planes
+// (cs pixels, the last 2 not kept), read by descriptor: row_mul carries the
+// plane stride, there are no k-step offsets.
+__device__ __forceinline__ void stem_conv(Conv& cv, const Geo& geo, const Tile& t, const Band& bd,
+                                          uint8_t* s_s2d, uint8_t* s_stem, int s2d_plane, int p0,
+                                          int H2, int W2) {
+  cv.src = smem_u32(s_s2d);
+  cv.row_mul = s2d_plane;  cv.pitch = 0;
+  cv.tap_a = 0;  cv.tap_b = 0;  cv.tap_c = 0;
+  cv.o_rows = bd.stem_rows;  cv.o_cols = geo.cs;  cv.cols_magic = geo.m_cs;  cv.v_cols = geo.c0;
+  cv.dst = s_stem + (size_t)bd.first * 2 * geo.half0 * p0;
+  cv.d_cols = geo.half0;  cv.d_pitch = p0;
+  cv.layer = 0;
+  cv.g_r0 = t.r0 + 2 * bd.rb0 + bd.first;  cv.g_c0 = t.q0;  cv.g_h = H2;  cv.g_w = W2;
+}
+
+// conv1 of band bd: 3x3/s2 over the band -> rows [rb0, rb0 + rows) of the conv1 buffer.
+__device__ __forceinline__ void conv1_conv(Conv& cv, const Geo& geo, const Tile& t, const Band& bd,
+                                           uint8_t* s_stem, uint8_t* s_c1, int p0, int p1,
+                                           int H4, int W4) {
+  cv.src = smem_u32(s_stem);
+  cv.row_mul = 4 * geo.half0;  cv.pitch = p0;
+  cv.tap_a = 2 * geo.half0 * p0;  cv.tap_b = geo.half0 * p0;  cv.tap_c = p0;
+  cv.o_rows = bd.rows;  cv.o_cols = geo.c1;  cv.cols_magic = geo.m_c1;  cv.v_cols = geo.c1;
+  cv.dst = s_c1 + (size_t)bd.rb0 * geo.c1 * p1;
+  cv.d_cols = geo.c1;  cv.d_pitch = p1;
+  cv.layer = 1;
+  cv.g_r0 = t.r1 + bd.rb0;  cv.g_c0 = t.q1;  cv.g_h = H4;  cv.g_w = W4;
+}
+
 __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args a) {
   extern __shared__ uint8_t smem_raw_base[];
   __shared__ Shared sh;
@@ -922,44 +1037,14 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
   const int layers = 5 + 2 * n;
   const int s2d_plane = (2 * P.rb + 3) * geo.cs * 16;   // bytes of one space-to-depth plane
 
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < P.stages; ++s) {
-      mbar_init(smem_u32(&sh.full[s]), 1);
-      mbar_init(smem_u32(&sh.empty[s]), kConsumerThreads / 32);
-    }
-    fill_layers(sh.tab, n);
-#ifdef EARLY_PROFILE
-    for (int k = 0; k < 20; ++k) sh.wg_clocks[k / 5][k % 5] = 0;
-#endif
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  init_shared(sh, P.stages, n);
 
   if (threadIdx.x >= kConsumerThreads) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 " EARLY_PRODUCER_REGS ";\n");
     // ---- producer warp: streams the weight chunks in the consumers' order ----
     if (threadIdx.x == kConsumerThreads) {
       Pipe pp{0, 0};
-      auto emit = [&](int layer, int M) {
-        const LayerW lw = sh.tab[layer];
-        const int rounds = rounds_of(M, lw.co);
-        // one copy per stage: `group` chunks, contiguous in the packed buffer
-        const int nchunks = lw.ksteps / lw.kpc / lw.group, bytes = lw.group * lw.co * 128;
-        for (int r = 0; r < rounds; ++r) {
-          for (int c = 0; c < nchunks; ++c) {
-            mbar_wait(smem_u32(&sh.empty[pp.stage]), pp.phase ^ 1);
-            const uint32_t full = smem_u32(&sh.full[pp.stage]);
-            if (EARLY_ABLATE == 6 || EARLY_ABLATE == 8) {
-              mbar_arrive(full);
-            } else {
-              mbar_expect_tx(full, bytes);
-              bulk_copy(ring + pp.stage * P.stage_bytes, a.wpack + lw.goff + (size_t)c * bytes,
-                        bytes, full);
-            }
-            pp.advance(P.stages);
-          }
-        }
-      };
+      auto emit = [&](int layer, int M) { emit_layer(sh, pp, P, ring, a.wpack, layer, M); };
       for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
         const Tile t = make_tile(tile, a);
         for (int b = 0; b < nbands; ++b) {
@@ -988,11 +1073,7 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
   uint8_t* s_mcat = smem + P.off_mcat;  // cv1 output (+ residuals) | cv2 output
   uint8_t* s_mt = smem + P.off_mt;      // bottleneck 1x1 output
   bf16* s_bias = reinterpret_cast<bf16*>(smem + P.off_bias);
-  {
-    const bf16* gb = reinterpret_cast<const bf16*>(a.wpack + sh.tab[layers - 1].goff
-        + (sh.tab[layers - 1].ksteps / sh.tab[layers - 1].kpc) * sh.tab[layers - 1].co * 128);
-    for (int i = threadIdx.x; i < total_bias(n); i += kConsumerThreads) s_bias[i] = gb[i];
-  }
+  load_biases(s_bias, sh, a.wpack, n);
 #ifdef EARLY_PROFILE
   long long prof_acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   long long prof_last = clock64();
@@ -1003,7 +1084,7 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
 
   if ((int)blockIdx.x < ntiles) {
     const Tile t = make_tile(blockIdx.x, a);
-    start_raw(a, geo, t, make_band(0, P.rb, geo.r1), smem_u32(s_raw));
+    start_raw(a.img, a.H, a.W, geo, t, make_band(0, P.rb, geo.r1), smem_u32(s_raw));
   }
   // One tile is a fixed sequence of products: per band the stem and conv1,
   // then cv1|cv2, n x [m.cv1, m.cv2], cv3, conv2: seven kinds, each inlined
@@ -1022,37 +1103,13 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
           TIMED_SYNC();   // the raw rows are in; every earlier product is done
           PROF(0);
           convert_s2d(geo, t, bd, s_raw, s_s2d, s2d_plane);
-          if (bd.first) {
-            // carry the last stem row of the band before over to row 0
-            const int words = 2 * geo.half0 * p0 / 16;
-            const uint4* src = reinterpret_cast<const uint4*>(s_stem + (size_t)(2 * P.rb) * words * 16);
-            uint4* dst = reinterpret_cast<uint4*>(s_stem);
-            for (int i = threadIdx.x; i < words; i += kConsumerThreads) dst[i] = src[i];
-          }
+          if (bd.first) carry_stem_row(geo, s_stem, P.rb, p0);
           PROF(1);
           next_raw = true;
-          // stem: 3x3 over the space-to-depth pixels -> band buffer (parity-split), zero
-          // outside. Its rows are whole rows of the planes (cs pixels, the last 2 not kept),
-          // read by descriptor: row_mul carries the plane stride, there are no k-step offsets.
-          cv.src = smem_u32(s_s2d);
-          cv.row_mul = s2d_plane;  cv.pitch = 0;
-          cv.tap_a = 0;  cv.tap_b = 0;  cv.tap_c = 0;
-          cv.o_rows = bd.stem_rows;  cv.o_cols = geo.cs;  cv.cols_magic = geo.m_cs;  cv.v_cols = geo.c0;
-          cv.dst = s_stem + (size_t)bd.first * 2 * geo.half0 * p0;
-          cv.d_cols = geo.half0;  cv.d_pitch = p0;
-          cv.layer = 0;
-          cv.g_r0 = t.r0 + 2 * bd.rb0 + bd.first;  cv.g_c0 = t.q0;  cv.g_h = H2;  cv.g_w = W2;
+          stem_conv(cv, geo, t, bd, s_s2d, s_stem, s2d_plane, p0, H2, W2);
           slot = 2;
         } else {
-          // conv1: 3x3/s2 over the band -> rows [rb0, rb0 + rows) of the conv1 buffer
-          cv.src = smem_u32(s_stem);
-          cv.row_mul = 4 * geo.half0;  cv.pitch = p0;
-          cv.tap_a = 2 * geo.half0 * p0;  cv.tap_b = geo.half0 * p0;  cv.tap_c = p0;
-          cv.o_rows = bd.rows;  cv.o_cols = geo.c1;  cv.cols_magic = geo.m_c1;  cv.v_cols = geo.c1;
-          cv.dst = s_c1 + (size_t)bd.rb0 * geo.c1 * p1;
-          cv.d_cols = geo.c1;  cv.d_pitch = p1;
-          cv.layer = 1;
-          cv.g_r0 = t.r1 + bd.rb0;  cv.g_c0 = t.q1;  cv.g_h = H4;  cv.g_w = W4;
+          conv1_conv(cv, geo, t, bd, s_stem, s_c1, p0, p1, H4, W4);
           slot = 3;
         }
       } else if (k == 0) {
@@ -1117,10 +1174,11 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
       if (next_raw) {
         // the raw buffer is free: start the next band's rows (or the next tile's first)
         if (step + 2 < 2 * nbands) {
-          start_raw(a, geo, t, make_band((step >> 1) + 1, P.rb, geo.r1), smem_u32(s_raw));
-        } else if (tile + (int)gridDim.x < ntiles) {
-          start_raw(a, geo, make_tile(tile + gridDim.x, a), make_band(0, P.rb, geo.r1),
+          start_raw(a.img, a.H, a.W, geo, t, make_band((step >> 1) + 1, P.rb, geo.r1),
                     smem_u32(s_raw));
+        } else if (tile + (int)gridDim.x < ntiles) {
+          start_raw(a.img, a.H, a.W, geo, make_tile(tile + gridDim.x, a),
+                    make_band(0, P.rb, geo.r1), smem_u32(s_raw));
         }
       }
       // one instantiation per kind of product: <co, kernel size, k16 steps, stem?, what the
@@ -1146,6 +1204,334 @@ __global__ void __launch_bounds__(kThreads, 1) early_pipeline_kernel(const Args 
     for (int k = 0; k < 20; ++k) a.prof[blockIdx.x * kProfSlots + 8 + k] = sh.wg_clocks[k / 5][k % 5];
   }
 #endif
+}
+
+// ---- the staged form ----------------------------------------------------------
+//
+// For the wide width sets (yolov5x, yolov5l, the width-1.05 config) a fused
+// tile that fits one block's shared memory is so small that it recomputes its
+// receptive field many times over and streams every weight again for a few
+// output pixels. The staged form runs the network as 2 + n kernels through
+// device memory instead, each with a halo of at most one 3x3:
+//
+//   head        stem, conv1, cv1|cv2 of a /4 tile (the stem rolls in bands as
+//               above) -> G (bs, H/4, W/4, 2 ch): the C3's two branches
+//   bottleneck  m[i] of a /4 tile: its input m (channels [0, ch) of G, then of
+//               the last bottleneck's output) with a ring of one pixel, the
+//               1x1 over the ring and tile, the 3x3 + residual over the tile
+//               -> m in device memory; the last one also runs cv3 on the tile
+//               (m | cv2's half of G) -> the C3 output (bs, H/4, W/4, c1)
+//   tail        conv2 of a /8 tile: the C3 output it reads, parity-split
+//               -> out
+//
+// Each is a persistent grid of the fused kernel's shape (the producer warp's
+// ring, three consumer warpgroups, the same products and epilogues); a
+// kernel reads its region by cp.async, zeros outside the image. The
+// intermediates (the workspace, `early_pipeline_workspace` bytes) are written
+// once and read about once: 0.46 GB a call for yolov5x at bs 8, 640, against
+// 33 GB of weights the fused 2x2 tile streams from L2.
+
+struct StageArgs {
+  const uint8_t* img;   // head: the images
+  const bf16* src;      // bottleneck: its input m; tail: the C3 output
+  const bf16* cat;      // the last bottleneck: cv2's output, channels [ch, 2 ch) of G
+  bf16* dst;            // head: G; bottleneck: its output m (the last: the C3 output); tail: out
+  const uint8_t* wpack;
+  int bs, H, W, n, c2, tiles_x, tiles_y;
+  int src_pitch;        // channels a pixel of src
+  int layer;            // bottleneck: the layer of m[i].cv1, 3 + 2 i
+  int last;             // bottleneck: the last one, which also runs cv3
+  Plan p;
+};
+
+// Tile `tile` of a kernel whose tiles are th x tw pixels of an h x w level:
+// its image, its first row and column, and its rows and columns in the image.
+__device__ __forceinline__ Tile make_stage_tile(int tile, const StageArgs& a, int h, int w) {
+  Tile t;
+  const int per = a.tiles_x * a.tiles_y;
+  t.b = tile / per;
+  const int rem = tile - t.b * per;
+  const int ty = rem / a.tiles_x;
+  t.z0 = ty * a.p.th;  t.x0 = (rem - ty * a.tiles_x) * a.p.tw;
+  t.rows8 = min(a.p.th, h - t.z0);
+  t.cols8 = min(a.p.tw, w - t.x0);
+  t.m_cols8 = magic_of(t.cols8);
+  // the head's regions: conv1 output at (z0, x0) of the /4 level, the stem's from /2 row 2 z0 - 1
+  t.r1 = t.z0;  t.q1 = t.x0;
+  t.r0 = 2 * t.r1 - 1;  t.q0 = 2 * t.q1 - 1;
+  t.r3 = 0;  t.q3 = 0;
+  return t;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+// Starts copying rows x cols pixels, from (r0, q0) on, of image b of an NHWC
+// tensor of an h x w level (`pitch` channels a pixel; its first NCH channels
+// from `src` on) to shared memory at dst, `spitch` bytes a pixel: pixel (i, j)
+// at i cols + j, or parity-split where half > 0 ((2 i + j % 2) half + j / 2).
+// Zeros for pixels outside the image.
+template <int NCH>
+__device__ __forceinline__ void load_region(const bf16* src, int pitch, int b, int h, int w,
+                                            int r0, int q0, int rows, int cols, uint8_t* dst,
+                                            int spitch, int half) {
+  constexpr int per = NCH / 8;   // 16-byte pieces a pixel
+  const uint32_t m_cols = magic_of(cols);
+  const int total = rows * cols * per;
+  for (int i = threadIdx.x; i < total; i += kConsumerThreads) {
+    const int pix = i / per, k = i - pix * per;
+    const int r = fast_div(pix, m_cols, cols), c = pix - r * cols;
+    const int gr = r0 + r, gc = q0 + c;
+    const bool ok = gr >= 0 && gr < h && gc >= 0 && gc < w;
+    const bf16* s = ok ? src + (((size_t)b * h + gr) * w + gc) * pitch + 8 * k : src;
+    const int slot = half > 0 ? (2 * r + (c & 1)) * half + (c >> 1) : r * cols + c;
+    cp_async16(smem_u32(dst + slot * spitch + 16 * k), s, ok ? 16 : 0);
+  }
+}
+
+// Stores rows x cols pixels (NCH channels) of a shared buffer of `scols`
+// pixels a row, `spitch` bytes a pixel, to image b of an NHWC tensor of an
+// h x w level with NCH channels a pixel, from (r0, q0) on.
+template <int NCH>
+__device__ __forceinline__ void store_region(const uint8_t* src, int scols, int spitch, bf16* dst,
+                                             int b, int h, int w, int r0, int q0, int rows,
+                                             int cols) {
+  constexpr int per = NCH / 8;
+  const uint32_t m_cols = magic_of(cols);
+  const int total = rows * cols * per;
+  for (int i = threadIdx.x; i < total; i += kConsumerThreads) {
+    const int pix = i / per, k = i - pix * per;
+    const int r = fast_div(pix, m_cols, cols), c = pix - r * cols;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + (r * scols + c) * spitch + 16 * k);
+    *reinterpret_cast<uint4*>(dst + (((size_t)b * h + r0 + r) * w + q0 + c) * NCH + 8 * k) = v;
+  }
+}
+
+// The head: stem, conv1 and cv1|cv2 of a th x tw tile of the /4 level -> G.
+__global__ void __launch_bounds__(kThreads, 1) early_head_kernel(const StageArgs a) {
+  extern __shared__ uint8_t smem_raw_base[];
+  __shared__ Shared sh;
+  constexpr int c0 = kC0, c1 = kC1, ch = kCH;
+  constexpr int p0 = (c0 + kPad) * 2, p1 = (c1 + kPad) * 2;
+  const Plan& P = a.p;
+  const int n = a.n;
+  const Geo geo = geo_of(P.th, P.tw, 1, 1);
+  uint8_t* smem = smem_raw_base + ((1024 - (smem_u32(smem_raw_base) & 1023)) & 1023);
+  const uint32_t ring = smem_u32(smem + P.off_ring);
+  const int ntiles = a.bs * a.tiles_x * a.tiles_y;
+  const int nbands = (geo.r1 + P.rb - 1) / P.rb;
+  const int s2d_plane = (2 * P.rb + 3) * geo.cs * 16;
+  const int H2 = a.H / 2, W2 = a.W / 2, H4 = a.H / 4, W4 = a.W / 4;
+  init_shared(sh, P.stages, n);
+
+  if (threadIdx.x >= kConsumerThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 " EARLY_PRODUCER_REGS ";\n");
+    if (threadIdx.x == kConsumerThreads) {
+      Pipe pp{0, 0};
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const Tile t = make_stage_tile(tile, a, H4, W4);
+        for (int b = 0; b < nbands; ++b) {
+          const Band bd = make_band(b, P.rb, geo.r1);
+          emit_layer(sh, pp, P, ring, a.wpack, 0, bd.stem_rows * geo.cs);
+          emit_layer(sh, pp, P, ring, a.wpack, 1, bd.rows * geo.c1);
+        }
+        emit_layer(sh, pp, P, ring, a.wpack, 2, t.rows8 * t.cols8);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 " EARLY_CONSUMER_REGS ";\n");
+  uint8_t* s_c1 = smem + P.off_c1;
+  uint8_t* s_raw = smem + P.off_raw;
+  uint8_t* s_s2d = smem + P.off_s2d;
+  uint8_t* s_stem = smem + P.off_stem;
+  bf16* s_bias = reinterpret_cast<bf16*>(smem + P.off_bias);
+  load_biases(s_bias, sh, a.wpack, n);
+  Pipe pipe{0, 0};
+  Conv cv;
+  if ((int)blockIdx.x < ntiles)
+    start_raw(a.img, a.H, a.W, geo, make_stage_tile(blockIdx.x, a, H4, W4),
+              make_band(0, P.rb, geo.r1), smem_u32(s_raw));
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const Tile t = make_stage_tile(tile, a, H4, W4);
+    for (int step = 0; step <= 2 * nbands; ++step) {
+      const Band bd = make_band(step >> 1, P.rb, geo.r1);
+      bool next_raw = false;
+      if (step == 2 * nbands) {
+        // cv1 | cv2: 1x1 on the tile's conv1 output -> G, the pixels inside the image
+        cv.src = smem_u32(s_c1);
+        cv.row_mul = geo.c1;  cv.pitch = p1;
+        cv.tap_a = 0;  cv.tap_b = 0;  cv.tap_c = 0;
+        cv.o_rows = t.rows8;  cv.o_cols = t.cols8;  cv.cols_magic = t.m_cols8;  cv.v_cols = t.cols8;
+        cv.dst = reinterpret_cast<uint8_t*>(a.dst + (((size_t)t.b * H4 + t.z0) * W4 + t.x0) * 2 * ch);
+        cv.d_cols = W4;  cv.d_pitch = 2 * ch * 2;  cv.co_store = 2 * ch;
+        cv.layer = 2;
+      } else if ((step & 1) == 0) {
+        cp_async_wait_all();
+        consumer_sync();   // the raw rows are in; every earlier product is done
+        convert_s2d(geo, t, bd, s_raw, s_s2d, s2d_plane);
+        if (bd.first) carry_stem_row(geo, s_stem, P.rb, p0);
+        next_raw = true;
+        stem_conv(cv, geo, t, bd, s_s2d, s_stem, s2d_plane, p0, H2, W2);
+      } else {
+        conv1_conv(cv, geo, t, bd, s_stem, s_c1, p0, p1, H4, W4);
+      }
+      consumer_sync();   // what the product before wrote is there
+      if (next_raw) {
+        if (step + 2 < 2 * nbands) {
+          start_raw(a.img, a.H, a.W, geo, t, make_band((step >> 1) + 1, P.rb, geo.r1),
+                    smem_u32(s_raw));
+        } else if (tile + (int)gridDim.x < ntiles) {
+          start_raw(a.img, a.H, a.W, geo, make_stage_tile(tile + gridDim.x, a, H4, W4),
+                    make_band(0, P.rb, geo.r1), smem_u32(s_raw));
+        }
+      }
+      if (step == 2 * nbands)
+        conv_layer<2 * ch, 1, c1 / 16, false, kGlobal, false>(cv, pipe, sh, ring, P.stage_bytes, P.stages, s_bias);
+      else if ((step & 1) == 0)
+        conv_layer<c0, 3, 9, true, kMask, true>(cv, pipe, sh, ring, P.stage_bytes, P.stages, s_bias);
+      else
+        conv_layer<c1, 3, 9 * c0 / 16, false, kPlain, false>(cv, pipe, sh, ring, P.stage_bytes, P.stages, s_bias);
+    }
+  }
+}
+
+// One bottleneck, m[i], of a th x tw tile of the /4 level: m + SiLU(3x3(SiLU(1x1(m))))
+// -> its output m; the last bottleneck then runs cv3 on (m | cv2's output) -> the C3 output.
+__global__ void __launch_bounds__(kThreads, 1) early_bottleneck_kernel(const StageArgs a) {
+  extern __shared__ uint8_t smem_raw_base[];
+  __shared__ Shared sh;
+  constexpr int c1 = kC1, ch = kCH;
+  constexpr int pc = (2 * ch + kPad) * 2, ph = (ch + kPad) * 2;
+  const Plan& P = a.p;
+  const int n = a.n;
+  const int rp = P.th + 2, cp = P.tw + 2;   // the tile and its ring of one pixel
+  const uint32_t m_cp = magic_of(cp), m_tw = magic_of(P.tw);
+  uint8_t* smem = smem_raw_base + ((1024 - (smem_u32(smem_raw_base) & 1023)) & 1023);
+  const uint32_t ring = smem_u32(smem + P.off_ring);
+  const int ntiles = a.bs * a.tiles_x * a.tiles_y;
+  const int H4 = a.H / 4, W4 = a.W / 4;
+  init_shared(sh, P.stages, n);
+
+  if (threadIdx.x >= kConsumerThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 " EARLY_PRODUCER_REGS ";\n");
+    if (threadIdx.x == kConsumerThreads) {
+      Pipe pp{0, 0};
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const Tile t = make_stage_tile(tile, a, H4, W4);
+        emit_layer(sh, pp, P, ring, a.wpack, a.layer, rp * cp);
+        emit_layer(sh, pp, P, ring, a.wpack, a.layer + 1, P.th * P.tw);
+        if (a.last) emit_layer(sh, pp, P, ring, a.wpack, 3 + 2 * n, t.rows8 * t.cols8);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 " EARLY_CONSUMER_REGS ";\n");
+  uint8_t* s_cat = smem + P.off_mcat;   // m (+ the residual), and cv2's output for cv3
+  uint8_t* s_mt = smem + P.off_mt;      // the 1x1's output
+  bf16* s_bias = reinterpret_cast<bf16*>(smem + P.off_bias);
+  load_biases(s_bias, sh, a.wpack, n);
+  Pipe pipe{0, 0};
+  Conv cv;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const Tile t = make_stage_tile(tile, a, H4, W4);
+    consumer_sync();   // the tile before is stored: its buffers are free
+    load_region<ch>(a.src, a.src_pitch, t.b, H4, W4, t.z0 - 1, t.x0 - 1, rp, cp, s_cat, pc, 0);
+    if (a.last)
+      load_region<ch>(a.cat, 2 * ch, t.b, H4, W4, t.z0 - 1, t.x0 - 1, rp, cp, s_cat + 2 * ch,
+                      pc, 0);
+    cp_async_wait_all();
+    consumer_sync();
+    // m.cv1: 1x1 over the tile and its ring -> mt, zero outside the image (the 3x3 reads it)
+    cv.src = smem_u32(s_cat);
+    cv.row_mul = cp;  cv.pitch = pc;
+    cv.tap_a = 0;  cv.tap_b = 0;  cv.tap_c = 0;
+    cv.o_rows = rp;  cv.o_cols = cp;  cv.cols_magic = m_cp;  cv.v_cols = cp;
+    cv.dst = s_mt;
+    cv.d_cols = cp;  cv.d_pitch = ph;
+    cv.layer = a.layer;
+    cv.g_r0 = t.z0 - 1;  cv.g_c0 = t.x0 - 1;  cv.g_h = H4;  cv.g_w = W4;
+    conv_layer<ch, 1, ch / 16, false, kMask, false>(cv, pipe, sh, ring, P.stage_bytes, P.stages, s_bias);
+    consumer_sync();
+    // m.cv2: 3x3 over mt + the residual -> m of the tile
+    cv.src = smem_u32(s_mt);
+    cv.row_mul = cp;  cv.pitch = ph;
+    cv.tap_a = cp * ph;  cv.tap_b = ph;  cv.tap_c = 2 * ph;
+    cv.o_rows = P.th;  cv.o_cols = P.tw;  cv.cols_magic = m_tw;  cv.v_cols = P.tw;
+    cv.dst = s_cat + (size_t)(cp + 1) * pc;
+    cv.d_cols = cp;  cv.d_pitch = pc;
+    cv.layer = a.layer + 1;
+    conv_layer<ch, 3, 9 * ch / 16, false, kResidual, false>(cv, pipe, sh, ring, P.stage_bytes, P.stages, s_bias);
+    consumer_sync();
+    if (!a.last) {
+      store_region<ch>(s_cat + (size_t)(cp + 1) * pc, cp, pc, a.dst, t.b, H4, W4, t.z0, t.x0,
+                       t.rows8, t.cols8);
+      continue;
+    }
+    // cv3: 1x1 on (m | cv2's output) of the tile -> the C3 output, the pixels inside the image
+    cv.src = smem_u32(s_cat + (size_t)(cp + 1) * pc);
+    cv.row_mul = cp;  cv.pitch = pc;
+    cv.tap_a = 0;  cv.tap_b = 0;  cv.tap_c = 0;
+    cv.o_rows = t.rows8;  cv.o_cols = t.cols8;  cv.cols_magic = t.m_cols8;  cv.v_cols = t.cols8;
+    cv.dst = reinterpret_cast<uint8_t*>(a.dst + (((size_t)t.b * H4 + t.z0) * W4 + t.x0) * c1);
+    cv.d_cols = W4;  cv.d_pitch = c1 * 2;  cv.co_store = c1;
+    cv.layer = 3 + 2 * n;
+    conv_layer<c1, 1, 2 * ch / 16, false, kGlobal, false>(cv, pipe, sh, ring, P.stage_bytes, P.stages, s_bias);
+  }
+}
+
+// The tail: conv2 of a th x tw tile of the /8 output, from the C3 output.
+__global__ void __launch_bounds__(kThreads, 1) early_tail_kernel(const StageArgs a) {
+  extern __shared__ uint8_t smem_raw_base[];
+  __shared__ Shared sh;
+  constexpr int c1 = kC1, c2 = kC2;
+  constexpr int p1 = (c1 + kPad) * 2;
+  const Plan& P = a.p;
+  const int n = a.n;
+  const int r3 = 2 * P.th + 1, c3 = 2 * P.tw + 1, half3 = P.tw + 1;
+  uint8_t* smem = smem_raw_base + ((1024 - (smem_u32(smem_raw_base) & 1023)) & 1023);
+  const uint32_t ring = smem_u32(smem + P.off_ring);
+  const int ntiles = a.bs * a.tiles_x * a.tiles_y;
+  const int H4 = a.H / 4, W4 = a.W / 4, H8 = a.H / 8, W8 = a.W / 8;
+  init_shared(sh, P.stages, n);
+
+  if (threadIdx.x >= kConsumerThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 " EARLY_PRODUCER_REGS ";\n");
+    if (threadIdx.x == kConsumerThreads) {
+      Pipe pp{0, 0};
+      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+        const Tile t = make_stage_tile(tile, a, H8, W8);
+        emit_layer(sh, pp, P, ring, a.wpack, 4 + 2 * n, t.rows8 * t.cols8);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 " EARLY_CONSUMER_REGS ";\n");
+  uint8_t* s_c3 = smem + P.off_c1;   // the C3 output conv2 reads, parity-split
+  bf16* s_bias = reinterpret_cast<bf16*>(smem + P.off_bias);
+  load_biases(s_bias, sh, a.wpack, n);
+  Pipe pipe{0, 0};
+  Conv cv;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const Tile t = make_stage_tile(tile, a, H8, W8);
+    consumer_sync();   // the tile before is done with the buffer
+    load_region<c1>(a.src, c1, t.b, H4, W4, 2 * t.z0 - 1, 2 * t.x0 - 1, r3, c3, s_c3, p1, half3);
+    cp_async_wait_all();
+    consumer_sync();
+    cv.src = smem_u32(s_c3);
+    cv.row_mul = 4 * half3;  cv.pitch = p1;
+    cv.tap_a = 2 * half3 * p1;  cv.tap_b = half3 * p1;  cv.tap_c = p1;
+    cv.o_rows = t.rows8;  cv.o_cols = t.cols8;  cv.cols_magic = t.m_cols8;  cv.v_cols = t.cols8;
+    cv.dst = reinterpret_cast<uint8_t*>(a.dst + (((size_t)t.b * H8 + t.z0) * W8 + t.x0) * a.c2);
+    cv.d_cols = W8;  cv.d_pitch = a.c2 * 2;  cv.co_store = a.c2;
+    cv.layer = 4 + 2 * n;
+    conv_layer<c2, 3, 9 * c1 / 16, false, kGlobal, false>(cv, pipe, sh, ring, P.stage_bytes, P.stages, s_bias);
+  }
 }
 
 // The bytes the kernel touches under this plan, or -1 if two buffers that are
@@ -1192,6 +1578,60 @@ int launch(const Args& a, cudaStream_t stream, int grid) {
   return (int)cudaGetLastError();
 }
 
+// The staged kernels' kinds: the plan's parts 1-3 (ops/early_pipeline.py: StagePlan.kind).
+enum Kind { kHeadKind = 1, kBottleneckKind = 2, kTailKind = 3 };
+
+// The bytes a staged kernel of this kind touches under this part of the plan,
+// or -1 if two of its buffers overlap, an offset is not aligned or the tile
+// is not one the kernel takes (ops/early_pipeline.py: _buffer_sizes).
+int stage_extent(const Plan& P, int n, int kind) {
+  constexpr int c0 = kC0, c1 = kC1, ch = kCH;
+  const int p0 = (c0 + kPad) * 2, p1 = (c1 + kPad) * 2, pc = (2 * ch + kPad) * 2, ph = (ch + kPad) * 2;
+  if (P.th < 1 || P.tw < 1 || P.stages < 2 || P.stages > kMaxStages || n < 1
+      || 5 + 2 * n > kMaxLayers || P.stage_bytes < kStageRows * 128)
+    return -1;
+  int size[8] = {P.stages * P.stage_bytes, 0, 0, 0, 0, 0, 0, total_bias(n) * 2};
+  if (kind == kHeadKind) {
+    const Geo g = geo_of(P.th, P.tw, 1, 1);
+    if (P.rb < 1 || P.rb > P.th) return -1;
+    const int s2d_rows = 2 * P.rb + 3;
+    size[1] = P.th * P.tw * p1;
+    size[2] = 2 * s2d_rows * g.raw_pitch;
+    size[3] = s2d_rows * g.cs * kS2dBytes;
+    size[4] = (2 * P.rb + 1) * 2 * g.half0 * p0;
+  } else if (kind == kBottleneckKind) {
+    size[5] = (P.th + 2) * (P.tw + 2) * pc;
+    size[6] = (P.th + 2) * (P.tw + 2) * ph;
+  } else if (kind == kTailKind) {
+    size[1] = (2 * P.th + 1) * 2 * (P.tw + 1) * p1;
+  } else {
+    return -1;
+  }
+  const int off[8] = {P.off_ring, P.off_c1, P.off_raw, P.off_s2d, P.off_stem, P.off_mcat,
+                      P.off_mt, P.off_bias};
+  // every buffer of a staged kernel is live all the time
+  int end = 0;
+  for (int i = 0; i < 8; ++i) {
+    if (size[i] == 0) continue;
+    if (off[i] < 0 || off[i] % (i == 0 ? 1024 : 128)) return -1;
+    end = off[i] + size[i] > end ? off[i] + size[i] : end;
+    for (int j = 0; j < i; ++j)
+      if (size[j] > 0 && off[i] < off[j] + size[j] && off[j] < off[i] + size[i]) return -1;
+  }
+  return end;
+}
+
+template <typename Kernel>
+int launch_stage(Kernel kernel, const StageArgs& a, cudaStream_t stream, int sms) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         a.p.total);
+  if (err != cudaSuccess) return (int)err;
+  const int ntiles = a.bs * a.tiles_x * a.tiles_y;
+  const int grid = ntiles < sms ? ntiles : sms;
+  kernel<<<grid, kThreads, a.p.total, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launches on `stream`. c0, c1, ch, c2 are the padded widths of the packed
@@ -1228,3 +1668,72 @@ extern "C" int early_pipeline_launch(const void* img, void* out, const void* wpa
 }
 
 extern "C" int early_pipeline_profile_slots() { return kProfSlots; }
+
+// Bytes of device memory the staged form needs between its kernels for a
+// batch of bs images of H x W: G (2 ch channels at /4), two buffers of m
+// (ch) and the C3 output (c1), at this build's padded widths.
+extern "C" long long early_pipeline_workspace(int bs, int H, int W) {
+  return (long long)bs * (H / 4) * (W / 4) * (4 * kCH + kC1) * 2;
+}
+
+// The staged form (see above) on `stream`: the head, n bottleneck kernels and
+// the tail, in turn. Arguments as early_pipeline_launch's, without `prof`;
+// `work` is early_pipeline_workspace(bs, H, W) bytes of device memory; `plan`
+// holds 3 x 14 ints: the head's, the bottlenecks' and the tail's `Plan`.
+// Returns 0, the first launch's error, -1 for widths other than this build's,
+// -2 for a plan that does not cover what a kernel uses.
+extern "C" int early_pipeline_launch_staged(const void* img, void* out, const void* wpack,
+                                            void* work, int bs, int H, int W, int c0, int c1,
+                                            int ch, int c2, int c2_out, int n, const int* plan,
+                                            void* stream) {
+  if (c0 != kC0 || c1 != kC1 || ch != kCH || c2 != kC2 || c2_out < 2 || c2_out > kC2
+      || c2_out % 2 || work == nullptr)
+    return -1;
+  Plan parts[3];
+  for (int k = 0; k < 3; ++k) {
+    const int* q = plan + 14 * k;
+    parts[k] = Plan{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7], q[8], q[9], q[10], q[11],
+                    q[12], q[13]};
+    const int extent = stage_extent(parts[k], n, k + 1);
+    if (extent < 0 || extent + 1024 > parts[k].total
+        || parts[k].total + (int)sizeof(Shared) > kSmemLimit)
+      return -2;
+  }
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const size_t px4 = (size_t)bs * (H / 4) * (W / 4);
+  bf16* g = (bf16*)work;                 // (bs, H/4, W/4, 2 ch): m | cv2's output
+  bf16* m[2] = {g + px4 * 2 * kCH, g + px4 * 3 * kCH};
+  bf16* c3 = g + px4 * 4 * kCH;          // (bs, H/4, W/4, c1)
+  StageArgs a{};
+  a.img = (const uint8_t*)img;  a.wpack = (const uint8_t*)wpack;
+  a.bs = bs;  a.H = H;  a.W = W;  a.n = n;  a.c2 = c2_out;
+  const cudaStream_t s = (cudaStream_t)stream;
+  auto tiles = [&](const Plan& p, int level) {
+    a.p = p;
+    a.tiles_x = (W / level + p.tw - 1) / p.tw;
+    a.tiles_y = (H / level + p.th - 1) / p.th;
+  };
+  tiles(parts[0], 4);
+  a.dst = g;
+  int rc = launch_stage(early_head_kernel, a, s, sms);
+  tiles(parts[1], 4);
+  for (int i = 0; i < n && rc == 0; ++i) {
+    a.src = i == 0 ? g : m[(i - 1) & 1];
+    a.src_pitch = i == 0 ? 2 * kCH : kCH;
+    a.last = i == n - 1;
+    a.cat = g + kCH;
+    a.dst = a.last ? c3 : m[i & 1];
+    a.layer = 3 + 2 * i;
+    rc = launch_stage(early_bottleneck_kernel, a, s, sms);
+  }
+  if (rc == 0) {
+    tiles(parts[2], 8);
+    a.src = c3;
+    a.dst = (bf16*)out;
+    rc = launch_stage(early_tail_kernel, a, s, sms);
+  }
+  return rc;
+}

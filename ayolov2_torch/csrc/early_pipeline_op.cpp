@@ -17,10 +17,13 @@
 // - CPU: the plain version, the same ATen calls in the same order and dtypes
 //   as early_pipeline_ref on the weights unpack_weights recovers from the
 //   packed buffer, so that it equals the Python body bit for bit.
-// - CUDA (built with -DAYOLOV2_WITH_CUDA): early_pipeline_launch of the
-//   kernel's library for the padded width set (csrc/early_pipeline.cu, one
-//   library per set), on the current stream, with the 14 ints of the
-//   kernel's plan. Neither is known here: the caller passes both for each
+// - CUDA (built with -DAYOLOV2_WITH_CUDA): the kernel's library for the
+//   padded width set (csrc/early_pipeline.cu, one library per set), on the
+//   current stream, with the 43 ints of the kernel's plan: its form, then
+//   14 ints a part. The fused form launches early_pipeline_launch; the
+//   staged form early_pipeline_launch_staged with a workspace allocated
+//   here (early_pipeline_workspace bytes). Neither the library nor the plan
+//   is known here: the caller passes both for each
 //   width set through ayolov2_early_pipeline_configure before the first
 //   call (the runner takes them from the package's sidecar, which the
 //   packaging step writes from plan_early). A launch error raises, naming
@@ -58,7 +61,8 @@
 namespace {
 
 using Widths = std::array<int64_t, 5>;  // c0, c1, ch, c2, n
-constexpr int kPlanInts = 14;           // PLAN_FIELDS of ops/early_pipeline.py
+constexpr int kPlanInts = 43;           // PLAN_FIELDS of ops/early_pipeline.py: the form, 3 x 14
+constexpr int kPartInts = 14;           // PART_FIELDS
 
 Widths widths_of(int64_t c0, int64_t n, std::optional<int64_t> c1, std::optional<int64_t> ch,
                  std::optional<int64_t> c2) {
@@ -230,9 +234,12 @@ at::Tensor early_pipeline_cpu(const at::Tensor& images, const at::Tensor& wpack,
 
 using LaunchFn = int (*)(const void*, void*, const void*, void*, int, int, int, int, int, int,
                          int, int, int, const int*, void*);
+using WorkspaceFn = long long (*)(int, int, int);
 
 struct Config {
-  LaunchFn launch;
+  LaunchFn launch;          // the fused form (plan ints 1..14)
+  LaunchFn launch_staged;   // the staged form (plan ints 1..42), with a workspace
+  WorkspaceFn workspace;
   std::array<int, kPlanInts> plan;
 };
 
@@ -260,13 +267,21 @@ at::Tensor early_pipeline_cuda(const at::Tensor& images, const at::Tensor& wpack
   const int64_t bs = images.size(0), h = images.size(1), wd = images.size(2);
   at::Tensor out = at::empty({bs, h / 8, wd / 8, w[3]}, images.options().dtype(at::kBFloat16));
   cudaStream_t stream = c10::cuda::getCurrentCUDAStream(images.device().index()).stream();
-  const int err = cfg.launch(images.data_ptr(), out.data_ptr(), wpack.data_ptr(), nullptr,
-                             (int)bs, (int)h, (int)wd, (int)padded_width(w[0]),
-                             (int)padded_width(w[1]), (int)padded_width(w[2]),
-                             (int)padded_width(w[3]), (int)w[3], (int)w[4], cfg.plan.data(),
-                             stream);
+  const bool staged = cfg.plan[0] == 1;
+  // the staged form's intermediates, freed (to the caching allocator, in the
+  // stream's order) when the call returns
+  at::Tensor work;
+  if (staged)
+    work = at::empty({cfg.workspace((int)bs, (int)h, (int)wd)}, images.options());
+  const int err = (staged ? cfg.launch_staged : cfg.launch)(
+      images.data_ptr(), out.data_ptr(), wpack.data_ptr(), staged ? work.data_ptr() : nullptr,
+      (int)bs, (int)h, (int)wd, (int)padded_width(w[0]), (int)padded_width(w[1]),
+      (int)padded_width(w[2]), (int)padded_width(w[3]), (int)w[3], (int)w[4],
+      cfg.plan.data() + 1, stream);
+  const int* tile = cfg.plan.data() + 1 + (staged ? 2 * kPartInts : 0);
   TORCH_CHECK(err == 0, "early_pipeline kernel launch failed: error ", err, " (", width_text(w),
-              ", tile ", cfg.plan[0], "x", cfg.plan[1], ")");
+              staged ? ", staged form" : ", fused form", ", /8 tile ", tile[0], "x", tile[1],
+              ")");
   g_launches.fetch_add(1);
   return out;
 }
@@ -286,15 +301,29 @@ TORCH_LIBRARY_IMPL(ayolov2, CUDA, m) { m.impl("early_pipeline", &early_pipeline_
 #endif
 
 // The kernel's library (a build of csrc/early_pipeline.cu for the padded set of
-// these widths) and the 14 ints of plan_early for widths (c0, c1, ch, c2, n).
-// Returns 0, or -1 where the library does not load or lacks the launch
-// function (ayolov2_early_pipeline_error says why).
+// these widths) and the plan_ints ints of plan_early for widths (c0, c1, ch, c2,
+// n). Returns 0, or -1 where the plan is not kPlanInts long (a package written
+// before the staged form holds 14), or the library does not load or lacks a
+// launch function (ayolov2_early_pipeline_error says why).
 extern "C" int ayolov2_early_pipeline_configure(const char* library, const int64_t* widths,
-                                                const int* plan) {
+                                                const int* plan, int plan_ints) {
   std::lock_guard<std::mutex> lock(g_mu);
+  if (plan_ints != kPlanInts) {
+    g_error = "early_pipeline: a plan of " + std::to_string(plan_ints) + " ints, not " +
+              std::to_string(kPlanInts) + " (the form, then " + std::to_string(kPartInts) +
+              " a kernel): export the package again";
+    return -1;
+  }
   void* handle = dlopen(library, RTLD_NOW | RTLD_LOCAL);
-  void* fn = handle ? dlsym(handle, "early_pipeline_launch") : nullptr;
-  if (!fn) {
+  void* fn = nullptr;
+  void* staged = nullptr;
+  void* workspace = nullptr;
+  if (handle) {
+    fn = dlsym(handle, "early_pipeline_launch");
+    staged = dlsym(handle, "early_pipeline_launch_staged");
+    workspace = dlsym(handle, "early_pipeline_workspace");
+  }
+  if (!fn || !staged || !workspace) {
     const char* why = dlerror();
     g_error = std::string("early_pipeline: cannot load ") + library + ": " +
               (why ? why : "no early_pipeline_launch");
@@ -302,6 +331,8 @@ extern "C" int ayolov2_early_pipeline_configure(const char* library, const int64
   }
   Config cfg;
   cfg.launch = reinterpret_cast<LaunchFn>(fn);
+  cfg.launch_staged = reinterpret_cast<LaunchFn>(staged);
+  cfg.workspace = reinterpret_cast<WorkspaceFn>(workspace);
   std::memcpy(cfg.plan.data(), plan, sizeof(int) * kPlanInts);
   g_configs[{widths[0], widths[1], widths[2], widths[3], widths[4]}] = cfg;
   return 0;

@@ -16,7 +16,8 @@ runs the package needs the operator registered from C++
 (``csrc/early_pipeline_op.cpp``). That registration knows neither the
 kernel's plan nor its library: the sidecar's ``aoti`` section lists, for
 each call of the operator in the graph, its widths and, in a package for the
-card, the 14 ints of ``plan_early`` and the path of the kernel's library for
+card, the 43 ints of ``plan_early`` (its form and each kernel's tile and
+shared memory) and the path of the kernel's library for
 that width set, which the runner passes on before its first call.
 
 The package rounds as the artifact does: inductor fuses the graph's
@@ -69,7 +70,7 @@ def early_calls(program: torch.export.ExportedProgram, device: torch.device) -> 
         if device.type == "cuda":
             c0, c1, ch, c2, n = widths
             plan = early.plan_early(c0, n, c1, ch, c2)
-            entry.update(plan=plan.as_ints(), tile=[plan.th, plan.tw], library=str(
+            entry.update(plan=plan.as_ints(), form=plan.form, tile=[plan.th, plan.tw], library=str(
                 _build.path("early_pipeline", early.kernel_defines(c0, c1, ch, c2))))
         calls.append(entry)
     return calls

@@ -43,7 +43,8 @@ TORCH_SOURCES = {"early_pipeline_op": "library", "aoti_runner": "executable"}
 
 # The early-network kernel's padded width sets (c0, c1, ch, c2) of the shipped
 # configs: stem 8 (width_multiple 0.125), n, s, m, l, l_0.5 and x, and the
-# width-1.05 config (stem 72, conv1 136, C3 68, conv2 272).
+# width-1.05 config (stem 72, conv1 136, C3 68, conv2 272). Each set's library
+# holds both forms of the kernel (fused and staged).
 EARLY_SETS = ((16, 16, 16, 32), (16, 32, 16, 64), (32, 64, 32, 128), (48, 96, 48, 192),
               (64, 128, 64, 256), (80, 160, 80, 320), (80, 144, 80, 288))
 

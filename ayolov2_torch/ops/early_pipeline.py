@@ -34,6 +34,15 @@ The kernel holds every width padded (:func:`padded_widths`): c0, c1 and ch
 to multiples of 16 and c2 to a multiple of its N tile, with zero weights and
 biases, so that every padded channel is exactly 0 after SiLU; it stores only
 the true c2 channels. One library is built per padded width set.
+
+It has two forms, chosen per width set by :func:`plan_early` from a cost
+(:func:`form_cost`: MACs done and bytes moved at the card's data-sheet
+rates): the fused one, one kernel that keeps every
+intermediate in a block's shared memory (yolov5n, s and a stem of 8), and
+the staged one, 2 + n kernels through a device-memory workspace, each with
+a halo of at most one conv (yolov5m, l, l_0.5, x and the width-1.05
+config), for which a fused tile small enough for one block would recompute
+its receptive field many times over. Callers see one operator either way.
 """
 
 from __future__ import annotations
@@ -262,22 +271,32 @@ def early_pipeline_ref(images: torch.Tensor, ep: EarlyParams) -> torch.Tensor:
 PAD = 8            # extra bf16 per pixel of a shared buffer (pitch = odd multiple of 16 bytes)
 S2D_BYTES = 32     # bytes of one space-to-depth pixel: two planes of 8 bf16
 STEM_K = 144       # the kernel's stem K: 9 taps x (12 planes padded to 16)
-# /8-output tiles tried, in the order of their halo factor with 64-row tiles
-# for each model (widths that divide the 80 columns of a 640-pixel image)
+# /8-output tiles tried by the fused form, in the order of their halo factor with
+# 64-row tiles for each model (widths that divide the 80 columns of a 640-pixel image)
 TILES = ((8, 16), (8, 10), (8, 8), (4, 8), (4, 4), (2, 4), (2, 2))
-PLAN_FIELDS = ("th", "tw", "rb", "stages", "stage_bytes", "off_ring", "off_c1", "off_raw",
+# The kernel's two forms. "fused": one kernel, a block computes a /8 tile's
+# whole receptive field at every level in shared memory. "staged": 2 + n
+# kernels through device memory, each with a halo of at most one conv:
+# "head" (stem, conv1, cv1|cv2 of a /4 tile), one "bottleneck" kernel per
+# bottleneck (the last also runs cv3), "tail" (conv2 of a /8 tile).
+FORMS = ("fused", "staged")
+PART_FIELDS = ("th", "tw", "rb", "stages", "stage_bytes", "off_ring", "off_c1", "off_raw",
                "off_s2d", "off_stem", "off_mcat", "off_mt", "off_bias", "total")
+PLAN_PARTS = 3     # parts of the launch's ints: the fused form fills the first
+PLAN_FIELDS = ("form",) + tuple(f"{i}.{f}" for i in range(PLAN_PARTS) for f in PART_FIELDS)
 
 
 @dataclasses.dataclass(frozen=True)
-class EarlyPlan:
-    """Tile (th x tw of the /8 output), band height rb (conv1 rows per band
-    of the rolling stem), depth and stage size of the weight ring, byte
-    offset of every shared buffer and the dynamic shared memory to ask for
-    (``total`` includes 1024 bytes of slack for aligning the ring).
-    ``sizes`` maps each buffer to its bytes; ``halo`` is the tile's computed
-    MACs over the MACs of its own output."""
+class StagePlan:
+    """One kernel's plan: its tile th x tw (of the /8 output for "fused" and
+    "tail", of the /4 level for "head" and "bottleneck"), band height rb
+    (conv1 rows per band of the rolling stem; 0 where there is no stem),
+    depth and stage size of the weight ring, byte offset of every shared
+    buffer (0 where the kind has none) and the dynamic shared memory to ask
+    for (``total`` includes 1024 bytes of slack for aligning the ring).
+    ``sizes`` maps each buffer to its bytes."""
 
+    kind: str
     th: int
     tw: int
     rb: int
@@ -293,18 +312,73 @@ class EarlyPlan:
     off_bias: int
     total: int
     sizes: Dict[str, int] = dataclasses.field(compare=False, default_factory=dict)
-    halo: float = dataclasses.field(compare=False, default=0.0)
 
     def as_ints(self) -> List[int]:
-        return [getattr(self, f) for f in PLAN_FIELDS]
+        return [getattr(self, f) for f in PART_FIELDS]
+
+
+@dataclasses.dataclass(frozen=True)
+class EarlyPlan:
+    """The kernel's plan for one width set: its form, one :class:`StagePlan`
+    per kernel kind it launches, and what the choice was made from, per call
+    at the reference batch (``REFERENCE``): ``halo``, the MACs its tiles
+    compute (every product's pixels rounded up to whole 64-row tiles) over
+    the MACs of the output; ``weight_bytes``, the packed weight bytes the
+    ring streams from L2; ``act_bytes``, the bytes the staged form moves
+    through device memory between its kernels; ``cost_ms``, the time these
+    take at the card's data-sheet rates (:func:`form_cost`)."""
+
+    form: str
+    parts: Tuple[StagePlan, ...]
+    halo: float = dataclasses.field(compare=False, default=0.0)
+    weight_bytes: float = dataclasses.field(compare=False, default=0.0)
+    act_bytes: float = dataclasses.field(compare=False, default=0.0)
+    cost_ms: float = dataclasses.field(compare=False, default=0.0)
+
+    @property
+    def th(self) -> int:
+        """Rows of the /8 output tile (the fused kernel's, or the tail's)."""
+        return self.parts[-1].th
+
+    @property
+    def tw(self) -> int:
+        return self.parts[-1].tw
+
+    def as_ints(self) -> List[int]:
+        """The launch's ints (``PLAN_FIELDS``): the form, then each part's
+        fields, zeros for the parts the form does not have."""
+        ints = [FORMS.index(self.form)]
+        for i in range(PLAN_PARTS):
+            ints += self.parts[i].as_ints() if i < len(self.parts) else [0] * len(PART_FIELDS)
+        return ints
+
+    def describe(self) -> str:
+        def one(p):
+            rb = f", bands of {p.rb}" if p.rb else ""
+            return f"{p.kind} tile {p.th}x{p.tw}{rb}, smem {p.total} B"
+        return (f"{self.form} ({'; '.join(one(p) for p in self.parts)}; ring {self.parts[0].stages}"
+                f"x{self.parts[0].stage_bytes} B; halo factor {self.halo:.3f}, weights "
+                f"{self.weight_bytes / 1e9:.3f} GB and activations {self.act_bytes / 1e9:.3f} GB "
+                f"a call at bs {REFERENCE[0]}, {REFERENCE[1]}x{REFERENCE[2]}; cost "
+                f"{self.cost_ms:.3f} ms)")
 
 
 def tile_geometry(n: int, th: int, tw: int) -> Dict[str, int]:
-    """Rows and columns of each region a th x tw tile needs (see the kernel's
-    ``Geo``): C3 output r3 x c3, conv1 output r1 x c1, stem output r0 x c0,
-    space-to-depth columns cs, parity-plane widths, raw row pitch."""
+    """Rows and columns of each region a th x tw tile of the fused form needs
+    (see the kernel's ``Geo``): C3 output r3 x c3, conv1 output r1 x c1, stem
+    output r0 x c0, space-to-depth columns cs, parity-plane widths, raw row
+    pitch."""
     r3, c3 = 2 * th + 1, 2 * tw + 1
-    r1, c1 = r3 + 2 * n, c3 + 2 * n
+    return _geometry(r3 + 2 * n, c3 + 2 * n, r3, c3)
+
+
+def head_geometry(th: int, tw: int) -> Dict[str, int]:
+    """The regions of a head tile of th x tw conv1 pixels (/4): conv1 output
+    r1 x c1 = th x tw, stem output r0 x c0 = (2 th + 1) x (2 tw + 1)."""
+    return _geometry(th, tw, 0, 0)
+
+
+def _geometry(r1: int, c1: int, r3: int, c3: int) -> Dict[str, int]:
     r0, c0 = 2 * r1 + 1, 2 * c1 + 1
     cs = c0 + 2
     return dict(r3=r3, c3=c3, r1=r1, c1=c1, r0=r0, c0=c0, cs=cs, half0=(c0 + 1) // 2,
@@ -353,11 +427,11 @@ def _width_text(c0: int, c1: int, ch: int, c2: int, n: int) -> str:
 def halo_factor(c0: int, n: int, th: int, tw: int, row_tile: int = 1,
                 c1: Optional[int] = None, ch: Optional[int] = None,
                 c2: Optional[int] = None) -> float:
-    """MACs a tile computes (its whole receptive field, at the padded widths
-    the kernel computes) over the MACs of its own th x tw output. With
-    ``row_tile=64`` every product's pixels are rounded up to whole 64-row
-    tiles, as the kernel's wgmmas compute them: the factor the tiles are
-    ranked by."""
+    """MACs a tile of the fused form computes (its whole receptive field, at
+    the padded widths the kernel computes) over the MACs of its own th x tw
+    output. With ``row_tile=64`` every product's pixels are rounded up to
+    whole 64-row tiles, as the kernel's wgmmas compute them: the factor the
+    tiles are ranked by."""
     c0, c1, ch, c2, n = widths_of(c0, n, c1, ch, c2)
     c0, c1, ch, c2 = padded_widths(c0, c1, ch, c2)
     g = tile_geometry(n, th, tw)
@@ -387,35 +461,60 @@ def total_bias(c0p: int, c1p: int, chp: int, c2p: int, n: int) -> int:
     return c0p + c1p + 2 * chp + n * 2 * chp + c1p + c2p
 
 
-def _plan_for(widths: Widths, th: int, tw: int, stages: int, rb: int) -> EarlyPlan:
-    c0, c1, ch, c2, n = widths
-    p0w, p1w, phw, p2w = padded_widths(c0, c1, ch, c2)
-    g = tile_geometry(n, th, tw)
-    p0, p1, pc, ph = ((c + PAD) * 2 for c in (p0w, p1w, 2 * phw, phw))
-    s2d_rows = 2 * rb + 3
-    stage_bytes = stage_rows(p0w, p1w, phw, p2w) * 128
-    sizes = dict(
-        ring=stages * stage_bytes,
-        c1=max(g["r1"] * g["c1"], g["r3"] * 2 * g["half3"]) * p1,  # conv1 out, then C3 out
-        raw=2 * s2d_rows * g["raw_pitch"],
-        s2d=s2d_rows * g["cs"] * S2D_BYTES,
-        stem=(2 * rb + 1) * 2 * g["half0"] * p0,
-        mcat=g["r1"] * g["c1"] * pc,
-        mt=g["r1"] * g["c1"] * ph,
-        bias=total_bias(p0w, p1w, phw, p2w, n) * 2,
-    )
+def _pitches(widths: Widths) -> Dict[str, int]:
+    """Bytes of one pixel in each kind of shared buffer: stem output (p0),
+    conv1 and C3 output (p1), the concat (pc), the bottleneck 1x1 (ph)."""
+    p0w, p1w, phw, _ = padded_widths(*widths[:4])
+    return dict(p0=(p0w + PAD) * 2, p1=(p1w + PAD) * 2, pc=(2 * phw + PAD) * 2,
+                ph=(phw + PAD) * 2)
+
+
+def _buffer_sizes(kind: str, widths: Widths, th: int, tw: int, stages: int,
+                  rb: int) -> Dict[str, int]:
+    """Bytes of each shared buffer a kernel of this kind uses (the kernel's
+    ``plan_extent`` and ``stage_extent`` count the same)."""
+    n = widths[4]
+    pw = padded_widths(*widths[:4])
+    pt = _pitches(widths)
+    sizes = dict(ring=stages * stage_rows(*pw) * 128, bias=total_bias(*pw, n) * 2)
+    if kind in ("fused", "head"):
+        g = tile_geometry(n, th, tw) if kind == "fused" else head_geometry(th, tw)
+        s2d_rows = 2 * rb + 3
+        sizes.update(raw=2 * s2d_rows * g["raw_pitch"], s2d=s2d_rows * g["cs"] * S2D_BYTES,
+                     stem=(2 * rb + 1) * 2 * g["half0"] * pt["p0"])
+        if kind == "fused":  # conv1 out, then C3 out; the C3's buffers
+            sizes.update(c1=max(g["r1"] * g["c1"], g["r3"] * 2 * g["half3"]) * pt["p1"],
+                         mcat=g["r1"] * g["c1"] * pt["pc"], mt=g["r1"] * g["c1"] * pt["ph"])
+        else:  # conv1 out
+            sizes.update(c1=th * tw * pt["p1"])
+    elif kind == "bottleneck":  # the tile and its ring of one pixel: concat, 1x1 output
+        ring_px = (th + 2) * (tw + 2)
+        sizes.update(mcat=ring_px * pt["pc"], mt=ring_px * pt["ph"])
+    else:  # tail: the C3 output conv2 reads, parity-split
+        sizes.update(c1=(2 * th + 1) * 2 * (tw + 1) * pt["p1"])
+    return sizes
+
+
+def _plan_for(widths: Widths, th: int, tw: int, stages: int, rb: int,
+              kind: str = "fused") -> StagePlan:
+    """The plan of one kernel of ``kind`` at this tile: its buffers laid out
+    one after the other (the fused form's stem buffers, dead once conv1 is
+    done, share the space of the C3's)."""
+    sizes = _buffer_sizes(kind, widths, th, tw, stages, rb)
+    stage_bytes = stage_rows(*padded_widths(*widths[:4])) * 128
     off, pos = {}, 0
-    for name in ("ring", "c1", "raw", "bias"):
-        off[name] = pos
-        pos += _align(sizes[name])
-    # the stem's buffers (dead once conv1 is done) share the space of the C3's
-    off["s2d"], off["stem"] = pos, pos + _align(sizes["s2d"])
-    off["mcat"], off["mt"] = pos, pos + _align(sizes["mcat"])
-    pos = max(off["stem"] + _align(sizes["stem"]), off["mt"] + _align(sizes["mt"]))
-    return EarlyPlan(th, tw, rb, stages, stage_bytes, off["ring"], off["c1"], off["raw"],
-                     off["s2d"], off["stem"], off["mcat"], off["mt"], off["bias"],
-                     pos + 1024, sizes,
-                     halo_factor(c0, n, th, tw, c1=c1, ch=ch, c2=c2))
+    for name in ("ring", "c1", "raw", "bias", "mcat", "mt", "s2d", "stem"):
+        if name in sizes and not (kind == "fused" and name in ("mcat", "mt", "s2d", "stem")):
+            off[name] = pos
+            pos += _align(sizes[name])
+    if kind == "fused":
+        off["s2d"], off["stem"] = pos, pos + _align(sizes["s2d"])
+        off["mcat"], off["mt"] = pos, pos + _align(sizes["mcat"])
+        pos = max(off["stem"] + _align(sizes["stem"]), off["mt"] + _align(sizes["mt"]))
+    return StagePlan(kind, th, tw, rb if kind in ("fused", "head") else 0, stages, stage_bytes,
+                     *(off.get(b, 0) for b in ("ring", "c1", "raw", "s2d", "stem", "mcat",
+                                               "mt", "bias")),
+                     pos + 1024, sizes)
 
 
 # Stages of the weight ring. Measured on an H100, a third stage bought yolov5s nothing
@@ -424,21 +523,199 @@ RING_STAGES = 2
 STATIC_SMEM = 1024  # the kernel's barriers and tables (static shared memory), rounded up
 
 
+def _fits(part: StagePlan) -> bool:
+    return part.total + STATIC_SMEM <= SMEM_LIMIT
+
+
+def _bands(widths: Widths, th: int, tw: int, r1: int, kind: str,
+           shortest: int) -> Optional[StagePlan]:
+    """The plan with as few bands of conv1 rows as fit (of even height: a
+    short last band wastes row tiles), none shorter than ``shortest``; None
+    where none fits."""
+    for rb in range(r1, max(shortest, 1) - 1, -1):
+        if _fits(_plan_for(widths, th, tw, RING_STAGES, rb, kind)):
+            bands = -(-r1 // rb)
+            return _plan_for(widths, th, tw, RING_STAGES, -(-r1 // bands), kind)
+    return None
+
+
+def _plan_fused(widths: Widths) -> Optional[StagePlan]:
+    """The fused form's tile: the least halo factor (counted in whole 64-row
+    tiles: measured, yolov5s is faster at 8x8, where conv2 is one full row
+    tile, than at 8x10) that fits a block's shared memory, with bands of at
+    least 4 conv1 rows (any band height for the smallest tile)."""
+    c0, c1, ch, c2, n = widths
+    for th, tw in sorted(TILES, key=lambda t: halo_factor(c0, n, *t, row_tile=64, c1=c1,
+                                                          ch=ch, c2=c2)):
+        r1 = 2 * th + 1 + 2 * n
+        part = _bands(widths, th, tw, r1, "fused", 1 if (th, tw) == TILES[-1] else min(4, r1))
+        if part is not None:
+            return part
+    return None
+
+
+# Tiles the staged form's kernels try: (rows, columns) of the /4 level for the
+# head and the bottlenecks, of the /8 output for the tail
+HEAD_TILES = tuple((r, c) for r in (4, 8, 12, 16) for c in (8, 16, 24, 32))
+BOTTLENECK_TILES = tuple((r, c) for r in (4, 6, 8, 10, 12, 14, 16) for c in (8, 12, 16, 20, 24, 32))
+TAIL_TILES = ((8, 8), (4, 16), (4, 8), (8, 4), (4, 4))
+
+
+def stage_window(kind: str, y0: int, rows: int) -> Tuple[int, int]:
+    """Rows [lo, hi) of its input that a staged kernel's tile of ``rows``
+    rows from row ``y0`` of its own level reads (columns alike), zeros
+    outside the image: the head reads raw image rows (stem 6x6/s2/p2, then
+    conv1 3x3/s2/p1), a bottleneck the m rows of its tile and a ring of one
+    (1x1, then 3x3/p1), the tail the C3 output rows (conv2 3x3/s2/p1)."""
+    if kind == "head":
+        return 4 * y0 - 4, 4 * (y0 + rows) + 2
+    if kind == "bottleneck":
+        return y0 - 1, y0 + rows + 1
+    if kind == "tail":
+        return 2 * y0 - 1, 2 * (y0 + rows)
+    raise ValueError(f"no staged kernel {kind!r}")
+
+
+def _plan_staged(widths: Widths) -> Optional[Tuple[StagePlan, ...]]:
+    """The staged form's kernels, each at the tile of least cost
+    (:func:`form_cost` of that kernel alone) that fits a block."""
+    out = []
+    for kind, tiles in (("head", HEAD_TILES), ("bottleneck", BOTTLENECK_TILES),
+                        ("tail", TAIL_TILES)):
+        fits = [p for p in (_bands(widths, th, tw, th, kind, min(4, th)) if kind == "head"
+                            else _plan_for(widths, th, tw, RING_STAGES, 0, kind)
+                            for th, tw in tiles) if p is not None and _fits(p)]
+        if not fits:
+            return None
+        out.append(min(fits, key=lambda p: form_cost(widths, (p,))["ms"]))
+    return tuple(out)
+
+
+# ---- the cost that picks the form and the staged form's tiles ------------------
+
+# The call the plan is chosen for: bs 8 at 640x640. Each term of the cost grows with
+# the images' pixels, so the choice is the same at any batch and size but for the
+# edges' partial tiles.
+REFERENCE = (8, 640, 640)
+# The H100 SXM's data-sheet rates: dense bf16 (989 TFLOP/s, as MACs) and HBM. Every
+# byte is counted at HBM's rate, the weights the ring streams from L2 too (the data
+# sheet gives no L2 rate): so counted, the cost takes the faster form at every
+# width set timed on the card (PERF.md section 6).
+PEAK_MACS = 989e12 / 2
+PEAK_BYTES = 3.35e12
+
+
+def _products(kind: str, widths: Widths, part: StagePlan) -> List[Tuple[int, int, int, int]]:
+    """(layer, pixels, padded co, MACs per pixel and channel) of every product
+    a whole tile of this kernel runs (a tile at the image's edge clips the
+    products that write device memory), in the kernel's order; layers index
+    the packed buffer: 0 stem, 1 conv1, 2 cv1|cv2, 3 + 2i / 4 + 2i m[i].cv1 /
+    m[i].cv2, 3 + 2n cv3, 4 + 2n conv2. The bottleneck kind lists all n
+    kernels' products, the last one's cv3 included."""
+    c0, c1, ch, c2, n = widths
+    p0, p1, ph, p2 = padded_widths(c0, c1, ch, c2)
+    th, tw = part.th, part.tw
+    out = []
+    if kind in ("fused", "head"):
+        g = tile_geometry(n, th, tw) if kind == "fused" else head_geometry(th, tw)
+        for b in range(-(-g["r1"] // part.rb)):
+            r = min(part.rb, g["r1"] - b * part.rb)
+            out += [(0, (2 * r + 1 - (b > 0)) * g["cs"], p0, 108), (1, r * g["c1"], p1, 9 * p0)]
+        if kind == "head":
+            return out + [(2, th * tw, 2 * ph, p1)]
+        out.append((2, g["r1"] * g["c1"], 2 * ph, p1))
+        for i in range(n):
+            out += [(3 + 2 * i, g["r1"] * g["c1"], ph, ph),
+                    (4 + 2 * i, (g["r1"] - 2) * (g["c1"] - 2), ph, 9 * ph)]
+        return out + [(3 + 2 * n, g["r3"] * g["c3"], p1, 2 * ph), (4 + 2 * n, th * tw, p2, 9 * p1)]
+    if kind == "bottleneck":  # the tile and its ring of one pixel: 1x1, then 3x3 + residual
+        for i in range(n):
+            out += [(3 + 2 * i, (th + 2) * (tw + 2), ph, ph), (4 + 2 * i, th * tw, ph, 9 * ph)]
+        return out + [(3 + 2 * n, th * tw, p1, 2 * ph)]
+    return [(4 + 2 * n, th * tw, p2, 9 * p1)]
+
+
+def _layer_bytes(widths: Widths) -> List[int]:
+    """Bytes of every product's packed chunks, in the kernel's layer order."""
+    return [co * 128 * (k // (16 * steps_per_chunk(k))) for co, k in packed_layout(
+        widths[0], widths[4], *widths[1:4])]
+
+
+def _part_cost(widths: Widths, part: StagePlan,
+               shape: Tuple[int, int, int]) -> Tuple[int, int, int]:
+    """(MACs done, every product's pixels rounded up to whole 64-row tiles as
+    the wgmmas compute them; packed weight bytes streamed, every product's
+    chunks once a tile; activation bytes through device memory) of one
+    kind's kernels in a call of ``shape`` = (bs, h, w)."""
+    bs, h, w = shape
+    level = 8 if part.kind in ("fused", "tail") else 4
+    tiles = bs * -(-(h // level) // part.th) * -(-(w // level) // part.tw)
+    prods = _products(part.kind, widths, part)
+    lb = _layer_bytes(widths)
+    macs = tiles * sum(-(-m // 64) * 64 * co * k for _, m, co, k in prods)
+    weights = tiles * sum(lb[layer] for layer, *_ in prods)
+    _, p1, ph, _ = padded_widths(*widths[:4])
+    n = widths[4]
+    # bf16 channels a /4 pixel: the head writes cv1|cv2, each bottleneck reads and
+    # writes m (the last reads the cv2 half and writes the C3 output), the tail reads it
+    channels = {"fused": 0, "head": 2 * ph, "bottleneck": 2 * n * ph + p1, "tail": p1}
+    return macs, weights, channels[part.kind] * 2 * bs * (h // 4) * (w // 4)
+
+
+def _ms(macs: float, nbytes: float) -> float:
+    return (macs / PEAK_MACS + nbytes / PEAK_BYTES) * 1e3
+
+
+def own_macs(widths: Widths, shape: Tuple[int, int, int]) -> int:
+    """The MACs of the output alone (no halo, no rounding), at the padded
+    widths the kernel computes."""
+    bs, h, w = shape
+    c0, c1, ch, c2, n = widths
+    p0, p1, ph, p2 = padded_widths(c0, c1, ch, c2)
+    p8 = bs * (h // 8) * (w // 8)
+    return (16 * p8 * p0 * 108 + 4 * p8 * (p1 * 9 * p0 + 2 * ph * p1 + n * 10 * ph * ph
+                                           + p1 * 2 * ph) + p8 * p2 * 9 * p1)
+
+
+def form_cost(widths: Widths, parts: Tuple[StagePlan, ...],
+              shape: Tuple[int, int, int] = REFERENCE) -> Dict[str, float]:
+    """The cost a form and its tiles are chosen by, for one call of
+    ``shape``: ``halo`` (MACs done in 64-row tiles over :func:`own_macs`),
+    ``weight_bytes`` (packed weights streamed), ``act_bytes`` (the staged
+    form's activations through device memory) and ``ms`` = MACs done /
+    ``PEAK_MACS`` + (weight + activation bytes) / ``PEAK_BYTES``."""
+    macs, weights, act = (sum(x) for x in zip(*(_part_cost(widths, p, shape) for p in parts)))
+    return dict(halo=macs / own_macs(widths, shape), weight_bytes=weights, act_bytes=act,
+                ms=_ms(macs, weights + act))
+
+
 def plan_early(c0: int, n: int, c1: Optional[int] = None, ch: Optional[int] = None,
                c2: Optional[int] = None) -> EarlyPlan:
     """The kernel's plan for widths c0, c1, ch, c2 (c1 = 2 c0, ch = c0, c2 =
-    4 c0 where left out) and C3 depth n: the tile of least halo factor
-    (counted in whole 64-row tiles: measured, yolov5s is faster at 8x8, where
-    conv2 is one full row tile, than at 8x10) that fits a block's shared
-    memory, sized from the padded widths, with bands of at least 4 conv1 rows
-    (any band height for the smallest tile), in as few bands as fit, of even
-    height. Raises, naming the widths, where the kernel does not take them
-    or no tile fits."""
+    4 c0 where left out) and C3 depth n: of the fused form (:func:`_plan_fused`)
+    and the staged one (:func:`_plan_staged`), the one of least cost
+    (:func:`form_cost`) whose every kernel fits a block's shared memory, at
+    ``REFERENCE``: every call of these widths takes it, whatever its batch
+    and size (each of the cost's terms grows with the pixels). Raises,
+    naming the widths, where the kernel does not take them or no
+    form fits."""
     return _plan_early(widths_of(c0, n, c1, ch, c2))
 
 
-@functools.lru_cache(maxsize=None)  # on the launch path: the search runs once per width set
-def _plan_early(widths: Widths) -> EarlyPlan:
+def plan_of_form(widths: Widths, form: str) -> EarlyPlan:
+    """The plan of one form for these widths, whether or not the cost picks
+    that form (to time both); raises where the form does not fit."""
+    _check_widths(widths)
+    parts = (_plan_fused(widths),) if form == "fused" else _plan_staged(widths)
+    if parts is None or parts[0] is None:
+        raise ValueError(f"no tile of the {form} form fits {_width_text(*widths)} in "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    cost = form_cost(widths, parts)
+    return EarlyPlan(form, parts, cost["halo"], cost["weight_bytes"], cost["act_bytes"],
+                     cost["ms"])
+
+
+def _check_widths(widths: Widths) -> None:
     c0, c1, ch, c2, n = widths
     p0, p1, ph, p2 = padded_widths(c0, c1, ch, c2)
     if (min(c0, c1, ch, c2) < 1 or p0 > MAX_C0 or p1 > MAX_C1 or ph > MAX_CH or p2 > MAX_C2
@@ -448,23 +725,27 @@ def _plan_early(widths: Widths) -> EarlyPlan:
             f"conv1 up to {MAX_C1}, a C3 hidden width up to {MAX_CH}, an even conv2 width up "
             f"to {MAX_C2} and C3 depths 1-4; run layers 0..3 on cuDNN "
             "(early_pipeline=False) instead")
-    for th, tw in sorted(TILES, key=lambda t: halo_factor(c0, n, *t, row_tile=64, c1=c1,
-                                                          ch=ch, c2=c2)):
-        r1 = 2 * th + 1 + 2 * n
-        for rb in range(r1, 0, -1):
-            plan = _plan_for(widths, th, tw, RING_STAGES, rb)
-            if rb < min(4, r1) and (th, tw) != TILES[-1]:
-                break  # bands this short cost more than the next tile's halo
-            if plan.total + STATIC_SMEM <= SMEM_LIMIT:
-                # as few bands as fit, of even height: a short last band wastes row tiles
-                bands = -(-r1 // rb)
-                return _plan_for(widths, th, tw, RING_STAGES, -(-r1 // bands))
-    raise ValueError(f"no tile fits {_width_text(*widths)} in {SMEM_LIMIT} bytes of shared "
-                     "memory; run layers 0..3 on cuDNN (early_pipeline=False) instead")
+
+
+@functools.lru_cache(maxsize=None)  # on the launch path: the search runs once per width set
+def _plan_early(widths: Widths) -> EarlyPlan:
+    _check_widths(widths)
+    plans = []
+    for form in FORMS:
+        try:
+            plans.append(plan_of_form(widths, form))
+        except ValueError:
+            pass
+    if not plans:
+        raise ValueError(f"no tile fits {_width_text(*widths)} in {SMEM_LIMIT} bytes of "
+                         "shared memory; run layers 0..3 on cuDNN (early_pipeline=False) "
+                         "instead")
+    return min(plans, key=lambda p: p.cost_ms)
 
 
 def tile_for(ep: EarlyParams) -> Tuple[int, int]:
-    """The /8-output tile the kernel takes for these widths."""
+    """The /8-output tile the kernel takes for these widths (the fused
+    kernel's, or the staged form's tail)."""
     plan = kernel_plan(ep)
     return plan.th, plan.tw
 
@@ -647,6 +928,12 @@ def _lib_with(widths: Widths, extra: Tuple[str, ...] = (),
         lib.early_pipeline_launch.restype = i
         lib.early_pipeline_profile_slots.argtypes = []
         lib.early_pipeline_profile_slots.restype = i
+        if hasattr(lib, "early_pipeline_launch_staged"):  # a source of the fused form alone lacks it
+            lib.early_pipeline_launch_staged.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
+                                                         ctypes.POINTER(ctypes.c_int), vp]
+            lib.early_pipeline_launch_staged.restype = i
+            lib.early_pipeline_workspace.argtypes = [i, i, i]
+            lib.early_pipeline_workspace.restype = ctypes.c_longlong
         lib._typed = True
     return lib
 
@@ -661,21 +948,36 @@ def kernel_plan(ep: EarlyParams) -> EarlyPlan:
 
 
 def _launch(lib: ctypes.CDLL, images: torch.Tensor, wpack: torch.Tensor, widths: Widths,
-            prof: torch.Tensor = None) -> torch.Tensor:
+            prof: torch.Tensor = None, plan: Optional[EarlyPlan] = None) -> torch.Tensor:
+    """One call of the kernel's library in the plan's form (``plan_early``'s
+    where left out): the fused kernel, or the staged form's kernels with their
+    workspace, allocated here on the images' stream."""
     c0, c1, ch, c2, n = widths
-    plan = plan_early(c0, n, c1, ch, c2)
+    plan = plan_early(c0, n, c1, ch, c2) if plan is None else plan
     bs, h, w, _ = images.shape
     out = torch.empty((bs, h // 8, w // 8, c2), dtype=torch.bfloat16, device=images.device)
-    ints = (ctypes.c_int * len(PLAN_FIELDS))(*plan.as_ints())
+    ints = plan.as_ints()[1:]
     with torch.cuda.device(images.device):
         stream = torch.cuda.current_stream(images.device).cuda_stream
-        err = lib.early_pipeline_launch(
-            images.data_ptr(), out.data_ptr(), wpack.data_ptr(),
-            prof.data_ptr() if prof is not None else None,
-            bs, h, w, *padded_widths(c0, c1, ch, c2), c2, n, ints, stream)
+        if plan.form == "fused":
+            err = lib.early_pipeline_launch(
+                images.data_ptr(), out.data_ptr(), wpack.data_ptr(),
+                prof.data_ptr() if prof is not None else None,
+                bs, h, w, *padded_widths(c0, c1, ch, c2), c2, n,
+                (ctypes.c_int * len(PART_FIELDS))(*ints[:len(PART_FIELDS)]), stream)
+        else:
+            if prof is not None:
+                raise ValueError("clock stamps are taken in the fused form only")
+            work = torch.empty(lib.early_pipeline_workspace(bs, h, w), dtype=torch.uint8,
+                               device=images.device)
+            err = lib.early_pipeline_launch_staged(
+                images.data_ptr(), out.data_ptr(), wpack.data_ptr(), work.data_ptr(),
+                bs, h, w, *padded_widths(c0, c1, ch, c2), c2, n,
+                (ctypes.c_int * len(ints))(*ints), stream)
     if err != 0:
         raise RuntimeError(f"early_pipeline kernel launch failed: error {err} "
-                           f"({_width_text(*widths)}, tile {plan.th}x{plan.tw})")
+                           f"({_width_text(*widths)}, {plan.form} form, /8 tile "
+                           f"{plan.th}x{plan.tw})")
     early_pipeline.launches += 1
     early_pipeline.last_input = tuple(images.shape)
     return out
@@ -800,15 +1102,16 @@ PROFILE_INNER = ("warpgroups: waiting for weights", "warpgroups: ldmatrix + wgmm
 
 
 def early_pipeline_profile(images: torch.Tensor, ep: EarlyParams) -> Dict[str, float]:
-    """Where the kernel's time goes: one launch of a build of the same source
-    with clock stamps at each layer boundary (``-DEARLY_PROFILE``); returns
-    each phase's share of the stamped clocks, summed over all blocks."""
+    """Where the fused kernel's time goes: one launch of a build of the same
+    source with clock stamps at each layer boundary (``-DEARLY_PROFILE``), in
+    the fused form whichever form the plan takes; returns each phase's share
+    of the stamped clocks, summed over all blocks."""
     _check(images, ep)
-    kernel_plan(ep)
+    plan = plan_of_form(ep.widths, "fused")
     lib = _lib(ep.widths, profile=True)
     slots = lib.early_pipeline_profile_slots()
     prof = torch.zeros((4096, slots), dtype=torch.int64, device=images.device)
-    _launch(lib, images, _packed(ep, images.device), ep.widths, prof)
+    _launch(lib, images, _packed(ep, images.device), ep.widths, prof, plan)
     torch.cuda.synchronize(images.device)
     total = prof.sum(0).double()
     layers, inner = total[:len(PROFILE_SLOTS)], total[len(PROFILE_SLOTS):].view(4, -1).sum(0)

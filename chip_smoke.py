@@ -14,14 +14,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    and the stem-8 one, ``ops/_build.EARLY_SETS``), and the host compiler the
    image codecs (``csrc/image_codec.cpp``, ``raster_codec.cpp``,
    ``webp_codec.cpp``) beside them;
-3. kernel: the fused early-network kernel against its plain torch version
+3. kernel: the early-network kernel, in the form its plan takes (fused for
+   yolov5n, s and the stem-8 set; staged for m, l, l_0.5, x and the
+   width-1.05 config), against its plain torch version
    (``early_pipeline_ref``) on seeded full-width weights: yolov5s at bs 4,
    640x640 and 384x640, yolov5m at bs 2, 640x640, l and x at bs 1, 640x640,
+   x at bs 2, 640x640,
    plus shapes that leave a ragged last tile in each direction at each
    model's tile, an image smaller than one tile, and yolov5m (depth 2) at a
-   ragged size; yolov5l_0.5 and the width-1.05 config at bs 1, 640x640 and
+   ragged size; yolov5l_0.5 and the width-1.05 config at bs 1, 640x640, the
+   1.05 config ragged at bs 2, 152x216, and
    the stem-8 model at bs 2, 320x320; gate max|d|/peak < 0.03 and p99.9 <
-   0.015;
+   0.015; and yolov5x's /8 rows 23-56 of a 640 image through
+   ``early_pipeline_rows`` (the latency server's slab, staged form) equal
+   to those rows of the whole image's call bit for bit;
 4. slice: yolov5s (nc=80, full width) served at bs 32, 640x640 through
    ``make_serving_fn``: detections (32, 100, 6) and counts (32,), finite,
    one kernel launch per call; raw maps of the kernel path against the
@@ -33,9 +39,13 @@ Phases, each printing its own lines; any failure exits non-zero:
    against the plain version at bs 32 (max|d|/peak < 0.03); times (CUDA
    events, after warm-up): the kernel, its plain version and the cuDNN
    chain at bs 32 (the chain with cuDNN's default heuristics and with
-   ``cudnn.benchmark``, and each of its convs); the kernel for yolov5m, l
-   and x at bs 8, each beside its own bound and tile; the serve rate at
-   bs 32 and bs 128;
+   ``cudnn.benchmark``, and each of its convs); the kernel for yolov5m, l,
+   l_0.5 and x at bs 8 (the width-1.05 config's in 15.5), each against its
+   plain version on that batch (same gate) and timed beside its form,
+   tiles, halo factor, weight bytes streamed, bound, plain version and
+   cuDNN chain; yolov5x served at bs 8 through ``make_serving_fn`` (the
+   staged form on a main path: (8, 100, 6), finite, one launch a call,
+   counted from 0 around 3 calls); the serve rate at bs 32 and bs 128;
 7. validation: 128 synthetic BMPs (32 at each native size 640x640,
    480x640, 640x480, 360x640) written under ``build/chip_smoke_val/``; the
    kernel against its plain version at bs 32 at the four rect shapes the
@@ -64,7 +74,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    640, bs 64 and nc 20 at 320, bs 16, accumulate 4; 300 micro-steps from
    scratch on 16 drawn images at 320 (the memorisation recipe), gated on the
    last 20 steps' mean loss <= 0.7 x the first 20's; and the entry point:
-   ``python -m ayolov2_torch.cli.train`` from the golden checkpoint on
+   ``python -m ayolov2_torch.cli.train`` (started beside those 300 steps)
+   from the golden checkpoint on
    phase 7's set (train = val, YAML configs read by the port's reader, 1
    epoch, under ``build/chip_smoke_train/``), ``cli.val`` on its
    ``best.ckpt`` through K1 within 0.02 mAP50 of the trainer's own
@@ -228,10 +239,12 @@ Phases, each printing its own lines; any failure exits non-zero:
    started before phase 14, beside it at a lower CPU priority): the
    operator in the ``.pt2`` with the widths, read back in a fresh
    interpreter equal bit for bit to ``make_serving_fn`` of the model the
-   exporter builds, one launch a call; 15.5 K1 timed at bs 16, 800 and bs
-   8, 640 (the 1.05 set) and bs 8, 640 (stem 8), each beside its bound,
-   tile, plain version and cuDNN chain, and the 1.05 config's serve rate at
-   bs 16, 800. ``--widths-only`` runs phases 1, 2, 3 and 15.
+   exporter builds, one launch a call; 15.5 K1 at bs 16, 800 and bs 8,
+   640 (the 1.05 set) and bs 8, 640 (stem 8), each against its plain
+   version on that batch (phase 3's gate) and timed beside its bound, form,
+   tiles, halo factor, weight bytes streamed, plain version and cuDNN
+   chain, and the 1.05 config's serve rate at bs 16, 800.
+   ``--widths-only`` runs phases 1, 2, 3 and 15.
 16. image files without OpenCV, under ``build/chip_smoke_images/``: 16.1
    each fixture of ``tests/res/torch_codec/`` (JPEG incl. lossless and
    arithmetic-coded, PNG, BMP, TIFF incl. JPEG, CCITT, YCbCr and CIELab,
@@ -276,14 +289,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    the Python operator, configured from the sidecar, on the same batch
    against ``early_pipeline_ref`` at phase 3's tolerance, its launches
    counted by the registration (its time, the plain version's and the cuDNN
-   chain's make the runner's entry of the kernels line); 17.3
+   chain's make the runner's entry of the kernels line), and the same for
+   seeded yolov5x's widths at bs 2, 640, configured with their plan (the
+   staged form) as a sidecar lists it; 17.3
    ``cli.bench_matrix --configs serve int8 tta decomposed train latency sweep
    h2d --iters 3 --sweep-prefilters exact`` (every row finite, the serve
    row's K1 launches 1 a call); 17.4
    ``cli.profile_train`` at 640 with ``--bs-sweep 16`` (every number
    finite, every time, rate and MFU positive) and ``cli.bench_loader`` on
    phase 7's images and labels with ``train_config.yaml`` (``--batches
-   5``). ``--tools-only`` runs phases 1, 2, 3, 7 and 17.
+   2``). ``--tools-only`` runs phases 1, 2, 3, 7 and 17.
 
 18. ranks (``torch.distributed``; one card, so no multi-card speed is
    measured): 18.0 which collectives gloo takes on the card's tensors, 2
@@ -332,8 +347,8 @@ models') and the augmentation render's device time goes (torch.profiler) and whe
 (clock stamps at its layer boundaries, from a second build of the same
 source with ``-DEARLY_PROFILE``).
 
-The line before the last is one JSON object with the kernels' numbers; the
-last line is ``{"ok": true, "device": {...}}``. Weights are random, made
+Before them, one line gives each phase's wall seconds. The line before the
+last is one JSON object with the kernels' numbers; the last line is ``{"ok": true, "device": {...}}``. Weights are random, made
 from ``--seed``, except phase 7's, which are the committed golden
 checkpoint's (phase 7, and phase 8's entry point run); its images are made
 from ``--seed`` too.
@@ -361,6 +376,12 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 T_START = time.perf_counter()
+PHASE_S = {}  # phase -> its seconds, printed at the end (phase_done)
+
+
+def phase_done(name: str) -> None:
+    """Record the seconds since the previous phase ended as phase ``name``'s."""
+    PHASE_S[name] = time.perf_counter() - T_START - sum(PHASE_S.values())
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "runs/golden_r4_mem/train/2026_0818_runs/weights/best.ckpt"
 VAL_DIR = ROOT / "build/chip_smoke_val"
@@ -1630,24 +1651,38 @@ def run_logged(args, timeout: int = 900, env: Optional[dict] = None):
     return proc, time.perf_counter() - t0
 
 
-def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 16) -> tuple:
-    """8.5: ``cli.train`` from the golden checkpoint on phase 7's set for 1
-    epoch, ``cli.val`` on its best.ckpt (K1), then ``--resume`` to 2
-    epochs. Returns (ok, early_pipeline launches of the in-process cli.val).
-    ``device``, ``img`` and ``bs`` shrink it for a rehearsal on the CPU."""
-    import re
-
-    from ayolov2_torch.cli import val
-    from ayolov2_torch.ops import early_pipeline as early
-    from ayolov2_torch.utils.checkpoint import load_checkpoint
-
+def start_entry_point(device: str = "cuda", img: int = 320, bs: int = 16) -> tuple:
+    """8.5's first ``cli.train`` (see :func:`entry_point_run`), started in a
+    thread (in the whole run beside 8.4's falling loss): (its future, data
+    config, the 2-epoch cfg, the command's common part)."""
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     data, cfg2 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 1, img, bs)
     _, cfg3 = write_train_files(TRAIN_DIR, VAL_DIR / "images", 2, img, bs)
     dev = [] if device == "cuda" else ["--device", device]
     common = ["-m", "ayolov2_torch.cli.train", "--data", str(data), "--log-dir",
               str(TRAIN_DIR / "runs"), *dev]
-    proc, wall = run_logged([*common, "--model", str(GOLDEN), "--cfg", str(cfg2)])
+    first = concurrent.futures.ThreadPoolExecutor(1).submit(
+        run_logged, [*common, "--model", str(GOLDEN), "--cfg", str(cfg2)])
+    return first, data, cfg2, cfg3, common
+
+
+def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 16,
+                    started: Optional[tuple] = None) -> tuple:
+    """8.5: ``cli.train`` from the golden checkpoint on phase 7's set for 1
+    epoch, ``cli.val`` on its best.ckpt (K1), then ``--resume`` to 2
+    epochs. Returns (ok, early_pipeline launches of the in-process cli.val).
+    ``device``, ``img`` and ``bs`` shrink it for a rehearsal on the CPU;
+    ``started``: what :func:`start_entry_point` returned, else it runs here."""
+    import re
+
+    from ayolov2_torch.cli import val
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.utils.checkpoint import load_checkpoint
+
+    first, data, cfg2, cfg3, common = (started if started is not None
+                                       else start_entry_point(device, img, bs))
+    dev = [] if device == "cuda" else ["--device", device]
+    proc, wall = first.result()
     out = proc.stdout + proc.stderr
     (TRAIN_DIR / "train.log").write_text(out)
     epochs = re.findall(r"epoch +(\d+) done in ([\d.]+)s \(([\d.]+) img/s\): \d+ steps, mean loss "
@@ -1722,9 +1757,10 @@ def train_phase(card: str, seed: int) -> tuple:
              time_train_step(card, 20, 320, 16, 4, seed)]
     ok = ok and all(t["finite"] for t in times)
     torch.backends.cudnn.benchmark = False
+    entry = start_entry_point()  # 8.5's first cli.train runs beside the falling loss
     fall = falling_loss(card, seed)
     ok = ok and fall["ok"]
-    ok_entry, launches = entry_point_run(card)
+    ok_entry, launches = entry_point_run(card, started=entry)
     return ok and ok_entry, launches, times[0]["step_ms"], times[0]["img_s"]
 
 
@@ -2144,7 +2180,7 @@ def item_profile(ds, n: int, top: int = 8) -> list:
     return sorted(rows, key=lambda r: -r[1])[:top]
 
 
-def time_host_items(images: Path, img: int, n: int = 32) -> None:
+def time_host_items(images: Path, img: int, n: int = 16) -> None:
     """10.2: get_item ms per item on one host thread, recipes (a) and (b),
     and each pixel policy forced to p = 1 on a 640 item of recipe (a)."""
     from ayolov2_torch.data import augment
@@ -4343,23 +4379,33 @@ def k1_against_plain(variant: str, ep, bs: int, h: int, w: int, seed: int) -> tu
           and peak < TOL_PEAK and p999 < TOL_P999 and early.early_pipeline.launches == before + 1)
     plan = early.kernel_plan(ep)
     log(f"[widths] 15.1 {model_name(variant)} {ep.widths[:4]} n {ep.n} (padded "
-        f"{early.padded_widths(*ep.widths[:4])}) bs{bs} {h}x{w} tile {plan.th}x{plan.tw} "
-        f"bands of {plan.rb} smem {plan.total} B: max|d|/peak {peak:.5f} p99.9 {p999:.5f} "
+        f"{early.padded_widths(*ep.widths[:4])}) bs{bs} {h}x{w} {plan.describe()}: "
+        f"max|d|/peak {peak:.5f} p99.9 {p999:.5f} "
         f"max|d| {mx:.4f} (gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
     return ok, mx
 
 
-def k1_times(card: str, variant: str, ep, fused_state, imgs) -> dict:
-    """The kernel, its plain version and the cuDNN chain of the same layers
-    (the faster stem width, ``cudnn.benchmark``) at one batch, beside the
-    bound and the tile (CUDA events, after warm-up)."""
+def k1_times(card: str, variant: str, ep, fused_state, imgs, tag: str = "time") -> dict:
+    """The kernel against its plain version on this batch (phase 3's gate),
+    then the kernel, its plain version and the cuDNN chain of the same layers
+    (the faster stem width, ``cudnn.benchmark``) timed on it, beside the
+    bound and the plan: its form (fused, or staged: 2 + n kernels, no
+    cluster), tiles, halo factor and the packed weight bytes its ring
+    streams from L2 in this call (CUDA events, after warm-up). Returns the
+    numbers of a kernels-line entry and ``ok``, the gate's verdict."""
     import torch
 
     from ayolov2_torch.ops import early_pipeline as early
 
     plan = early.kernel_plan(ep)
+    got = early.early_pipeline(imgs, ep)
+    want = early.early_pipeline_ref(imgs, ep)
+    peak, p999, mx = rel_err(got, want)
+    ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+          and peak < TOL_PEAK and p999 < TOL_P999)
+    del got, want
     ms = time_ms(lambda: early.early_pipeline(imgs, ep), 10)
-    plain = time_ms(lambda: early.early_pipeline_ref(imgs, ep), 3, warmup=1)
+    plain = time_ms(lambda: early.early_pipeline_ref(imgs, ep), 3, warmup=0)
     torch.backends.cudnn.benchmark = True
     try:
         chain = min(time_ms(lambda: c(imgs), 10) for c in
@@ -4368,12 +4414,21 @@ def k1_times(card: str, variant: str, ep, fused_state, imgs) -> dict:
         torch.backends.cudnn.benchmark = False
     bound, by, flops, nbytes = bound_of(ep, imgs.shape[:3])
     bs, h, w = imgs.shape[:3]
-    log(f"[time] {card}: early_pipeline {model_name(variant)} bs{bs} {h}x{w} tile "
-        f"{plan.th}x{plan.tw} (halo factor {plan.halo:.3f}, bands of {plan.rb}): kernel "
-        f"{ms:.4f} ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP, "
+    cost = early.form_cost(ep.widths, plan.parts, (bs, h, w))
+    tiles = ", ".join(f"{p.kind} {p.th}x{p.tw}" + (f" bands of {p.rb}" if p.rb else "")
+                      for p in plan.parts)
+    log(f"[{tag}] {card}: early_pipeline {model_name(variant)} bs{bs} {h}x{w} form {plan.form} "
+        f"({len(plan.parts) if plan.form == 'fused' else 2 + ep.n} kernel launches a call, no "
+        f"cluster; {tiles}; halo factor {cost['halo']:.3f}, weights streamed "
+        f"{cost['weight_bytes'] / 1e9:.3f} GB, activations {cost['act_bytes'] / 1e9:.3f} GB): "
+        f"vs plain max|d|/peak {peak:.5f} p99.9 {p999:.5f} max|d| {mx:.4f} (gate "
+        f"{TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}; "
+        f"kernel {ms:.4f} ms, bound {bound:.4f} ms ({by}: {flops / 1e9:.1f} GFLOP, "
         f"{nbytes / 1e6:.1f} MB), {ms / bound:.1f}x; plain {plain:.4f} ms; cuDNN chain "
-        f"{chain:.4f} ms (the faster stem width, cudnn.benchmark)")
-    return {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by, "library_ms": chain}
+        f"{chain:.4f} ms (the faster stem width, cudnn.benchmark), kernel / chain "
+        f"{ms / chain:.3f}")
+    return {"ok": ok, "max_abs_err": mx, "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "library_ms": chain}
 
 
 def start_widths(seed: int) -> tuple:
@@ -4529,10 +4584,14 @@ def widths_phase(card: str, seed: int, started: Optional[tuple] = None) -> tuple
     # 15.5 times, with nothing else running
     states = {v: {k: t.cuda() for k, t in m.state_dict().items()} for v, m in models.items()}
     big = images_on_card((16, 800, 800, 3), seed + 152)
-    entries[WIDE].update(k1_times(card, WIDE, eps[WIDE], states[WIDE], big))
     batch8 = images_on_card((8, 640, 640, 3), seed + 153)
-    k1_times(card, WIDE, eps[WIDE], states[WIDE], batch8)
-    entries[STEM8].update(k1_times(card, STEM8, eps[STEM8], states[STEM8], batch8))
+    for variant, imgs, keep in ((WIDE, big, True), (WIDE, batch8, False), (STEM8, batch8, True)):
+        numbers = k1_times(card, variant, eps[variant], states[variant], imgs)
+        if not numbers.pop("ok"):
+            return False, entries
+        numbers["max_abs_err"] = max(numbers["max_abs_err"], entries[variant]["max_abs_err"])
+        if keep:
+            entries[variant].update(numbers)
     rate = serve_rate(serves[WIDE], big, 10)
     log(f"[time] {card}: serve {model_name(WIDE)} bs16 800x800 uint8 -> (16, 100, 6) with K1: "
         f"{rate:.1f} img/s")
@@ -4789,7 +4848,7 @@ def start_tools_jobs(seed: int) -> dict:
               "print(_build.build_all([], [(n, ()) for n in _build.TORCH_SOURCES]))"],
         root=TOOLS_DIR, tag="tools", group=True, nice=10)
     atexit.register(stop_jobs, (export, build))
-    return {"export": export, "build": build, "ckpt": ckpt}
+    return {"export": export, "build": build, "ckpt": ckpt, "seed": seed}
 
 
 def stop_jobs(jobs) -> None:
@@ -4836,93 +4895,110 @@ def runner_matches(det_r, n_r, det_p, n_p, score_min: float = 0.25, iou_min: flo
 
 REGISTRATION_CALL = """
 import ctypes, json, sys, numpy as np, torch
-op, src, dst, iters = sys.argv[1], sys.argv[2], sys.argv[3], int(sys.argv[4])
+op, iters, pairs = sys.argv[1], int(sys.argv[2]), sys.argv[3:]
 torch.ops.load_library(op)
 lib = ctypes.CDLL(op)
 lib.ayolov2_early_pipeline_error.restype = ctypes.c_char_p
 lib.ayolov2_early_pipeline_launches.restype = ctypes.c_int64
-d = np.load(src)
-widths, plan = [int(v) for v in d["widths"]], [int(v) for v in d["plan"]]
-if lib.ayolov2_early_pipeline_configure(str(d["library"]).encode(),
-        (ctypes.c_int64 * 5)(*widths), (ctypes.c_int * 14)(*plan)):
-    sys.exit(lib.ayolov2_early_pipeline_error().decode())
-x = torch.from_numpy(d["x"]).cuda()
-w = torch.from_numpy(d["w"]).view(torch.bfloat16).cuda()
-c0, c1, ch, c2, n = widths
-call = lambda: torch.ops.ayolov2.early_pipeline(x, w, c0, n, c1, ch, c2)
-y = call()
-for _ in range(3):
-    call()
-torch.cuda.synchronize()
-start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-start.record()
-for _ in range(iters):
-    call()
-end.record()
-torch.cuda.synchronize()
-np.save(dst, y.view(torch.int16).cpu().numpy())
-print(json.dumps({"ms": start.elapsed_time(end) / iters,
-                  "launches": lib.ayolov2_early_pipeline_launches(),
-                  "modules": sorted(m for m in sys.modules if m.startswith("ayolov2"))}))
+for src, dst in zip(pairs[::2], pairs[1::2]):
+    d = np.load(src)
+    widths, plan = [int(v) for v in d["widths"]], [int(v) for v in d["plan"]]
+    if lib.ayolov2_early_pipeline_configure(str(d["library"]).encode(),
+            (ctypes.c_int64 * 5)(*widths), (ctypes.c_int * len(plan))(*plan), len(plan)):
+        sys.exit(lib.ayolov2_early_pipeline_error().decode())
+    x = torch.from_numpy(d["x"]).cuda()
+    w = torch.from_numpy(d["w"]).view(torch.bfloat16).cuda()
+    c0, c1, ch, c2, n = widths
+    call = lambda: torch.ops.ayolov2.early_pipeline(x, w, c0, n, c1, ch, c2)
+    before = lib.ayolov2_early_pipeline_launches()
+    y = call()
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    np.save(dst, y.view(torch.int16).cpu().numpy())
+    print(json.dumps({"ms": start.elapsed_time(end) / iters,
+                      "launches": lib.ayolov2_early_pipeline_launches() - before,
+                      "modules": sorted(m for m in sys.modules if m.startswith("ayolov2"))}))
 """
 
 
-def registration_check(card: str, model, ep, imgs, call: dict) -> tuple:
-    """17.2's second half: the C++ registration's CUDA body on the card, in a
+def registration_check(card: str, cases: list) -> tuple:
+    """17.2's second half: the C++ registration's CUDA body on the card, in one
     fresh interpreter that never imports the Python operator:
-    ``torch.ops.load_library`` of it, configured with the sidecar's kernel
-    library and plan, called as ``torch.ops.ayolov2.early_pipeline`` on the
-    runner's batch (bs 32, 640) with the packaged model's weights, against
-    ``early_pipeline_ref`` on the same inputs at phase 3's tolerance; its
-    launches counted by the registration (1 + 3 warm-up + 20 timed). Its
-    time (CUDA events, in that interpreter), the plain version's, the
-    cuDNN chain's and the bound make the runner's entry of the kernels line.
-    Returns (ok, those numbers)."""
+    ``torch.ops.load_library`` of it, configured for each case with its
+    kernel library and plan as a sidecar lists them, called as
+    ``torch.ops.ayolov2.early_pipeline`` on the case's images and weights,
+    against ``early_pipeline_ref`` on the same inputs at phase 3's
+    tolerance, its launches counted by the registration (1 + 3 warm-up + 20
+    timed). ``cases``: dicts of ``label``, ``model``, ``ep``, ``imgs`` and
+    ``call`` (widths, plan, library). The first case's time (CUDA events, in
+    that interpreter), with its plain version's, cuDNN chain's and bound,
+    makes the runner's entry of the kernels line. Returns (ok, those
+    numbers)."""
     import torch
 
     from ayolov2_torch.ops import _build
     from ayolov2_torch.ops import early_pipeline as early
 
     iters = 20
-    src, dst = TOOLS_DIR / "registration_in.npz", TOOLS_DIR / "registration_out.npy"
-    np.savez(src, x=imgs.cpu().numpy(), w=early.pack_weights(ep).view(torch.int16).cpu().numpy(),
-             widths=np.array(call["widths"]), plan=np.array(call["plan"]),
-             library=np.array(call["library"]))
+    files = [(TOOLS_DIR / f"registration_in{k}.npz", TOOLS_DIR / f"registration_out{k}.npy")
+             for k in range(len(cases))]
+    for c, (src, _) in zip(cases, files):
+        np.savez(src, x=c["imgs"].cpu().numpy(),
+                 w=early.pack_weights(c["ep"]).view(torch.int16).cpu().numpy(),
+                 widths=np.array(c["call"]["widths"]), plan=np.array(c["call"]["plan"]),
+                 library=np.array(c["call"]["library"]))
     proc = subprocess.run([sys.executable, "-c", REGISTRATION_CALL,
-                           str(_build.path("early_pipeline_op")), str(src), str(dst),
-                           str(iters)], cwd=TOOLS_DIR, capture_output=True, text=True,
-                          timeout=300)
+                           str(_build.path("early_pipeline_op")), str(iters),
+                           *(str(f) for pair in files for f in pair)],
+                          cwd=TOOLS_DIR, capture_output=True, text=True, timeout=300)
     (TOOLS_DIR / "registration.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    reps = [json.loads(ln) for ln in proc.stdout.strip().splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(reps) != len(cases):
         log(f"[tools] the registration on the card: exit {proc.returncode}; "
             + " | ".join((proc.stdout + proc.stderr).strip().splitlines()[-6:]))
         return False, {}
-    rep = json.loads(proc.stdout.strip().splitlines()[-1])
-    got = torch.from_numpy(np.load(dst)).view(torch.bfloat16).cuda()
-    want = early.early_pipeline_ref(imgs, ep)
-    peak, p999, mx = rel_err(got, want)
-    ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
-          and peak < TOL_PEAK and p999 < TOL_P999 and rep["modules"] == []
-          and rep["launches"] == 1 + 3 + iters)
-    plain_ms = time_ms(lambda: early.early_pipeline_ref(imgs, ep), 5, warmup=1)
-    fused_state = model.state_dict()
-    torch.backends.cudnn.benchmark = True
-    try:
-        chain_ms = min(time_ms(lambda: chain(imgs), 20) for chain in
-                       (cudnn_chain(fused_state, c) for c in (3, 8)))
-    finally:
-        torch.backends.cudnn.benchmark = False
-    bound_ms, bound_by, _, _ = bound_of(ep, imgs.shape[:3])
-    log(f"[tools] {card}: 17.2 the C++ registration's CUDA body in a fresh interpreter (port "
-        f"modules imported: {rep['modules']}), configured from the sidecar, on the runner's "
-        f"batch (yolov5s bs32 640) vs early_pipeline_ref: max|d|/peak {peak:.5f} p99.9 "
-        f"{p999:.5f} max|d| {mx:.4f} (gate {TOL_PEAK}/{TOL_P999}); launches counted by the "
-        f"registration {rep['launches']} (gate {1 + 3 + iters}) {'ok' if ok else 'FAIL'}")
-    log(f"[time] {card}: early_pipeline through the C++ registration {rep['ms']:.4f} ms "
-        f"(CUDA events, {iters} calls), plain {plain_ms:.4f} ms, cuDNN chain {chain_ms:.4f} ms "
-        f"(the faster stem width, cudnn.benchmark), bound {bound_ms:.4f} ms ({bound_by})")
-    return ok, dict(max_abs_err=mx, ms=rep["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=chain_ms)
+    ok_all, numbers = True, {}
+    for k, (c, (_, dst), rep) in enumerate(zip(cases, files, reps)):
+        ep, imgs = c["ep"], c["imgs"]
+        got = torch.from_numpy(np.load(dst)).view(torch.bfloat16).cuda()
+        want = early.early_pipeline_ref(imgs, ep)
+        peak, p999, mx = rel_err(got, want)
+        ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
+              and peak < TOL_PEAK and p999 < TOL_P999 and rep["modules"] == []
+              and rep["launches"] == 1 + 3 + iters)
+        ok_all = ok_all and ok
+        log(f"[tools] {card}: 17.2 the C++ registration's CUDA body in a fresh interpreter (port "
+            f"modules imported: {rep['modules']}), configured with plan "
+            f"{early.FORMS[c['call']['plan'][0]]} form, on {c['label']} vs early_pipeline_ref: "
+            f"max|d|/peak {peak:.5f} p99.9 {p999:.5f} max|d| {mx:.4f} (gate "
+            f"{TOL_PEAK}/{TOL_P999}); launches counted by the registration {rep['launches']} "
+            f"(gate {1 + 3 + iters}) {'ok' if ok else 'FAIL'}; {rep['ms']:.4f} ms a call "
+            f"(CUDA events, {iters} calls)")
+        if k:
+            continue
+        plain_ms = time_ms(lambda: early.early_pipeline_ref(imgs, ep), 5, warmup=1)
+        fused_state = c["model"].state_dict()
+        torch.backends.cudnn.benchmark = True
+        try:
+            chain_ms = min(time_ms(lambda: chain(imgs), 20) for chain in
+                           (cudnn_chain(fused_state, w) for w in (3, 8)))
+        finally:
+            torch.backends.cudnn.benchmark = False
+        bound_ms, bound_by, _, _ = bound_of(ep, imgs.shape[:3])
+        log(f"[time] {card}: early_pipeline through the C++ registration, {c['label']}: "
+            f"{rep['ms']:.4f} ms (CUDA events, {iters} calls), plain {plain_ms:.4f} ms, cuDNN "
+            f"chain {chain_ms:.4f} ms (the faster stem width, cudnn.benchmark), bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        numbers = dict(max_abs_err=mx, ms=rep["ms"], plain_ms=plain_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, library_ms=chain_ms)
+    return ok_all, numbers
 
 
 def runner_check(card: str, jobs: dict, serve_img_s: float) -> tuple:
@@ -4942,6 +5018,7 @@ def runner_check(card: str, jobs: dict, serve_img_s: float) -> tuple:
     from ayolov2_torch.data import DataLoader, DetectionDataset
     from ayolov2_torch.export import load_exported, make_serving_fn
     from ayolov2_torch.ops import _build
+    from ayolov2_torch.ops import early_pipeline as early
     from ayolov2_torch.utils.checkpoint import load_model
 
     ok_b, _ = finish_job(jobs["build"], timeout=900)
@@ -5009,10 +5086,24 @@ def runner_check(card: str, jobs: dict, serve_img_s: float) -> tuple:
         f"{r['img_s'] / art:.3f}, runner / make_serving_fn {r['img_s'] / msf:.3f}; phase 6's "
         f"make_serving_fn {serve_img_s:.1f}, runner / it {r['img_s'] / serve_img_s:.3f} (nan "
         "where not run)")
-    ok_k, numbers = registration_check(card, model, serve.ep, imgs, calls[0])
-    del serve, call, imgs, model
+    ep_s = serve.ep
+    del serve, call
+    # and the staged form through the same registration: seeded yolov5x's widths at bs 2,
+    # 640, configured as a sidecar would list them
+    wide = seeded_model("x", jobs["seed"] + 18)
+    ep_x = early.extract_early_params(wide.state_dict()).to("cuda")
+    plan_x = early.kernel_plan(ep_x)
+    del wide
+    call_x = {"widths": list(ep_x.widths), "plan": plan_x.as_ints(), "library": str(
+        _build.path("early_pipeline", early.kernel_defines(*ep_x.widths[:4])))}
+    ok_k, numbers = registration_check(card, [
+        dict(label="the runner's batch (yolov5s bs32 640)", model=model, ep=ep_s, imgs=imgs,
+             call=calls[0]),
+        dict(label=f"yolov5x bs2 640 ({plan_x.form} form)", model=None, ep=ep_x,
+             imgs=images_on_card((2, 640, 640, 3), 18), call=call_x)])
+    del imgs, model, ep_s, ep_x
     torch.cuda.empty_cache()
-    return ok and ok_k, r["launches"], numbers
+    return ok and ok_k and plan_x.form == "staged", r["launches"], numbers
 
 
 def run_cli(name: str, args: list, timeout: int = 600) -> tuple:
@@ -5036,7 +5127,7 @@ def tools_clis(card: str, serve_img_s: float) -> bool:
     positive; the
     stage sum beside the full step); ``cli.bench_loader`` on phase 7's
     images and labels with ``train_config.yaml``'s augmentation at bs 32,
-    ``--batches 5`` (both worker modes)."""
+    ``--batches 2`` (both worker modes)."""
     from ayolov2_torch.cli.bench_matrix import rows_finite
 
     rc, secs, _ = run_cli("bench_matrix", ["--configs", *TOOLS_CONFIGS, "--iters", "3",
@@ -5079,7 +5170,7 @@ def tools_clis(card: str, serve_img_s: float) -> bool:
     data = TOOLS_DIR / "loader_data.json"
     data.write_text(json.dumps({"train_path": str(VAL_DIR / "images"), "nc": 20,
                                 "dataset": "VOC"}))
-    rc, secs, out = run_cli("bench_loader", ["--data", str(data), "--batches", "5",
+    rc, secs, out = run_cli("bench_loader", ["--data", str(data), "--batches", "2",
                                              "--batch-size", "32"])
     if rc != 0:
         return False
@@ -5868,8 +5959,10 @@ def width_entry(variant: str, numbers: dict) -> dict:
     widths = (m.model[0].conv.out_channels, m.model[1].conv.out_channels,
               m.model[2].cv1.conv.out_channels, m.model[3].conv.out_channels)
     padded = "/".join(str(c) for c in early.padded_widths(*widths))
+    form = early.plan_early(widths[0], len(m.model[2].m), *widths[1:]).form
     return kernel_entry(f"early_pipeline ({model_name(variant)}, widths "
-                        f"{'/'.join(str(c) for c in widths)} padded to {padded})", **numbers)
+                        f"{'/'.join(str(c) for c in widths)} padded to {padded}, {form} form)",
+                        **numbers)
 
 
 def kernel_entry(name: str, **numbers) -> dict:
@@ -5974,6 +6067,7 @@ def main() -> int:
         log("[tools] 17.1 started in the background: cli.export --aoti of seeded yolov5s and "
             "the build of the C++ registration and the runner")
 
+    phase_done("1-2")
     # ---- 3. the kernel against its plain version -------------------------
     # full-size shapes, then the risky ones: a ragged last tile in each direction
     # at each model's tile (s 8x8, n 8x16, m 4x8, l 4x4, x 2x2), an image
@@ -5981,11 +6075,14 @@ def main() -> int:
     # rows split into bands whose last one is shorter (19 = 10 + 9 for s).
     # Then every other shipped config's width set: l_0.5, the width-1.05
     # config (padded 72/136/68/272) and the stem-8 set (padded 8/16/8/32).
+    # m, l, l_0.5, x and 1.05 take the staged form (every kernel's tiles ragged
+    # at 136x264 and 152x216), s, n and stem 8 the fused one.
     cases = [("s", 4, 640, 640), ("s", 4, 384, 640), ("m", 2, 640, 640),
-             ("l", 1, 640, 640), ("x", 1, 640, 640),
+             ("l", 1, 640, 640), ("x", 1, 640, 640), ("x", 2, 640, 640),
              ("s", 2, 72, 136), ("s", 3, 200, 104), ("s", 1, 40, 56), ("n", 2, 136, 200),
              ("m", 2, 104, 184), ("l", 1, 264, 328), ("x", 1, 136, 264),
-             ("l_0.5", 1, 640, 640), ("1.05", 1, 640, 640), (STEM8, 2, 320, 320)]
+             ("l_0.5", 1, 640, 640), ("1.05", 1, 640, 640), ("1.05", 2, 152, 216),
+             (STEM8, 2, 320, 320)]
     models, eps = {}, {}
     for variant, bs, h, w in cases:
         if variant not in models:
@@ -6002,12 +6099,27 @@ def main() -> int:
               and peak < TOL_PEAK and p999 < TOL_P999
               and early.early_pipeline.launches == before + 1)
         plan = early.kernel_plan(ep)
-        log(f"[kernel] {model_name(variant)} bs{bs} {h}x{w} tile {plan.th}x{plan.tw} bands of "
-            f"{plan.rb} ring {plan.stages}x{plan.stage_bytes} B smem {plan.total} B: "
+        log(f"[kernel] {model_name(variant)} bs{bs} {h}x{w} {plan.describe()}: "
             f"max|d|/peak {peak:.5f} p99.9 {p999:.5f} max|d| {mx:.4f} "
             f"(gate {TOL_PEAK}/{TOL_P999}) {'ok' if ok else 'FAIL'}")
         if not ok:
             return 1
+    # the latency server's slab in the staged form: yolov5x's /8 rows 23..56 of a 640 image
+    # from the input rows they read alone, equal to those rows of the whole image's call
+    ep = eps["x"]
+    c0, c1, ch, c2, n = ep.widths
+    imgs = images_on_card((1, 640, 640, 3), args.seed + 5)
+    whole = early.early_pipeline(imgs, ep)
+    slab = early.early_pipeline_rows(imgs, early._packed(ep, imgs.device), 23, 57, c0, n, c1, ch,
+                                     c2)
+    lo, hi = early.slab_rows(23, 57, 640, n)
+    ok = slab.shape == whole[:, 23:57].shape and torch.equal(slab, whole[:, 23:57])
+    log(f"[kernel] yolov5x early_pipeline_rows 23..57 of bs1 640x640 ({early.kernel_plan(ep).form} "
+        f"form, input rows {lo}..{hi}): equal to those rows of the whole call bit for bit "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        return 1
+    del whole, slab
     if args.widths_only:
         ok15, entries = widths_phase(card, args.seed)
         if not ok15:
@@ -6113,9 +6225,12 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                                  "count": torch.cuda.device_count()}}))
         return 0
-    wide_states = {v: models[v].state_dict() for v in "mlx"}  # phase 6's cuDNN chains
+    # phase 6's cuDNN chains
+    wide_states = {v: models[v].state_dict() for v in ("m", "l", "x", "l_0.5")}
+    x_model = models["x"]  # served in phase 6
     del models
 
+    phase_done("3")
     # ---- 4. the slice: serve yolov5s at bs 32, 640x640 -------------------
     model = seeded_model("s", args.seed)
     serve_k = make_serving_fn(model)
@@ -6177,6 +6292,7 @@ def main() -> int:
     if len(outs) != len(hosts) or same != len(hosts):
         return 1
 
+    phase_done("4-5")
     # ---- 6. times, and the kernel against its plain version at bs 32 and 128
     ep = serve_k.ep
     fused_state = {k: v.cuda() for k, v in model.state_dict().items()}
@@ -6228,22 +6344,33 @@ def main() -> int:
     log(f"[time] {card}: early_pipeline yolov5s bs128 640x640 kernel {kernel128_ms:.4f} ms, "
         f"bound {b128:.4f} ms ({by128})")
     batch8 = images_on_card((8, 640, 640, 3), args.seed + 3)
-    for variant in "mlx":
-        ep_v = eps[variant]
-        plan = early.kernel_plan(ep_v)
-        ms_v = time_ms(lambda: early.early_pipeline(batch8, ep_v), 10)
-        b_v, by_v, flops_v, bytes_v = bound_of(ep_v, (8, 640, 640))
-        torch.backends.cudnn.benchmark = True
-        try:
-            chain_v = min(time_ms(lambda: chain(batch8), 10) for chain in
-                          (cudnn_chain(wide_states[variant], c) for c in (3, 8)))
-        finally:
-            torch.backends.cudnn.benchmark = False
-        log(f"[time] {card}: early_pipeline yolov5{variant} bs8 640x640 tile {plan.th}x{plan.tw} "
-            f"(halo factor {plan.halo:.3f}, bands of {plan.rb}, ring {plan.stages} stages): "
-            f"kernel {ms_v:.4f} ms, bound {b_v:.4f} ms ({by_v}: {flops_v / 1e9:.1f} GFLOP, "
-            f"{bytes_v / 1e6:.1f} MB), {ms_v / b_v:.1f}x; cuDNN chain {chain_v:.4f} ms "
-            f"(the faster stem width, cudnn.benchmark)")
+    t_wide = time.perf_counter()
+    for variant in ("m", "l", "l_0.5", "x"):  # the 1.05 set: 15.5
+        numbers = k1_times(card, variant, eps[variant], wide_states[variant], batch8)
+        if not numbers.pop("ok"):
+            return 1
+        if variant == "x":
+            x_numbers = numbers  # its error measured on the batch it is served
+    # yolov5x served at bs 8, 640: the staged form on a main path, counted from 0 around 3 calls
+    t_serve = time.perf_counter()
+    serve_x = make_serving_fn(x_model)
+    serve_x(batch8)  # the first call builds the serving graph's pieces
+    torch.cuda.synchronize()
+    early.early_pipeline.launches = 0
+    for _ in range(3):
+        det, cnt = serve_x(batch8)
+    torch.cuda.synchronize()
+    x_numbers["launches"] = early.early_pipeline.launches
+    ok = (serve_x.early and tuple(det.shape) == (8, 100, 6) and tuple(cnt.shape) == (8,)
+          and bool(torch.isfinite(det).all()) and x_numbers["launches"] == 3)
+    log(f"[serve] yolov5x bs8 640x640 through make_serving_fn ({early.kernel_plan(eps['x']).form} "
+        f"form): det {tuple(det.shape)} counts {tuple(cnt.shape)}, early_pipeline launches "
+        f"{x_numbers['launches']} in 3 calls {'ok' if ok else 'FAIL'}")
+    if not ok:
+        return 1
+    log(f"[time] phase 6's wide sets: K1 checked and timed in {t_serve - t_wide:.1f} s, "
+        f"yolov5x served in {time.perf_counter() - t_serve:.1f} s (wall)")
+    del serve_x, det, cnt, x_model
     del wide_states
 
     rates = {}
@@ -6271,6 +6398,7 @@ def main() -> int:
             + "; ".join(f"{k} {v}" if isinstance(v, list) else f"{k} {v:.3f}" if v < 1.5
                         else f"{k} {v:.0f}" for k, v in shares.items()))
 
+    phase_done("6")
     # ---- 7. validation on the golden checkpoint --------------------------
     del batch128, batch8, model, serve_k, serve_c, chains, fused_state
     torch.cuda.empty_cache()
@@ -6281,6 +6409,7 @@ def main() -> int:
     launches += val[0]
     max_abs = max(max_abs, val[1])
 
+    phase_done("7")
     # ---- 8. training ------------------------------------------------------
     torch.cuda.empty_cache()
     ok8, train_launches, step_ms, step_img_s = train_phase(card, args.seed)
@@ -6289,6 +6418,7 @@ def main() -> int:
         return 1
     launches += train_launches
 
+    phase_done("8")
     # ---- 9. device augmentation -----------------------------------------------
     torch.cuda.empty_cache()
     ok9, aug_launches = augment_phase(card, step_ms, step_img_s, args.profile)
@@ -6297,6 +6427,7 @@ def main() -> int:
         return 1
     launches += aug_launches
 
+    phase_done("9")
     # ---- 10. host augmentation ---------------------------------------------
     torch.cuda.empty_cache()
     ok10, host_launches = host_aug_phase(step_img_s)
@@ -6305,6 +6436,7 @@ def main() -> int:
         return 1
     launches += host_launches
 
+    phase_done("10")
     # ---- 11. the shipped surface (its entry points rode on phase 10) -----------
     torch.cuda.empty_cache()
     ok11, surface_launches = surface_phase(card, args.seed)
@@ -6313,6 +6445,7 @@ def main() -> int:
         return 1
     launches += surface_launches
 
+    phase_done("11")
     # ---- 12. the rest of the model zoo and the exported serving graph -----------
     torch.cuda.empty_cache()
     ok12, zoo_launches = zoo_phase(card, args.seed, rates[32], val[2], args.profile)
@@ -6321,6 +6454,7 @@ def main() -> int:
         return 1
     launches += zoo_launches
 
+    phase_done("12")
     # ---- 13. compression and the post-training tools ---------------------------
     torch.cuda.empty_cache()
     ok13, compress_launches = compress_phase(card, args.seed, val[3])
@@ -6329,6 +6463,7 @@ def main() -> int:
         return 1
     launches += compress_launches
 
+    phase_done("13")
     # ---- 14. the secondary trainers and tools ---------------------------------
     torch.cuda.empty_cache()
     widths = start_widths(args.seed)  # 15.4's export runs beside phase 14
@@ -6338,6 +6473,7 @@ def main() -> int:
         return 1
     launches += secondary_launches
 
+    phase_done("14")
     # ---- 15. K1 at every width: the width-1.05 config ---------------------------
     torch.cuda.empty_cache()
     ok15, entries = widths_phase(card, args.seed, widths)
@@ -6345,6 +6481,7 @@ def main() -> int:
         log("[widths] FAIL")
         return 1
 
+    phase_done("15")
     # ---- 16. image files: JPEG and PNG through the port's codecs ----------------
     torch.cuda.empty_cache()
     ok16, images_launches = images_phase(card, args.seed, val[4])
@@ -6353,6 +6490,7 @@ def main() -> int:
         return 1
     launches += images_launches
 
+    phase_done("16")
     # ---- 17. the native runner and the measurement CLIs -------------------------
     torch.cuda.empty_cache()
     ok17, runner_launches, runner_numbers = tools_phase(card, tools_jobs, rates[32])
@@ -6360,6 +6498,7 @@ def main() -> int:
         log("[tools] FAIL")
         return 1
 
+    phase_done("17")
     # ---- 18. ranks: the trainers, serving and cli.train over torch.distributed ------
     torch.cuda.empty_cache()
     ok18, parallel_launches = parallel_phase(card, args.seed, probe=False)  # 18.0: --parallel-only
@@ -6368,6 +6507,7 @@ def main() -> int:
         return 1
     launches += parallel_launches
 
+    phase_done("18")
     # ---- 19. spatially split bs-1 serving over ranks ----------------------------------
     torch.cuda.empty_cache()
     ok19, latency_launches, latency_entries = latency_phase(card, args.seed)
@@ -6375,12 +6515,17 @@ def main() -> int:
         log("[latency] FAIL")
         return 1
     launches += latency_launches
+    phase_done("19")
+    log(f"[time] {card}: seconds by phase (wall, each phase's own and what it waited for of "
+        "earlier phases' background jobs): " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items()))
     log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s")
 
     k1 = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, library_ms=library_ms)
     print(json.dumps({"kernels": [kernel_entry("early_pipeline", launches=launches, **k1)]
                       + [width_entry(v, e) for v, e in entries.items()]
+                      + [kernel_entry("early_pipeline (yolov5x bs8 640, staged form, served)",
+                                      **x_numbers)]
                       + [kernel_entry("early_pipeline (yolov5s bs32 640, inside the native "
                                       "runner's AOTInductor package, launched by the C++ "
                                       "registration)", launches=runner_launches,

@@ -156,23 +156,29 @@ def test_padded_pack_round_trip(case):
         assert w[:co, :, :cin].any()
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 4])
-def test_plan_finds_a_tile_for_every_width(n):
+@pytest.mark.parametrize("n,form", list(itertools.product([1, 2, 3, 4], ["fused", "staged"])))
+def test_plan_finds_a_tile_for_every_width(n, form):
     """Every v6 early block of a width_multiple in 0.125 .. 1.25 (steps of
-    0.125, and 1.05) at this C3 depth has a tile whose shared memory fits,
-    sized from the padded widths; c0 = make_divisible(64 w) runs 8 .. 80."""
+    0.125, and 1.05) at this C3 depth has, in each form, a tile for each of
+    the form's kernels whose shared memory fits, sized from the padded
+    widths; c0 = make_divisible(64 w) runs 8 .. 80. The plan is one of the
+    two."""
     from ayolov2_torch.ops import early_pipeline as early
 
     stems = set()
     for w in [0.125 * k for k in range(1, 11)] + [1.05]:
         c0, c1, ch, c2, _ = v6_widths(w, n)
         stems.add(c0)
-        plan = early.plan_early(c0, n, c1, ch, c2)
-        assert plan.total + early.STATIC_SMEM <= early.SMEM_LIMIT
-        assert (plan.th, plan.tw) in early.TILES and plan.stages == early.RING_STAGES
+        widths = (c0, c1, ch, c2, n)
+        plan = early.plan_of_form(widths, form)
+        assert early.plan_early(c0, n, c1, ch, c2).form in early.FORMS
+        assert (plan.th, plan.tw) in (early.TILES if form == "fused" else early.TAIL_TILES)
         p0, p1, ph, p2 = early.padded_widths(c0, c1, ch, c2)
-        assert plan.stage_bytes == max(3 * p0, p1, 2 * ph, p2) * 128
-        assert plan.sizes["bias"] == 2 * (p0 + 2 * p1 + 2 * ph * (n + 1) + p2)
+        for part in plan.parts:
+            assert part.total + early.STATIC_SMEM <= early.SMEM_LIMIT
+            assert part.stages == early.RING_STAGES
+            assert part.stage_bytes == max(3 * p0, p1, 2 * ph, p2) * 128
+            assert part.sizes["bias"] == 2 * (p0 + 2 * p1 + 2 * ph * (n + 1) + p2)
         for co in (p0, p1, 2 * ph, p2):  # a wgmma's N: a multiple of 8
             nt = nt_of(co)
             assert nt % 8 == 0 and co % nt == 0 and nt <= 80

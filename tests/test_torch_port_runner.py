@@ -227,18 +227,21 @@ def test_registration_cpu_body_equals_early_pipeline_ref(packaged, tmp_path):
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
 
 
-def test_registration_rejects_a_missing_kernel_library(packaged, tmp_path):
-    """``ayolov2_early_pipeline_configure`` of a library that does not load
-    returns -1 and says why; the launch count starts at 0."""
+@pytest.mark.parametrize("plan_ints,why", [(43, "cannot load"), (14, "a plan of 14 ints, not 43")])
+def test_registration_rejects_a_missing_kernel_library(packaged, tmp_path, plan_ints, why):
+    """``ayolov2_early_pipeline_configure`` of a library that does not load,
+    or of a plan that is not 43 ints long (a package written before the
+    staged form holds 14), returns -1 and says why; the launch count starts
+    at 0."""
     code = (
         "import ctypes, sys\n"
         f"lib = ctypes.CDLL({str(packaged.op)!r}, mode=ctypes.RTLD_GLOBAL)\n"
         "lib.ayolov2_early_pipeline_error.restype = ctypes.c_char_p\n"
         "lib.ayolov2_early_pipeline_launches.restype = ctypes.c_int64\n"
         "widths = (ctypes.c_int64 * 5)(16, 32, 16, 64, 1)\n"
-        "plan = (ctypes.c_int * 14)(*range(14))\n"
+        f"plan = (ctypes.c_int * {plan_ints})(*range({plan_ints}))\n"
         f"rc = lib.ayolov2_early_pipeline_configure({str(tmp_path / 'none.so')!r}.encode(), "
-        "widths, plan)\n"
+        f"widths, plan, {plan_ints})\n"
         "print(rc, lib.ayolov2_early_pipeline_launches(), lib.ayolov2_early_pipeline_error()"
         ".decode())\n"
     )
@@ -246,7 +249,7 @@ def test_registration_rejects_a_missing_kernel_library(packaged, tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     rc, launches, msg = r.stdout.split(" ", 2)
     assert (rc, launches) == ("-1", "0")
-    assert "cannot load" in msg and "none.so" in msg
+    assert why in msg and (plan_ints != 43 or "none.so" in msg)
 
 
 def test_runner_needs_cuda_where_it_is_asked_for(packaged, served, monkeypatch):
