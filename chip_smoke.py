@@ -5,11 +5,16 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; any failure exits non-zero:
+Phases, each printing its own lines; any failure exits non-zero. Each
+entry point it drives runs once as ``python -m ayolov2_torch.cli.<name>``
+in a fresh interpreter; a later run of the same entry point calls its
+``main(argv)`` in this process (:func:`run_in_process`).
 
-1. environment: torch/CUDA versions, the card's name and power limit; TF32
-   is switched off for every comparison;
-2. build: nvcc compiles every ``ayolov2_torch/csrc/*.cu`` (in parallel; the
+1. environment: torch/CUDA versions, the card's name and power limit, the
+   host (CPU model, logical CPUs, load average); TF32 is switched off for
+   every comparison;
+2. build (started before torch is imported, beside phase 1): nvcc
+   compiles every ``ayolov2_torch/csrc/*.cu`` (in parallel; the
    early-network kernel once per padded width set of the shipped configs
    and the stem-8 one, ``ops/_build.EARLY_SETS``), and the host compiler the
    image codecs (``csrc/image_codec.cpp``, ``raster_codec.cpp``,
@@ -80,7 +85,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    epoch, under ``build/chip_smoke_train/``), ``cli.val`` on its
    ``best.ckpt`` through K1 within 0.02 mAP50 of the trainer's own
    validation of that epoch, and ``--resume`` to 2 epochs, which must run
-   one epoch and advance ``step`` and ``ema_updates`` by its micro-steps.
+   one epoch and advance ``step`` and ``ema_updates`` by its micro-steps
+   (those two in this process).
 
 9. device augmentation: phase 7's 128 BMPs at 640 as a resident store,
    planned under two recipes cut to what the renderer takes (copy_paste 0,
@@ -100,7 +106,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``device_aug: true`` (recipe (a)) from the golden checkpoint on phase
    7's set at 640, bs 32, 2 epochs (under ``build/chip_smoke_aug/``), gated
    on finite losses, ``step`` and ``ema_updates`` of 8, both checkpoints
-   and resident frames, then ``cli.val`` (K1) on its ``best.ckpt``.
+   and resident frames, then ``cli.val`` (K1) on its ``best.ckpt`` (both
+   in this process).
 
 10. host augmentation: phase 7's BMPs linked under ``build/chip_smoke_host/``
    with its labels, every other image's boxes written as 12-point polygons
@@ -118,17 +125,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    (only epochs, validate_period, the batch, workers_mode and, for
    ``train_golden.yaml``, plot change), gated on finite losses, ``step`` =
    ``ema_updates`` = the micro-steps, the log naming the host path, and
-   ``cli.val`` (K1) on each ``best.ckpt`` with mAP50 in [0, 1].
+   ``cli.val`` (K1) on each ``best.ckpt`` with mAP50 in [0, 1] (all in
+   this process).
 
 11. the shipped surface, riding on phase 10's ``train_config.yaml`` run
    (under ``build/chip_smoke_surface/``): 11.1 that run keeps ``plot: true``
    as shipped, with ``AYOLO_TRACE_DIR`` set and ``AYOLO_TRACE_STEPS=2``:
    ``labels.png`` (600x1440) and ``train_batch0-2.png`` (4 x 4 tiles of 640)
    decode at their sizes, the train trace holds exactly ``ProfilerStep#2``
-   and ``#3`` and names the card's kernels; then the same run again
-   without plots and trace window, and what the diagnostics cost: the two
-   runs' wall times and epochs against each other, the plots' and the
-   trace's writing seconds. 11.2 its ``cli.val`` runs with ``--plot
+   and ``#3`` and names the card's kernels; the plots' and the trace's
+   writing seconds from its log (that a run with ``plot: false`` and no
+   trace window writes neither is a CPU test,
+   ``tests/test_torch_chip_smoke_host.py``). 11.2 its ``cli.val`` runs with ``--plot
    --profile --n-profile 20 --tta --dst``: the four curves and the
    confusion matrix decode at matplotlib's sizes, the profile is logged in
    ms per image, and the val trace names K1's kernel. 11.3 phase 7's 128
@@ -157,17 +165,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    640, tpu_nms, and ``--raw-hw 720 1280``) under ``build/chip_smoke_export/``,
    the artifacts read back in a fresh interpreter against
    ``make_serving_fn`` / ``make_raw_serving_fn`` (counts equal, max|d| /
-   peak < 1e-3, one K1 launch per exported call, both img/s), and ``cli.val
-   --weights`` the ``.pt2`` on phase 7's set against the validator with
+   peak < 1e-3, one K1 launch per exported call; these three one after
+   another in the background from phase 8 on, at a lower CPU priority), both
+   calls' img/s in turns in this process, and ``cli.val
+   --weights`` the ``.pt2`` (in this process) on phase 7's set against the
+   validator with
    ``make_serving_fn`` on the same square batches (1e-3), phase 7's rect
    K1 run printed beside; 12.5 the ``simclr.yaml`` embedding at bs 8, 320,
    card against CPU in f32 (1e-4 of the peak). ``--zoo-only`` runs phases
    1, 2, 3, 7 and 12.
 
 13. compression and the post-training tools, under
-   ``build/chip_smoke_compress/``; ``cli.export --dtype int8``,
-   ``cli.artifact_sizes``, ``cli.decompose_model`` and ``cli.train
-   --use-swa`` run as background jobs from the phase's start. 13.1 the int8
+   ``build/chip_smoke_compress/``; 13.2, ``cli.export --dtype int8`` (then
+   its artifact's check), ``cli.artifact_sizes`` and ``cli.decompose_model``
+   run as background jobs from phase 9 on, at a lower CPU priority. 13.1 the int8
    product (``ops/int8_conv.py``: NHWC im2col, ``torch._int_mm``) at every
    distinct quantizable conv shape of yolov5s at bs 32, 640 and at
    yolov5_v5's Focus conv (cin 12) equal to its plain version (an f64
@@ -180,7 +191,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    cuDNN's - 0.05; serve img/s of int8, bf16 cuDNN and bf16 K1 at bs 32 and
    128. 13.4 the int8 ``.pt2`` read in a fresh interpreter equal bit for bit
    to ``make_serving_fn`` of the int8 model rebuilt from its weights,
-   ``cli.val`` of it, and the artifact sizes (int8 < 0.7 x f32). 13.5
+   ``cli.val`` of it and both img/s (in this process), and the artifact
+   sizes (int8 < 0.7 x f32). 13.5
    ``cli.decompose_model`` of the golden checkpoint with rank-8 kernels
    planted at model_4/m0/cv2, model_6/m0/cv2 and model_8/m0/cv2: the map
    equal to the port's ``decompose_model`` run in this process, planted and
@@ -189,9 +201,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    of it; a plant at model_1 serves without K1; the unplanted checkpoint
    decomposes nothing at the defaults. 13.6 ``cli.val_optimizer`` for 3
    trials through K1, then ``--load-if-exists`` for a fourth;
-   ``cli.create_swa_model -b 2`` on the 2-epoch ``--use-swa`` run's
-   ``epoch_N.ckpt`` (on 32 of phase 7's images) and ``cli.val`` of
-   ``swa.ckpt`` through K1.
+   ``cli.create_swa_model -b 2`` on the 2-epoch ``cli.train --use-swa``
+   run's ``epoch_N.ckpt`` (on 32 of phase 7's images; in this process) and
+   ``cli.val`` of ``swa.ckpt`` through K1.
    ``--compress-only`` runs phases 1, 2, 3, 7 and 13.
 
 14. the secondary trainers and tools, under ``build/chip_smoke_secondary/``:
@@ -234,10 +246,10 @@ Phases, each printing its own lines; any failure exits non-zero:
    bf16 and with the rest of the network in f32 (max|d|/peak < 0.03 each;
    each bf16 path's distance from the f32 path printed beside); 15.3 phase 7's 128 BMPs validated at -iw 800
    on a checkpoint of the 1.05 model, labelled by its f32 plain path, under
-   phase 7's gates, and ``python -m ayolov2_torch.cli.val`` equal to the
-   in-process run; 15.4 ``cli.export`` of that checkpoint (bs 16, 800;
-   started before phase 14, beside it at a lower CPU priority): the
-   operator in the ``.pt2`` with the widths, read back in a fresh
+   phase 7's gates, and ``cli.val`` (in this process) equal to the
+   validator's run; 15.4 ``cli.export`` of that checkpoint (bs 16, 800;
+   with its check, in the background from phase 8 on at a lower CPU
+   priority): the operator in the ``.pt2`` with the widths, read back in a fresh
    interpreter equal bit for bit to ``make_serving_fn`` of the model the
    exporter builds, one launch a call; 15.5 K1 at bs 16, 800 and bs 8,
    640 (the 1.05 set) and bs 8, 640 (stem 8), each against its plain
@@ -255,19 +267,19 @@ Phases, each printing its own lines; any failure exits non-zero:
    the port's encoder (quality 95, 4:2:0), every eighth as PNG and every
    sixteenth as a JPEG stored turned with EXIF orientation 6 or 8, labelled
    by the f32 plain path on the decoded pixels and validated under phase
-   7's gates (bs 32, 640, rect, K1 one launch a batch), ``python -m
-   ayolov2_torch.cli.val`` equal to the in-process run; 16.3 ``cli.train``
+   7's gates (bs 32, 640, rect, K1 one launch a batch), ``cli.val`` (in
+   this process) equal to the validator's run; 16.3 ``cli.train``
    from the golden checkpoint on that set with ``train_config.yaml`` as
    shipped (``workers_mode: process``, 1 epoch, 640, bs 32): finite losses,
    step = ema_updates = the micro-steps, ``cli.val`` of its ``best.ckpt``
-   through K1; 16.5 phase 7's first 32 images written as 8-bit palette and
+   through K1 (both in this process); 16.5 phase 7's first 32 images written as 8-bit palette and
    32-bit BMPs and as TIFFs (LZW with predictor 2, PackBits, Deflate,
    Deflate tiles, JPEG strips with JPEGTables, YCbCr subsampled 2x2) by
    ``write_format_file``, beside the two 640x480 WebP fixtures (lossless
    and lossy), labelled by the f32 plain path on the decoded pixels and
    validated under phase 7's gates (bs 32, 640, rect, K1 one launch a
-   batch), ``python -m ayolov2_torch.cli.val`` equal to the in-process run;
-   16.4 on the host clock, decode ms per 640x480 image (baseline and
+   batch), ``cli.val`` (in this process) equal to the validator's run;
+   16.4 on the host clock, decode ms per 640x480 image (mean of 5; baseline and
    progressive JPEG, PNG, BMP, LZW and JPEG TIFF, CCITT Group 4 TIFF,
    lossless and lossy WebP), encode ms, the val loader's ms per batch of 32
    on JPEG and on BMP with 2 and 4 threads, and the warm validation pass's
@@ -327,8 +339,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    layer lacks from one all-gather of edge rows): seeded yolov5s (nc 80,
    bf16, its head shaped as 18.3's), K1 on; 19.1 one rank over NCCL at 640,
    19.2 two ranks of the card over gloo at 640 and 608 (the /32 level's 19
-   rows split unevenly), each rank in an interpreter of its own as phase
-   18's. Gates on every rank against ``make_serving_fn`` on the same image:
+   rows split unevenly), in the interpreters of 18.1's rank and 18.2's two
+   (which wait for phase 19 to start them; with ``--latency-only`` in
+   interpreters of their own). Gates on every rank against ``make_serving_fn`` on the same image:
    equal counts; every detection of score >= 0.05 found at IoU >= 0.99 with
    its class; the gathered raw maps within K1's gate (0.03 of the peak,
    0.015 at p99.9); K1 launched once in a call, on at most 8 (rows + t + u)
@@ -347,7 +360,8 @@ models') and the augmentation render's device time goes (torch.profiler) and whe
 (clock stamps at its layer boundaries, from a second build of the same
 source with ``-DEARLY_PROFILE``).
 
-Before them, one line gives each phase's wall seconds. The line before the
+Before them, one line gives each phase's wall seconds and CPU seconds (the
+script's own and its children's) beside the host. The line before the
 last is one JSON object with the kernels' numbers; the last line is ``{"ok": true, "device": {...}}``. Weights are random, made
 from ``--seed``, except phase 7's, which are the committed golden
 checkpoint's (phase 7, and phase 8's entry point run); its images are made
@@ -362,6 +376,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import resource
 import shutil
 import signal
 import struct
@@ -376,12 +391,42 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 T_START = time.perf_counter()
-PHASE_S = {}  # phase -> its seconds, printed at the end (phase_done)
+PHASE_S = {}  # phase -> its (wall, script CPU, children's CPU) seconds, printed at the end
+
+
+def cpu_s() -> tuple:
+    """CPU seconds (user + system) so far of this process (its start
+    included) and of its children that have ended and been waited for."""
+    own, kids = (resource.getrusage(w) for w in (resource.RUSAGE_SELF, resource.RUSAGE_CHILDREN))
+    return own.ru_utime + own.ru_stime, kids.ru_utime + kids.ru_stime
 
 
 def phase_done(name: str) -> None:
-    """Record the seconds since the previous phase ended as phase ``name``'s."""
-    PHASE_S[name] = time.perf_counter() - T_START - sum(PHASE_S.values())
+    """Record the wall and CPU seconds since the previous phase ended as
+    phase ``name``'s (a child's CPU counts in the phase that waits for it)."""
+    now = (time.perf_counter() - T_START, *cpu_s())
+    PHASE_S[name] = tuple(v - sum(p[i] for p in PHASE_S.values()) for i, v in enumerate(now))
+
+
+def host_line() -> str:
+    """The host beside the card: CPU model (its family, model and clock
+    where /proc/cpuinfo names it "unknown", as under gVisor), logical CPUs
+    (all, and this process's), the 1-minute load average."""
+    cpu = {}
+    with contextlib.suppress(OSError):
+        for ln in open("/proc/cpuinfo"):
+            if not ln.strip():
+                break  # the first processor's block
+            key, _, value = ln.partition(":")
+            cpu[key.strip()] = value.strip()
+    model = cpu.get("model name", "unknown")
+    if model == "unknown":
+        model = " ".join(f"{k} {cpu[k]}" for k in ("vendor_id", "cpu family", "model",
+                                                   "stepping", "cpu MHz") if k in cpu) or model
+    return (f"{model}, os.cpu_count() {os.cpu_count()}, sched_getaffinity "
+            f"{len(os.sched_getaffinity(0))}, load average (1 min) {os.getloadavg()[0]:.2f}")
+
+
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "runs/golden_r4_mem/train/2026_0818_runs/weights/best.ckpt"
 VAL_DIR = ROOT / "build/chip_smoke_val"
@@ -1159,14 +1204,17 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
                      sizes=VAL_SIZES, per_size: int = 32, bs: int = 32, weights: Path = GOLDEN,
                      nc: int = 20, root: Path = VAL_DIR, name: str = "yolov5s",
                      tag: str = "val", entry_points=("val", "val2"), files: bool = False,
-                     formats: bool = False, limit: Optional[int] = None, checks: bool = True):
+                     formats: bool = False, limit: Optional[int] = None, checks: bool = True,
+                     fresh: bool = True):
     """Phase 7 (see the module docstring), on the golden checkpoint; phase
     15.3 runs it on another checkpoint (``weights``, ``nc``, ``name``) under
     ``root`` with only ``cli.val`` as its entry point, its lines tagged
     ``tag``; phase 16.2 on the same images written as JPEG and PNG files
     (``files``), 16.5 on the first ``limit`` written as BMP and TIFF files
     beside two WebPs (``formats``), without the kernel's check at the rect
-    shapes and the warm pass (``checks``). Returns (early_pipeline launches
+    shapes and the warm pass (``checks``). The entry points run in fresh
+    interpreters, or with ``fresh`` false (15.3, 16.2, 16.5: phase 7 ran
+    them fresh) in this process. Returns (early_pipeline launches
     in the kernel's validation run, max |kernel - plain| at the rect shapes,
     the kernel run's mAP50, bf16 cuDNN's mAP50, the warm pass's img/s), or
     None when a gate failed."""
@@ -1289,17 +1337,22 @@ def validation_phase(seed: int, card: str, device: str = "cuda", img_size: int =
     sheet = root / "answersheet.json"
     common = ["--weights", str(weights), "--data-cfg", str(data_cfg), "-iw", str(img_size),
               "--batch-size", str(bs)] + (["--device", device] if device != "cuda" else [])
-    pool = concurrent.futures.ThreadPoolExecutor(2)  # both entry points at once
-    runs = {module: pool.submit(run_logged, ["-m", f"ayolov2_torch.cli.{module}", *common,
-                                             *extra], 600)
+    runs = {module: ["-m", f"ayolov2_torch.cli.{module}", *common, *extra]
             for module, extra in (("val", ["--json-path", str(out)]),
                                   ("val2", ["--json-path", str(sheet), "--check-map", "0.5"]))
             if module in entry_points}
+    if fresh:
+        pool = concurrent.futures.ThreadPoolExecutor(2)  # both entry points at once
+        runs = {module: pool.submit(run_logged, args, 600) for module, args in runs.items()}
+        how = "python -m ayolov2_torch.cli.{} (the entry points at once)"
+    else:
+        runs = {module: run_in_process(args) for module, args in runs.items()}
+        how = "cli.{} (in this process)"
     for module, run_ in runs.items():
-        proc, wall = run_.result()
+        proc, wall = run_.result() if fresh else run_
         tail = [ln for ln in (proc.stdout + proc.stderr).splitlines() if ln.strip()][-3:]
-        log(f"[val] python -m ayolov2_torch.cli.{module}: exit {proc.returncode} in {wall:.1f} s "
-            f"(the entry points at once); " + " | ".join(ln.strip()[:160] for ln in tail))
+        log(f"[val] {how.format(module)}: exit {proc.returncode} in {wall:.1f} s; "
+            + " | ".join(ln.strip()[:160] for ln in tail))
         if proc.returncode != 0:
             return None
     cli = json.loads(out.read_text())
@@ -1645,10 +1698,43 @@ EPOCH_ROW = (r"epoch +(\d+) done in ([\d.]+)s \((\S+) img/s\): (\d+) steps, mean
 
 
 def run_logged(args, timeout: int = 900, env: Optional[dict] = None):
+    """``python3 *args`` in a fresh interpreter: (the finished process, its
+    wall seconds)."""
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
                           timeout=timeout, env=env)
     return proc, time.perf_counter() - t0
+
+
+def run_in_process(args, env: Optional[dict] = None):
+    """``args`` (``["-m", "ayolov2_torch.cli.<name>", *argv]``) run as that
+    module's ``main(argv)`` in this process, for an entry point that a fresh
+    interpreter has already run in this script: what :func:`run_logged`
+    returns, the output being the entry point's log records and prints.
+    ``env`` is set for the call only. Call it from the main thread: the
+    trainer installs signal handlers."""
+    import importlib
+    import traceback
+
+    main = importlib.import_module(args[1]).main
+    saved = {k: os.environ.get(k) for k in env or {}}
+    os.environ.update(env or {})
+    t0 = time.perf_counter()
+    with captured_log() as text, contextlib.redirect_stdout(text), \
+            contextlib.redirect_stderr(text):
+        try:
+            main(list(args[2:]))
+            rc = 0
+        except (Exception, SystemExit) as e:
+            rc = 0 if isinstance(e, SystemExit) and e.code in (None, 0) else 1
+            if rc:
+                traceback.print_exc()
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return subprocess.CompletedProcess(args, rc, text.getvalue(), ""), time.perf_counter() - t0
 
 
 def start_entry_point(device: str = "cuda", img: int = 320, bs: int = 16) -> tuple:
@@ -1669,8 +1755,9 @@ def start_entry_point(device: str = "cuda", img: int = 320, bs: int = 16) -> tup
 def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 16,
                     started: Optional[tuple] = None) -> tuple:
     """8.5: ``cli.train`` from the golden checkpoint on phase 7's set for 1
-    epoch, ``cli.val`` on its best.ckpt (K1), then ``--resume`` to 2
-    epochs. Returns (ok, early_pipeline launches of the in-process cli.val).
+    epoch (a fresh interpreter), ``cli.val`` on its best.ckpt (K1), then
+    ``--resume`` to 2 epochs (both in this process). Returns (ok,
+    early_pipeline launches of cli.val).
     ``device``, ``img`` and ``bs`` shrink it for a rehearsal on the CPU;
     ``started``: what :func:`start_entry_point` returned, else it runs here."""
     import re
@@ -1702,30 +1789,27 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
     ok = best.exists() and last.exists() and len(epochs) == 1 and len(vals) == 1
     meta_best, meta_last = load_checkpoint(best)["meta"], load_checkpoint(last)["meta"]
 
-    # the resume reads last.ckpt and writes a run of its own: it runs beside cli.val
-    resume = concurrent.futures.ThreadPoolExecutor(1).submit(
-        run_logged, [*common, "--model", str(GOLDEN), "--cfg", str(cfg3), "--resume", str(last)])
+    # cli.val's fresh interpreter ran in phase 7 (equal to the validator): here in this process
     val_json = TRAIN_DIR / "val.json"
     vargs = ["--weights", str(best), "--data-cfg", str(data), "-iw", str(img), "--batch-size",
              str(bs), "--no-rect", *dev, "--json-path", str(val_json)]
-    proc, wall = run_logged(["-m", "ayolov2_torch.cli.val", *vargs])
-    if proc.returncode != 0:
-        log("[train] cli.val: " + " | ".join((proc.stdout + proc.stderr).strip().splitlines()[-5:]))
-        return False, 0
-    cli = json.loads(val_json.read_text())
     early.early_pipeline.launches = 0  # main path (cli.val in this process): counts from here
-    inproc = val.main(vargs[:-2])
+    t0 = time.perf_counter()
+    with captured_log():
+        val.main(vargs)
     launches = early.early_pipeline.launches
+    cli = json.loads(val_json.read_text())
     d = abs(cli["map50"] - meta_best["map50"])
-    ok = ok and d <= 0.02 and launches > 0 and abs(inproc["map50"] - cli["map50"]) <= 1e-9
-    log(f"[train] python -m ayolov2_torch.cli.val on best.ckpt (epoch {meta_best['epoch']}, K1 path, "
+    ok = ok and d <= 0.02 and launches > 0
+    log(f"[train] cli.val (in this process) on best.ckpt (epoch {meta_best['epoch']}, K1 path, "
         f"bf16, square {img}): mAP50 {cli['map50']:.5f} mAP50-95 {cli['map50_95']:.5f} in "
-        f"{wall:.1f} s vs the trainer's validation of that epoch (plain path, bf16 compute, f32 EMA "
-        f"weights) mAP50 {meta_best['map50']:.5f}: |d| {d:.5f} (gate 0.02); in-process cli.val "
-        f"mAP50 {inproc['map50']:.5f}, early_pipeline launches {launches} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"{time.perf_counter() - t0:.1f} s vs the trainer's validation of that epoch (plain path, "
+        f"bf16 compute, f32 EMA weights) mAP50 {meta_best['map50']:.5f}: |d| {d:.5f} (gate 0.02), "
+        f"early_pipeline launches {launches} {'ok' if ok else 'FAIL'}")
 
-    proc, wall = resume.result()
+    # the resume reads last.ckpt and writes a run of its own
+    proc, wall = run_in_process([*common, "--model", str(GOLDEN), "--cfg", str(cfg3), "--resume",
+                                 str(last)])
     out2 = proc.stdout + proc.stderr
     (TRAIN_DIR / "resume.log").write_text(out2)
     epochs2 = re.findall(r"epoch +(\d+) done in .*?: (\d+) steps", out2)
@@ -1738,9 +1822,9 @@ def entry_point_run(card: str, device: str = "cuda", img: int = 320, bs: int = 1
     ok_resume = (len(epochs2) == 1 and epochs2[0][0] == "1"
                  and meta2["step"] == meta_last["step"] + n_steps
                  and meta2["ema_updates"] == meta_last["ema_updates"] + n_steps)
-    log(f"[train] --resume last.ckpt (epoch {meta_last['epoch']}, step {meta_last['step']}, "
-        f"ema_updates {meta_last['ema_updates']}) to 2 epochs: exit {proc.returncode} in "
-        f"{wall:.1f} s (beside cli.val), ran epochs {[e[0] for e in epochs2]} of {n_steps} "
+    log(f"[train] cli.train --resume last.ckpt (in this process; epoch {meta_last['epoch']}, "
+        f"step {meta_last['step']}, ema_updates {meta_last['ema_updates']}) to 2 epochs: exit "
+        f"{proc.returncode} in {wall:.1f} s, ran epochs {[e[0] for e in epochs2]} of {n_steps} "
         f"micro-steps; the new "
         f"last.ckpt: epoch {meta2['epoch']}, step {meta2['step']}, ema_updates "
         f"{meta2['ema_updates']} {'ok' if ok_resume else 'FAIL'}")
@@ -1937,8 +2021,9 @@ def time_renders(card: str, img: int, bs: int, step_ms: float) -> None:
 def aug_entry_point(card: str, step_img_s: float, device: str = "cuda", img: int = 640,
                     bs: int = 32, epochs: int = 2) -> tuple:
     """``cli.train`` with ``device_aug: true`` (recipe (a)) from the golden
-    checkpoint on phase 7's set, then ``cli.val`` (K1) on its best.ckpt.
-    Returns (ok, early_pipeline launches of cli.val)."""
+    checkpoint on phase 7's set, then ``cli.val`` (K1) on its best.ckpt,
+    both in this process. Returns (ok, early_pipeline launches of
+    cli.val)."""
     import re
 
     from ayolov2_torch.cli import val
@@ -1958,14 +2043,14 @@ def aug_entry_point(card: str, step_img_s: float, device: str = "cuda", img: int
     data.write_text(json.dumps({"train_path": images, "val_path": images, "nc": 20,
                                 "names": [f"class{i}" for i in range(20)]}))
     dev = [] if device == "cuda" else ["--device", device]
-    proc, wall = run_logged(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
-                             str(data), "--cfg", str(cfg_path), "--log-dir", str(AUG_DIR / "runs"),
-                             *dev])
+    proc, wall = run_in_process(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN),
+                                 "--data", str(data), "--cfg", str(cfg_path), "--log-dir",
+                                 str(AUG_DIR / "runs"), *dev])
     out = proc.stdout + proc.stderr
     (AUG_DIR / "train.log").write_text(out)
     rows = re.findall(EPOCH_ROW, out)
     run_dir = re.search(r"Run dir: (\S+)", out)
-    log(f"[aug] python -m ayolov2_torch.cli.train --model best.ckpt (golden) device_aug (recipe "
+    log(f"[aug] cli.train (in this process) --model best.ckpt (golden) device_aug (recipe "
         f"(a), {img} px, bs {bs}, {epochs} epochs): exit {proc.returncode} in {wall:.1f} s; "
         f"{'resident' if 'resident source frames' in out else 'NOT resident'}")
     for r in rows:
@@ -1997,7 +2082,7 @@ def aug_entry_point(card: str, step_img_s: float, device: str = "cuda", img: int
     ok = (ok and launches > 0 and result["seen"] == n_images
           and np.isfinite(result["map50"]))
     log(f"[aug] last.ckpt: epoch {meta['epoch']}, step {meta['step']}, ema_updates "
-        f"{meta['ema_updates']} (want {epochs * n_steps}); python -m ayolov2_torch.cli.val on "
+        f"{meta['ema_updates']} (want {epochs * n_steps}); cli.val (in this process) on "
         f"best.ckpt (K1, rect): seen {result['seen']} mAP50 {result['map50']:.5f} mAP50-95 "
         f"{result['map50_95']:.5f} in {time.perf_counter() - t0:.1f} s, early_pipeline launches "
         f"{launches} {'ok' if ok else 'FAIL'}")
@@ -2180,7 +2265,7 @@ def item_profile(ds, n: int, top: int = 8) -> list:
     return sorted(rows, key=lambda r: -r[1])[:top]
 
 
-def time_host_items(images: Path, img: int, n: int = 16) -> None:
+def time_host_items(images: Path, img: int, n: int = 8) -> None:
     """10.2: get_item ms per item on one host thread, recipes (a) and (b),
     and each pixel policy forced to p = 1 on a 640 item of recipe (a)."""
     from ayolov2_torch.data import augment
@@ -2239,17 +2324,16 @@ def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: f
     env = None
     if surface:
         shutil.rmtree(SURFACE_DIR, ignore_errors=True)
-        env = dict(os.environ, AYOLO_TRACE_DIR=str(SURFACE_DIR / "train_trace"),
-                   AYOLO_TRACE_STEPS="2")
-    proc, wall = run_logged(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
-                             str(data), "--cfg", str(cfg_path), "--log-dir", str(runs), *dev],
-                            env=env)
+        env = dict(AYOLO_TRACE_DIR=str(SURFACE_DIR / "train_trace"), AYOLO_TRACE_STEPS="2")
+    proc, wall = run_in_process(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN),
+                                 "--data", str(data), "--cfg", str(cfg_path), "--log-dir",
+                                 str(runs), *dev], env=env)
     out = proc.stdout + proc.stderr
     (HOST_DIR / f"train_{recipe}_{workers_mode}.log").write_text(out)
     rows = re.findall(EPOCH_ROW, out)
     path = re.search(r"training images: (.*)", out)
     run_dir = re.search(r"Run dir: (\S+)", out)
-    log(f"[host] python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
+    log(f"[host] cli.train (in this process) --model best.ckpt (golden) --cfg "
         f"{HOST_RECIPES[recipe].name} as shipped ({img} px, bs {bs}, {epochs} "
         f"epoch{'s' if epochs > 1 else ''}, "
         f"workers_mode {workers_mode}{', plot as shipped, a trace window' if surface else ''}): "
@@ -2277,9 +2361,7 @@ def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: f
             f"{meta['ema_updates']} (want {epochs * n_steps}), host {mode_word}")
         return False, 0
     if surface:
-        ok = surface_train_outputs(Path(run_dir.group(1)), bs, img, device) and ok
-        ok = diagnostics_cost(recipe, workers_mode, images, dev, bs, epochs, img, wall, rows,
-                              out) and ok
+        ok = surface_train_outputs(Path(run_dir.group(1)), bs, img, device, out) and ok
     vargs = ["--weights", str(wdir / "best.ckpt"), "--data-cfg", str(data), "-iw", str(img),
              "--batch-size", str(bs), *dev]
     if surface:
@@ -2292,7 +2374,7 @@ def host_entry_point(recipe: str, workers_mode: str, images: Path, step_img_s: f
         launches = early.early_pipeline.launches
     ok = ok and launches > 0 and 0.0 <= result["map50"] <= 1.0
     log(f"[host] last.ckpt: epoch {meta['epoch']}, step {meta['step']}, ema_updates "
-        f"{meta['ema_updates']}; python -m ayolov2_torch.cli.val {' '.join(vargs[8:])} on "
+        f"{meta['ema_updates']}; cli.val (in this process) {' '.join(vargs[8:])} on "
         f"best.ckpt (K1, rect): seen {result['seen']} mAP50 {result['map50']:.5f} mAP50-95 "
         f"{result['map50_95']:.5f} in {time.perf_counter() - t0:.1f} s, early_pipeline launches "
         f"{launches} {'ok' if ok else 'FAIL'}")
@@ -2382,10 +2464,14 @@ def png_hw(path: Path) -> Optional[tuple]:
         return None
 
 
-def surface_train_outputs(run_dir: Path, bs: int, img: int, device: str) -> bool:
+def surface_train_outputs(run_dir: Path, bs: int, img: int, device: str, out: str) -> bool:
     """11.1: the plots of a run with ``plot: true`` (labels.png 600x1440, the
     first three batches as mosaics of min(bs, 16) tiles) and its trace
-    window of exactly 2 ProfilerStep ranges."""
+    window of exactly 2 ProfilerStep ranges; the plots' and the trace's
+    writing seconds from the run's log ``out``. (That a run with ``plot:
+    false`` and no trace window writes neither is a CPU test.)"""
+    import re
+
     ns = int(np.ceil(min(bs, 16) ** 0.5))
     want = {"labels.png": (600, 1440), **{f"train_batch{i}.png": (ns * img, ns * img)
                                           for i in range(3)}}
@@ -2398,50 +2484,13 @@ def surface_train_outputs(run_dir: Path, bs: int, img: int, device: str) -> bool
     ok = got == want and steps == ["ProfilerStep#2", "ProfilerStep#3"] and (
         kernels > 0 or device != "cuda")
     size = trace.stat().st_size / 1e6 if trace else 0.0
+    plot_s = sum(float(v) for v in re.findall(r"plot \S+ written in ([\d.]+) s", out))
+    write_s = sum(float(v) for v in re.findall(r"profiler trace written to \S+ in ([\d.]+) s", out))
     log(f"[surface] 11.1 cli.train with plot: true as shipped: "
         + ", ".join(f"{k} {v}" for k, v in got.items())
         + f"; train trace {trace.name if trace else None} ({size:.1f} MB): {steps}, "
-        f"{kernels} kernel names {'ok' if ok else 'FAIL'}")
-    return ok
-
-
-def diagnostics_cost(recipe: str, workers_mode: str, images: Path, dev: list, bs: int,
-                     epochs: int, img: int, wall: float, rows: list, out: str) -> bool:
-    """11.1's cost: the run of ``host_entry_point`` (``wall`` s, its epoch
-    ``rows`` and log ``out``) made again right after it without plots and
-    trace window. labels.png is drawn before epoch 0, the mosaics inside
-    it; the profiler runs over steps 2-3 and the validation after epoch 0
-    (outside the epochs' times), and its trace is written at step 4, epoch
-    1's first at 4 steps an epoch. So the two runs' walls and epoch sums
-    are compared, not one epoch against another."""
-    import re
-
-    cfg_path = shipped_cfg(recipe, epochs, workers_mode, bs, img)  # plot: false
-    env = {k: v for k, v in os.environ.items() if not k.startswith("AYOLO_TRACE")}
-    proc, plain_wall = run_logged(
-        ["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
-         str(HOST_DIR / "data.json"), "--cfg", str(cfg_path), "--log-dir",
-         str(HOST_DIR / f"runs_{recipe}_{workers_mode}_plain"), *dev], env=env)
-    plain_out = proc.stdout + proc.stderr
-    (HOST_DIR / f"train_{recipe}_{workers_mode}_plain.log").write_text(plain_out)
-    plain = re.findall(EPOCH_ROW, plain_out)
-    plot_s = sum(float(v) for v in re.findall(r"plot \S+ written in ([\d.]+) s", out))
-    write_s = sum(float(v) for v in re.findall(r"profiler trace written to \S+ in ([\d.]+) s", out))
-    ok = proc.returncode == 0 and len(plain) == len(rows) == epochs and not re.search(
-        r"plot \S+ written|profiler trace written", plain_out)
-    diag_epochs = [float(r[1]) for r in rows]
-    plain_epochs = [float(r[1]) for r in plain]
-    added = wall - plain_wall
-    log(f"[surface] 11.1 cost: the same cli.train run without plots and trace window, after it: "
-        f"exit {proc.returncode} in {plain_wall:.1f} s against {wall:.1f} s; epochs "
-        f"{plain_epochs} s against {diag_epochs} s; the diagnostics add {added:.1f} s to the run "
-        f"({added / plain_wall * 100:.1f}%) and "
-        f"{sum(diag_epochs) - sum(plain_epochs):.1f} s to its epochs; of the run's, plots "
-        f"{plot_s:.3f} s, the trace's writing {write_s:.3f} s, the rest (the profiler's slowdown "
-        f"of steps 2-3 and epoch 0's validation, and the runs' spread) "
-        f"{added - plot_s - write_s:.1f} s {'ok' if ok else 'FAIL'}")
-    if not ok:
-        log("[surface] " + " | ".join(plain_out.strip().splitlines()[-8:]))
+        f"{kernels} kernel names; writing the plots took {plot_s:.3f} s, the trace "
+        f"{write_s:.3f} s {'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -2790,8 +2839,8 @@ def artifact_check(pt2: str, raw_pt2: str, seed: int) -> int:
     golden checkpoint's artifacts read back by ``load_exported`` against
     ``make_serving_fn`` / ``make_raw_serving_fn`` of the same checkpoint on
     the same batch (counts equal, boxes and scores within 1e-3 of the
-    peak), the early-network kernel's launches per artifact call, and both
-    calls' img/s at bs 32 in turns. Prints one ``ARTIFACT {json}`` line."""
+    peak), and the early-network kernel's launches per artifact call.
+    Prints one ``ARTIFACT {json}`` line."""
     import torch
 
     from ayolov2_torch.export import load_exported, make_raw_serving_fn, make_serving_fn
@@ -2826,10 +2875,6 @@ def artifact_check(pt2: str, raw_pt2: str, seed: int) -> int:
         call(imgs)
     torch.cuda.synchronize()
     out["launches_per_call"] = early.early_pipeline.launches / 5
-    rates = {"artifact": [], "make_serving_fn": []}
-    for name in ("artifact", "make_serving_fn", "make_serving_fn", "artifact"):
-        rates[name].append(serve_rate(call if name == "artifact" else serve, imgs, 20))
-    out["rates"] = rates
     raw_call = load_exported(raw_pt2)
     frames = images_on_card((32, 720, 1280, 3), seed + 51)
     raw_serve = make_raw_serving_fn(model, (720, 1280), (640, 640))
@@ -2839,85 +2884,87 @@ def artifact_check(pt2: str, raw_pt2: str, seed: int) -> int:
     return 0
 
 
-def export_phase(card: str, seed: int, k1_map50: float) -> tuple:
-    """12.4: ``python -m ayolov2_torch.cli.export`` of the golden checkpoint
-    (bs 32, 640, tpu_nms; and ``--raw-hw 720 1280``), both in parallel;
-    :func:`artifact_check` in a fresh interpreter; ``cli.val --weights`` the
-    artifact on phase 7's set (square 640 batches of 32, the last padded)
-    against the validator over the same loader with ``make_serving_fn`` of
-    the checkpoint as its detection function (within 1e-3), phase 7's rect
-    run printed beside. Returns (ok, the kernel's launches)."""
+def start_export(seed: int) -> tuple:
+    """12.4's background job (in the whole run from phase 8 on, at a lower CPU
+    priority): ``python -m ayolov2_torch.cli.export`` of the golden
+    checkpoint (bs 32, 640, tpu_nms), again with ``--raw-hw 720 1280``, then
+    :func:`artifact_check` of both artifacts, each in a fresh interpreter."""
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    EXPORT_DIR.mkdir(parents=True)
+    common = ["-m", "ayolov2_torch.cli.export", "--weights", str(GOLDEN), "--nc", "20",
+              "--batch-size", "32", "-iw", "640", "--type", "tpu_nms"]
+    pt2, raw_pt2 = EXPORT_DIR / "golden_tpu_nms.pt2", EXPORT_DIR / "golden_raw.pt2"
+    job = start_job("export_golden", [*common, "--out", str(pt2.with_suffix(""))], EXPORT_DIR,
+                    "export", group=True, nice=10, threads=2, then=[
+                        [*common, "--raw-hw", "720", "1280", "--out", str(raw_pt2.with_suffix(""))],
+                        ["-c", f"import sys, chip_smoke; sys.exit(chip_smoke.artifact_check("
+                               f"{str(pt2)!r}, {str(raw_pt2)!r}, {seed}))"]])
+    atexit.register(stop_jobs, [job])
+    return job
+
+
+def export_phase(card: str, seed: int, k1_map50: float, job: Optional[tuple] = None) -> tuple:
+    """12.4: the exports and their check (:func:`start_export`'s job,
+    started here unless ``job`` is given); in this process, the artifact's
+    img/s and ``make_serving_fn``'s at bs 32 in turns, and ``cli.val
+    --weights`` the artifact on phase 7's set (square 640 batches of 32, the
+    last padded) against the validator over the same loader with
+    ``make_serving_fn`` of the checkpoint as its detection function (within
+    1e-3), phase 7's rect run printed beside. Returns (ok, the kernel's
+    launches)."""
     import torch
 
+    from ayolov2_torch.cli import val
     from ayolov2_torch.data import DataLoader, DetectionDataset
     from ayolov2_torch.eval import YoloValidator
-    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.export import load_exported, make_serving_fn
     from ayolov2_torch.ops import early_pipeline as early
     from ayolov2_torch.utils.checkpoint import load_model
 
-    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
-    EXPORT_DIR.mkdir(parents=True)
-    common = [sys.executable, "-m", "ayolov2_torch.cli.export", "--weights", str(GOLDEN),
-              "--nc", "20", "--batch-size", "32", "-iw", "640", "--type", "tpu_nms"]
-    jobs = {"nms": common + ["--out", str(EXPORT_DIR / "golden_tpu_nms")],
-            "raw": common + ["--raw-hw", "720", "1280", "--out", str(EXPORT_DIR / "golden_raw")]}
-    t0 = time.perf_counter()
-    procs = {k: subprocess.Popen(c, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                 text=True) for k, c in jobs.items()}
-    ok = True
-    for k, proc in procs.items():
-        text, _ = proc.communicate(timeout=600)
-        tail = [ln for ln in text.splitlines() if ln.strip()][-2:]
-        log(f"[export] cli.export {k}: exit {proc.returncode} ({time.perf_counter() - t0:.1f} s "
-            f"since both started); " + " | ".join(ln.strip()[:200] for ln in tail))
-        ok = ok and proc.returncode == 0
-    if not ok:
-        return False, 0
+    ok, text = finish_job(job or start_export(seed), timeout=900)
     pt2, raw_pt2 = EXPORT_DIR / "golden_tpu_nms.pt2", EXPORT_DIR / "golden_raw.pt2"
-    side = json.loads((EXPORT_DIR / "golden_tpu_nms.yaml").read_text())
-    log(f"[export] {pt2.name} {pt2.stat().st_size / 1e6:.1f} MB, {raw_pt2.name} "
-        f"{raw_pt2.stat().st_size / 1e6:.1f} MB; sidecar platforms {side['platforms']}, "
-        f"early_pipeline {side['early_pipeline']}, input {side['input']['shape']}")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke."
-                           f"artifact_check({str(pt2)!r}, {str(raw_pt2)!r}, {seed}))"],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
-    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("ARTIFACT ")]
-    if proc.returncode != 0 or not lines:
-        log(f"[export] artifact check: exit {proc.returncode}; "
-            + " | ".join((proc.stdout + proc.stderr).splitlines()[-6:]))
+    lines = [ln for ln in text.splitlines() if ln.startswith("ARTIFACT ")]
+    if not ok or text.count("dry run OK") != 2 or not lines:
+        log("[export] cli.export nms, raw and the artifact check: "
+            + " | ".join(text.strip().splitlines()[-6:]))
         return False, 0
+    side = json.loads((EXPORT_DIR / "golden_tpu_nms.yaml").read_text())
+    log(f"[export] cli.export nms and raw: {pt2.name} {pt2.stat().st_size / 1e6:.1f} MB, "
+        f"{raw_pt2.name} {raw_pt2.stat().st_size / 1e6:.1f} MB; sidecar platforms "
+        f"{side['platforms']}, early_pipeline {side['early_pipeline']}, input "
+        f"{side['input']['shape']}")
     a = json.loads(lines[-1][len("ARTIFACT "):])
     ok_a = (side["early_pipeline"] and a["counts_equal"] and a["det_err"] < 1e-3
             and a["first_call_launches"] == 1 and a["launches_per_call"] == 1
             and a["raw_err"] < 1e-3)
-    rates = {k: float(np.mean(v)) for k, v in a["rates"].items()}
     log(f"[export] {card}: the .pt2 read in a fresh interpreter ({a['load_s']:.1f} s) vs "
         f"make_serving_fn of the checkpoint, bs32 640: counts equal "
         f"{'yes' if a['counts_equal'] else 'NO'} (mean {a['mean_count']:.2f}), max|d|/peak "
         f"{a['det_err']:.2e} (gate 1e-3); early_pipeline launches on the first call "
         f"{a['first_call_launches']}, per call {a['launches_per_call']:.1f} (gate 1); raw frames "
-        f"720x1280 vs make_raw_serving_fn max|d|/peak {a['raw_err']:.2e} (gate 1e-3); "
-        f"{time.perf_counter() - t0:.1f} s {'ok' if ok_a else 'FAIL'}")
-    log(f"[time] {card}: the exported call {rates['artifact']:.1f} img/s "
-        f"({' '.join(f'{r:.1f}' for r in a['rates']['artifact'])}) vs make_serving_fn "
-        f"{rates['make_serving_fn']:.1f} ({' '.join(f'{r:.1f}' for r in a['rates']['make_serving_fn'])}),"
-        f" yolov5s golden bs32 640, K1 in both, in turns")
+        f"720x1280 vs make_raw_serving_fn max|d|/peak {a['raw_err']:.2e} (gate 1e-3) "
+        f"{'ok' if ok_a else 'FAIL'}")
     launches = int(a["launches"])
+    call = load_exported(str(pt2))
+    serve = make_serving_fn(load_model(GOLDEN, nc=20, device="cuda"))
+    imgs = images_on_card((32, 640, 640, 3), seed + 50)
+    rates = {"artifact": [], "make_serving_fn": []}
+    early.early_pipeline.launches = 0  # both calls in turns: counts from here
+    for name in ("artifact", "make_serving_fn", "make_serving_fn", "artifact"):
+        rates[name].append(serve_rate(call if name == "artifact" else serve, imgs, 20))
+    launches += early.early_pipeline.launches
+    log(f"[time] {card}: the exported call {np.mean(rates['artifact']):.1f} img/s "
+        f"({' '.join(f'{r:.1f}' for r in rates['artifact'])}) vs make_serving_fn "
+        f"{np.mean(rates['make_serving_fn']):.1f} "
+        f"({' '.join(f'{r:.1f}' for r in rates['make_serving_fn'])}), yolov5s golden bs32 640, "
+        f"K1 in both, in turns (this process)")
+    del call, imgs
 
-    out = EXPORT_DIR / "val.json"
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "ayolov2_torch.cli.val", "--weights", str(pt2),
-                           "--data-cfg", str(VAL_DIR / "data.json"), "--json-path", str(out)],
-                          cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        log(f"[export] cli.val of the artifact: exit {proc.returncode}; "
-            + " | ".join((proc.stdout + proc.stderr).splitlines()[-4:]))
-        return False, launches
-    art = json.loads(out.read_text())
+    with captured_log():
+        art = val.main(["--weights", str(pt2), "--data-cfg", str(VAL_DIR / "data.json")])
     ds = DetectionDataset(str(VAL_DIR / "images"), img_size=640, batch_size=32, rect=False,
                           stride=32)
-    serve = make_serving_fn(load_model(GOLDEN, nc=20, device="cuda"))
     early.early_pipeline.launches = 0  # the in-process run: counts from here
     same = YoloValidator(None, DataLoader(ds, batch_size=32, pad_final_batch=True),
                          cfg={"nc": 20}, detection_fn=serve, device="cuda").validation()
@@ -2925,7 +2972,8 @@ def export_phase(card: str, seed: int, k1_map50: float) -> tuple:
     ok_v = (art["seen"] == same["seen"] == len(VAL_SIZES) * 32
             and abs(art["map50"] - same["map50"]) <= 1e-3
             and abs(art["map50_95"] - same["map50_95"]) <= 1e-3)
-    log(f"[export] cli.val --weights {pt2.name} on phase 7's set ({time.perf_counter() - t0:.1f} "
+    log(f"[export] cli.val (in this process) --weights {pt2.name} on phase 7's set "
+        f"({time.perf_counter() - t0:.1f} "
         f"s): seen {art['seen']}, mAP50 {art['map50']:.5f} mAP50-95 {art['map50_95']:.5f}; the "
         f"validator over the same square batches with make_serving_fn (K1) as detection_fn: "
         f"{same['map50']:.5f} / {same['map50_95']:.5f} (gate 1e-3); phase 7's K1 run (rect "
@@ -2957,9 +3005,10 @@ def simclr_embedding(seed: int) -> bool:
 
 
 def zoo_phase(card: str, seed: int, s_rate: float, k1_map50: float,
-              profile: bool = False) -> tuple:
-    """Phase 12 (see the module docstring). Returns (ok, early_pipeline
-    launches of the export path)."""
+              profile: bool = False, export_job: Optional[tuple] = None) -> tuple:
+    """Phase 12 (see the module docstring); ``export_job``: what
+    :func:`start_export` returned, else 12.4 starts it. Returns (ok,
+    early_pipeline launches of the export path)."""
     import torch
 
     t0 = time.perf_counter()
@@ -2977,7 +3026,7 @@ def zoo_phase(card: str, seed: int, s_rate: float, k1_map50: float,
         if not ok:
             return False, 0
     t1 = time.perf_counter()
-    ok, launches = export_phase(card, seed, k1_map50)
+    ok, launches = export_phase(card, seed, k1_map50, export_job)
     log(f"[zoo] 12.4 export: {'ok' if ok else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
     if not ok:
         return False, launches
@@ -3011,34 +3060,57 @@ def plant_low_rank(params, paths, rank: int = 8, seed: int = 0) -> None:
 
 
 def start_job(name: str, args: list, root: Path = COMPRESS_DIR, tag: str = "compress",
-              group: bool = False, nice: int = 0, threads: int = 0) -> tuple:
+              group: bool = False, nice: int = 0, threads: int = 0, then=()) -> tuple:
     """A ``python -m`` subprocess in the background, its output to
     ``root/{name}.log``; returns (name, Popen, log path, start, tag). With
     ``group`` it leads a process group of its own (see :func:`stop_jobs`);
     ``nice`` lowers its CPU priority (and its children's) below the
     foreground's; ``threads`` caps its CPU ops' threads (jobs that run
-    together then share the host's cores instead of each spinning on all)."""
+    together then share the host's cores instead of each spinning on all);
+    ``then``: the arguments of more ``python`` commands, each run in a fresh
+    interpreter once the one before exited 0."""
+    import shlex
+
     path = root / f"{name}.log"
     fh = open(path, "w")
     env = None
     if threads:
         env = dict(os.environ, **{k: str(threads) for k in (
             "OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")})
-    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, stdout=fh, env=env,
+    cmds = [[sys.executable, *a] for a in (args, *then)]
+    argv = cmds[0] if len(cmds) == 1 else ["sh", "-c", " && ".join(map(shlex.join, cmds))]
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=fh, env=env,
                             stderr=subprocess.STDOUT, text=True, start_new_session=group,
                             preexec_fn=(lambda: os.nice(nice)) if nice else None)
     fh.close()
     return name, proc, path, time.perf_counter(), tag
 
 
+def reap(proc, timeout: float) -> tuple:
+    """Wait up to ``timeout`` s for ``proc`` (a ``Popen``): (its exit code,
+    the CPU seconds of it and of the children it waited for), by
+    ``os.wait4``."""
+    if proc.returncode is not None:  # already waited for (Popen.poll)
+        return proc.returncode, float("nan")
+    end = time.perf_counter() + timeout
+    while True:
+        pid, status, use = os.wait4(proc.pid, os.WNOHANG)
+        if pid:
+            proc.returncode = os.waitstatus_to_exitcode(status)
+            return proc.returncode, use.ru_utime + use.ru_stime
+        if time.perf_counter() > end:
+            raise subprocess.TimeoutExpired(proc.args, timeout)
+        time.sleep(0.05)
+
+
 def finish_job(job, timeout: int = 600) -> tuple:
     """(ok, log text) of a job from :func:`start_job`, waited for."""
     name, proc, path, t0, tag = job
-    rc = proc.wait(timeout=timeout)
+    rc, cpu = reap(proc, timeout)
     text = path.read_text()
     tail = [ln for ln in text.splitlines() if ln.strip()][-2:]
     log(f"[{tag}] job {name}: exit {rc}, waited for {time.perf_counter() - t0:.1f} s from its "
-        f"start; "
+        f"start, CPU {cpu:.1f} s; "
         + " | ".join(ln.strip()[:200] for ln in tail))
     return rc == 0, text
 
@@ -3291,11 +3363,9 @@ def int8_times(card: str) -> bool:
     return ok
 
 
-def int8_artifact_check(pt2: str, seed: int) -> int:
-    """13.4, run as ``python3 -c`` in a fresh interpreter: the int8 ``.pt2``
-    on a batch against ``make_serving_fn`` of the int8 model rebuilt from
-    the artifact's own weights (bit for bit), and the ``_int_mm`` calls in
-    its graph. Prints one ``ARTIFACT {json}`` line."""
+def int8_serves(pt2: str) -> tuple:
+    """The int8 ``.pt2``'s program, its call (``load_exported``) and
+    ``make_serving_fn`` of the int8 model rebuilt from its own weights."""
     import torch
 
     from ayolov2_torch.export import load_exported, make_serving_fn
@@ -3303,47 +3373,47 @@ def int8_artifact_check(pt2: str, seed: int) -> int:
     from ayolov2_torch.utils.checkpoint import load_variables
 
     program = torch.export.load(pt2)
-    call = load_exported(pt2)
-    imgs = images_on_card((32, 640, 640, 3), seed + 60)
-    got = call(imgs)
     _, meta = load_variables(GOLDEN)
     model = build_model(json.loads(meta["model_cfg"]), nc=20, fused=True, quant=True,
                         device="cuda")
     state = {k[len("model."):]: v for k, v in program.state_dict.items()
              if k.startswith("model.")}
     model.load_state_dict(state, strict=True)
-    serve = make_serving_fn(model)
-    want = serve(imgs)
+    return program, load_exported(pt2), make_serving_fn(model)
+
+
+def int8_artifact_check(pt2: str, seed: int) -> int:
+    """13.4, run as ``python3 -c`` in a fresh interpreter: the int8 ``.pt2``
+    on a batch against ``make_serving_fn`` of the int8 model rebuilt from
+    the artifact's own weights (bit for bit), and the ``_int_mm`` calls in
+    its graph. Prints one ``ARTIFACT {json}`` line."""
+    import torch
+
+    program, call, serve = int8_serves(pt2)
+    imgs = images_on_card((32, 640, 640, 3), seed + 60)
+    got, want = call(imgs), serve(imgs)
     out = {"equal": bool(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])),
            "mean_count": got[1].float().mean().item(),
            "int_mm_nodes": sum(1 for n in program.graph.nodes if "_int_mm" in str(n.target)),
-           "int8_tensors": sum(1 for t in program.state_dict.values() if t.dtype == torch.int8),
-           "rate": serve_rate(call, imgs, 10), "rate_in_process": serve_rate(serve, imgs, 10)}
+           "int8_tensors": sum(1 for t in program.state_dict.values() if t.dtype == torch.int8)}
     print("ARTIFACT " + json.dumps(out), flush=True)
     return 0
 
 
 def int8_export(card: str, seed: int, export_job, sizes_job) -> bool:
     """13.4: ``cli.export --dtype int8 --calib-dir`` (bs 32, 640, phase 7's
-    images; run in the background since the phase began), its artifact
-    checked in a fresh interpreter, ``cli.val`` of the ``.pt2``, and
+    images) and its artifact checked in a fresh interpreter (one background
+    job, :func:`start_compress`); in this process ``cli.val`` of the
+    ``.pt2`` and its img/s beside ``make_serving_fn``'s of the int8 model;
     ``cli.artifact_sizes`` (int8 < 0.7 x f32)."""
-    ok, _ = finish_job(export_job)
+    from ayolov2_torch.cli import val
+
+    ok, text = finish_job(export_job)
     pt2 = COMPRESS_DIR / "golden_int8.pt2"
-    if not ok:
+    lines = [ln for ln in text.splitlines() if ln.startswith("ARTIFACT ")]
+    if not ok or "dry run OK" not in text or not lines:
         return False
     side = json.loads(pt2.with_suffix(".yaml").read_text())
-    out = COMPRESS_DIR / "val_int8_pt2.json"
-    check = start_job("int8_artifact_check", [
-        "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.int8_artifact_check({str(pt2)!r}, "
-              f"{seed}))"])
-    val_job = start_job("val_int8_pt2", [
-        "-m", "ayolov2_torch.cli.val", "--weights", str(pt2), "--data-cfg",
-        str(VAL_DIR / "data.json"), "--json-path", str(out)])
-    ok_c, text = finish_job(check)
-    lines = [ln for ln in text.splitlines() if ln.startswith("ARTIFACT ")]
-    if not ok_c or not lines:
-        return False
     a = json.loads(lines[-1][len("ARTIFACT "):])
     ok_a = (a["equal"] and side["quant"] is True and not side["early_pipeline"]
             and a["int_mm_nodes"] > 40 and a["int8_tensors"] > 40)
@@ -3352,14 +3422,17 @@ def int8_export(card: str, seed: int, export_job, sizes_job) -> bool:
         f"interpreter: equal to make_serving_fn of the int8 model bit for bit "
         f"{'yes' if a['equal'] else 'NO'} (mean count {a['mean_count']:.2f}); _int_mm nodes "
         f"{a['int_mm_nodes']}, int8 tensors {a['int8_tensors']} {'ok' if ok_a else 'FAIL'}")
-    log(f"[time] {card}: the int8 artifact {a['rate']:.1f} img/s vs in-process int8 serving "
-        f"{a['rate_in_process']:.1f} img/s, bs32 640")
-    ok_v, _ = finish_job(val_job)
-    ok_v = ok_v and json.loads(out.read_text())["seen"] == len(VAL_SIZES) * 32
-    if ok_v:
-        r = json.loads(out.read_text())
-        log(f"[compress] 13.4 cli.val --weights {pt2.name} on phase 7's set (square 640, "
-            f"bs 32): mAP50 {r['map50']:.5f} mAP50-95 {r['map50_95']:.5f} ok")
+    t0 = time.perf_counter()
+    with captured_log():
+        r = val.main(["--weights", str(pt2), "--data-cfg", str(VAL_DIR / "data.json")])
+    ok_v = r["seen"] == len(VAL_SIZES) * 32
+    log(f"[compress] 13.4 cli.val (in this process) --weights {pt2.name} on phase 7's set "
+        f"(square 640, bs 32): seen {r['seen']}, mAP50 {r['map50']:.5f} mAP50-95 "
+        f"{r['map50_95']:.5f} in {time.perf_counter() - t0:.1f} s {'ok' if ok_v else 'FAIL'}")
+    _, call, serve = int8_serves(str(pt2))
+    imgs = images_on_card((32, 640, 640, 3), seed + 60)
+    log(f"[time] {card}: the int8 artifact {serve_rate(call, imgs, 10):.1f} img/s vs in-process "
+        f"int8 serving {serve_rate(serve, imgs, 10):.1f} img/s, bs32 640 (this process)")
     ok_s, _ = finish_job(sizes_job)
     sizes = json.loads((COMPRESS_DIR / "artifact_sizes.json").read_text()) if ok_s else None
     ok_s = ok_s and sizes["pt2"]["int8"] < 0.7 * sizes["pt2"]["fp32"]
@@ -3484,13 +3557,12 @@ def swa_images() -> Path:
     return root / "images"
 
 
-def search_and_swa(card: str, train_job) -> tuple:
+def search_and_swa(card: str, train_args: list) -> tuple:
     """13.6: ``cli.val_optimizer`` for 3 trials on phase 7's set through K1
     (its study under ``COMPRESS_DIR``), then ``--load-if-exists`` for one
-    more; ``cli.create_swa_model -b 2`` on the ``epoch_N.ckpt`` files of the
-    2-epoch ``cli.train --use-swa`` run (in the background since the phase
-    began) and ``cli.val`` of ``swa.ckpt`` through K1. Returns (ok, K1
-    launches)."""
+    more; the 2-epoch ``cli.train --use-swa`` run (``train_args``, in this
+    process), ``cli.create_swa_model -b 2`` on its ``epoch_N.ckpt`` files and
+    ``cli.val`` of ``swa.ckpt`` through K1. Returns (ok, K1 launches)."""
     import re
 
     from ayolov2_torch.cli import create_swa_model, val, val_optimizer
@@ -3523,9 +3595,11 @@ def search_and_swa(card: str, train_job) -> tuple:
         + f"; best trial {best['number']}; --load-if-exists: {len(saved['trials'])} trials in "
         f"{store.name} ({time.perf_counter() - t0:.1f} s); early_pipeline launches {launches} + "
         f"{launches2} {'ok' if ok_s else 'FAIL'}")
-    ok, text = finish_job(train_job, timeout=900)
-    run_dir = re.search(r"Run dir: (\S+)", text)
-    if not ok or not run_dir:
+    proc, wall = run_in_process(train_args)
+    (COMPRESS_DIR / "train_swa.log").write_text(proc.stdout)
+    run_dir = re.search(r"Run dir: (\S+)", proc.stdout)
+    if proc.returncode != 0 or not run_dir:
+        log("[compress] 13.6 cli.train --use-swa: " + " | ".join(proc.stdout.splitlines()[-6:]))
         return False, launches + launches2
     wdir = Path(run_dir.group(1)) / "weights"
     epochs = sorted(p.name for p in wdir.glob("epoch_*.ckpt"))
@@ -3536,8 +3610,8 @@ def search_and_swa(card: str, train_job) -> tuple:
                   "--batch-size", "16"])
     k1 = early.early_pipeline.launches - before
     ok_w = len(epochs) == 2 and k1 > 0 and 0.0 <= r["map50"] <= 1.0
-    log(f"[compress] 13.6 cli.train --use-swa (2 epochs, 320, from the golden checkpoint) wrote "
-        f"{epochs}; cli.create_swa_model -b 2 -> {swa.name} (mean stored mAP50 "
+    log(f"[compress] 13.6 cli.train --use-swa (in this process; 2 epochs, 320, from the golden "
+        f"checkpoint) wrote {epochs} in {wall:.1f} s; cli.create_swa_model -b 2 -> {swa.name} (mean stored mAP50 "
         f"{meta['map50']:.5f}); cli.val of it at 320: mAP50 {r['map50']:.5f} mAP50-95 "
         f"{r['map50_95']:.5f}, early_pipeline launches {k1} {'ok' if ok_w else 'FAIL'}")
     return ok_s and ok_w, launches + launches2 + k1
@@ -3553,22 +3627,18 @@ def relay_job(job) -> bool:
     return ok
 
 
-def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
-    """Phase 13 (see the module docstring). Its longest parts start
-    together at the phase's start and run beside 13.1 and 13.3: as
-    background processes 13.2 (``ptq_card_vs_cpu``), ``cli.export --dtype
-    int8``, ``cli.artifact_sizes``, ``cli.decompose_model`` of the planted
-    checkpoint followed by ``cli.export`` of its result, and ``cli.train
-    --use-swa``; 13.5's host decompositions in a thread. Returns (ok,
-    early_pipeline launches of the decomposed and search paths)."""
-    import concurrent.futures
+def start_compress(seed: int) -> dict:
+    """Phase 13's set-up (the planted checkpoint, the ``--use-swa`` run's set)
+    and its background jobs (in the whole run from phase 9 on, at a lower CPU
+    priority): 13.2 (``ptq_card_vs_cpu``), ``cli.export --dtype int8``
+    followed by :func:`int8_artifact_check` in a fresh interpreter,
+    ``cli.artifact_sizes``, ``cli.decompose_model`` of the planted checkpoint
+    followed by ``cli.export`` of its result in its process. Returns {"jobs",
+    "planted": its params, "swa_args": 13.6's ``cli.train`` arguments}."""
     import copy
-
-    import torch
 
     from ayolov2_torch.utils.checkpoint import load_variables, write_checkpoint
 
-    t0 = time.perf_counter()
     shutil.rmtree(COMPRESS_DIR, ignore_errors=True)
     COMPRESS_DIR.mkdir(parents=True)
     golden_vars, meta = load_variables(GOLDEN)
@@ -3582,36 +3652,57 @@ def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
                       "-iw", "640", "--batch-size", "32", "--out", str(decomposed)]
     export_args = ["--weights", str(decomposed), "--nc", "20", "--batch-size", "32", "-iw", "640",
                    "--out", str(COMPRESS_DIR / "decomposed_tpu_nms")]
+    pt2 = COMPRESS_DIR / "golden_int8.pt2"
+    quiet = dict(group=True, nice=10, threads=2)
     jobs = {
         "ptq": start_job("ptq_card_vs_cpu", [
             "-c", "import sys, chip_smoke; sys.exit(0 if chip_smoke.ptq_card_vs_cpu() else 1)"],
-            threads=2),
+            **quiet),
         "export": start_job("export_int8", [
             "-m", "ayolov2_torch.cli.export", "--weights", str(GOLDEN), "--nc", "20",
             "--batch-size", "32", "-iw", "640", "--dtype", "int8", "--calib-dir",
-            str(VAL_DIR / "images"), "--calib-batches", "4", "--out",
-            str(COMPRESS_DIR / "golden_int8")], threads=2),
+            str(VAL_DIR / "images"), "--calib-batches", "4", "--out", str(pt2.with_suffix(""))],
+            then=[["-c", f"import sys, chip_smoke; sys.exit(chip_smoke.int8_artifact_check("
+                         f"{str(pt2)!r}, {seed}))"]], **quiet),
         "sizes": start_job("artifact_sizes", [
             "-m", "ayolov2_torch.cli.artifact_sizes", "--out",
-            str(COMPRESS_DIR / "artifact_sizes.json")], threads=2),
+            str(COMPRESS_DIR / "artifact_sizes.json")], **quiet),
         # cli.decompose_model, then cli.export of what it wrote, in one process
         "decompose": start_job("decompose_model", ["-c", (
             "import logging, sys; logging.basicConfig(level=logging.INFO, format='%(message)s', "
             "stream=sys.stdout); from ayolov2_torch.cli import decompose_model, export; "
             f"decompose_model.main({decompose_args!r}); export.main({export_args!r})")],
-            threads=2),
-        "train": start_job("train_swa", [
-            "-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--cfg", str(cfg2),
-            "--data", str(data), "--log-dir", str(COMPRESS_DIR / "runs"), "--use-swa"]),
+            **quiet),
     }
+    atexit.register(stop_jobs, list(jobs.values()))
+    swa_args = ["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--cfg", str(cfg2),
+                "--data", str(data), "--log-dir", str(COMPRESS_DIR / "runs"), "--use-swa"]
+    return {"jobs": jobs, "planted": planted["params"], "swa_args": swa_args}
+
+
+def compress_phase(card: str, seed: int, cudnn_map50: float,
+                   started: Optional[dict] = None) -> tuple:
+    """Phase 13 (see the module docstring). Its longest parts run in the
+    background (:func:`start_compress`, here unless ``started`` has them),
+    beside 13.1, 13.3 and 13.6; 13.5's host decompositions in a thread.
+    Returns (ok, early_pipeline launches of the decomposed and search
+    paths)."""
+    import concurrent.futures
+
+    import torch
+
+    t0 = time.perf_counter()
+    started = started or start_compress(seed)
+    jobs, swa_args = started["jobs"], started["swa_args"]
     pool = concurrent.futures.ThreadPoolExecutor(1)
-    host = pool.submit(host_decompositions, planted["params"])
+    host = pool.submit(host_decompositions, started["planted"])
+    # the steps that wait for no job first
     steps = [("13.1 int8 route", lambda: int8_route(card, seed)),
              ("13.3 int8 validation", lambda: int8_validation(card, cudnn_map50)),
+             ("13.6 search and SWA", lambda: search_and_swa(card, swa_args)),
              ("13.4 int8 export", lambda: int8_export(card, seed, jobs["export"], jobs["sizes"])),
              ("13.5 decomposition", lambda: decomposition(card, host, jobs["decompose"])),
              ("13.2 PTQ card vs CPU", lambda: relay_job(jobs["ptq"])),
-             ("13.6 search and SWA", lambda: search_and_swa(card, jobs["train"])),
              ("13.7 times", lambda: int8_times(card))]
     ok, launches = True, 0
     for name, step in steps:
@@ -3624,10 +3715,7 @@ def compress_phase(card: str, seed: int, cudnn_map50: float) -> tuple:
         log(f"[compress] {name}: {'ok' if out else 'FAIL'} ({time.perf_counter() - t1:.1f} s)")
         ok = ok and bool(out)  # the steps are independent: each runs, any failure fails
     pool.shutdown(wait=True)
-    for _, proc, *_ in jobs.values():
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
+    stop_jobs(list(jobs.values()))
     log(f"[compress] phase 13 {'ok' if ok else 'FAIL'} in {time.perf_counter() - t0:.1f} s")
     return ok, launches
 
@@ -4432,11 +4520,12 @@ def k1_times(card: str, variant: str, ep, fused_state, imgs, tag: str = "time") 
 
 
 def start_widths(seed: int) -> tuple:
-    """Phase 15's set-up, made before phase 14 in the whole run so that
-    15.4's ``cli.export`` (the tracing of the 64M-parameter model on the
-    host) runs beside phase 14, at a lower CPU priority: the seeded models
-    with their heads shaped, the checkpoint and the export job. Returns
-    (models, checkpoint, job)."""
+    """Phase 15's set-up, made after phase 7 in the whole run so that 15.4's
+    job runs beside phases 8-14 at a lower CPU priority: the seeded models
+    with their heads shaped, the checkpoint, and the job: ``cli.export``
+    (the tracing of the 64M-parameter model on the host), then
+    :func:`wide_artifact_check` in a fresh interpreter. Returns (models,
+    checkpoint, job)."""
     shutil.rmtree(WIDTHS_DIR, ignore_errors=True)
     WIDTHS_DIR.mkdir(parents=True)
     models = {v: seeded_model(v, seed + 15, fuse=False) for v in (WIDE, STEM8)}
@@ -4447,10 +4536,13 @@ def start_widths(seed: int) -> tuple:
             f"features of rms {', '.join(f'{r:.3f}' for r in found)} and is shaped as a "
             f"trained detector's (shape_head)")
     ckpt = wide_checkpoint(models[WIDE], WIDTHS_DIR / "wide.ckpt")
+    pt2 = WIDTHS_DIR / "wide_tpu_nms.pt2"
     export_job = start_job("widths_export", [
         "-m", "ayolov2_torch.cli.export", "--weights", str(ckpt), "--batch-size", "16",
-        "-iw", "800", "--type", "tpu_nms", "--out", str(WIDTHS_DIR / "wide_tpu_nms")],
-        WIDTHS_DIR, "widths", group=True, nice=10)
+        "-iw", "800", "--type", "tpu_nms", "--out", str(pt2.with_suffix(""))],
+        WIDTHS_DIR, "widths", group=True, nice=10, threads=2, then=[[
+            "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.wide_artifact_check("
+                  f"{str(pt2)!r}, {str(ckpt)!r}, {seed}))"]])
     atexit.register(stop_jobs, [export_job])
     return models, ckpt, export_job
 
@@ -4547,25 +4639,20 @@ def widths_phase(card: str, seed: int, started: Optional[tuple] = None) -> tuple
 
     # 15.3 validation at -iw 800 through K1, and cli.val
     val = validation_phase(seed, card, img_size=800, weights=ckpt, nc=80, root=WIDTHS_DIR / "val",
-                           name=model_name(WIDE), tag="widths", entry_points=("val",))
+                           name=model_name(WIDE), tag="widths", entry_points=("val",),
+                           fresh=False)
     if val is None:
         return False, entries
     entries[WIDE]["launches"] += val[0]
     entries[WIDE]["max_abs_err"] = max(entries[WIDE]["max_abs_err"], val[1])
 
-    # 15.4 cli.export (running since the phase began) and the artifact read back
-    ok, _ = finish_job(export_job)
+    # 15.4 cli.export and the artifact read back (in the background since it was started)
+    ok, text = finish_job(export_job, timeout=900)
     pt2 = WIDTHS_DIR / "wide_tpu_nms.pt2"
-    if not ok:
+    lines = [ln for ln in text.splitlines() if ln.startswith("ARTIFACT ")]
+    if not ok or "dry run OK" not in text or not lines:
         return False, entries
     side = json.loads(pt2.with_suffix(".yaml").read_text())
-    check = start_job("widths_artifact_check", [
-        "-c", f"import sys, chip_smoke; sys.exit(chip_smoke.wide_artifact_check({str(pt2)!r}, "
-              f"{str(ckpt)!r}, {seed}))"], WIDTHS_DIR, "widths")
-    ok_c, text = finish_job(check)
-    lines = [ln for ln in text.splitlines() if ln.startswith("ARTIFACT ")]
-    if not ok_c or not lines:
-        return False, entries
     a = json.loads(lines[-1][len("ARTIFACT "):])
     c0, c1, ch, c2, n = eps[WIDE].widths
     ok = (side["early_pipeline"] and a["op_calls"] == 1 and a["op_args"] == [c0, n, c1, ch, c2]
@@ -4659,7 +4746,7 @@ def codec_fixtures() -> bool:
 def images_train(device: str = "cuda", bs: int = 32, img: Optional[int] = None) -> tuple:
     """16.3: ``cli.train`` from the golden checkpoint on phase 16's set with
     ``train_config.yaml`` as shipped (processes, 1 epoch), then ``cli.val``
-    (K1) on its best.ckpt. Returns (ok, early_pipeline launches of that
+    (K1) on its best.ckpt, both in this process. Returns (ok, early_pipeline launches of that
     ``cli.val``)."""
     import re
 
@@ -4678,15 +4765,15 @@ def images_train(device: str = "cuda", bs: int = 32, img: Optional[int] = None) 
     data.write_text(json.dumps({"train_path": str(images), "val_path": str(images), "nc": 20,
                                 "names": [f"class{i}" for i in range(20)]}))
     dev = [] if device == "cuda" else ["--device", device]
-    proc, wall = run_logged(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN), "--data",
-                             str(data), "--cfg", str(cfg_path), "--log-dir",
-                             str(IMAGES_DIR / "runs"), *dev])
+    proc, wall = run_in_process(["-m", "ayolov2_torch.cli.train", "--model", str(GOLDEN),
+                                 "--data", str(data), "--cfg", str(cfg_path), "--log-dir",
+                                 str(IMAGES_DIR / "runs"), *dev])
     out = proc.stdout + proc.stderr
     (IMAGES_DIR / "train.log").write_text(out)
     rows = re.findall(EPOCH_ROW, out)
     path = re.search(r"training images: (.*)", out)
     run_dir = re.search(r"Run dir: (\S+)", out)
-    log(f"[images] 16.3 python -m ayolov2_torch.cli.train --model best.ckpt (golden) --cfg "
+    log(f"[images] 16.3 cli.train (in this process) --model best.ckpt (golden) --cfg "
         f"{RECIPES['a'].name} as shipped on the JPEG/PNG set ({img} px, bs {bs}, 1 epoch, "
         f"workers_mode process): exit {proc.returncode} in {wall:.1f} s; training images "
         f"{path.group(1) if path else '?'}")
@@ -4710,7 +4797,7 @@ def images_train(device: str = "cuda", bs: int = 32, img: Optional[int] = None) 
         launches = early.early_pipeline.launches
     ok = ok and launches > 0 and 0.0 <= result["map50"] <= 1.0
     log(f"[images] last.ckpt: step {meta['step']}, ema_updates {meta['ema_updates']} (micro-steps "
-        f"{len(files) // bs}), losses finite {finite}; python -m ayolov2_torch.cli.val on its "
+        f"{len(files) // bs}), losses finite {finite}; cli.val (in this process) on its "
         f"best.ckpt (K1, rect): seen {result['seen']} mAP50 {result['map50']:.5f} mAP50-95 "
         f"{result['map50_95']:.5f} in {time.perf_counter() - t0:.1f} s, early_pipeline launches "
         f"{launches} {'ok' if ok else 'FAIL'}")
@@ -4764,13 +4851,13 @@ def codec_times(card: str, bs: int = 32, img_size: int = 640) -> None:
                  CODEC_FIXTURES / "w640_lossless_cv2.webp",
              "WebP lossy q75, phase 7's kind with noise (fixture w640_lossy_cv2.webp)":
                  CODEC_FIXTURES / "w640_lossy_cv2.webp"}
-    parts = [f"{k} ({f.stat().st_size} B) {host_ms(lambda f=f: imread(str(f)), 20):.3f}"
+    parts = [f"{k} ({f.stat().st_size} B) {host_ms(lambda f=f: imread(str(f)), 5):.3f}"
              for k, f in files.items()]
-    log(f"[time] {card}: 16.4 host decode ms per 640x480 image (imread, one thread, mean of 20): "
+    log(f"[time] {card}: 16.4 host decode ms per 640x480 image (imread, one thread, mean of 5): "
         + "; ".join(parts))
     log(f"[time] {card}: 16.4 host encode ms per 640x480 image (encode_jpeg q95 4:2:0, mean of "
-        f"20): phase 16's kind {host_ms(lambda: encode_jpeg(scene), 20):.3f}, gradient with noise "
-        f"{host_ms(lambda: encode_jpeg(src), 20):.3f}")
+        f"5): phase 16's kind {host_ms(lambda: encode_jpeg(scene), 5):.3f}, gradient with noise "
+        f"{host_ms(lambda: encode_jpeg(src), 5):.3f}")
     rows = []
     for name, images in (("JPEG/PNG", IMAGES_DIR / "images"), ("BMP", VAL_DIR / "images")):
         if not images.is_dir():
@@ -4797,7 +4884,7 @@ def images_phase(card: str, seed: int, bmp_img_s: float, device: str = "cuda",
     ok = codec_fixtures()
     val = validation_phase(seed, card, device=device, img_size=img_size, sizes=sizes,
                            per_size=per_size, bs=bs, root=IMAGES_DIR, tag="images",
-                           entry_points=("val",), files=True)
+                           entry_points=("val",), files=True, fresh=False)
     if val is None:
         return False, 0
     log(f"[time] {card}: 16.2 warm validation pass on the JPEG/PNG files {val[4]:.1f} img/s, on "
@@ -4807,7 +4894,7 @@ def images_phase(card: str, seed: int, bmp_img_s: float, device: str = "cuda",
     formats = validation_phase(seed, card, device=device, img_size=img_size, sizes=sizes,
                                per_size=per_size, bs=bs, root=IMAGES_DIR / "formats",
                                tag="formats", entry_points=("val",), formats=True, limit=bs,
-                               checks=False)
+                               checks=False, fresh=False)
     log(f"[images] 16.5 BMP, TIFF and WebP files validated through K1 under phase 7's gates: "
         f"{'ok' if formats else 'FAIL'} in {time.perf_counter() - t5:.1f} s")
     codec_times(card, bs, img_size)
@@ -5379,10 +5466,13 @@ def probe_gloo(device: str) -> dict:
     return out
 
 
-def parallel_rank(case: str, rank: int, world: int, port: int, out: str, spec_json: str) -> None:
+def parallel_rank(case: str, rank: int, world: int, port: int, out: str, spec_json: str,
+                  then_json: str = "") -> None:
     """One rank of phase 18, in its own interpreter (``python3 -c "import
     chip_smoke; chip_smoke.parallel_rank(...)"``); writes its result to
-    ``out/{case}_rank{rank}.json``.
+    ``out/{case}_rank{rank}.json``. With ``then_json`` (phase 19's case, its
+    port and spec) the rank then waits for ``out/{that case}.go`` and runs
+    that case in the same interpreter.
 
     ``nccl`` (18.1, one rank): the one-process trainer's steps, then the ranks'
     trainer (DP, then fsdp) over NCCL at world 1 (gloo on the CPU).
@@ -5395,8 +5485,8 @@ def parallel_rank(case: str, rank: int, world: int, port: int, out: str, spec_js
 
     import torch
 
-    faulthandler.dump_traceback_later(float(os.environ.get("AYOLO_PHASE18_LIMIT_S", "300")),
-                                      exit=True)
+    limit = float(os.environ.get("AYOLO_PHASE18_LIMIT_S", "300"))
+    faulthandler.dump_traceback_later(limit, exit=True)
     spec = json.loads(spec_json)
     device = spec["device"]
     if device == "cpu":  # a rehearsal: its processes share the host's cores
@@ -5420,13 +5510,13 @@ def parallel_rank(case: str, rank: int, world: int, port: int, out: str, spec_js
         res["backend"] = torch.distributed.get_backend()
         res["sizes"] = latency_check(spec, rank, device)
         launch.leave()
-        Path(out, f"{case}_rank{rank}.json").write_text(json.dumps(res))
+        rank_result(out, case, rank, res)
         return
     if case == "probe":
         pm.initialize_distributed(backend="gloo", device=device)
         res["probes"] = probe_gloo(device)
         launch.leave()
-        Path(out, f"{case}_rank{rank}.json").write_text(json.dumps(res))
+        rank_result(out, case, rank, res)
         return
     ref = trainer_steps(spec, device, {}, root=Path(out)) if rank == 0 else None
     backend = "nccl" if case == "nccl" and device != "cpu" else "gloo"
@@ -5465,7 +5555,21 @@ def parallel_rank(case: str, rank: int, world: int, port: int, out: str, spec_js
         res["ref_items"] = ref["items"].tolist()
         res["ref_seconds"] = ref["seconds"]
     launch.leave()
-    Path(out, f"{case}_rank{rank}.json").write_text(json.dumps(res))
+    rank_result(out, case, rank, res)
+    if then_json:  # phase 19's case, here once phase 19 starts it
+        then = json.loads(then_json)
+        faulthandler.dump_traceback_later(limit, exit=True)
+        while not Path(out, f"{then['case']}.go").exists():
+            time.sleep(0.05)
+        parallel_rank(then["case"], rank, world, then["port"], out, json.dumps(then["spec"]))
+
+
+def rank_result(out: str, case: str, rank: int, res: dict) -> None:
+    """Write a rank's result whole (renamed into place: phase 18 reads it
+    while the rank runs on)."""
+    tmp = Path(out, f"{case}_rank{rank}.json.tmp")
+    tmp.write_text(json.dumps(res))
+    os.replace(tmp, Path(out, f"{case}_rank{rank}.json"))
 
 
 def sharded_serving_check(spec: dict, rank: int, world: int, device: str) -> dict:
@@ -5514,11 +5618,14 @@ def sharded_serving_check(spec: dict, rank: int, world: int, device: str) -> dic
     return out
 
 
-def start_ranks(case: str, world: int, spec: dict, timeout: int) -> list:
-    """``world`` interpreters, one rank of ``case`` each (:func:`parallel_rank`)."""
+def start_ranks(case: str, world: int, spec: dict, timeout: int,
+                then: Optional[tuple] = None) -> list:
+    """``world`` interpreters, one rank of ``case`` each (:func:`parallel_rank`),
+    each then running ``then`` (a case and its spec) where given."""
     from ayolov2_torch.parallel.launch import free_port
 
     port = free_port()
+    then_json = json.dumps({"case": then[0], "port": free_port(), "spec": then[1]}) if then else ""
     PARALLEL_DIR.mkdir(parents=True, exist_ok=True)
     env = {k: v for k, v in os.environ.items()
            if k not in ("AYOLO_NUM_PROCS", "WORLD_SIZE", "RANK", "LOCAL_RANK")}
@@ -5527,7 +5634,7 @@ def start_ranks(case: str, world: int, spec: dict, timeout: int) -> list:
     for r in range(world):
         code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke; "
                 f"chip_smoke.parallel_rank({case!r}, {r}, {world}, {port}, "
-                f"{str(PARALLEL_DIR)!r}, {json.dumps(spec)!r})")
+                f"{str(PARALLEL_DIR)!r}, {json.dumps(spec)!r}, {then_json!r})")
         logf = open(PARALLEL_DIR / f"{case}_rank{r}.log", "w")
         procs.append((f"{case}_rank{r}", subprocess.Popen(
             [sys.executable, "-c", code], cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT,
@@ -5536,24 +5643,45 @@ def start_ranks(case: str, world: int, spec: dict, timeout: int) -> list:
     return procs
 
 
-def finish_ranks(procs) -> list:
-    """Each rank's result, or None for a rank that failed (its log's tail
-    printed)."""
+def finish_ranks(procs, case: str = "") -> list:
+    """Each rank's result (of ``case``, where its interpreter ran another
+    case first), waited for to its end, or None for a rank that failed (its
+    log's tail printed)."""
     out = []
-    for name, proc, logf, timeout in procs:
+    for r, (name, proc, logf, timeout) in enumerate(procs):
         try:
-            rc = proc.wait(timeout=timeout)
+            rc, cpu = reap(proc, timeout)
+            log(f"[parallel] {name}{' then ' + case if case else ''}: exit {rc}, CPU {cpu:.1f} s")
         except subprocess.TimeoutExpired:
             stop_jobs([(name, proc)])
             rc = "timeout"
         logf.close()
-        path = PARALLEL_DIR / f"{name}.json"
+        path = PARALLEL_DIR / (f"{case}_rank{r}.json" if case else f"{name}.json")
         if rc != 0 or not path.exists():
             tail = (PARALLEL_DIR / f"{name}.log").read_text().strip().splitlines()[-8:]
             log(f"[parallel] {name}: exit {rc}; " + " | ".join(tail))
             out.append(None)
         else:
             out.append(json.loads(path.read_text()))
+    return out
+
+
+def rank_results(procs, case: str) -> list:
+    """Each rank's result of ``case`` once written, its interpreter running on
+    (into phase 19's case), or None for a rank that ended or ran out of time
+    without it (its log's tail printed)."""
+    out = []
+    for r, (name, proc, logf, timeout) in enumerate(procs):
+        path, end = PARALLEL_DIR / f"{case}_rank{r}.json", time.perf_counter() + timeout
+        while not path.exists() and proc.poll() is None and time.perf_counter() < end:
+            time.sleep(0.1)
+        if path.exists():
+            out.append(json.loads(path.read_text()))
+        else:
+            logf.flush()
+            tail = (PARALLEL_DIR / f"{name}.log").read_text().strip().splitlines()[-8:]
+            log(f"[parallel] {name}: exit {proc.poll()}; " + " | ".join(tail))
+            out.append(None)
     return out
 
 
@@ -5623,12 +5751,16 @@ def parallel_phase(card: str, seed: int, device: str = "cuda", variant: str = "s
                    img: int = 640, bs: int = 16, steps: int = 3, steps2: int = 2,
                    serve_bs: int = 32,
                    serve_img: int = 640, cli_img: int = 320, cli_bs: int = 16,
-                   cli_drawn: int = 32, probe: bool = True) -> tuple:
+                   cli_drawn: int = 32, probe: bool = True,
+                   latency: Optional[dict] = None) -> tuple:
     """Phase 18 (see the module docstring): the ranks of 18.0-18.3 run in
     the background beside 18.4; 18.0 only with ``probe``. ``device="cpu"``
     and small sizes
     rehearse it on the CPU (gloo; K1's plain version, whose calls the
-    teacher's and the serving's ``early`` stand for). Returns (ok, K1
+    teacher's and the serving's ``early`` stand for). With ``latency``
+    (phase 19's specs, :func:`latency_specs`) the interpreters of 18.1 and
+    18.2 run on into 19.1 and 19.2 when phase 19 starts them; they are put
+    in ``latency["ranks"]`` for :func:`latency_phase`. Returns (ok, K1
     launches on the ranks and in 18.4's cli.val)."""
     import re
 
@@ -5636,11 +5768,17 @@ def parallel_phase(card: str, seed: int, device: str = "cuda", variant: str = "s
     shutil.rmtree(PARALLEL_DIR, ignore_errors=True)
     spec = dict(seed=seed, device=device if device == "cpu" else "cuda:0", variant=variant,
                 img=img, bs=bs, steps=steps, nc=80, serve_bs=serve_bs, serve_img=serve_img)
-    one = start_ranks("nccl", 1, spec, timeout=300)
-    two = start_ranks("gloo", 2, dict(spec, steps=steps2), timeout=300)
+    then = {k: (k, latency[k]) if latency else None for k in ("latency_nccl", "latency_gloo")}
+    one = start_ranks("nccl", 1, spec, timeout=300, then=then["latency_nccl"])
+    two = start_ranks("gloo", 2, dict(spec, steps=steps2), timeout=300,
+                      then=then["latency_gloo"])
     probes = start_ranks("probe", 2, spec, timeout=300) if probe else None
     ok4, launches = cli_train_world1(card, device, cli_img, cli_bs, cli_drawn)
-    (nccl,), gloo = finish_ranks(one), finish_ranks(two)
+    if latency:
+        (nccl,), gloo = rank_results(one, "nccl"), rank_results(two, "gloo")
+        latency["ranks"] = {"latency_nccl": one, "latency_gloo": two}
+    else:
+        (nccl,), gloo = finish_ranks(one), finish_ranks(two)
     ok = ok4 and nccl is not None and None not in gloo
     if probes is not None:
         finish_ranks(probes)
@@ -5888,25 +6026,38 @@ def k1_bs1_entries(card: str, seed: int, launches: dict) -> tuple:
     return ok, entries
 
 
+def latency_specs(seed: int, device: str = "cuda", variant: str = "s", sizes=(640, 608),
+                  iters: int = 30) -> dict:
+    """The specs of 19.1's rank (``sizes[0]``) and 19.2's two (every size)."""
+    spec = dict(seed=seed, device=device if device == "cpu" else "cuda:0", variant=variant,
+                iters=iters)
+    return {"latency_nccl": dict(spec, sizes=list(sizes[:1])),
+            "latency_gloo": dict(spec, sizes=list(sizes))}
+
+
 def latency_phase(card: str, seed: int, device: str = "cuda", variant: str = "s",
-                  sizes=(640, 608), iters: int = 30) -> tuple:
+                  sizes=(640, 608), iters: int = 30, started: Optional[dict] = None) -> tuple:
     """Phase 19 (see the module docstring): 19.1 one rank over NCCL (gloo on
     the CPU) at ``sizes[0]``, then 19.2 two ranks of the card over gloo at
-    every size, each rank in an interpreter of its own as phase 18's; then
-    (on the card) 19.3, K1's times at bs 1. ``device="cpu"`` and small sizes
-    rehearse it on the CPU (K1's plain version, which launches nothing).
-    Returns (ok, K1's launches in the split serves, the kernels line's
-    entries)."""
+    every size, each rank in an interpreter of its own as phase 18's, or in
+    phase 18's own interpreters where ``started`` has them (its
+    ``latency["ranks"]``); then (on the card) 19.3, K1's times at bs 1.
+    ``device="cpu"`` and small sizes rehearse it on the CPU (K1's plain
+    version, which launches nothing). Returns (ok, K1's launches in the
+    split serves, the kernels line's entries)."""
     import torch
 
     t0 = time.perf_counter()
     on_card = device != "cpu"
-    spec = dict(seed=seed, device=device if device == "cpu" else "cuda:0", variant=variant,
-                iters=iters)
-    (one,) = finish_ranks(start_ranks("latency_nccl", 1, dict(spec, sizes=list(sizes[:1])),
-                                      timeout=240))
-    two = finish_ranks(start_ranks("latency_gloo", 2, dict(spec, sizes=list(sizes)),
-                                   timeout=240))
+    specs = latency_specs(seed, device, variant, sizes, iters)
+
+    def ranks(case: str, world: int) -> list:  # one case to its end, alone on the card
+        if started is None:
+            return finish_ranks(start_ranks(case, world, specs[case], timeout=240))
+        (PARALLEL_DIR / f"{case}.go").touch()
+        return finish_ranks(started[case], case)
+
+    (one,), two = ranks("latency_nccl", 1), ranks("latency_gloo", 2)
     ok = one is not None and None not in two
     main = {"whole": 0, "slab": 0}
     for tag, ranks in (("19.1", [one]), ("19.2", two)):
@@ -6019,6 +6170,18 @@ def main() -> int:
     os.environ["PYTHONPYCACHEPREFIX"] = str(ROOT / "build/pycache")
     sys.dont_write_bytecode = False
     sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    host = host_line()  # its load average before this script's own work
+
+    try:
+        from ayolov2_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: the ayolov2_torch package is missing ({e}); run it from "
+              "the repository root", file=sys.stderr)
+        return 2
+    # phase 2's compilers need no torch: they run while torch is imported (phase 1)
+    t_build = time.perf_counter()
+    building = concurrent.futures.ThreadPoolExecutor(1).submit(
+        _build.build_all, variants=[(name, ()) for name in _build.HOST_SOURCES])
 
     import torch
 
@@ -6026,15 +6189,10 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this check needs an NVIDIA GPU",
               file=sys.stderr)
         return 2
-    try:
-        from ayolov2_torch.export import make_serving_fn
-        from ayolov2_torch.ops import _build, nms
-        from ayolov2_torch.ops import early_pipeline as early
-        from ayolov2_torch.parallel import serve_stream
-    except ImportError as e:
-        print(f"chip_smoke: the ayolov2_torch package is missing ({e}); run it from "
-              "the repository root", file=sys.stderr)
-        return 2
+    from ayolov2_torch.export import make_serving_fn
+    from ayolov2_torch.ops import early_pipeline as early
+    from ayolov2_torch.ops import nms
+    from ayolov2_torch.parallel import serve_stream
 
     # ---- 1. environment -------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6044,15 +6202,16 @@ def main() -> int:
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {kind} x{torch.cuda.device_count()}")
     log(f"[env] card: {card}")
+    log(f"[env] host: {host}")
     log("[env] TF32 off: matmul.allow_tf32=False cudnn.allow_tf32=False")
 
-    # ---- 2. build -------------------------------------------------------
-    t0 = time.perf_counter()
-    extra = ([("early_pipeline", early.kernel_defines(32, 64, 32, 128) + ("EARLY_PROFILE",))]
-             if args.profile else [])
-    built = _build.build_all(variants=extra + [(name, ()) for name in _build.HOST_SOURCES])
+    # ---- 2. build (started before phase 1) --------------------------------
+    built = building.result()
+    if args.profile:
+        built.update(_build.build_all([], [("early_pipeline", early.kernel_defines(
+            32, 64, 32, 128) + ("EARLY_PROFILE",))]))
     log(f"[build] {', '.join(f'{k}: {v:.1f} s' for k, v in built.items())} "
-        f"(wall {time.perf_counter() - t0:.1f} s)")
+        f"(wall {time.perf_counter() - t_build:.1f} s, beside phase 1)")
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line or "error" in line.lower()
@@ -6408,6 +6567,8 @@ def main() -> int:
         return 1
     launches += val[0]
     max_abs = max(max_abs, val[1])
+    # 12.4's and 15.4's exports and their checks, in the background beside phases 8-14
+    export_job, widths = start_export(args.seed), start_widths(args.seed)
 
     phase_done("7")
     # ---- 8. training ------------------------------------------------------
@@ -6417,6 +6578,7 @@ def main() -> int:
         log("[train] FAIL")
         return 1
     launches += train_launches
+    compress = start_compress(args.seed)  # phase 13's jobs, in the background beside 9-12
 
     phase_done("8")
     # ---- 9. device augmentation -----------------------------------------------
@@ -6448,7 +6610,7 @@ def main() -> int:
     phase_done("11")
     # ---- 12. the rest of the model zoo and the exported serving graph -----------
     torch.cuda.empty_cache()
-    ok12, zoo_launches = zoo_phase(card, args.seed, rates[32], val[2], args.profile)
+    ok12, zoo_launches = zoo_phase(card, args.seed, rates[32], val[2], args.profile, export_job)
     if not ok12:
         log("[zoo] FAIL")
         return 1
@@ -6457,7 +6619,7 @@ def main() -> int:
     phase_done("12")
     # ---- 13. compression and the post-training tools ---------------------------
     torch.cuda.empty_cache()
-    ok13, compress_launches = compress_phase(card, args.seed, val[3])
+    ok13, compress_launches = compress_phase(card, args.seed, val[3], compress)
     if not ok13:
         log("[compress] FAIL")
         return 1
@@ -6466,7 +6628,6 @@ def main() -> int:
     phase_done("13")
     # ---- 14. the secondary trainers and tools ---------------------------------
     torch.cuda.empty_cache()
-    widths = start_widths(args.seed)  # 15.4's export runs beside phase 14
     ok14, secondary_launches = secondary_phase(card, args.seed, val[2])
     if not ok14:
         log("[secondary] FAIL")
@@ -6501,7 +6662,9 @@ def main() -> int:
     phase_done("17")
     # ---- 18. ranks: the trainers, serving and cli.train over torch.distributed ------
     torch.cuda.empty_cache()
-    ok18, parallel_launches = parallel_phase(card, args.seed, probe=False)  # 18.0: --parallel-only
+    latency = latency_specs(args.seed)  # phase 19 runs in 18.1's and 18.2's interpreters
+    ok18, parallel_launches = parallel_phase(card, args.seed, probe=False,  # 18.0: --parallel-only
+                                             latency=latency)
     if not ok18:
         log("[parallel] FAIL")
         return 1
@@ -6510,15 +6673,20 @@ def main() -> int:
     phase_done("18")
     # ---- 19. spatially split bs-1 serving over ranks ----------------------------------
     torch.cuda.empty_cache()
-    ok19, latency_launches, latency_entries = latency_phase(card, args.seed)
+    ok19, latency_launches, latency_entries = latency_phase(card, args.seed,
+                                                            started=latency["ranks"])
     if not ok19:
         log("[latency] FAIL")
         return 1
     launches += latency_launches
     phase_done("19")
-    log(f"[time] {card}: seconds by phase (wall, each phase's own and what it waited for of "
-        "earlier phases' background jobs): " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items()))
-    log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s")
+    log(f"[time] {card}; host {host}: seconds by phase, wall / CPU of the script / CPU of its "
+        "children (each phase's own and what it waited for of earlier phases' background jobs; "
+        "a child's CPU counts in the phase that waits for it): "
+        + ", ".join(f"{k} {w:.1f}/{s:.1f}/{c:.1f}" for k, (w, s, c) in PHASE_S.items()))
+    own, kids = cpu_s()
+    log(f"[time] {card}: whole script {time.perf_counter() - T_START:.1f} s (CPU {own:.1f} s of "
+        f"the script, {kids:.1f} s of its children)")
 
     k1 = dict(max_abs_err=max_abs, ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
               bound_by=bound_by, library_ms=library_ms)
